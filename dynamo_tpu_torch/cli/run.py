@@ -1,0 +1,131 @@
+"""`run` — serve a model over the OpenAI HTTP API on one GPU.
+
+    python -m dynamo_tpu_torch.cli.run run in=http out=torch --model llama3-1b --port 8080
+
+Counterpart of dynamo_tpu/cli/run.py for the `in=http out=<engine>` shape,
+with the TorchEngine as the engine. With no checkpoint the model is
+random-init from a fixed seed and serves the byte tokenizer, as the JAX
+CLI does. `--prefill-chunk` defaults to `--max-context`, so every admitted
+prompt prefills as one first chunk. It runs on the GPU unless
+`--device cpu` is given.
+
+`start_server(argv)` builds and starts the same server in-process and
+returns it; `main` blocks serving until interrupted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+from dynamo_tpu_torch.engine.async_engine import AsyncEngineRunner
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.frontend.http import HttpService
+from dynamo_tpu_torch.frontend.service import ModelManager, local_pipeline
+from dynamo_tpu_torch.model_card import ModelDeploymentCard
+
+logger = logging.getLogger(__name__)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="dynamo_tpu_torch.cli.run")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    runp = sub.add_parser("run", help="serve a model")
+    runp.add_argument("io", nargs="*", help="in=http out=torch")
+    runp.add_argument("--model", default="tiny")
+    runp.add_argument("--host", default="127.0.0.1")
+    runp.add_argument("--port", type=int, default=8080, help="0 picks a free port")
+    runp.add_argument("--num-pages", type=int, default=512, dest="num_pages")
+    runp.add_argument("--page-size", type=int, default=64, dest="page_size")
+    runp.add_argument("--max-context", type=int, default=4096, dest="max_context")
+    runp.add_argument(
+        "--prefill-chunk", type=int, default=None, dest="prefill_chunk",
+        help="longest prompt (default: --max-context)",
+    )
+    runp.add_argument("--decode-steps", type=int, default=8, dest="decode_steps",
+                      help="decode steps fused per host sync")
+    runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
+    runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    runp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap
+
+
+def _parse(argv) -> argparse.Namespace:
+    args = build_parser().parse_args(argv)
+    io = dict(kv.split("=", 1) for kv in args.io if "=" in kv)
+    if io.get("in", "http") != "http" or io.get("out", "torch") != "torch":
+        raise SystemExit("dynamo_tpu_torch serves in=http out=torch only")
+    if args.max_context % args.page_size:
+        raise SystemExit("--max-context must be a multiple of --page-size")
+    if args.prefill_chunk is None:
+        args.prefill_chunk = args.max_context
+    return args
+
+
+def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
+    return EngineConfig(
+        model=args.model,
+        num_pages=args.num_pages,
+        page_size=args.page_size,
+        max_pages_per_seq=args.max_context // args.page_size,
+        prefill_chunk=args.prefill_chunk,
+        max_seqs=args.max_seqs,
+        decode_steps=args.decode_steps,
+        dtype=args.dtype,
+        eos_token_ids=eos_token_ids,
+    )
+
+
+@dataclass
+class Server:
+    """A started HTTP server with its engine thread."""
+
+    service: HttpService
+    runner: AsyncEngineRunner
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.service.host}:{self.service.port}"
+
+    def stop(self) -> None:
+        self.service.stop()
+        self.runner.stop()
+
+
+def start_server(argv) -> Server:
+    """Build the engine, its thread and the HTTP server from CLI args, and
+    start them; returns once the server is listening."""
+    args = _parse(argv)
+    card = ModelDeploymentCard(
+        name=args.model, context_length=args.max_context, kv_page_size=args.page_size
+    )
+    engine = TorchEngine(engine_config(args, card.eos_token_ids), device=args.device)
+    runner = AsyncEngineRunner(engine)
+    runner.start()
+    manager = ModelManager()
+    manager.add(args.model, local_pipeline(card, runner))
+    service = HttpService(manager, host=args.host, port=args.port)
+    service.start()
+    return Server(service, runner)
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    server = start_server(sys.argv[1:] if argv is None else argv)
+    print(f"listening on {server.url}/v1", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

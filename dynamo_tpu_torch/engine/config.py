@@ -1,0 +1,147 @@
+"""Engine configuration.
+
+Counterpart of dynamo_tpu/engine/config.py. EngineConfig takes the JAX
+package's knob names. The knobs this package honours are its fields, with
+the JAX package's defaults. Every other knob of the JAX config (UNPORTED)
+is accepted only at a value that leaves its feature off; any other value
+raises NotImplementedError with the knob's name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+#: knobs of the JAX engine's config this package does not port yet -> the
+#: values that leave their feature off (tuning knobs of an unported
+#: feature: the JAX default). "pallas" is the attention this package runs.
+UNPORTED = {
+    "decode_kstep": (1,),
+    "overlap_decode": (False,),
+    "mixed_steps": (False,),
+    "enable_prefix_caching": (False,),
+    "spec_ngram": (0,),
+    "spec_ngram_match": (2,),
+    "spec_draft_model": (None,),
+    "spec_draft_tokens": (4,),
+    "spec_draft_checkpoint": (None,),
+    "spec_min_accept_rate": (0.2,),
+    "spec_cooldown_steps": (16,),
+    "prefill_budget_policy": ("fixed",),
+    "prefill_budget_max": (None,),
+    "max_waiting": (None,),
+    "quantize": (None,),
+    "kv_quantize": (None,),
+    "attention_impl": ("auto", "pallas"),
+    "dp": (1,),
+    "tp": (1,),
+    "sp": (1,),
+    "ep": (1,),
+    "topology": ("",),
+    "force_multihost": (False,),
+    "fleet_telemetry": (False,),
+    "flight_recorder": (False,),
+    "flight_ring": (512,),
+    "stall_watchdog": (False,),
+    "stall_factor": (32.0,),
+    "stall_min_s": (5.0,),
+    "stall_queue_wait_s": (120.0,),
+    "stall_hard_deadline_s": (None,),
+    "host_kv_cache_bytes": (0,),
+    "disk_kv_cache_bytes": (0,),
+    "disk_kv_cache_dir": (None,),
+}
+
+
+@dataclass(frozen=True)
+class _PortedKnobs:
+    """The knobs this package honours (EngineConfig adds the refusals)."""
+
+    model: str = "llama3-8b"
+    #: KV pages on the device (page 0 reserved as the null page)
+    num_pages: int = 2048
+    #: tokens per page
+    page_size: int = 64
+    #: max pages a single sequence may hold (=> max context length)
+    max_pages_per_seq: int = 64
+    #: decode batch buckets (padded up to the next bucket)
+    decode_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
+    #: longest prompt this engine prefills; every prompt is one first
+    #: chunk (a longer one needs the chunked-prefill kernel, not ported)
+    prefill_chunk: int = 512
+    #: total prefill tokens per step across sequences (None => 4 x chunk)
+    prefill_token_budget: Optional[int] = None
+    #: max sequences resident (decode slots)
+    max_seqs: int = 64
+    #: decode steps fused per host sync: tokens feed back on the device
+    #: and up to K-1 tokens past a stop are computed and dropped
+    decode_steps: int = 8
+    #: admission watermark: keep this fraction of pages free when admitting
+    admission_watermark: float = 0.02
+    #: eos token ids (from the model card/tokenizer)
+    eos_token_ids: tuple[int, ...] = ()
+    #: dtype name for params/KV ("bfloat16" | "float32")
+    dtype: str = "bfloat16"
+    #: random seed for request seeds (sampling)
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.prefill_chunk % self.page_size != 0:
+            raise ValueError(
+                f"prefill_chunk ({self.prefill_chunk}) must be a multiple of "
+                f"page_size ({self.page_size})"
+            )
+        if self.prefill_token_budget is not None and (
+            self.prefill_token_budget < self.prefill_chunk
+        ):
+            raise ValueError(
+                f"prefill_token_budget ({self.prefill_token_budget}) must be "
+                f">= prefill_chunk ({self.prefill_chunk}): every prompt "
+                "prefills whole in one step"
+            )
+        if self.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
+
+    @property
+    def max_context(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    @property
+    def effective_prefill_budget(self) -> int:
+        return self.prefill_token_budget or 4 * self.prefill_chunk
+
+    def decode_bucket_for(self, n: int) -> int:
+        for b in self.decode_buckets:
+            if n <= b:
+                return b
+        return self.decode_buckets[-1]
+
+
+class EngineConfig(_PortedKnobs):
+    """Static configuration of one engine worker (keyword arguments, the
+    JAX package's knob names)."""
+
+    def __init__(self, **knobs):
+        for name in sorted(knobs.keys() & UNPORTED.keys()):
+            value = knobs.pop(name)
+            if value not in UNPORTED[name]:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={value!r} is not ported to "
+                    f"dynamo_tpu_torch yet (only {UNPORTED[name]!r})"
+                )
+        super().__init__(**knobs)
+
+    @staticmethod
+    def for_tests(**overrides) -> "EngineConfig":
+        defaults = dict(
+            model="tiny",
+            num_pages=64,
+            page_size=4,
+            max_pages_per_seq=8,
+            decode_buckets=(1, 2, 4, 8),
+            prefill_chunk=16,
+            max_seqs=8,
+            dtype="float32",
+        )
+        defaults.update(overrides)
+        return EngineConfig(**defaults)

@@ -1,0 +1,346 @@
+"""TorchEngine: continuous batching over the paged-KV llama model.
+
+Counterpart of dynamo_tpu/engine/engine.py::JaxEngine for the main path:
+first-chunk batched prefill, then decode with `decode_steps` fused steps
+per host sync (sampled ids feed back on the device; tokens past a stop are
+computed and dropped on the host, as the JAX engine drops them). Every
+step runs the model's kernel path: the paged KV write, first-chunk flash
+prefill and paged decode attention (dynamo_tpu_torch/ops).
+
+Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
+up to the chunk; B: powers of two for prefill, `decode_buckets` for
+decode), so both engines see the same padded batches.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+import zlib
+from dataclasses import asdict, dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.page_table import PageAllocator
+from dynamo_tpu_torch.engine.request import (
+    FinishReason,
+    Request,
+    RequestState,
+    SamplingParams,
+    StepOutput,
+)
+from dynamo_tpu_torch.engine.sampling import (
+    DEFAULT_K_CAP,
+    gumbel_noise,
+    sample,
+    sample_greedy,
+)
+from dynamo_tpu_torch.engine.scheduler import ScheduledBatch, Scheduler
+from dynamo_tpu_torch.models.registry import get_model
+from dynamo_tpu_torch.platform import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class EngineMetrics:
+    requests_received: int = 0
+    generated_tokens: int = 0
+    prefill_tokens: int = 0
+    steps: int = 0
+    prefill_dispatches: int = 0
+    decode_dispatches: int = 0
+    #: fused decode steps run (a dispatch runs 1..decode_steps of them)
+    decode_steps_run: int = 0
+    time_prefill_ms: float = 0.0
+    time_decode_ms: float = 0.0
+    #: time spent waiting for decode ids to reach the host (includes the
+    #: device time of the steps not yet finished when the wait starts)
+    time_decode_sync_ms: float = 0.0
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+class TorchEngine:
+    def __init__(self, config: EngineConfig, params: Optional[dict] = None,
+                 device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.adapter = get_model(config.model, dtype=config.dtype)
+        self.allocator = PageAllocator(config.num_pages, config.page_size)
+        self.scheduler = Scheduler(config, self.allocator)
+        self.metrics = EngineMetrics()
+        if params is None:
+            logger.info("initializing random params for %s", config.model)
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = self.adapter.init_params(gen)
+        self.params = params
+        self.kv = self.adapter.init_kv(config.num_pages, config.page_size, self.device)
+
+    # -- public API --------------------------------------------------------
+
+    def add_request(self, request_id: str, prompt_tokens: Sequence[int],
+                    sampling: Optional[SamplingParams] = None) -> Request:
+        req = Request(request_id, list(prompt_tokens), sampling or SamplingParams())
+        self.scheduler.add_request(req)
+        self.metrics.requests_received += 1
+        return req
+
+    def abort_request(self, request_id: str) -> bool:
+        return self.scheduler.abort_request(request_id) is not None
+
+    @property
+    def has_work(self) -> bool:
+        return self.scheduler.has_work
+
+    def step(self) -> list[StepOutput]:
+        batch = self.scheduler.schedule()
+        outputs = self._drain_doomed()
+        if batch is None:
+            return outputs
+        t0 = time.perf_counter()
+        if batch.kind == "prefill":
+            self.metrics.prefill_dispatches += 1
+            outputs += self._run_prefill(batch)
+            self.metrics.time_prefill_ms += (time.perf_counter() - t0) * 1e3
+        else:
+            self.metrics.decode_dispatches += 1
+            outputs += self._run_decode(batch)
+            self.metrics.time_decode_ms += (time.perf_counter() - t0) * 1e3
+        self.metrics.steps += 1
+        return outputs
+
+    def run_to_completion(self) -> dict[str, list[int]]:
+        """Drain all queued work; returns request_id -> generated tokens."""
+        done: dict[str, list[int]] = {}
+        while self.has_work:
+            for out in self.step():
+                done.setdefault(out.request_id, []).extend(out.new_token_ids)
+        return done
+
+    def _drain_doomed(self) -> list[StepOutput]:
+        """Finish requests the scheduler proved can never progress."""
+        outputs = []
+        for req, why, reason in self.scheduler.doomed:
+            logger.error("request %s cannot progress: %s", req.request_id, why)
+            req.state = RequestState.FINISHED
+            req.finish_reason = reason
+            outputs.append(StepOutput(req.request_id, (), finish_reason=reason))
+        self.scheduler.doomed.clear()
+        return outputs
+
+    # -- host arrays -------------------------------------------------------
+
+    def _bucket_t(self, n: int) -> int:
+        cap = max(self.config.prefill_chunk, 32)
+        if n > cap:
+            raise ValueError(f"prefill piece of {n} tokens exceeds the T-bucket cap {cap}")
+        t = 32
+        while t < n:
+            t *= 2
+        return min(t, cap)
+
+    @staticmethod
+    def _bucket_b(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _to_device(self, *arrays: np.ndarray):
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+
+    def _request_seed(self, req: Request) -> int:
+        if req.sampling.seed is not None:
+            return req.sampling.seed & 0xFFFFFFFF
+        return zlib.crc32(req.request_id.encode(), self.config.seed & 0xFFFFFFFF)
+
+    def _sampler(self, reqs: list[Request], pad_to: int, steps: int):
+        """fn(logits [pad_to, V], step) -> ids [pad_to] for this dispatch.
+        All-greedy batches take the argmax only; otherwise every fused
+        step's noise is made now and copied to the device once."""
+        if all(r.sampling.temperature <= 0.0 for r in reqs):
+            return lambda logits, step: sample_greedy(logits)
+        temps = np.zeros(pad_to, np.float32)
+        top_ps = np.ones(pad_to, np.float32)
+        top_ks = np.zeros(pad_to, np.int64)
+        for i, r in enumerate(reqs):
+            temps[i] = r.sampling.temperature
+            top_ps[i] = r.sampling.top_p
+            top_ks[i] = r.sampling.top_k
+        # num_emitted keeps the draw counter monotonic across preemption
+        noise = np.zeros((steps, pad_to, DEFAULT_K_CAP), np.float32)
+        noise[:, : len(reqs)] = gumbel_noise(
+            [self._request_seed(r) for r in reqs],
+            [r.num_emitted + len(r.output_tokens) for r in reqs],
+            DEFAULT_K_CAP, steps,
+        ).numpy()
+        temps, top_ps, top_ks, noise = self._to_device(temps, top_ps, top_ks, noise)
+        return lambda logits, step: sample(logits, temps, top_ps, top_ks, noise[step])
+
+    # -- prefill -----------------------------------------------------------
+
+    def _run_prefill(self, batch: ScheduledBatch) -> list[StepOutput]:
+        """Pieces grouped by T bucket run as one batched [B, T] forward."""
+        if any(p.start != 0 for p in batch.prefill):
+            raise NotImplementedError(
+                "a prefill chunk with history needs paged_prefill_attention, "
+                "which dynamo_tpu_torch does not have yet"
+            )
+        outputs: list[StepOutput] = []
+        groups: dict[int, list] = {}
+        for piece in batch.prefill:
+            groups.setdefault(self._bucket_t(piece.length), []).append(piece)
+        mp = self.config.max_pages_per_seq
+        for t_bucket, pieces in sorted(groups.items()):
+            b_bucket = self._bucket_b(len(pieces))
+            tokens = np.zeros((b_bucket, t_bucket), np.int64)
+            positions = np.zeros((b_bucket, t_bucket), np.int32)
+            valid = np.zeros((b_bucket, t_bucket), bool)
+            pt = np.zeros((b_bucket, mp), np.int32)
+            last_idx = np.zeros(b_bucket, np.int64)
+            for i, piece in enumerate(pieces):
+                req = piece.request
+                tokens[i, : piece.length] = req.prompt_tokens[: piece.length]
+                positions[i] = np.arange(t_bucket, dtype=np.int32)
+                valid[i, : piece.length] = True
+                pt[i, : len(req.pages)] = req.pages
+                last_idx[i] = piece.length - 1
+            d_tokens, d_pos, d_valid, d_pt, d_last = self._to_device(
+                tokens, positions, valid, pt, last_idx
+            )
+            reqs = [p.request for p in pieces]
+            pick = self._sampler(reqs, b_bucket, 1)
+            hidden, self.kv = self.adapter.forward_hidden(
+                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt, first_chunk=True
+            )
+            last_hidden = hidden[torch.arange(b_bucket, device=self.device), d_last]
+            ids = pick(self.adapter.compute_logits(self.params, last_hidden), 0)
+            ids = ids.cpu().tolist()
+            for i, piece in enumerate(pieces):
+                req = piece.request
+                req.num_computed_tokens += piece.length
+                req.state = RequestState.DECODE
+                self.metrics.prefill_tokens += piece.length
+                outputs.extend(self._accept_tokens(
+                    req, [ids[i]], self._finish_reason_for(req, ids[i], 1)
+                ))
+        return outputs
+
+    # -- decode ------------------------------------------------------------
+
+    @staticmethod
+    def _pow2_floor(k: int) -> int:
+        p = 1
+        while p * 2 <= k:
+            p *= 2
+        return p
+
+    def _pick_decode_steps(self, reqs: list[Request]) -> int:
+        """Fused steps for this dispatch: capped by config and by context
+        room, covering the longest remaining completion rounded up to a
+        power of two; 1 when admission is pending or the pool cannot
+        pre-grow every page table K tokens ahead."""
+        k = self.config.decode_steps
+        if k <= 1:
+            return 1
+        if self.scheduler.num_waiting() > 0 and self.scheduler.can_admit_head():
+            return 1
+        for req in reqs:
+            k = min(k, self.config.max_context - req.num_tokens + 1)
+        rem_max = max(
+            r.sampling.max_tokens - len(r.output_tokens) - r.num_emitted for r in reqs
+        )
+        p = 1
+        while p < max(1, rem_max):
+            p *= 2
+        k = self._pow2_floor(min(k, p))
+        if k <= 1:
+            return 1
+        if not self._grow_pages_for(reqs, k - 1):
+            return 1  # the single-step path handles pressure via preemption
+        return k
+
+    def _grow_pages_for(self, reqs: list[Request], ahead: int) -> bool:
+        """Grow every page table to cover num_tokens + ahead, or nothing."""
+        ps = self.config.page_size
+        extra = [max(0, -(-(r.num_tokens + ahead) // ps) - len(r.pages)) for r in reqs]
+        if sum(extra) > self.allocator.num_free:
+            return False
+        for req, n in zip(reqs, extra):
+            if n:
+                req.pages.extend(self.allocator.allocate(n))
+        return True
+
+    def _run_decode(self, batch: ScheduledBatch) -> list[StepOutput]:
+        reqs = list(batch.decode)
+        b_bucket = self.config.decode_bucket_for(len(reqs))
+        mp = self.config.max_pages_per_seq
+        k_steps = self._pick_decode_steps(reqs)
+        tokens = np.zeros((b_bucket, 1), np.int64)
+        positions = np.zeros((b_bucket, 1), np.int32)
+        valid = np.zeros((b_bucket, 1), bool)
+        pt = np.zeros((b_bucket, mp), np.int32)
+        for i, req in enumerate(reqs):
+            tokens[i, 0] = req.all_tokens[-1]
+            positions[i, 0] = req.num_tokens - 1
+            valid[i, 0] = True
+            pt[i, : len(req.pages)] = req.pages
+        d_tokens, d_pos, d_valid, d_pt = self._to_device(tokens, positions, valid, pt)
+        pick = self._sampler(reqs, b_bucket, k_steps)
+        step_ids = []
+        for s in range(k_steps):
+            hidden, self.kv = self.adapter.forward_hidden(
+                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt
+            )
+            ids = pick(self.adapter.compute_logits(self.params, hidden[:, -1]), s)
+            step_ids.append(ids)
+            d_tokens = ids[:, None]  # fed back on the device
+            d_pos = d_pos + 1
+        t1 = time.perf_counter()
+        ids = torch.stack(step_ids).cpu().numpy()  # [K, B]: the one host sync
+        self.metrics.time_decode_sync_ms += (time.perf_counter() - t1) * 1e3
+        self.metrics.decode_steps_run += k_steps
+        outputs: list[StepOutput] = []
+        for i, req in enumerate(reqs):
+            accepted: list[int] = []
+            finish: Optional[FinishReason] = None
+            for kk in range(k_steps):
+                tok = int(ids[kk, i])
+                accepted.append(tok)
+                finish = self._finish_reason_for(req, tok, len(accepted))
+                if finish is not None:
+                    break  # overshoot past a stop is dropped
+            req.num_computed_tokens += len(accepted)
+            outputs.extend(self._accept_tokens(req, accepted, finish))
+        return outputs
+
+    # -- acceptance --------------------------------------------------------
+
+    def _finish_reason_for(self, req: Request, token: int, n_new: int
+                           ) -> Optional[FinishReason]:
+        """Finish check for the n_new'th newly-sampled token of this
+        dispatch (token not yet appended to the request)."""
+        s = req.sampling
+        if not s.ignore_eos and (
+            token in self.config.eos_token_ids or token in s.stop_token_ids
+        ):
+            return FinishReason.STOP
+        if len(req.output_tokens) + n_new + req.num_emitted >= s.max_tokens:
+            return FinishReason.LENGTH
+        if req.num_tokens + n_new >= self.config.max_context:
+            return FinishReason.LENGTH
+        return None
+
+    def _accept_tokens(self, req: Request, tokens: Sequence[int],
+                       finish: Optional[FinishReason]) -> list[StepOutput]:
+        req.output_tokens.extend(tokens)
+        self.metrics.generated_tokens += len(tokens)
+        if finish is not None:
+            self.scheduler.finish(req)
+            req.finish_reason = finish
+        return [StepOutput(req.request_id, tuple(tokens), finish)]

@@ -1,0 +1,73 @@
+"""Engine-facing request/response types.
+
+Counterpart of dynamo_tpu/engine/request.py, trimmed to what this package
+serves: tokens in, tokens out, with the sampling knobs it implements.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 0.0  # 0 => greedy
+    top_p: float = 1.0
+    top_k: int = 0  # 0 => disabled
+    max_tokens: int = 256
+    stop_token_ids: tuple[int, ...] = ()
+    ignore_eos: bool = False
+    seed: Optional[int] = None
+
+
+class FinishReason(str, enum.Enum):
+    STOP = "stop"  # eos / stop token
+    LENGTH = "length"  # max_tokens or context limit
+    CANCELLED = "cancelled"
+    ERROR = "error"
+
+
+class RequestState(str, enum.Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    FINISHED = "finished"
+
+
+@dataclass
+class Request:
+    """One in-flight generation inside the engine."""
+
+    request_id: str
+    prompt_tokens: list[int]
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+
+    # -- engine-managed state ---------------------------------------------
+    state: RequestState = RequestState.WAITING
+    output_tokens: list[int] = field(default_factory=list)
+    pages: list[int] = field(default_factory=list)
+    #: tokens whose KV is already in pages
+    num_computed_tokens: int = 0
+    #: tokens emitted before a preemption folded them into the prompt
+    #: (keeps the max_tokens budget and the sampling counter right)
+    num_emitted: int = 0
+    finish_reason: Optional[FinishReason] = None
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt_tokens) + len(self.output_tokens)
+
+    @property
+    def all_tokens(self) -> list[int]:
+        return self.prompt_tokens + self.output_tokens
+
+
+@dataclass(frozen=True)
+class StepOutput:
+    """Per-request result of one engine step."""
+
+    request_id: str
+    new_token_ids: tuple[int, ...]
+    finish_reason: Optional[FinishReason] = None

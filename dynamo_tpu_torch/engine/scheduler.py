@@ -1,0 +1,236 @@
+"""Continuous-batching scheduler.
+
+Counterpart of dynamo_tpu/engine/scheduler.py without prefix-cache
+hashing and without mixed steps. One `schedule()` call is one engine step:
+
+1. Admit waiting requests while pages and decode slots allow.
+2. If any running request still needs its prefill, schedule a prefill
+   step of whole prompts (each prompt is one first chunk, up to the token
+   budget).
+3. Otherwise schedule a decode batch over the running sequences, growing
+   page tables by one page where the next token would overflow and
+   preempting the youngest sequences (recompute) when pages run out.
+
+A prompt never splits into chunks here: a chunk with history needs the
+chunked-prefill attention kernel, which this package does not have yet.
+So a prompt longer than `prefill_chunk` is refused at `add_request`, and
+a preemption whose recompute prompt would outgrow one chunk raises.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Literal, Optional
+
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.page_table import PageAllocator
+from dynamo_tpu_torch.engine.request import FinishReason, Request, RequestState
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class PrefillPiece:
+    """One request's token span inside a prefill step."""
+
+    request: Request
+    start: int  # absolute token index where this piece begins
+    length: int
+
+
+@dataclass(frozen=True)
+class ScheduledBatch:
+    kind: Literal["prefill", "decode"]
+    prefill: tuple[PrefillPiece, ...] = ()
+    decode: tuple[Request, ...] = ()
+
+
+class Scheduler:
+    def __init__(self, config: EngineConfig, allocator: PageAllocator):
+        self.config = config
+        self.allocator = allocator
+        self.waiting: list[Request] = []
+        self.running: list[Request] = []
+        #: requests that can never make progress (the engine finishes them
+        #: with the given reason) instead of a silent busy-spin
+        self.doomed: list[tuple[Request, str, FinishReason]] = []
+        #: preemption-by-recompute count (page pressure)
+        self.preemptions = 0
+
+    # -- queue interface ---------------------------------------------------
+
+    def add_request(self, request: Request) -> None:
+        n = len(request.prompt_tokens)
+        if n >= self.config.max_context:
+            raise ValueError(
+                f"prompt of {n} tokens exceeds max context "
+                f"{self.config.max_context} (one slot is reserved for generation)"
+            )
+        if n > self.config.prefill_chunk:
+            raise NotImplementedError(
+                f"prompt of {n} tokens is longer than prefill_chunk "
+                f"({self.config.prefill_chunk}): chunked prefill needs "
+                "paged_prefill_attention, which dynamo_tpu_torch does not "
+                "have yet"
+            )
+        if n == 0:
+            raise ValueError("empty prompt")
+        request.state = RequestState.WAITING
+        self.waiting.append(request)
+
+    def abort_request(self, request_id: str) -> Optional[Request]:
+        for q in (self.waiting, self.running):
+            for r in q:
+                if r.request_id == request_id:
+                    q.remove(r)
+                    self._release(r)
+                    return r
+        return None
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    def can_admit_head(self) -> bool:
+        """Whether the waiting-queue head could be admitted right now."""
+        if not self.waiting or len(self.running) >= self.config.max_seqs:
+            return False
+        need = self._pages_for(self.waiting[0])
+        return self.allocator.num_free - need >= self._watermark_pages()
+
+    # -- the step ----------------------------------------------------------
+
+    def schedule(self) -> Optional[ScheduledBatch]:
+        self._admit()
+        prefill = self._schedule_prefill()
+        if prefill is not None:
+            return prefill
+        return self._schedule_decode()
+
+    def _pages_for(self, req: Request) -> int:
+        """Pages for the prompt plus the first generated token."""
+        return -(-(len(req.prompt_tokens) + 1) // self.config.page_size)
+
+    def _watermark_pages(self) -> int:
+        return int(self.allocator.num_pages * self.config.admission_watermark)
+
+    def _admit(self) -> None:
+        while self.waiting and len(self.running) < self.config.max_seqs:
+            req = self.waiting[0]
+            need = self._pages_for(req)
+            # a prompt that can never fit the pool would block the queue
+            # head forever: doom it instead
+            if need > (self.allocator.num_pages - 1) - self._watermark_pages():
+                self.waiting.pop(0)
+                self.doomed.append(
+                    (req, f"prompt needs {need} pages; pool has "
+                          f"{self.allocator.num_pages - 1}",
+                     FinishReason.LENGTH)
+                )
+                continue
+            if self.allocator.num_free - need < self._watermark_pages():
+                break  # head-of-line blocking by design (FIFO fairness)
+            req.pages = self.allocator.allocate(need)
+            req.num_computed_tokens = 0
+            req.state = RequestState.PREFILL
+            self.waiting.pop(0)
+            self.running.append(req)
+
+    def _schedule_prefill(self) -> Optional[ScheduledBatch]:
+        budget = self.config.effective_prefill_budget
+        pieces: list[PrefillPiece] = []
+        for req in self.running:
+            if req.state != RequestState.PREFILL:
+                continue
+            n = len(req.prompt_tokens)
+            if n > budget:
+                break  # FIFO: the next step takes it whole
+            pieces.append(PrefillPiece(request=req, start=0, length=n))
+            budget -= n
+        if not pieces:
+            return None
+        return ScheduledBatch(kind="prefill", prefill=tuple(pieces))
+
+    def _schedule_decode(self) -> Optional[ScheduledBatch]:
+        decodable = [r for r in self.running if r.state == RequestState.DECODE]
+        if not decodable:
+            return None
+        ps = self.config.page_size
+        scheduled: list[Request] = []
+        # oldest first; preemption victims are taken from the youngest
+        for req in decodable:
+            if req.state != RequestState.DECODE:
+                continue  # preempted by an earlier iteration of this loop
+            # this step writes KV at position num_tokens-1
+            if req.num_tokens > len(req.pages) * ps:
+                got = self.allocator.allocate(1)
+                if got is None:
+                    if self._preempt_youngest(excluding=req, scheduled=scheduled):
+                        got = self.allocator.allocate(1)
+                    if got is None:
+                        if not scheduled and len(self.running) == 1:
+                            # sole sequence and the pool is exhausted: no
+                            # future step can free pages
+                            self.running.remove(req)
+                            self._release(req)
+                            self.doomed.append(
+                                (req, "kv pool exhausted with no preemption victim",
+                                 FinishReason.LENGTH)
+                            )
+                        continue  # stalled this step; others may progress
+                req.pages.extend(got)
+            scheduled.append(req)
+        if not scheduled:
+            return None
+        cap = self.config.decode_buckets[-1]
+        return ScheduledBatch(kind="decode", decode=tuple(scheduled[:cap]))
+
+    def _preempt_youngest(
+        self, excluding: Request, scheduled: Optional[list[Request]] = None
+    ) -> bool:
+        victims = [
+            r for r in self.running
+            if r is not excluding and r.state == RequestState.DECODE
+        ]
+        if not victims:
+            return False
+        victim = victims[-1]
+        if victim.num_tokens > self.config.prefill_chunk:
+            raise NotImplementedError(
+                f"preempting {victim.request_id} would recompute "
+                f"{victim.num_tokens} tokens, more than prefill_chunk "
+                f"({self.config.prefill_chunk}): that needs chunked prefill "
+                "(paged_prefill_attention), which dynamo_tpu_torch does not "
+                "have yet"
+            )
+        if scheduled is not None and victim in scheduled:
+            scheduled.remove(victim)
+        logger.warning("preempting %s (recompute) under page pressure", victim.request_id)
+        self.preemptions += 1
+        self._release(victim)
+        # recompute from scratch: the prompt grows to include generated tokens
+        victim.state = RequestState.WAITING
+        victim.num_emitted += len(victim.output_tokens)
+        victim.prompt_tokens = victim.all_tokens
+        victim.output_tokens = []
+        victim.num_computed_tokens = 0
+        self.running.remove(victim)
+        self.waiting.insert(0, victim)
+        return True
+
+    # -- completion --------------------------------------------------------
+
+    def finish(self, request: Request) -> None:
+        request.state = RequestState.FINISHED
+        if request in self.running:
+            self.running.remove(request)
+        self._release(request)
+
+    def _release(self, request: Request) -> None:
+        if request.pages:
+            self.allocator.free(request.pages)
+            request.pages = []

@@ -1,0 +1,312 @@
+"""Llama-family decoder over a paged KV cache, in PyTorch.
+
+Counterpart of dynamo_tpu/models/llama.py, trimmed to the llama fields and
+the kernel write discipline: each layer reads the cache as history only,
+stages its new (post-rope) K/V, and the step lands every layer's K/V in
+the pools with one `paged_write` after the layer loop. A first prefill
+chunk attends over itself with `flash_prefill_attention`; a decode step
+attends over its paged history with `paged_decode_attention` and folds the
+current token in exactly. A chunk with history (chunked prefill, prefix
+hits) needs the fourth kernel, which this package does not have yet, and
+raises.
+
+Layouts match the JAX package at every public function: KV pools
+[L, P, S, Hkv, D] with page 0 the null page, staged KV [L, B, T, Hkv, D],
+q [B, T, Hq, D], weights [in, out] stacked over layers. The pools keep the
+true head_dim (the JAX package pads it to 128 lanes for the TPU).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.ops import KERNELS, Ops
+from dynamo_tpu_torch.platform import resolve_device
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    #: Llama-3.1-style NTK rope scaling (None disables)
+    rope_scaling_factor: Optional[float] = None
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def llama3_1b() -> "LlamaConfig":
+        """Llama-3.2-1B-shaped config."""
+        return LlamaConfig(
+            hidden_size=2048, intermediate_size=8192, num_layers=16,
+            num_heads=32, num_kv_heads=8, head_dim=64,
+            tie_word_embeddings=True, rope_scaling_factor=32.0,
+        )
+
+    @staticmethod
+    def tiny(vocab_size: int = 256) -> "LlamaConfig":
+        """For unit tests on the CPU."""
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+            rope_theta=10000.0, dtype=torch.float32,
+        )
+
+
+class KVPages(NamedTuple):
+    """Paged KV cache: k, v [L, P, S, Hkv, D]. Page 0 is the null page:
+    padding writes land there and no page table names it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+
+def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int, device) -> KVPages:
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return KVPages(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+    )
+
+
+def kv_pages_from_jax(k: np.ndarray, v: np.ndarray, cfg: LlamaConfig,
+                      device=None) -> KVPages:
+    """The JAX package's KVPages (as numpy, possibly lane-padded to 128)
+    as the port's pools: the padding lanes are stripped. On `cuda`
+    unless the caller asks for `cpu`."""
+    device = resolve_device(device)
+    d = cfg.head_dim
+    return KVPages(
+        k=torch.tensor(np.asarray(k[..., :d], np.float32), dtype=cfg.dtype, device=device),
+        v=torch.tensor(np.asarray(v[..., :d], np.float32), dtype=cfg.dtype, device=device),
+    )
+
+
+# -- parameters -------------------------------------------------------------------
+
+
+def init_params(generator: torch.Generator, cfg: LlamaConfig) -> dict:
+    """Random-init params on the generator's device, layer-stacked like
+    the JAX package's: N(0, 1/fan_in) weights, unit norms."""
+    dev = generator.device
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    L = cfg.num_layers
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return (w * (1.0 / math.sqrt(fan_in))).to(cfg.dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    params = {
+        "embed": dense((v, h), h),
+        "layers": {
+            "attn_norm": ones((L, h)),
+            "wq": dense((L, h, qd), h),
+            "wk": dense((L, h, kvd), h),
+            "wv": dense((L, h, kvd), h),
+            "wo": dense((L, qd, h), qd),
+            "mlp_norm": ones((L, h)),
+            "w_gate": dense((L, h, i), h),
+            "w_up": dense((L, h, i), h),
+            "w_down": dense((L, i, h), i),
+        },
+        "final_norm": ones((h,)),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense((h, v), h)
+    return params
+
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
+    """The JAX package's param tree (leaves as numpy arrays) as the port's
+    params: the same names, layouts and layer stacking, cast to cfg.dtype.
+    On `cuda` unless the caller asks for `cpu`."""
+    device = resolve_device(device)
+
+    def conv(x):
+        return torch.tensor(np.asarray(x, np.float32), dtype=cfg.dtype, device=device)
+
+    params = {
+        "embed": conv(np_params["embed"]),
+        "layers": {k: conv(np_params["layers"][k]) for k in _LAYER_KEYS},
+        "final_norm": conv(np_params["final_norm"]),
+    }
+    if np_params.get("lm_head") is not None:
+        params["lm_head"] = conv(np_params["lm_head"])
+    return params
+
+
+# -- blocks -----------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def _rope_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+    d = cfg.head_dim
+    inv_freq = 1.0 / (
+        cfg.rope_theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=device) / d)
+    )
+    if cfg.rope_scaling_factor is not None:
+        # Llama-3.1 NTK-by-parts scaling
+        low = cfg.rope_original_max_position / cfg.rope_low_freq_factor
+        high = cfg.rope_original_max_position / cfg.rope_high_freq_factor
+        wavelen = 2.0 * math.pi / inv_freq
+        smooth = (cfg.rope_original_max_position / wavelen - cfg.rope_low_freq_factor) / (
+            cfg.rope_high_freq_factor - cfg.rope_low_freq_factor
+        )
+        smooth = smooth.clamp(0.0, 1.0)
+        scaled = inv_freq / cfg.rope_scaling_factor
+        blended = (1.0 - smooth) * scaled + smooth * inv_freq
+        inv_freq = torch.where(
+            wavelen > low, scaled, torch.where(wavelen < high, inv_freq, blended)
+        )
+    return inv_freq
+
+
+def rope_tables(positions: torch.Tensor, cfg: LlamaConfig):
+    """cos, sin [B, T, 1, D/2] for absolute positions [B, T]."""
+    angles = positions[..., None].float() * _rope_inv_freq(cfg, positions.device)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, T, H, D], half-split pairing (HF convention)."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def attention_block(q, k, v, kv: KVPages, layer: int, page_tables, positions, valid,
+                    cfg: LlamaConfig, cos, sin, first_chunk: bool, ops: Ops):
+    """rope, then attention with the cache read as history only.
+
+    q [B, T, Hq, D], k/v [B, T, Hkv, D] pre-rope. Returns (attn
+    [B, T, Hq*D], (k, v) staged for this layer, post-rope)."""
+    b, t = q.shape[0], q.shape[1]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if t == 1:
+        hist = positions[:, 0].contiguous()  # tokens already in the pages
+        qd = q[:, 0].contiguous()
+        acc, m, l = ops.paged_decode_attention(
+            qd, kv.k, kv.v, layer, page_tables, hist, scale_dim=cfg.head_dim
+        )  # acc [B, Hq, D] unnormalized, m/l [B, Hq]
+        # exact merge of the current (unwritten) token into the flash state
+        kv_of = torch.arange(cfg.num_heads, device=q.device) // cfg.q_per_kv
+        k_sel = k[:, 0, kv_of].float()
+        v_sel = v[:, 0, kv_of].float()
+        s_self = (qd.float() * k_sel).sum(dim=-1) * (1.0 / math.sqrt(cfg.head_dim))
+        m_star = torch.maximum(m, s_self)
+        alpha = torch.exp(m - m_star)
+        beta = torch.exp(s_self - m_star)
+        out = (alpha[..., None] * acc + beta[..., None] * v_sel) / (alpha * l + beta)[..., None]
+        attn = out.to(cfg.dtype).reshape(b, 1, cfg.num_heads * cfg.head_dim)
+    elif first_chunk:
+        valid_len = valid.sum(dim=1, dtype=torch.int32)
+        out = ops.flash_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), valid_len, scale_dim=cfg.head_dim
+        )
+        attn = out.reshape(b, t, cfg.num_heads * cfg.head_dim).to(q.dtype)
+    else:
+        raise NotImplementedError(
+            "a prefill chunk with history (chunked prefill or a prefix-cache "
+            "hit) needs paged_prefill_attention, which dynamo_tpu_torch does "
+            "not have yet"
+        )
+    return attn, (k, v)
+
+
+def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv: KVPages,
+                   page_tables, first_chunk: bool = False, ops: Ops = KERNELS):
+    """One model step over a token chunk; returns (hidden [B, T, H] after
+    the final norm, kv). T=1 is a decode step; T>1 with first_chunk=True is
+    a first prefill chunk (every row starts at position 0). The step's K/V
+    land in the pools in place. `ops` selects the kernels (default) or the
+    plain versions; the engine never passes it."""
+    b, t = tokens.shape
+    lp = params["layers"]
+    h = params["embed"][tokens].to(cfg.dtype)  # [B, T, H]
+    cos, sin = rope_tables(positions, cfg)
+    stage_shape = (cfg.num_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
+    k_stage = torch.empty(stage_shape, dtype=kv.k.dtype, device=h.device)
+    v_stage = torch.empty(stage_shape, dtype=kv.v.dtype, device=h.device)
+    for li in range(cfg.num_layers):
+        x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps)
+        q = (x @ lp["wq"][li]).reshape(b, t, cfg.num_heads, cfg.head_dim)
+        k = (x @ lp["wk"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = (x @ lp["wv"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        attn, (k_new, v_new) = attention_block(
+            q, k, v, kv, li, page_tables, positions, valid, cfg, cos, sin,
+            first_chunk, ops,
+        )
+        k_stage[li] = k_new
+        v_stage[li] = v_new
+        h = h + attn @ lp["wo"][li]
+        x = rms_norm(h, lp["mlp_norm"][li], cfg.rms_norm_eps)
+        gate = F.silu((x @ lp["w_gate"][li]).float())
+        up = (x @ lp["w_up"][li]).float()
+        h = h + (gate * up).to(cfg.dtype) @ lp["w_down"][li]
+    kv = land_staged_kv(kv, (k_stage, v_stage), page_tables, positions, valid, ops)
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv
+
+
+def land_staged_kv(kv: KVPages, staged, page_tables, positions, valid, ops: Ops = KERNELS):
+    """Land the layer loop's staged K/V in the pools with one write."""
+    ops.paged_write(kv.k, kv.v, staged[0], staged[1], page_tables, positions, valid)
+    return kv
+
+
+def compute_logits(params: dict, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Project hidden states [..., H] to vocab logits [..., V] in float32."""
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        return (hidden @ params["embed"].T).float()
+    return (hidden @ lm_head).float()
+
+
+def forward(params, cfg, tokens, positions, valid, kv, page_tables, **kw):
+    """forward_hidden + logits at every position (tests and tools; the
+    engine takes logits only where it samples)."""
+    h, kv = forward_hidden(params, cfg, tokens, positions, valid, kv, page_tables, **kw)
+    return compute_logits(params, cfg, h), kv

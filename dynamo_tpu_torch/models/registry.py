@@ -1,0 +1,65 @@
+"""Model registry: a preset name -> the model's config and functions.
+
+Counterpart of dynamo_tpu/models/registry.py::get_model for the llama
+presets. Other families, HF checkpoint directories and GGUF files wait for
+later work and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Callable, Optional
+
+import torch
+
+from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models.llama import LlamaConfig
+
+_LLAMA_PRESETS: dict[str, Callable[[], LlamaConfig]] = {
+    "tiny": LlamaConfig.tiny,
+    "llama3-1b": LlamaConfig.llama3_1b,
+    "llama3-8b": LlamaConfig.llama3_8b,
+}
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class ModelAdapter:
+    name: str
+    config: LlamaConfig
+
+    @property
+    def vocab_size(self) -> int:
+        return self.config.vocab_size
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return llama.init_params(generator, self.config)
+
+    def init_kv(self, num_pages: int, page_size: int, device) -> llama.KVPages:
+        return llama.init_kv_pages(self.config, num_pages, page_size, device)
+
+    def forward_hidden(self, params, tokens, positions, valid, kv, page_tables, **kw):
+        return llama.forward_hidden(
+            params, self.config, tokens, positions, valid, kv, page_tables, **kw
+        )
+
+    def compute_logits(self, params, hidden):
+        return llama.compute_logits(params, self.config, hidden)
+
+
+def get_model(name: str, dtype: Optional[str] = None) -> ModelAdapter:
+    """Resolve a llama preset name; `dtype` ("bfloat16" | "float32")
+    overrides the preset's."""
+    key = name.lower()
+    if key not in _LLAMA_PRESETS:
+        raise ValueError(
+            f"unknown model {name!r}; dynamo_tpu_torch serves the presets "
+            f"{sorted(_LLAMA_PRESETS)}"
+        )
+    cfg = _LLAMA_PRESETS[key]()
+    if dtype is not None:
+        if dtype not in _DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}; use one of {sorted(_DTYPES)}")
+        cfg = replace(cfg, dtype=_DTYPES[dtype])
+    return ModelAdapter(name=key, config=cfg)

@@ -1,0 +1,147 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `dynamo_tpu_torch/csrc/<name>.cu` compiles on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). Builds run at first use, never at import, into `build/
+torch_kernels/` at the repository root, keyed by a hash of the source and
+the flags so an edited source rebuilds. A missing nvcc or a failed build
+raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+#: one shared library per kernel source
+SOURCES = ("kv_update", "flash_prefill", "paged_attention")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}
+#: ctypes argument types: pointers and the stream as void*, sizes as int
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        if cand.is_file():
+            found = str(cand)
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of dynamo_tpu_torch are built "
+            "from dynamo_tpu_torch/csrc at first use and need the CUDA "
+            "toolkit (set CUDA_HOME or put nvcc on PATH)"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start one nvcc; returns (process, output path, tmp path) or None
+    when the library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, out, tmp
+
+
+def _finish(name: str, started) -> str:
+    proc, out, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names=SOURCES) -> dict[str, dict]:
+    """Build every named kernel library in parallel (one nvcc each, all
+    started together). Returns {name: {"seconds", "ptxas"}}; a library
+    that was already built reports 0 seconds and no ptxas lines."""
+    with _lock:
+        t0 = time.perf_counter()
+        started = {n: _start(n) for n in names}
+        report = {}
+        for n, st in started.items():
+            if st is None:
+                report[n] = {"seconds": 0.0, "ptxas": []}
+                continue
+            log = _finish(n, st)
+            report[n] = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": [
+                    line for line in log.splitlines()
+                    if "registers" in line or "spill" in line
+                    or "Compiling entry" in line
+                ],
+            }
+        return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of library `name` (built on first use),
+    returning a cudaError_t; its argument types are set once."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[symbol] = fn
+    return fn
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,141 @@
+"""Decode attention (T=1) over the paged KV history.
+
+Counterpart of dynamo_tpu/ops/paged_attention.py::paged_decode_attention.
+q [B, Hq, D] (post-rope, unscaled), pools [L, P, S, Hkv, D], the pools'
+`layer`, page_tables [B, MP] int32, history_lens [B] int32 (tokens already
+in the pages). Returns the UNNORMALIZED acc [B, Hq, D] f32 and the running
+max m and denominator l [B, Hq] f32 over the history only; the caller
+folds in the current token (models/llama.py). Zero history gives acc=0,
+m=-inf, l=0.
+
+On CUDA tensors the split-KV kernel in csrc/paged_attention.cu runs (bf16
+pools, D of 64 or 128); on CPU tensors the plain version below does the
+same work.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
+
+counts = KernelCounts()
+
+_NAME = "paged_decode_attention"
+#: CTAs the split plan aims for, per streaming multiprocessor
+CTAS_PER_SM = 2
+
+_sm_count: dict[int, int] = {}
+
+
+def decode_split_plan(batch: int, num_kv_heads: int, max_pages: int, num_sms: int):
+    """(splits, pages_per_split) for the split-KV kernel's grid.
+
+    The TPU kernel walks a flattened (sequence, page) work list in one
+    grid step (decode_work_list); on the card the grid is parallel, and
+    (sequence, kv head) pairs alone leave most SMs idle at small batch.
+    So each pair's page table is cut into splits of contiguous pages,
+    enough that the grid has about CTAS_PER_SM blocks per SM. Splits past
+    a sequence's history exit at once; a second pass merges the splits."""
+    pairs = max(1, batch * num_kv_heads)
+    want = -(-CTAS_PER_SM * num_sms // pairs)
+    splits = max(1, min(max_pages, want))
+    per = -(-max_pages // splits)
+    return -(-max_pages // per), per
+
+
+def _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens):
+    require(q.dim() == 3, _NAME, "q must be [B, Hq, D]")
+    require(k_cache.dim() == 5 and v_cache.shape == k_cache.shape,
+            _NAME, "pools must be [L, P, S, Hkv, D] and equal in shape")
+    b, hq, d = q.shape
+    require(k_cache.shape[4] == d and hq % k_cache.shape[3] == 0,
+            _NAME, "q does not fit the pools' heads")
+    require(0 <= int(layer) < k_cache.shape[0], _NAME, f"layer {int(layer)} out of range")
+    require(page_tables.dim() == 2 and page_tables.shape[0] == b, _NAME, "page_tables must be [B, MP]")
+    require(history_lens.shape == (b,), _NAME, "history_lens must be [B]")
+
+
+def paged_decode_attention_plain(q, k_cache, v_cache, layer, page_tables, history_lens,
+                                 *, scale_dim: Optional[int] = None):
+    """Plain PyTorch version of `paged_decode_attention` (same contract):
+    gathers the history densely, computed in float32."""
+    counts.plain_calls += 1
+    _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens)
+    b, hq, d = q.shape
+    s, hkv = k_cache.shape[2], k_cache.shape[3]
+    g = hq // hkv
+    mp = page_tables.shape[1]
+    pt = page_tables.long()
+    k = k_cache[int(layer)][pt].reshape(b, mp * s, hkv, d).float()
+    v = v_cache[int(layer)][pt].reshape(b, mp * s, hkv, d).float()
+    qf = q.float().reshape(b, hkv, g, d) * (1.0 / math.sqrt(scale_dim or d))
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k)
+    live = torch.arange(mp * s, device=q.device)[None, :] < history_lens[:, None].long()
+    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1)  # -inf where there is no history
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m_safe[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def paged_decode_attention(q, k_cache, v_cache, layer, page_tables, history_lens,
+                           *, scale_dim: Optional[int] = None):
+    """History-only flash decode attention; see the module docstring."""
+    tensors = (q, k_cache, v_cache, page_tables, history_lens)
+    if not on_cuda(_NAME, *tensors):
+        return paged_decode_attention_plain(
+            q, k_cache, v_cache, layer, page_tables, history_lens, scale_dim=scale_dim
+        )
+    _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens)
+    b, hq, d = q.shape
+    L, p, s, hkv, _ = k_cache.shape
+    g = hq // hkv
+    mp = page_tables.shape[1]
+    require(q.dtype == torch.bfloat16 and k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
+            _NAME, "the CUDA kernel takes bfloat16 q and pools")
+    require(page_tables.dtype == torch.int32 and history_lens.dtype == torch.int32,
+            _NAME, "page_tables and history_lens must be int32")
+    require(d in (64, 128), _NAME, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    require(all(x.is_contiguous() for x in tensors), _NAME, "all tensors must be contiguous")
+    dev = q.device
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    splits, per = decode_split_plan(b, hkv, mp, _sm_count[idx])
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hkv, splits, g, d), **f32)
+    part_m = torch.empty((b, hkv, splits, g), **f32)
+    part_l = torch.empty((b, hkv, splits, g), **f32)
+    acc = torch.empty((b, hq, d), **f32)
+    m = torch.empty((b, hq), **f32)
+    l = torch.empty((b, hq), **f32)
+    fn = _build.function(
+        "paged_attention", "dyn_paged_decode",
+        [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR],
+    )
+    err = fn(
+        _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+        _build.ptr(page_tables), _build.ptr(history_lens),
+        _build.ptr(part_acc), _build.ptr(part_m), _build.ptr(part_l),
+        _build.ptr(acc), _build.ptr(m), _build.ptr(l),
+        b, hq, hkv, d, int(layer), p, s, mp, splits, per,
+        1.0 / math.sqrt(scale_dim or d), _build.stream(dev),
+    )
+    _build.check(err, _NAME)
+    counts.launches += 1
+    return acc, m, l
+
+
+def bytes_moved(history_lens, hq: int, hkv: int, d: int, itemsize: int) -> int:
+    """Least bytes one call must move: each history row of K and V read
+    once, q read once, acc/m/l written once."""
+    hist = int(torch.as_tensor(history_lens).long().sum())
+    b = int(torch.as_tensor(history_lens).numel())
+    return 2 * hist * hkv * d * itemsize + b * hq * d * itemsize + b * hq * (d + 2) * 4

@@ -1,0 +1,237 @@
+"""TorchEngine against JaxEngine, and the cases the port refuses.
+
+Both engines run the tiny config in float32 with the same weights (the JAX
+engine's, carried over with params_from_jax). The JAX engine runs
+attention_impl="pallas" (its kernels in interpret mode on the CPU) with
+prefix caching, overlap and mixed steps off; the port runs its kernels'
+plain versions on CPU tensors. Every prompt fits in prefill_chunk=16, so
+each is one first chunk. Greedy token streams must be identical.
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
+from dynamo_tpu.engine.engine import JaxEngine
+from dynamo_tpu.engine.request import SamplingParams as JaxSampling
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.request import SamplingParams
+from dynamo_tpu_torch.models.llama import LlamaConfig, params_from_jax
+
+PROMPTS = {
+    "a": [5, 17, 42, 9, 3, 7, 11, 2],
+    "b": list(range(1, 17)),  # exactly one chunk
+    "c": [200],
+    "d": [9, 8, 7, 6, 5, 4, 3],
+    "e": [33, 44, 55, 66, 77, 88, 99, 111, 122, 133, 144, 155, 166],
+}
+MAX_TOKENS = {"a": 9, "b": 6, "c": 12, "d": 3, "e": 7}
+
+
+def _torch_engine(jax_engine=None, **overrides):
+    params = None
+    if jax_engine is not None:
+        np_params = jax.tree.map(np.asarray, jax_engine.params)
+        params = params_from_jax(np_params, LlamaConfig.tiny(), device="cpu")
+    return TorchEngine(EngineConfig.for_tests(**overrides), params=params, device="cpu")
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+def test_greedy_streams_identical_to_jax_engine(decode_steps):
+    jax_eng = JaxEngine(JaxEngineConfig.for_tests(
+        attention_impl="pallas", enable_prefix_caching=False,
+        overlap_decode=False, mixed_steps=False, decode_steps=decode_steps,
+    ))
+    torch_eng = _torch_engine(jax_eng, decode_steps=decode_steps)
+    for rid, prompt in PROMPTS.items():
+        jax_eng.add_request(rid, prompt, JaxSampling(max_tokens=MAX_TOKENS[rid], ignore_eos=True))
+        torch_eng.add_request(rid, prompt, SamplingParams(max_tokens=MAX_TOKENS[rid], ignore_eos=True))
+    want = jax_eng.run_to_completion()
+    got = torch_eng.run_to_completion()
+    assert got == want
+    assert {rid: len(t) for rid, t in got.items()} == MAX_TOKENS
+    assert torch_eng.allocator.num_active == 0  # every page came back
+
+
+def test_stop_token_drops_fused_overshoot():
+    """A stop token mid-window ends the stream there, as with one step per
+    sync: the fused steps past it are computed and dropped."""
+    ref = _torch_engine(decode_steps=1)
+    ref.add_request("r", PROMPTS["a"], SamplingParams(max_tokens=12, ignore_eos=True))
+    stream = ref.run_to_completion()["r"]
+    stop = stream[5]
+    cut = stream[: stream.index(stop) + 1]
+    for k in (1, 8):
+        eng = _torch_engine(decode_steps=k)
+        eng.add_request("r", PROMPTS["a"], SamplingParams(max_tokens=12, stop_token_ids=(stop,)))
+        assert eng.run_to_completion()["r"] == cut
+
+
+def test_seeded_sampling_is_repeatable_whatever_the_batch():
+    sp = SamplingParams(max_tokens=10, temperature=0.9, top_k=20, top_p=0.9, seed=1234,
+                        ignore_eos=True)
+    alone = _torch_engine(decode_steps=4)
+    alone.add_request("s", PROMPTS["a"], sp)
+    first = alone.run_to_completion()["s"]
+    crowded = _torch_engine(decode_steps=1)
+    crowded.add_request("x", PROMPTS["d"], SamplingParams(max_tokens=5, temperature=1.0))
+    crowded.add_request("s", PROMPTS["a"], sp)
+    assert crowded.run_to_completion()["s"] == first
+    other = _torch_engine(decode_steps=4)
+    other.add_request("s", PROMPTS["a"], SamplingParams(**{**vars(sp), "seed": 99}))
+    assert other.run_to_completion()["s"] != first
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 0, 1.0), (0.7, 5, 0.9)])
+def test_sampler_draws_from_the_jax_samplers_distribution(temperature, top_k, top_p):
+    """The two PRNGs differ, so both samplers are held to the distribution
+    they are meant to draw from: the temperature-scaled softmax over the
+    top-64 candidates, cut by top-k and top-p and renormalized. 4000 draws
+    each over one logit row; every token's count lies within 4.5 standard
+    deviations (binomial) of its expected count."""
+    import jax.numpy as jnp
+    import torch
+
+    from dynamo_tpu.engine.sampling import sample as jax_sample
+    from dynamo_tpu_torch.engine.sampling import DEFAULT_K_CAP, gumbel_noise, sample
+
+    n, v = 4000, 96
+    logits = np.random.default_rng(0).standard_normal(v).astype(np.float32) * 2.0
+    scaled = logits.astype(np.float64) / temperature
+    order = np.argsort(-scaled)[:DEFAULT_K_CAP]
+    full = np.exp(scaled - scaled.max())
+    full /= full.sum()
+    cand = full[order]
+    keep = ((np.cumsum(cand) - cand) < top_p) & (np.arange(len(order)) < (top_k or DEFAULT_K_CAP))
+    p = np.zeros(v)
+    p[order[keep]] = cand[keep] / cand[keep].sum()
+    rows = np.tile(logits, (n, 1))
+    full = lambda x, dt: np.full(n, x, dt)  # noqa: E731
+    want = np.asarray(jax_sample(
+        jnp.asarray(rows), jnp.asarray(full(temperature, np.float32)),
+        jnp.asarray(full(top_p, np.float32)), jnp.asarray(full(top_k, np.int32)),
+        jnp.asarray(full(7, np.uint32)), jnp.arange(n, dtype=jnp.int32),
+    ))
+    got = sample(
+        torch.from_numpy(rows), torch.full((n,), temperature), torch.full((n,), top_p),
+        torch.full((n,), top_k), gumbel_noise([7] * n, range(n), DEFAULT_K_CAP)[0],
+    ).numpy()
+    bound = 4.5 * np.sqrt(n * p * (1 - p)) + 1
+    for draws in (got, want):
+        assert (np.abs(np.bincount(draws, minlength=v) - n * p) <= bound).all()
+        assert p[draws].min() > 0  # nothing outside the kept candidates
+
+
+def test_prompt_longer_than_one_chunk_is_refused():
+    eng = _torch_engine()
+    with pytest.raises(NotImplementedError, match="paged_prefill_attention"):
+        eng.add_request("long", list(range(1, 18)))
+
+
+@pytest.mark.parametrize(
+    "knob", [
+        {"enable_prefix_caching": True}, {"overlap_decode": True}, {"mixed_steps": True},
+        {"decode_kstep": 4}, {"kv_quantize": "int8"}, {"tp": 2}, {"fleet_telemetry": True},
+        {"attention_impl": "xla"}, {"spec_draft_tokens": 8},
+    ],
+)
+def test_unported_knob_is_refused_by_name(knob):
+    (name,) = knob
+    with pytest.raises(NotImplementedError, match=name):
+        EngineConfig.for_tests(**knob)
+
+
+def test_every_knob_of_the_jax_config_is_ported_or_refused():
+    """The port's config takes the JAX config's knob names: each is a
+    field here or an UNPORTED knob, and the JAX test config with the
+    unported features off goes through as it is."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import UNPORTED
+
+    jax_knobs = {f.name for f in dataclasses.fields(JaxEngineConfig)}
+    ported = {f.name for f in dataclasses.fields(EngineConfig)}
+    assert jax_knobs == ported | UNPORTED.keys()
+    assert not ported & UNPORTED.keys()
+    off = dict(enable_prefix_caching=False, overlap_decode=False, mixed_steps=False,
+               fleet_telemetry=False, flight_recorder=False, stall_watchdog=False)
+    cfg = EngineConfig(**dataclasses.asdict(JaxEngineConfig.for_tests(**off)))
+    assert cfg == EngineConfig.for_tests()
+    assert dataclasses.replace(cfg, decode_steps=2).decode_steps == 2
+
+
+def test_preemption_past_one_chunk_is_refused():
+    """Recompute after a preemption restarts the victim from position 0;
+    when its prompt plus output outgrows one chunk it would need chunked
+    prefill, so the step raises instead."""
+    # 7 usable pages of 4 slots: the 14-token prompt takes 4, the 6-token
+    # one 2. Both outgrow their pages on the same step; the older takes the
+    # last free page, so the younger's growth must evict the older, which
+    # then holds 17 tokens
+    eng = _torch_engine(num_pages=8, decode_steps=1, admission_watermark=0.0)
+    eng.add_request("long", list(range(1, 15)), SamplingParams(max_tokens=16, ignore_eos=True))
+    eng.add_request("short", list(range(1, 7)), SamplingParams(max_tokens=16, ignore_eos=True))
+    with pytest.raises(NotImplementedError, match="preempting long"):
+        eng.run_to_completion()
+
+
+def test_no_card_without_asking_for_the_cpu_raises():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEngine(EngineConfig.for_tests())
+
+
+@pytest.mark.parametrize("num_pages,seed", [(40, 0), (9, 1), (9, 2)])
+def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
+    """The same request stream through both schedulers (prefix caching
+    and mixed steps off), with a stand-in token per scheduled row: the
+    same batches, page counts, preemptions and finishes, step by step.
+    9 pages force preemption; every recompute stays within one chunk."""
+    from dynamo_tpu.engine.page_table import PageAllocator as JaxAllocator
+    from dynamo_tpu.engine.request import Request as JaxRequest
+    from dynamo_tpu.engine.scheduler import Scheduler as JaxScheduler
+    from dynamo_tpu_torch.engine.page_table import PageAllocator
+    from dynamo_tpu_torch.engine.request import Request
+    from dynamo_tpu_torch.engine.scheduler import Scheduler
+
+    rng = np.random.default_rng(seed)
+    work = [(f"r{i}", rng.integers(1, 200, rng.integers(1, 9)).tolist(), int(rng.integers(1, 9)))
+            for i in range(10)]
+    kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0)
+
+    def drive(sched, make):
+        reqs = [make(rid, prompt, n) for rid, prompt, n in work]
+        for r in reqs:
+            sched.add_request(r)
+        trace = []
+        while sched.has_work and len(trace) < 400:
+            batch = sched.schedule()
+            done = [(r.request_id, why) for r, why, _ in sched.doomed]
+            sched.doomed.clear()
+            if batch is None:
+                trace.append(("idle", done))
+                continue
+            rows = [p.request for p in batch.prefill] or list(batch.decode)
+            for p in batch.prefill:
+                p.request.num_computed_tokens += p.length
+                p.request.state = type(p.request.state)("decode")
+            trace.append((batch.kind, [(r.request_id, len(r.pages)) for r in rows], done,
+                          sched.preemptions))
+            for r in rows:
+                r.output_tokens.append(7)
+                if len(r.output_tokens) + r.num_emitted >= r.sampling.max_tokens:
+                    sched.finish(r)
+        return trace
+
+    want = drive(
+        JaxScheduler(JaxEngineConfig.for_tests(enable_prefix_caching=False, mixed_steps=False, **kw),
+                     JaxAllocator(num_pages, 4)),
+        lambda rid, p, n: JaxRequest(rid, p, JaxSampling(max_tokens=n)),
+    )
+    got = drive(Scheduler(EngineConfig.for_tests(**kw), PageAllocator(num_pages, 4)),
+                lambda rid, p, n: Request(rid, p, SamplingParams(max_tokens=n)))
+    assert got == want
+    assert len(want) < 400
+    if num_pages == 9:  # the small pool did preempt
+        assert max(step[-1] for step in want if step[0] != "idle") > 0
