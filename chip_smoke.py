@@ -15,10 +15,13 @@ Phases, each fatal on failure:
      per-step max |delta logit| < 0.25 and argmax agreement >= 90 %;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 and
      nine requests (three streaming chats, a unary chat and a completion
-     together, then a greedy pair and a seeded sampled pair one request at
-     a time, each pair identical); usage counts must match the tokens
-     served, every kernel's launch count must rise while serving and no
-     plain version may run.
+     together, then a streamed greedy pair and a streamed seeded sampled
+     pair one request at a time). Each asks for its token ids in its
+     choices (ext.return_token_ids): usage must count exactly the ids
+     served, each pair's ids must be identical, every kernel's launch count
+     must rise while serving and no plain version may run. TTFT is taken
+     at the client, from sending a streaming request to its first chunk
+     that carries a token.
 Then the `kernels` JSON line, the card line and, last, the contract line
 {"ok": true, "device": {...}}. With no card it exits non-zero and prints
 no result.
@@ -47,6 +50,12 @@ SOURCE = {
     "paged_decode_attention": (
         "dynamo_tpu_torch/csrc/paged_attention.cu", "dynamo_tpu/ops/paged_attention.py:369"),
 }
+#: flash prefill (bf16 output): each row's max |diff| against the plain
+#: version, as a share of the row's largest |value|; 2^-6 is 2-4 bf16 ulps
+#: there, so a dropped key tile or a wrong mask fails on long rows too
+PREFILL_ROW_RTOL = 2.0**-6
+#: paged decode (f32 output): max |acc/l diff| and |m diff|
+DECODE_ATOL = 1e-4
 #: the model gate (the reference's bf16 gate)
 GATE_MAX_DLOGIT, GATE_ARGMAX = 0.25, 0.90
 
@@ -115,7 +124,7 @@ def check_paged_write(dev, peaks, gen, b: int, t: int) -> dict:
         raise AssertionError(f"paged_write B={b} T={t}: not bit-equal (max |diff| {err})")
     ms = cuda_ms(lambda: kv_update.paged_write(kc_k, vc_k, k_stage, v_stage, *args))
     plain_ms = cuda_ms(lambda: kv_update.paged_write_plain(kc_p, vc_p, k_stage, v_stage, *args))
-    b_ms, by = bound(kv_update.bytes_moved(k_stage), 0.0, peaks)
+    b_ms, by = bound(kv_update.bytes_moved(k_stage, valid.cpu(), S), 0.0, peaks)
     return {"kernel": "paged_write", "B": b, "T": t, "L": L, "Hkv": HKV, "D": D, "S": S,
             "tolerance": "bit-equal on every page but the null page 0",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -133,23 +142,27 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
     ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=D)
     torch.cuda.synchronize()
     rows = torch.arange(t, device=dev)[None, :] < valid_len[:, None]
-    err = (got.float() - ref.float()).abs().amax(dim=(2, 3))[rows].max().item()
-    if not (err <= 2e-2) or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_prefill_attention B={b} T={t}: max |diff| {err} > 2e-2")
+    diff = (got.float() - ref.float()).abs().amax(dim=-1)[rows]  # [tokens, Hq]
+    scale = ref.float().abs().amax(dim=-1)[rows]
+    err = diff.max().item()
+    rel = (diff / scale).max().item()
+    if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_prefill_attention B={b} T={t}: a row's max |diff| is "
+                             f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
     ms = cuda_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=D))
     plain_ms = cuda_ms(
         lambda: flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=D))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    tokens = int(valid_len.sum())
-    # valid rows of q, k and v read once; the whole output written once
-    nbytes = 2 * (tokens * (HQ + 2 * HKV) * D + q.numel())
+    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, D, 2)
     b_ms, by = bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, D), peaks)
     return {"kernel": "flash_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
             "valid_len": valid_len.tolist(),
-            "tolerance": "bf16, max |diff| <= 2e-2 on rows below valid_len",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "tolerance": f"bf16, each (token, head) row below valid_len: max |diff| <= "
+                         f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)",
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
                        "over the whole padded chunk",
             "bound_ms": b_ms, "bound_by": by}
@@ -178,12 +191,14 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
     torch.cuda.synchronize()
     some = hist > 0
     err = (acc / l[..., None] - racc / rl[..., None])[some].abs().max().item()
+    m_err = (m - rm)[some].abs().max().item()
     empty_ok = bool(
         (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
     )
-    if not (err <= 2e-2) or not empty_ok:
+    if not (err <= DECODE_ATOL and m_err <= DECODE_ATOL) or not empty_ok:
         raise AssertionError(
-            f"paged_decode_attention B={b}: max |diff| {err} > 2e-2 or empty rows {empty_ok}")
+            f"paged_decode_attention B={b}: max |acc/l diff| {err}, max |m diff| {m_err} "
+            f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
 
     def call():
         return paged_attention.paged_decode_attention(
@@ -207,7 +222,8 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
     b_ms, by = bound(nbytes, flop, peaks)
     return {"kernel": "paged_decode_attention", "B": b, "Hq": HQ, "Hkv": HKV, "D": D, "S": S,
             "history_tokens": int(hist.long().sum()), "max_history": int(hist.max()),
-            "tolerance": "f32, max |acc/l diff| <= 2e-2; zero history exactly (0, -inf, 0)",
+            "tolerance": f"f32, max |acc/l diff| and |m diff| <= {DECODE_ATOL}; "
+                         "zero history exactly (0, -inf, 0)",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
                        "dense copy of the history, normalized output",
@@ -287,20 +303,36 @@ def phase_model(dev) -> dict:
 # -- phase 5: serve ---------------------------------------------------------------
 
 
-def _post(url, body) -> tuple[int, dict | list]:
-    """(status, the parsed body or the SSE events before [DONE])."""
+def _post(url, body) -> tuple[int, list, list[int], float | None]:
+    """(status, the response's objects, the token ids its choices carry,
+    seconds from sending the request to the first chunk with a token).
+
+    A stream's objects are its SSE events before [DONE]; a unary response
+    is one object (and no first-token time)."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    ttft = None
     with urllib.request.urlopen(req, timeout=600) as resp:
         status = resp.status
-        if body.get("stream"):
-            lines = [ln.decode().strip() for ln in resp if ln.strip()]
-            if lines[-1] != "data: [DONE]":
-                raise AssertionError(f"stream did not end in [DONE]: {lines[-1:]}")
-            out = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+        if not body.get("stream"):
+            out = [json.load(resp)]
         else:
-            out = json.load(resp)
-    return status, out
+            out = []
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line:
+                    continue
+                if line == "data: [DONE]":
+                    break
+                event = json.loads(line[len("data: "):])
+                if ttft is None and any(c.get("token_ids") for c in event["choices"]):
+                    ttft = time.perf_counter() - t0
+                out.append(event)
+            else:
+                raise AssertionError(f"{url}: stream did not end in [DONE]")
+    ids = [t for o in out for c in o["choices"] for t in c.get("token_ids", [])]
+    return status, out, ids, ttft
 
 
 def phase_serve(card: str) -> dict:
@@ -309,27 +341,14 @@ def phase_serve(card: str) -> dict:
     server = start_server(["run", "in=http", "out=torch", "--model", "llama3-1b",
                            "--port", "0", "--dtype", "bfloat16", "--max-context", "2048"])
     try:
-        pipeline = server.service.manager.get("llama3-1b")
-        tokens: dict[str, list[int]] = {}
-        first_item: dict[str, float] = {}
-        engine_fn = pipeline.engine_fn
-
-        def tap(pre):
-            """Record each request's token ids and first-token time."""
-            t0 = time.perf_counter()
-            tokens[pre.request_id] = []
-            for item in engine_fn(pre):
-                if item["token_ids"] and pre.request_id not in first_item:
-                    first_item[pre.request_id] = time.perf_counter() - t0
-                tokens[pre.request_id].extend(item["token_ids"])
-                yield item
-
-        pipeline.engine_fn = tap
         chat = server.url + "/v1/chat/completions"
-        ext = {"ignore_eos": True}
-        usage = {"stream_options": {"include_usage": True}}
+        # every choice carries its token ids (random weights over a
+        # 128,256-id vocabulary seldom pick one of the 256 byte tokens, so
+        # the text alone says little)
+        ext = {"ignore_eos": True, "return_token_ids": True}
+        stream = {"stream": True, "stream_options": {"include_usage": True}}
         jobs = [
-            (chat, {"model": "llama3-1b", "stream": True, "max_tokens": 96, "ext": ext, **usage,
+            (chat, {"model": "llama3-1b", "max_tokens": 96, "ext": ext, **stream,
                     "messages": [{"role": "user", "content": f"stream {i}: " + "tell me " * 8 * i}]})
             for i in range(1, 4)
         ] + [
@@ -338,10 +357,10 @@ def phase_serve(card: str) -> dict:
             (server.url + "/v1/completions",
              {"model": "llama3-1b", "prompt": "Once upon a time", "max_tokens": 48, "ext": ext}),
         ]
-        greedy = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext,
+        greedy = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
                          "messages": [{"role": "user", "content": "greedy twice"}]})
-        seeded = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, "seed": 7,
-                         "temperature": 0.8, "top_p": 0.95,
+        seeded = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
+                         "seed": 7, "temperature": 0.8, "top_p": 0.95,
                          "messages": [{"role": "user", "content": "sampled twice"}]})
         jobs += [greedy, seeded, greedy, seeded]
         results: list = [None] * len(jobs)
@@ -370,32 +389,31 @@ def phase_serve(card: str) -> dict:
         server.stop()
 
     out_tokens = 0
-    rid_of = []
+    ttft = []
     for (url, body), res in zip(jobs, results):
         if isinstance(res, Exception):
             raise res
-        status, out = res
+        status, out, ids, first = res
         if status != 200:
             raise AssertionError(f"{url}: status {status}")
-        events = out if body.get("stream") else [out]
-        rid = events[0]["id"]
-        use = events[-1]["usage"]
-        n = len(tokens[rid])
-        if use["completion_tokens"] != n or n != body["max_tokens"]:
-            raise AssertionError(f"{rid}: usage {use} but {n} tokens served")
-        out_tokens += n
-        rid_of.append(rid)
+        use = out[-1]["usage"]
+        if use["completion_tokens"] != len(ids) or len(ids) != body["max_tokens"]:
+            raise AssertionError(f"{url}: usage {use} but {len(ids)} token ids served")
+        out_tokens += len(ids)
+        if body.get("stream"):
+            ttft.append(first)
     for a, b in ((5, 7), (6, 8)):  # the greedy pair and the seeded pair
-        if tokens[rid_of[a]] != tokens[rid_of[b]]:
+        if results[a][2] != results[b][2]:
             raise AssertionError(f"requests {a} and {b} should be identical")
     for name, (launches, plain) in counts.items():
         if launches == 0 or plain != 0:
             raise AssertionError(f"serve: {name} launched {launches} times, plain ran {plain}")
-    ttft = sorted(first_item.values())
     result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16", "card": card,
               "requests": len(jobs), "output_tokens": out_tokens, "wall_s": wall,
               "tok_s": out_tokens / wall, "ttft_p50_s": statistics.median(ttft),
-              "ttft": "first token at the pipeline, from the engine stream's start",
+              "ttft_s": ttft,
+              "ttft": "at the client, from sending a streaming request to the first SSE "
+                      "chunk that carries a token",
               "launches": {k: v[0] for k, v in counts.items()},
               "plain_calls": {k: v[1] for k, v in counts.items()}}
     emit(result)

@@ -4,15 +4,17 @@
 // _write_kernel (pallas_call at kv_update.py:266), which issues one DMA
 // per (sequence, page-run) covering every layer.
 //
-// Bound on the H100: bytes. The write moves the staged K/V once in and
-// once out (4 * L*B*T*Hkv*D*itemsize bytes) and does no arithmetic.
+// Bound on the H100: bytes. The write moves each run that lands in a
+// real page once in and once out (4 * L * rows * Hkv*D*itemsize bytes,
+// rows = run * the runs whose first token is valid) and does no
+// arithmetic.
 // Design: one block per (run, layer), so a prefill chunk spreads over
 // L * B * T/run blocks and a decode step over L * B. Each token row
 // (Hkv*D elements, contiguous in both layouts) moves as 16-byte vectors,
 // neighbouring threads on neighbouring addresses. A run whose first
-// token is padding is sent to the null page 0 (slots [0, run)), as the
-// Pallas kernel does; concurrent padding runs may race there, and page
-// 0's contents are unspecified by contract.
+// token is padding belongs to no sequence: the Pallas kernel sends it to
+// the null page 0, whose contents are unspecified and which no page
+// table names, so this kernel skips it and moves no bytes for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,13 +36,10 @@ __global__ void __launch_bounds__(128) paged_write_kernel(
   const int layer = blockIdx.y;
   const int b = r / runs_per_seq;
   const int first = b * tokens + (r % runs_per_seq) * run;  // [B, T] index
-  int page = 0;
-  int slot0 = 0;
-  if (valid[first]) {
-    const int pos = positions[first];
-    page = page_tables[b * max_pages + pos / page_size];
-    slot0 = pos % page_size;
-  }
+  if (!valid[first]) return;  // a padding run: nothing to land
+  const int pos = positions[first];
+  const int page = page_tables[b * max_pages + pos / page_size];
+  const int slot0 = pos % page_size;
   const long long src = ((long long)layer * batch * tokens + first) * row_vecs;
   const long long dst =
       (((long long)layer * num_pages + page) * page_size + slot0) * row_vecs;

@@ -47,11 +47,13 @@ def _legacy_completion_chunk(chunk) -> dict:
         "object": "text_completion",
         "created": chunk.created,
         "model": chunk.model,
-        "choices": [
-            {"index": c.index, "text": c.delta.content or "", "finish_reason": c.finish_reason}
-            for c in chunk.choices
-        ],
+        "choices": [],
     }
+    for c in chunk.choices:
+        choice = {"index": c.index, "text": c.delta.content or "", "finish_reason": c.finish_reason}
+        if c.token_ids is not None:
+            choice["token_ids"] = c.token_ids
+        out["choices"].append(choice)
     if chunk.usage is not None:
         out["usage"] = dump(chunk.usage)
     return out
@@ -174,7 +176,7 @@ def _handler_for(service: HttpService):
                     choices=[
                         CompletionChoice(
                             index=c.index, text=c.message.content or "",
-                            finish_reason=c.finish_reason,
+                            finish_reason=c.finish_reason, token_ids=c.token_ids,
                         )
                         for c in resp.choices
                     ],

@@ -94,3 +94,11 @@ def flops(valid_len, hq: int, d: int) -> int:
     n = torch.as_tensor(valid_len).long()
     pairs = int((n * (n + 1) // 2).sum())
     return 4 * hq * d * pairs
+
+
+def bytes_moved(valid_len, hq: int, hkv: int, d: int, itemsize: int) -> int:
+    """Least bytes one call must move: each valid token's q, k and v read
+    once and its output rows written once (rows at or past valid_len are
+    unspecified, so the function need not write them)."""
+    tokens = int(torch.as_tensor(valid_len).long().sum())
+    return tokens * (2 * hq + 2 * hkv) * d * itemsize

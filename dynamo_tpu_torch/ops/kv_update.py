@@ -7,11 +7,12 @@ lands them in the pools ([L, P, S, Hkv, D]) in place, once per step.
 Runs: each run is min(T, S) consecutive slots of one (sequence, page),
 placed by its first token (decode runs are one slot; prefill chunks start
 page-aligned, so a run never crosses a page). A run whose first token is
-padding (valid=False) is sent to the null page 0, slots [0, run): page 0's
-contents are unspecified, and no page table names it. A run whose first
-token is valid but whose tail is padding writes the tail rows too; those
-slots lie past the sequence's history and are overwritten before they are
-read.
+padding (valid=False) belongs to no page: the Pallas kernel and the plain
+version below send it to the null page 0, slots [0, run), and the CUDA
+kernel skips it; page 0's contents are unspecified, and no page table
+names it. A run whose first token is valid but whose tail is padding
+writes the tail rows too; those slots lie past the sequence's history and
+are overwritten before they are read.
 
 On CUDA tensors the kernel in csrc/kv_update.cu runs; on CPU tensors the
 plain version below does the same work.
@@ -104,7 +105,10 @@ def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, vali
     return k_cache, v_cache
 
 
-def bytes_moved(k_stage) -> int:
-    """Least bytes the write must move: both staged tensors read once and
-    written once."""
-    return 2 * 2 * k_stage.numel() * k_stage.element_size()
+def bytes_moved(k_stage, valid, page_size: int) -> int:
+    """Least bytes the write must move: each run that lands in a real page
+    (its first token valid), K and V, read once and written once."""
+    run = min(k_stage.shape[2], page_size)
+    rows = int(valid[:, ::run].sum()) * run
+    row_bytes = k_stage.shape[3] * k_stage.shape[4] * k_stage.element_size()
+    return 2 * 2 * k_stage.shape[0] * rows * row_bytes

@@ -45,6 +45,7 @@ class PreprocessedRequest:
     stop_token_ids: list[int] = field(default_factory=list)
     stop_strings: list[str] = field(default_factory=list)
     ignore_eos: bool = False
+    return_token_ids: bool = False
 
 
 def _stop_list(stop) -> list[str]:
@@ -91,6 +92,7 @@ class OpenAIPreprocessor:
             stop_token_ids=list(self.tokenizer.eos_token_ids),
             stop_strings=_stop_list(request.stop),
             ignore_eos=bool(ext.ignore_eos),
+            return_token_ids=bool(ext.return_token_ids),
         )
 
     # -- backward ----------------------------------------------------------
@@ -101,7 +103,12 @@ class OpenAIPreprocessor:
         preprocessed: PreprocessedRequest,
         include_usage: bool = False,
     ) -> Iterator[ChatCompletionChunk]:
-        """Engine events {token_ids, finish_reason} -> OpenAI chunks."""
+        """Engine events {token_ids, finish_reason} -> OpenAI chunks.
+
+        With `return_token_ids` each engine event that carries tokens gives
+        one chunk holding their ids and whatever text they rendered, so the
+        ids cover every token that usage counts.
+        """
         request_id = preprocessed.request_id
         decode = DecodeStream(self.tokenizer)
         stop = StopChecker(preprocessed.stop_strings)
@@ -110,7 +117,7 @@ class OpenAIPreprocessor:
         first = True
         finish: Optional[str] = None
 
-        def chunk(content=None, role=None, finish_reason=None):
+        def chunk(content=None, role=None, finish_reason=None, token_ids=None):
             return ChatCompletionChunk(
                 id=request_id,
                 created=created,
@@ -118,23 +125,34 @@ class OpenAIPreprocessor:
                 choices=[ChatStreamChoice(
                     delta=ChatChoiceDelta(role=role, content=content),
                     finish_reason=finish_reason,
+                    token_ids=token_ids,
                 )],
             )
 
         stop_ids = set(preprocessed.stop_token_ids)
+        with_ids = preprocessed.return_token_ids
         for event in engine_stream:
+            ids: list[int] = []
+            texts: list[str] = []
             for tok in event.get("token_ids", ()):
                 completion_tokens += 1
+                ids.append(tok)
                 if tok in stop_ids and not preprocessed.ignore_eos:
                     finish = "stop"
                     break  # never render the stop/eos token itself
                 text = stop.feed(decode.step(tok))
-                if text:
+                if text and with_ids:
+                    texts.append(text)
+                elif text:
                     yield chunk(content=text, role="assistant" if first else None)
                     first = False
                 if stop.stopped:
                     finish = "stop"
                     break
+            if with_ids and ids:
+                yield chunk(content="".join(texts) or None,
+                            role="assistant" if first else None, token_ids=ids)
+                first = False
             if finish == "stop":
                 break
             if event.get("finish_reason"):

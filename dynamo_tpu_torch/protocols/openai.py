@@ -98,7 +98,10 @@ def _common(body: dict) -> dict:
         ) if so is not None else None,
         stop=stop,
         seed=_get(body, "seed", int),
-        ext=Ext(ignore_eos=ext.get("ignore_eos")) if ext else None,
+        ext=Ext(
+            ignore_eos=_get(ext, "ignore_eos", bool),
+            return_token_ids=_get(ext, "return_token_ids", bool),
+        ) if ext else None,
     )
 
 
@@ -107,6 +110,10 @@ class Ext:
     """Framework extensions (the reference's nvext)."""
 
     ignore_eos: Optional[bool] = None
+    #: each choice carries the ids of the tokens it covers (`token_ids`,
+    #: vLLM's `return_token_ids`): a stream sends one chunk per engine
+    #: event, so a client sees every token as it is made
+    return_token_ids: Optional[bool] = None
 
 
 @dataclass
@@ -228,6 +235,7 @@ class ChatStreamChoice:
     index: int = 0
     delta: ChatChoiceDelta = field(default_factory=ChatChoiceDelta)
     finish_reason: Optional[str] = None
+    token_ids: Optional[list[int]] = None
 
 
 @dataclass
@@ -245,6 +253,7 @@ class ChatChoice:
     index: int = 0
     message: ChatMessage = field(default_factory=lambda: ChatMessage(role="assistant", content=""))
     finish_reason: Optional[str] = None
+    token_ids: Optional[list[int]] = None
 
 
 @dataclass
@@ -262,6 +271,7 @@ class CompletionChoice:
     index: int = 0
     text: str = ""
     finish_reason: Optional[str] = None
+    token_ids: Optional[list[int]] = None
 
 
 @dataclass
@@ -310,12 +320,15 @@ def aggregate_chat_stream(chunks: list[ChatCompletionChunk], model: str,
                           request_id: str) -> ChatCompletionResponse:
     """Fold a one-choice chunk stream into a non-streaming response."""
     text: list[str] = []
+    token_ids: Optional[list[int]] = None
     finish: Optional[str] = None
     usage: Optional[Usage] = None
     for ch in chunks:
         for choice in ch.choices:
             if choice.delta.content:
                 text.append(choice.delta.content)
+            if choice.token_ids is not None:
+                token_ids = (token_ids or []) + choice.token_ids
             if choice.finish_reason:
                 finish = choice.finish_reason
         if ch.usage is not None:
@@ -327,6 +340,7 @@ def aggregate_chat_stream(chunks: list[ChatCompletionChunk], model: str,
         choices=[ChatChoice(
             message=ChatMessage(role="assistant", content="".join(text)),
             finish_reason=finish,
+            token_ids=token_ids,
         )],
         usage=usage,
     )

@@ -4,8 +4,10 @@ Marked `cuda`; each test decides inside itself whether a card is present
 and skips when there is none (never at import, so every worker collects
 the same tests). Run on the card with `python -m pytest -m cuda
 tests/test_torch_cuda.py`. Shapes are llama3-1b's attention widths (Hq=32,
-Hkv=8, D=64, page size 64) and a D=128 case; the write is bit-equal, the
-attention kernels agree within 2e-2 (bf16 inputs, f32 accumulation).
+Hkv=8, D=64, page size 64) and a D=128 case. The write is bit-equal off
+the null page. Flash prefill (bf16 output) holds each valid (token, head)
+row within 2^-6 of the row's largest |value|, 2-4 bf16 ulps there; paged
+decode (f32 output) holds acc/l and m within 1e-4.
 """
 
 import pytest
@@ -42,8 +44,9 @@ def test_paged_write_bit_equal(b, t):
     got = kv_update.paged_write(k_cache.clone(), v_cache.clone(), k_stage, v_stage, pt, pos, valid)
     want = kv_update.paged_write_plain(k_cache.clone(), v_cache.clone(), k_stage, v_stage,
                                        pt, pos, valid)
-    for g, w in zip(got, want):
+    for g, w, before in zip(got, want, (k_cache, v_cache)):
         assert torch.equal(g[:, 1:], w[:, 1:])  # page 0 is the null page
+        assert torch.equal(g[:, 0], before[:, 0])  # the kernel skips padding runs
 
 
 @pytest.mark.parametrize("hq,hkv,d,lens", [
@@ -61,7 +64,8 @@ def test_flash_prefill_matches_plain(hq, hkv, d, lens):
     want = flash_prefill.flash_prefill_attention_plain(q, k, v, vl)
     assert torch.isfinite(got).all()
     for i, n in enumerate(lens):
-        assert (got[i, :n].float() - want[i, :n].float()).abs().max() <= 2e-2
+        diff = (got[i, :n].float() - want[i, :n].float()).abs().amax(dim=-1)
+        assert (diff <= 2.0**-6 * want[i, :n].float().abs().amax(dim=-1)).all()
 
 
 @pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 8, 64), (6, 32, 8, 64), (3, 8, 8, 128)])
@@ -79,8 +83,8 @@ def test_paged_decode_matches_plain(b, hq, hkv, d):
     acc, m, l = paged_attention.paged_decode_attention(q, k_cache, v_cache, 1, pt, hist)
     racc, rm, rl = paged_attention.paged_decode_attention_plain(q, k_cache, v_cache, 1, pt, hist)
     some = hist > 0
-    assert (acc[some] / l[some][..., None] - racc[some] / rl[some][..., None]).abs().max() <= 2e-2
-    assert torch.allclose(m[some], rm[some], atol=2e-2)
+    assert (acc[some] / l[some][..., None] - racc[some] / rl[some][..., None]).abs().max() <= 1e-4
+    assert (m[some] - rm[some]).abs().max() <= 1e-4
     assert (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
 
 

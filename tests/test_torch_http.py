@@ -130,10 +130,37 @@ def test_concurrent_streams_all_finish(server):
         assert done and events[-1]["usage"]["completion_tokens"] == 4 + i
 
 
+def test_token_ids_cover_the_usage(server):
+    """ext.return_token_ids: the ids in the chunks are the tokens usage
+    counts, one chunk per engine event, the same in a unary response."""
+    body = {"model": "tiny", "messages": MESSAGES, "max_tokens": 9,
+            "ext": {"ignore_eos": True, "return_token_ids": True}}
+    events, done = _stream(server.url + "/v1/chat/completions", {
+        **body, "stream": True, "stream_options": {"include_usage": True}})
+    assert done
+    streamed = [t for e in events for c in e["choices"] for t in c.get("token_ids", [])]
+    assert len(streamed) == events[-1]["usage"]["completion_tokens"] == 9
+    assert "token_ids" in events[0]["choices"][0]  # the first chunk carries a token
+    assert events[0]["choices"][0]["delta"]["role"] == "assistant"
+    with _post(server.url + "/v1/chat/completions", body) as r:
+        resp = json.load(r)
+    assert resp["choices"][0]["token_ids"] == streamed  # greedy: same tokens
+    legacy, _ = _stream(server.url + "/v1/completions", {
+        "model": "tiny", "prompt": "The sky is", "max_tokens": 5, "stream": True,
+        "ext": {"ignore_eos": True, "return_token_ids": True}})
+    assert sum(len(c.get("token_ids", [])) for e in legacy for c in e["choices"]) == 5
+    # without the extension no choice carries ids
+    plain, _ = _stream(server.url + "/v1/chat/completions", {**body, "ext": {"ignore_eos": True},
+                                                             "stream": True})
+    assert not any("token_ids" in c for e in plain for c in e["choices"])
+
+
 @pytest.mark.parametrize("path,body,status", [
     ("/v1/chat/completions", {"model": "tiny"}, 400),
     ("/v1/chat/completions", {"model": "nope", "messages": MESSAGES}, 404),
     ("/v1/chat/completions", {"model": "tiny", "messages": MESSAGES, "logprobs": True}, 400),
+    ("/v1/chat/completions",
+     {"model": "tiny", "messages": MESSAGES, "ext": {"return_token_ids": "yes"}}, 400),
     # longer than one chunk, though it fits the context
     ("/v1/completions", {"model": "tiny", "prompt": "x" * 100}, 501),
     ("/v1/completions", {"model": "tiny", "prompt": "x" * 100, "stream": True}, 501),
