@@ -11,17 +11,21 @@ Phases, each fatal on failure:
      call's where one computes the same function, and the card's least time
      for the work (bound, from bytes or operations over the H100's peaks);
   4. model: random-init llama3-1b in bf16, the kernel path against the
-     plain path, teacher-forced over a 256-token prompt and 32 decode steps:
-     per-step max |delta logit| < 0.25 and argmax agreement >= 90 %;
-  5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 and
-     nine requests (three streaming chats, a unary chat and a completion
-     together, then a streamed greedy pair and a streamed seeded sampled
-     pair one request at a time). Each asks for its token ids in its
-     choices (ext.return_token_ids): usage must count exactly the ids
-     served, each pair's ids must be identical, every kernel's launch count
-     must rise while serving and no plain version may run. TTFT is taken
-     at the client, from sending a streaming request to its first chunk
-     that carries a token.
+     plain path, teacher-forced over a 256-token prompt and 32 decode steps,
+     and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
+     and 32 decode steps: per-step max |delta logit| < 0.25 and argmax
+     agreement >= 90 %;
+  5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
+     CLI's default chunk of 512 tokens, and ten requests (three streaming
+     chats, a streaming chat whose prompt is over 1,200 tokens and so
+     prefills in three chunks, a unary chat and a completion together,
+     then a streamed greedy pair and a streamed seeded sampled pair one
+     request at a time). Each asks for its token ids in its choices
+     (ext.return_token_ids): usage must count exactly the ids served, each
+     pair's ids must be identical, every kernel's launch count must rise
+     while serving and no plain version may run. TTFT is taken at the
+     client, from sending a streaming request to its first chunk that
+     carries a token.
 Then the `kernels` JSON line, the card line and, last, the contract line
 {"ok": true, "device": {...}}. With no card it exits non-zero and prints
 no result.
@@ -49,10 +53,12 @@ SOURCE = {
         "dynamo_tpu_torch/csrc/flash_prefill.cu", "dynamo_tpu/ops/flash_prefill.py:484"),
     "paged_decode_attention": (
         "dynamo_tpu_torch/csrc/paged_attention.cu", "dynamo_tpu/ops/paged_attention.py:369"),
+    "paged_prefill_attention": (
+        "dynamo_tpu_torch/csrc/paged_prefill.cu", "dynamo_tpu/ops/flash_prefill.py:389"),
 }
-#: flash prefill (bf16 output): each row's max |diff| against the plain
-#: version, as a share of the row's largest |value|; 2^-6 is 2-4 bf16 ulps
-#: there, so a dropped key tile or a wrong mask fails on long rows too
+#: flash and paged prefill (bf16 output): each row's max |diff| against the
+#: plain version, as a share of the row's largest |value|; 2^-6 is 2-4 bf16
+#: ulps there, so a dropped key tile or a wrong mask fails on long rows too
 PREFILL_ROW_RTOL = 2.0**-6
 #: paged decode (f32 output): max |acc/l diff| and |m diff|
 DECODE_ATOL = 1e-4
@@ -131,6 +137,16 @@ def check_paged_write(dev, peaks, gen, b: int, t: int) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
+def row_errors(got, ref, lens) -> tuple[float, float]:
+    """(max |diff|, the largest row's max |diff| over its largest |value|)
+    over the (token, head) rows below each sequence's length."""
+    t = got.shape[1]
+    rows = torch.arange(t, device=got.device)[None, :] < lens[:, None]
+    diff = (got.float() - ref.float()).abs().amax(dim=-1)[rows]  # [tokens, Hq]
+    scale = ref.float().abs().amax(dim=-1)[rows]
+    return diff.max().item(), (diff / scale).max().item()
+
+
 def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
     bf = dict(dtype=torch.bfloat16, device=dev)
     q = torch.randn((b, t, HQ, D), generator=gen, **bf)
@@ -141,11 +157,7 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
     got = flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=D)
     ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=D)
     torch.cuda.synchronize()
-    rows = torch.arange(t, device=dev)[None, :] < valid_len[:, None]
-    diff = (got.float() - ref.float()).abs().amax(dim=-1)[rows]  # [tokens, Hq]
-    scale = ref.float().abs().amax(dim=-1)[rows]
-    err = diff.max().item()
-    rel = (diff / scale).max().item()
+    err, rel = row_errors(got, ref, valid_len)
     if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
         raise AssertionError(f"flash_prefill_attention B={b} T={t}: a row's max |diff| is "
                              f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
@@ -166,6 +178,58 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
             "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
                        "over the whole padded chunk",
             "bound_ms": b_ms, "bound_by": by}
+
+
+def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int) -> dict:
+    b = len(hist)
+    mp = max(1, -(-max(hist) // S))
+    num_pages = 1 + b * mp
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((b, t, HQ, D), generator=gen, **bf)
+    k_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
+    v_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
+    k_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
+    v_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
+    pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
+    pt = pt.reshape(b, mp).to(torch.int32)
+    hist_lens = torch.tensor(hist, dtype=torch.int32, device=dev)
+    cur_lens = torch.tensor(cur, dtype=torch.int32, device=dev)
+    layer = L - 2
+    args = (q, k_cur, v_cur, k_cache, v_cache, layer, pt, hist_lens, cur_lens)
+    got = flash_prefill.paged_prefill_attention(*args, scale_dim=D)
+    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D)
+    torch.cuda.synchronize()
+    err, rel = row_errors(got, ref, cur_lens)
+    if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
+        raise AssertionError(f"paged_prefill_attention B={b} T={t}: a row's max |diff| is "
+                             f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
+    ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D))
+    plain_ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D))
+    # the library yardstick attends over a dense copy of each sequence's
+    # history followed by its chunk (the copy is not timed), with the same
+    # mask: history below hist_lens, the chunk causally below cur_lens
+    n_hist = mp * S
+    dense_k = torch.cat([k_cache[layer][pt.long()].reshape(b, n_hist, HKV, D), k_cur], 1)
+    dense_v = torch.cat([v_cache[layer][pt.long()].reshape(b, n_hist, HKV, D), v_cur], 1)
+    pos = torch.arange(t, device=dev)
+    hist_live = (torch.arange(n_hist, device=dev)[None, :] < hist_lens[:, None])
+    cur_live = (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < cur_lens[:, None, None])
+    mask = torch.cat([hist_live[:, None, :].expand(b, t, n_hist), cur_live], 2)[:, None]
+    qt, kt, vt = q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, D, 2)
+    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, D)
+    b_ms, by = bound(nbytes, flop, peaks)
+    return {"kernel": "paged_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
+            "S": S, "hist_lens": hist, "cur_lens": cur,
+            "tolerance": f"bf16, each (token, head) row below cur_lens: max |diff| <= "
+                         f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)",
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
+                       "dense copy of each history followed by its chunk",
+            "flop": flop, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
 def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
@@ -238,6 +302,8 @@ def phase_kernels(dev, peaks) -> dict:
         check_flash_prefill(dev, peaks, gen, 8, 512),
         check_paged_decode(dev, peaks, gen, 1, 2048),
         check_paged_decode(dev, peaks, gen, 32, 2048),
+        # a first chunk through this kernel, a ragged chunk, long histories
+        check_paged_prefill(dev, peaks, gen, [0, 512, 1536, 3072], [512, 512, 300, 512], 512),
     ]
     for c in cases:
         emit({"phase": "kernels", **c})
@@ -248,56 +314,73 @@ def phase_kernels(dev, peaks) -> dict:
 # -- phase 4: the model gate ------------------------------------------------------
 
 
-def phase_model(dev) -> dict:
+def phase_model(dev) -> list[dict]:
+    """The model gate over a prompt in one first chunk, and over a longer
+    prompt in chunks whose later ones attend over their history."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.registry import get_model
 
     adapter = get_model("llama3-1b", dtype="bfloat16")
     cfg = adapter.config
     params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
-    prompt_len, steps, num_pages = 256, 32, 8
-    pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
-    pools = {name: adapter.init_kv(num_pages, S, dev) for name in ("kernel", "plain")}
     selector = {"kernel": ops.KERNELS, "plain": ops.PLAIN}
-    gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
-    positions = torch.arange(prompt_len, dtype=torch.int32, device=dev)[None]
-    valid = torch.ones((1, prompt_len), dtype=torch.bool, device=dev)
-    worst, agree, rows = 0.0, 0, 0
-
-    def both(tok, pos, val, first_chunk):
-        out = {}
-        for name in ("kernel", "plain"):
-            out[name], _ = llama.forward(params, cfg, tok, pos, val, pools[name], pt,
-                                         first_chunk=first_chunk, ops=selector[name])
-        return out["kernel"][0], out["plain"][0]  # [T, V] each
-
+    results = []
     with torch.no_grad():
-        got, want = both(tokens, positions, valid, True)
-        nxt = want[-1].argmax()
-        for step in range(steps + 1):
-            d = (got.float() - want.float()).abs().amax(dim=-1)  # per position
-            worst = max(worst, d.max().item())
-            agree += int((got.argmax(-1) == want.argmax(-1)).sum())
-            rows += got.shape[0]
-            if d.max().item() >= GATE_MAX_DLOGIT:
-                raise AssertionError(f"model gate: step {step} max |dlogit| {d.max().item()}")
-            if step == steps:
-                break
-            # teacher forcing: both paths take the plain path's greedy token
-            pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
-            got, want = both(nxt.view(1, 1), pos, valid[:, :1], False)
+        for chunks, steps in (((256,), 32), ((512, 512, 256), 32)):
+            prompt_len = sum(chunks)
+            num_pages = 2 + (prompt_len + steps) // S
+            pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
+            pools = {name: adapter.init_kv(num_pages, S, dev) for name in ("kernel", "plain")}
+            gen = torch.Generator(device=dev).manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
+            worst, agree, rows = 0.0, 0, 0
+
+            def both(tok, pos, first_chunk):
+                out = {}
+                val = torch.ones(tok.shape, dtype=torch.bool, device=dev)
+                for name in ("kernel", "plain"):
+                    out[name], _ = llama.forward(params, cfg, tok, pos, val, pools[name], pt,
+                                                 first_chunk=first_chunk, ops=selector[name])
+                return out["kernel"][0], out["plain"][0]  # [T, V] each
+
+            def gate(got, want, step):
+                nonlocal worst, agree, rows
+                d = (got.float() - want.float()).abs().amax(dim=-1)  # per position
+                worst = max(worst, d.max().item())
+                agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+                rows += got.shape[0]
+                if d.max().item() >= GATE_MAX_DLOGIT:
+                    raise AssertionError(f"model gate, chunks {chunks}: step {step} "
+                                         f"max |dlogit| {d.max().item()}")
+
+            start = 0
+            for i, n in enumerate(chunks):  # the prompt, chunk by chunk
+                pos = torch.arange(start, start + n, dtype=torch.int32, device=dev)[None]
+                got, want = both(tokens[:, start:start + n], pos, start == 0)
+                gate(got, want, f"chunk {i}")
+                start += n
             nxt = want[-1].argmax()
-    rate = agree / rows
-    result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16", "prompt": prompt_len,
-              "decode_steps": steps, "max_abs_dlogit": worst, "argmax_agreement": rate,
-              "gate": f"max |dlogit| < {GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}"}
-    emit(result)
-    if rate < GATE_ARGMAX:
-        raise AssertionError(f"model gate: argmax agreement {rate} < {GATE_ARGMAX}")
-    del params, pools
+            for step in range(steps):
+                # teacher forcing: both paths take the plain path's greedy token
+                pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
+                got, want = both(nxt.view(1, 1), pos, False)
+                gate(got, want, step)
+                nxt = want[-1].argmax()
+            rate = agree / rows
+            result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16",
+                      "prompt": prompt_len, "chunks": list(chunks), "decode_steps": steps,
+                      "max_abs_dlogit": worst, "argmax_agreement": rate,
+                      "gate": f"max |dlogit| < {GATE_MAX_DLOGIT}, "
+                              f"argmax agreement >= {GATE_ARGMAX}"}
+            emit(result)
+            if rate < GATE_ARGMAX:
+                raise AssertionError(f"model gate, chunks {chunks}: argmax agreement "
+                                     f"{rate} < {GATE_ARGMAX}")
+            results.append(result)
+            del pools
+    del params
     torch.cuda.empty_cache()
-    return result
+    return results
 
 
 # -- phase 5: serve ---------------------------------------------------------------
@@ -338,6 +421,7 @@ def _post(url, body) -> tuple[int, list, list[int], float | None]:
 def phase_serve(card: str) -> dict:
     from dynamo_tpu_torch.cli.run import start_server
 
+    # no --prefill-chunk: the CLI's default chunk (512) is what is served
     server = start_server(["run", "in=http", "out=torch", "--model", "llama3-1b",
                            "--port", "0", "--dtype", "bfloat16", "--max-context", "2048"])
     try:
@@ -352,6 +436,10 @@ def phase_serve(card: str) -> dict:
                     "messages": [{"role": "user", "content": f"stream {i}: " + "tell me " * 8 * i}]})
             for i in range(1, 4)
         ] + [
+            # the byte tokenizer makes one token per byte: over 1,200 prompt
+            # tokens, so at least three chunks of 512
+            (chat, {"model": "llama3-1b", "max_tokens": 32, "ext": ext, **stream,
+                    "messages": [{"role": "user", "content": "a long prompt: " + "abcdefgh " * 135}]}),
             (chat, {"model": "llama3-1b", "max_tokens": 64, "ext": ext,
                     "messages": [{"role": "user", "content": "a unary chat"}]}),
             (server.url + "/v1/completions",
@@ -373,10 +461,10 @@ def phase_serve(card: str) -> dict:
 
         ops.reset_counts()
         t0 = time.perf_counter()
-        # the first five together; then each pair's requests one at a time:
+        # the first six together; then each pair's requests one at a time:
         # alone, both of a pair run the same shapes, so they must agree to
         # the bit (other batch sizes round bf16 GEMMs differently)
-        for wave in (range(0, 5), [5], [6], [7], [8]):
+        for wave in (range(0, 6), [6], [7], [8], [9]):
             threads = [threading.Thread(target=run, args=(i,)) for i in wave]
             for t in threads:
                 t.start()
@@ -385,11 +473,13 @@ def phase_serve(card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+        chunk = server.runner.engine.config.prefill_chunk
     finally:
         server.stop()
 
     out_tokens = 0
     ttft = []
+    prompt_tokens = []
     for (url, body), res in zip(jobs, results):
         if isinstance(res, Exception):
             raise res
@@ -399,17 +489,22 @@ def phase_serve(card: str) -> dict:
         use = out[-1]["usage"]
         if use["completion_tokens"] != len(ids) or len(ids) != body["max_tokens"]:
             raise AssertionError(f"{url}: usage {use} but {len(ids)} token ids served")
+        prompt_tokens.append(use["prompt_tokens"])
         out_tokens += len(ids)
         if body.get("stream"):
             ttft.append(first)
-    for a, b in ((5, 7), (6, 8)):  # the greedy pair and the seeded pair
+    for a, b in ((6, 8), (7, 9)):  # the greedy pair and the seeded pair
         if results[a][2] != results[b][2]:
             raise AssertionError(f"requests {a} and {b} should be identical")
+    if prompt_tokens[3] <= 1200 or chunk != 512:
+        raise AssertionError(f"the long request's prompt is {prompt_tokens[3]} tokens, "
+                             f"served at a chunk of {chunk}")
     for name, (launches, plain) in counts.items():
         if launches == 0 or plain != 0:
             raise AssertionError(f"serve: {name} launched {launches} times, plain ran {plain}")
     result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16", "card": card,
-              "requests": len(jobs), "output_tokens": out_tokens, "wall_s": wall,
+              "prefill_chunk": chunk, "requests": len(jobs), "prompt_tokens": prompt_tokens,
+              "output_tokens": out_tokens, "wall_s": wall,
               "tok_s": out_tokens / wall, "ttft_p50_s": statistics.median(ttft),
               "ttft_s": ttft,
               "ttft": "at the client, from sending a streaming request to the first SSE "

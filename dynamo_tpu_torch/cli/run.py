@@ -5,8 +5,8 @@
 Counterpart of dynamo_tpu/cli/run.py for the `in=http out=<engine>` shape,
 with the TorchEngine as the engine. With no checkpoint the model is
 random-init from a fixed seed and serves the byte tokenizer, as the JAX
-CLI does. `--prefill-chunk` defaults to `--max-context`, so every admitted
-prompt prefills as one first chunk. It runs on the GPU unless
+CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
+tokens (512 by default, as the JAX CLI's). It runs on the GPU unless
 `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
@@ -44,8 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     runp.add_argument("--page-size", type=int, default=64, dest="page_size")
     runp.add_argument("--max-context", type=int, default=4096, dest="max_context")
     runp.add_argument(
-        "--prefill-chunk", type=int, default=None, dest="prefill_chunk",
-        help="longest prompt (default: --max-context)",
+        "--prefill-chunk", type=int, default=512, dest="prefill_chunk",
+        help="most prompt tokens of one request prefilled per step (a multiple "
+             "of --page-size, at most --max-context)",
     )
     runp.add_argument("--decode-steps", type=int, default=8, dest="decode_steps",
                       help="decode steps fused per host sync")
@@ -62,8 +63,10 @@ def _parse(argv) -> argparse.Namespace:
         raise SystemExit("dynamo_tpu_torch serves in=http out=torch only")
     if args.max_context % args.page_size:
         raise SystemExit("--max-context must be a multiple of --page-size")
-    if args.prefill_chunk is None:
-        args.prefill_chunk = args.max_context
+    if args.prefill_chunk % args.page_size or not 0 < args.prefill_chunk <= args.max_context:
+        raise SystemExit(
+            "--prefill-chunk must be a multiple of --page-size and at most --max-context"
+        )
     return args
 
 

@@ -27,8 +27,6 @@ UNPORTED = {
     "spec_draft_checkpoint": (None,),
     "spec_min_accept_rate": (0.2,),
     "spec_cooldown_steps": (16,),
-    "prefill_budget_policy": ("fixed",),
-    "prefill_budget_max": (None,),
     "max_waiting": (None,),
     "quantize": (None,),
     "kv_quantize": (None,),
@@ -66,11 +64,17 @@ class _PortedKnobs:
     max_pages_per_seq: int = 64
     #: decode batch buckets (padded up to the next bucket)
     decode_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
-    #: longest prompt this engine prefills; every prompt is one first
-    #: chunk (a longer one needs the chunked-prefill kernel, not ported)
+    #: most tokens of one prompt prefilled per step; a longer prompt runs
+    #: as page-aligned chunks of at most this many tokens
     prefill_chunk: int = 512
     #: total prefill tokens per step across sequences (None => 4 x chunk)
     prefill_token_budget: Optional[int] = None
+    #: "fixed" keeps the step budget at effective_prefill_budget;
+    #: "adaptive" grows it toward the un-prefilled backlog, up to
+    #: effective_prefill_budget_max, so a burst drains in fewer steps
+    prefill_budget_policy: str = "fixed"
+    #: the adaptive policy's ceiling (None => 4 x the effective budget)
+    prefill_budget_max: Optional[int] = None
     #: max sequences resident (decode slots)
     max_seqs: int = 64
     #: decode steps fused per host sync: tokens feed back on the device
@@ -92,12 +96,25 @@ class _PortedKnobs:
                 f"page_size ({self.page_size})"
             )
         if self.prefill_token_budget is not None and (
-            self.prefill_token_budget < self.prefill_chunk
+            self.prefill_token_budget < self.page_size
         ):
             raise ValueError(
                 f"prefill_token_budget ({self.prefill_token_budget}) must be "
-                f">= prefill_chunk ({self.prefill_chunk}): every prompt "
-                "prefills whole in one step"
+                f">= page_size ({self.page_size}): mid-prompt chunks round "
+                "down to page boundaries, so a smaller budget could never "
+                "schedule any prefill work"
+            )
+        if self.prefill_budget_policy not in ("fixed", "adaptive"):
+            raise ValueError(
+                "prefill_budget_policy must be 'fixed' or 'adaptive', got "
+                f"{self.prefill_budget_policy!r}"
+            )
+        if (self.prefill_budget_max is not None
+                and self.prefill_budget_max < self.effective_prefill_budget):
+            raise ValueError(
+                f"prefill_budget_max ({self.prefill_budget_max}) must be >= "
+                f"the effective budget ({self.effective_prefill_budget}): "
+                "the adaptive policy only ever grows the step budget"
             )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
@@ -109,6 +126,11 @@ class _PortedKnobs:
     @property
     def effective_prefill_budget(self) -> int:
         return self.prefill_token_budget or 4 * self.prefill_chunk
+
+    @property
+    def effective_prefill_budget_max(self) -> int:
+        """The adaptive policy's ceiling."""
+        return self.prefill_budget_max or 4 * self.effective_prefill_budget
 
     def decode_bucket_for(self, n: int) -> int:
         for b in self.decode_buckets:

@@ -1,11 +1,12 @@
 """TorchEngine: continuous batching over the paged-KV llama model.
 
 Counterpart of dynamo_tpu/engine/engine.py::JaxEngine for the main path:
-first-chunk batched prefill, then decode with `decode_steps` fused steps
-per host sync (sampled ids feed back on the device; tokens past a stop are
+batched chunked prefill, then decode with `decode_steps` fused steps per
+host sync (sampled ids feed back on the device; tokens past a stop are
 computed and dropped on the host, as the JAX engine drops them). Every
 step runs the model's kernel path: the paged KV write, first-chunk flash
-prefill and paged decode attention (dynamo_tpu_torch/ops).
+prefill, prefill over a chunk with history and paged decode attention
+(dynamo_tpu_torch/ops).
 
 Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
 up to the chunk; B: powers of two for prefill, `decode_buckets` for
@@ -185,12 +186,11 @@ class TorchEngine:
     # -- prefill -----------------------------------------------------------
 
     def _run_prefill(self, batch: ScheduledBatch) -> list[StepOutput]:
-        """Pieces grouped by T bucket run as one batched [B, T] forward."""
-        if any(p.start != 0 for p in batch.prefill):
-            raise NotImplementedError(
-                "a prefill chunk with history needs paged_prefill_attention, "
-                "which dynamo_tpu_torch does not have yet"
-            )
+        """Pieces grouped by T bucket run as one batched [B, T] forward. A
+        group whose pieces all start at 0 runs as first chunks; any other
+        group attends over each row's history (0 for a row that starts at
+        0). Only pieces that end their prompt are sampled; a group with
+        none runs the forward alone (no logits, no sampler noise)."""
         outputs: list[StepOutput] = []
         groups: dict[int, list] = {}
         for piece in batch.prefill:
@@ -202,33 +202,35 @@ class TorchEngine:
             positions = np.zeros((b_bucket, t_bucket), np.int32)
             valid = np.zeros((b_bucket, t_bucket), bool)
             pt = np.zeros((b_bucket, mp), np.int32)
-            last_idx = np.zeros(b_bucket, np.int64)
             for i, piece in enumerate(pieces):
                 req = piece.request
-                tokens[i, : piece.length] = req.prompt_tokens[: piece.length]
-                positions[i] = np.arange(t_bucket, dtype=np.int32)
+                tokens[i, : piece.length] = req.all_tokens[piece.start : piece.start + piece.length]
+                positions[i] = np.arange(t_bucket, dtype=np.int32) + piece.start
                 valid[i, : piece.length] = True
                 pt[i, : len(req.pages)] = req.pages
-                last_idx[i] = piece.length - 1
-            d_tokens, d_pos, d_valid, d_pt, d_last = self._to_device(
-                tokens, positions, valid, pt, last_idx
-            )
-            reqs = [p.request for p in pieces]
-            pick = self._sampler(reqs, b_bucket, 1)
+            d_tokens, d_pos, d_valid, d_pt = self._to_device(tokens, positions, valid, pt)
             hidden, self.kv = self.adapter.forward_hidden(
-                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt, first_chunk=True
+                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt,
+                first_chunk=all(p.start == 0 for p in pieces),
             )
-            last_hidden = hidden[torch.arange(b_bucket, device=self.device), d_last]
-            ids = pick(self.adapter.compute_logits(self.params, last_hidden), 0)
-            ids = ids.cpu().tolist()
+            rows = [i for i, p in enumerate(pieces)
+                    if p.start + p.length >= len(p.request.prompt_tokens)]
+            ids: dict[int, int] = {}
+            if rows:
+                last = [pieces[i].length - 1 for i in rows]
+                d_rows, d_last = self._to_device(np.asarray(rows), np.asarray(last))
+                pick = self._sampler([pieces[i].request for i in rows], len(rows), 1)
+                logits = self.adapter.compute_logits(self.params, hidden[d_rows, d_last])
+                ids = dict(zip(rows, pick(logits, 0).cpu().tolist()))
             for i, piece in enumerate(pieces):
                 req = piece.request
                 req.num_computed_tokens += piece.length
-                req.state = RequestState.DECODE
                 self.metrics.prefill_tokens += piece.length
-                outputs.extend(self._accept_tokens(
-                    req, [ids[i]], self._finish_reason_for(req, ids[i], 1)
-                ))
+                if i in ids:
+                    req.state = RequestState.DECODE
+                    outputs.extend(self._accept_tokens(
+                        req, [ids[i]], self._finish_reason_for(req, ids[i], 1)
+                    ))
         return outputs
 
     # -- decode ------------------------------------------------------------

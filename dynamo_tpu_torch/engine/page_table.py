@@ -1,11 +1,10 @@
 """Host-side paged-KV allocator.
 
 Counterpart of dynamo_tpu/engine/page_table.py::PageAllocator without the
-prefix cache (caching is off in this package until the chunked-prefill
-kernel lands) and without the native pool. With no shared prefixes every
-page has one owner, so a free list and the set of pages in use are the
-whole state. Page 0 is the null page (padding writes land there) and is
-never allocated.
+prefix cache (prefix caching is not ported yet) and without the native
+pool. With no shared prefixes every page has one owner, so a free list
+and the set of pages in use are the whole state. Page 0 is the null page
+(padding writes land there) and is never allocated.
 """
 
 from __future__ import annotations

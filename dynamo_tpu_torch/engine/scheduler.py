@@ -4,17 +4,15 @@ Counterpart of dynamo_tpu/engine/scheduler.py without prefix-cache
 hashing and without mixed steps. One `schedule()` call is one engine step:
 
 1. Admit waiting requests while pages and decode slots allow.
-2. If any running request still needs its prefill, schedule a prefill
-   step of whole prompts (each prompt is one first chunk, up to the token
-   budget).
+2. If any running request still needs prefill, schedule a prefill step:
+   pieces of at most `prefill_chunk` tokens from the running prompts, in
+   order, up to the step's token budget. A piece that does not end its
+   prompt ends on a page boundary, so every chunk starts page-aligned.
+   A request stays in PREFILL until its last piece has run.
 3. Otherwise schedule a decode batch over the running sequences, growing
    page tables by one page where the next token would overflow and
-   preempting the youngest sequences (recompute) when pages run out.
-
-A prompt never splits into chunks here: a chunk with history needs the
-chunked-prefill attention kernel, which this package does not have yet.
-So a prompt longer than `prefill_chunk` is refused at `add_request`, and
-a preemption whose recompute prompt would outgrow one chunk raises.
+   preempting the youngest sequences (recompute through chunked prefill)
+   when pages run out.
 """
 
 from __future__ import annotations
@@ -66,13 +64,6 @@ class Scheduler:
             raise ValueError(
                 f"prompt of {n} tokens exceeds max context "
                 f"{self.config.max_context} (one slot is reserved for generation)"
-            )
-        if n > self.config.prefill_chunk:
-            raise NotImplementedError(
-                f"prompt of {n} tokens is longer than prefill_chunk "
-                f"({self.config.prefill_chunk}): chunked prefill needs "
-                "paged_prefill_attention, which dynamo_tpu_torch does not "
-                "have yet"
             )
         if n == 0:
             raise ValueError("empty prompt")
@@ -140,17 +131,38 @@ class Scheduler:
             self.waiting.pop(0)
             self.running.append(req)
 
+    def _prefill_step_budget(self) -> int:
+        """Token budget for this prefill step. The adaptive policy grows it
+        toward the whole un-prefilled backlog (capped), so a burst drains
+        in a few large steps."""
+        base = self.config.effective_prefill_budget
+        if self.config.prefill_budget_policy != "adaptive":
+            return base
+        pending = sum(
+            len(r.prompt_tokens) - r.num_computed_tokens
+            for r in self.running if r.state == RequestState.PREFILL
+        )
+        return max(base, min(pending, self.config.effective_prefill_budget_max))
+
     def _schedule_prefill(self) -> Optional[ScheduledBatch]:
-        budget = self.config.effective_prefill_budget
+        # Each piece is capped at prefill_chunk tokens; the step budget
+        # spans sequences (mixed steps are not ported, so no piece-count cap)
+        budget = self._prefill_step_budget()
+        ps = self.config.page_size
         pieces: list[PrefillPiece] = []
         for req in self.running:
-            if req.state != RequestState.PREFILL:
+            if req.state != RequestState.PREFILL or budget <= 0:
                 continue
-            n = len(req.prompt_tokens)
-            if n > budget:
-                break  # FIFO: the next step takes it whole
-            pieces.append(PrefillPiece(request=req, start=0, length=n))
-            budget -= n
+            remaining = len(req.prompt_tokens) - req.num_computed_tokens
+            take = min(remaining, self.config.prefill_chunk, budget)
+            if take < remaining:
+                # mid-prompt pieces end on a page boundary, so the next
+                # one starts page-aligned, as paged_write requires
+                take = (take // ps) * ps
+            if take <= 0:
+                continue
+            pieces.append(PrefillPiece(request=req, start=req.num_computed_tokens, length=take))
+            budget -= take
         if not pieces:
             return None
         return ScheduledBatch(kind="prefill", prefill=tuple(pieces))
@@ -199,20 +211,13 @@ class Scheduler:
         if not victims:
             return False
         victim = victims[-1]
-        if victim.num_tokens > self.config.prefill_chunk:
-            raise NotImplementedError(
-                f"preempting {victim.request_id} would recompute "
-                f"{victim.num_tokens} tokens, more than prefill_chunk "
-                f"({self.config.prefill_chunk}): that needs chunked prefill "
-                "(paged_prefill_attention), which dynamo_tpu_torch does not "
-                "have yet"
-            )
         if scheduled is not None and victim in scheduled:
             scheduled.remove(victim)
         logger.warning("preempting %s (recompute) under page pressure", victim.request_id)
         self.preemptions += 1
         self._release(victim)
-        # recompute from scratch: the prompt grows to include generated tokens
+        # recompute from scratch through chunked prefill: the prompt grows
+        # to include generated tokens
         victim.state = RequestState.WAITING
         victim.num_emitted += len(victim.output_tokens)
         victim.prompt_tokens = victim.all_tokens

@@ -11,7 +11,7 @@ thread only blocks on its own request's stream. A client that goes away
 mid-stream closes the stream, which aborts the request in the engine.
 Errors before the first chunk become HTTP statuses: 400 for a bad
 request, 404 for an unknown model, 501 for a case this package refuses
-(it needs a kernel not ported yet), 500 otherwise.
+(a feature not ported yet), 500 otherwise.
 """
 
 from __future__ import annotations

@@ -4,11 +4,11 @@ Counterpart of dynamo_tpu/models/llama.py, trimmed to the llama fields and
 the kernel write discipline: each layer reads the cache as history only,
 stages its new (post-rope) K/V, and the step lands every layer's K/V in
 the pools with one `paged_write` after the layer loop. A first prefill
-chunk attends over itself with `flash_prefill_attention`; a decode step
-attends over its paged history with `paged_decode_attention` and folds the
-current token in exactly. A chunk with history (chunked prefill, prefix
-hits) needs the fourth kernel, which this package does not have yet, and
-raises.
+chunk attends over itself with `flash_prefill_attention`; any other chunk
+(a later chunk of a long prompt, in a batch that may also hold first
+chunks) attends over its paged history and itself with
+`paged_prefill_attention`; a decode step attends over its paged history
+with `paged_decode_attention` and folds the current token in exactly.
 
 Layouts match the JAX package at every public function: KV pools
 [L, P, S, Hkv, D] with page 0 the null page, staged KV [L, B, T, Hkv, D],
@@ -249,21 +249,29 @@ def attention_block(q, k, v, kv: KVPages, layer: int, page_tables, positions, va
         )
         attn = out.reshape(b, t, cfg.num_heads * cfg.head_dim).to(q.dtype)
     else:
-        raise NotImplementedError(
-            "a prefill chunk with history (chunked prefill or a prefix-cache "
-            "hit) needs paged_prefill_attention, which dynamo_tpu_torch does "
-            "not have yet"
+        # a chunk with history: the pages hold positions < the chunk's
+        # start; padding rows (first token invalid) have neither history
+        # nor current tokens, and a row starting at 0 has no history
+        hist_lens = torch.where(valid[:, 0], positions[:, 0], 0).to(torch.int32)
+        cur_lens = valid.sum(dim=1, dtype=torch.int32)
+        out = ops.paged_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), kv.k, kv.v, layer,
+            page_tables, hist_lens, cur_lens, scale_dim=cfg.head_dim,
         )
+        attn = out.reshape(b, t, cfg.num_heads * cfg.head_dim).to(q.dtype)
     return attn, (k, v)
 
 
 def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv: KVPages,
                    page_tables, first_chunk: bool = False, ops: Ops = KERNELS):
     """One model step over a token chunk; returns (hidden [B, T, H] after
-    the final norm, kv). T=1 is a decode step; T>1 with first_chunk=True is
-    a first prefill chunk (every row starts at position 0). The step's K/V
-    land in the pools in place. `ops` selects the kernels (default) or the
-    plain versions; the engine never passes it."""
+    the final norm, kv). T=1 is a decode step. T>1 is a prefill chunk whose
+    row b covers positions[b, 0] onwards: with first_chunk=True every row
+    starts at position 0 and attends over the chunk alone; otherwise each
+    row attends over its history (positions[b, 0] tokens already in its
+    pages, 0 for a row that starts at 0 or is padding) and the chunk. The
+    step's K/V land in the pools in place. `ops` selects the kernels
+    (default) or the plain versions; the engine never passes it."""
     b, t = tokens.shape
     lp = params["layers"]
     h = params["embed"][tokens].to(cfg.dtype)  # [B, T, H]

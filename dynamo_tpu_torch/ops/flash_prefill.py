@@ -1,13 +1,26 @@
-"""Causal GQA flash attention over each sequence's first prefill chunk.
+"""Flash attention for prefill chunks: first chunks, and chunks with history.
 
-Counterpart of dynamo_tpu/ops/flash_prefill.py::flash_prefill_attention.
-q [B, T, Hq, D], k/v [B, T, Hkv, D] (post-rope), valid_len [B] int32 ->
-[B, T, Hq, D]. Query head j reads kv head j // (Hq/Hkv). Queries scale by
-1/sqrt(scale_dim). Keys at or past valid_len are masked; rows at or past
-valid_len are unspecified (the kernel writes finite values there).
+`flash_prefill_attention` is the counterpart of
+dynamo_tpu/ops/flash_prefill.py::flash_prefill_attention: causal GQA
+attention over each sequence's first chunk. q [B, T, Hq, D], k/v
+[B, T, Hkv, D] (post-rope), valid_len [B] int32 -> [B, T, Hq, D]. Keys at
+or past valid_len are masked; rows at or past valid_len are unspecified
+(the kernel writes finite values there).
 
-On CUDA tensors the kernel in csrc/flash_prefill.cu runs (bf16, D of 64
-or 128); on CPU tensors the plain version below does the same work.
+`paged_prefill_attention` is the counterpart of
+dynamo_tpu/ops/flash_prefill.py::paged_prefill_attention: a chunk that
+has history (chunked prefill). q [B, T, Hq, D], k_cur/v_cur [B, T, Hkv, D]
+(post-rope), the pools [L, P, S, Hkv, D] and their `layer`, page_tables
+[B, MP] int32, hist_lens and cur_lens [B] int32 -> [B, T, Hq, D]. Row t of
+sequence b attends to history keys 0 .. hist_lens[b]-1 (read through the
+page table; a partial last page is masked) and causally to current keys
+0 .. t below cur_lens[b], under one softmax. Rows at or past cur_lens are
+unspecified but finite.
+
+In both, query head j reads kv head j // (Hq/Hkv) and queries scale by
+1/sqrt(scale_dim). On CUDA tensors the kernels in csrc/flash_prefill.cu
+and csrc/paged_prefill.cu run (bf16, D of 64 or 128); on CPU tensors the
+plain versions below do the same work.
 """
 
 from __future__ import annotations
@@ -20,9 +33,13 @@ import torch
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
 
+#: counts of flash_prefill_attention
 counts = KernelCounts()
+#: counts of paged_prefill_attention
+paged_counts = KernelCounts()
 
 _NAME = "flash_prefill_attention"
+_PAGED = "paged_prefill_attention"
 #: query rows per CTA in the kernel: tokens x the g heads of one kv group
 TILE_ROWS = 64
 
@@ -102,3 +119,111 @@ def bytes_moved(valid_len, hq: int, hkv: int, d: int, itemsize: int) -> int:
     unspecified, so the function need not write them)."""
     tokens = int(torch.as_tensor(valid_len).long().sum())
     return tokens * (2 * hq + 2 * hkv) * d * itemsize
+
+
+# -- chunks with history ----------------------------------------------------------
+
+
+def _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
+                        hist_lens, cur_lens):
+    require(q.dim() == 4 and k_cur.dim() == 4 and v_cur.shape == k_cur.shape,
+            _PAGED, "q must be [B, T, Hq, D], k_cur/v_cur [B, T, Hkv, D]")
+    require(k_cache.dim() == 5 and v_cache.shape == k_cache.shape,
+            _PAGED, "pools must be [L, P, S, Hkv, D] and equal in shape")
+    b, t, hq, d = q.shape
+    require(k_cur.shape == (b, t, k_cache.shape[3], d) and k_cache.shape[4] == d,
+            _PAGED, "q, k_cur/v_cur and the pools disagree on B, T, Hkv or D")
+    require(hq % k_cur.shape[2] == 0, _PAGED, "Hq must be a multiple of Hkv")
+    require(0 <= int(layer) < k_cache.shape[0], _PAGED, f"layer {int(layer)} out of range")
+    require(page_tables.dim() == 2 and page_tables.shape[0] == b,
+            _PAGED, "page_tables must be [B, MP]")
+    require(hist_lens.shape == (b,) and cur_lens.shape == (b,),
+            _PAGED, "hist_lens and cur_lens must be [B]")
+
+
+def paged_prefill_attention_plain(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
+                                  hist_lens, cur_lens, *, scale_dim: Optional[int] = None):
+    """Plain PyTorch version of `paged_prefill_attention` (same contract):
+    gathers each sequence's history densely and attends over it and the
+    chunk under one mask, in float32."""
+    paged_counts.plain_calls += 1
+    _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
+                        hist_lens, cur_lens)
+    b, t, hq, d = q.shape
+    s, hkv = k_cache.shape[2], k_cache.shape[3]
+    g = hq // hkv
+    n_hist = page_tables.shape[1] * s
+    pt = page_tables.long()
+    keys = torch.cat([k_cache[int(layer)][pt].reshape(b, n_hist, hkv, d), k_cur], dim=1)
+    vals = torch.cat([v_cache[int(layer)][pt].reshape(b, n_hist, hkv, d), v_cur], dim=1)
+    qf = q.float().reshape(b, t, hkv, g, d) * (1.0 / math.sqrt(scale_dim or d))
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, keys.float())
+    hpos = torch.arange(n_hist, device=q.device)
+    pos = torch.arange(t, device=q.device)
+    hist_live = (hpos[None, :] < hist_lens[:, None].long())[:, None, :].expand(b, t, n_hist)
+    causal = pos[None, :] <= pos[:, None]  # [T(query), T(key)]
+    cur_live = causal[None] & (pos[None, None, :] < cur_lens[:, None, None].long())
+    mask = torch.cat([hist_live, cur_live], dim=2)  # [B, T, history + T]
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, vals.float())
+    return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
+                            hist_lens, cur_lens, *, scale_dim: Optional[int] = None):
+    """Attention for a chunk with history; see the module docstring for
+    the contract."""
+    tensors = (q, k_cur, v_cur, k_cache, v_cache, page_tables, hist_lens, cur_lens)
+    if not on_cuda(_PAGED, *tensors):
+        return paged_prefill_attention_plain(
+            q, k_cur, v_cur, k_cache, v_cache, layer, page_tables, hist_lens, cur_lens,
+            scale_dim=scale_dim,
+        )
+    _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
+                        hist_lens, cur_lens)
+    b, t, hq, d = q.shape
+    _, p, s, hkv, _ = k_cache.shape
+    require(all(x.dtype == torch.bfloat16 for x in (q, k_cur, v_cur, k_cache, v_cache)),
+            _PAGED, "the CUDA kernel takes bfloat16 q, k_cur/v_cur and pools")
+    require(all(x.dtype == torch.int32 for x in (page_tables, hist_lens, cur_lens)),
+            _PAGED, "page_tables, hist_lens and cur_lens must be int32")
+    require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    require(TILE_ROWS % (hq // hkv) == 0, _PAGED,
+            f"the query group size {hq // hkv} must divide {TILE_ROWS}")
+    require(all(x.is_contiguous() for x in tensors), _PAGED, "all tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function(
+        "paged_prefill", "dyn_paged_prefill",
+        [_build.PTR] * 9 + [_build.INT] * 9 + [_build.FLOAT, _build.PTR],
+    )
+    err = fn(
+        _build.ptr(q), _build.ptr(k_cur), _build.ptr(v_cur), _build.ptr(k_cache),
+        _build.ptr(v_cache), _build.ptr(page_tables), _build.ptr(hist_lens),
+        _build.ptr(cur_lens), _build.ptr(out),
+        b, t, hq, hkv, d, int(layer), p, s, page_tables.shape[1],
+        1.0 / math.sqrt(scale_dim or d), _build.stream(q.device),
+    )
+    _build.check(err, _PAGED)
+    paged_counts.launches += 1
+    return out
+
+
+def paged_flops(hist_lens, cur_lens, hq: int, d: int) -> int:
+    """Least multiply-adds (x2) a chunk with history needs: each valid row
+    t < cur attends to the hist history keys and the t + 1 causal current
+    keys, for QK^T and PV."""
+    h = torch.as_tensor(hist_lens).long()
+    n = torch.as_tensor(cur_lens).long()
+    pairs = int((n * h + n * (n + 1) // 2).sum())
+    return 4 * hq * d * pairs
+
+
+def paged_bytes_moved(hist_lens, cur_lens, hq: int, hkv: int, d: int, itemsize: int) -> int:
+    """Least bytes one call must move: each valid row's q, k_cur and v_cur
+    read once and its output written once, and each history token's K and
+    V read once (rows at or past cur_lens are unspecified, so the function
+    need not write them)."""
+    tokens = int(torch.as_tensor(cur_lens).long().sum())
+    hist = int(torch.as_tensor(hist_lens).long().sum())
+    return (tokens * (2 * hq + 2 * hkv) + 2 * hist * hkv) * d * itemsize

@@ -14,7 +14,13 @@ DECODE_STEPS. Prints JSON lines:
     kernels it launches (torch.profiler);
   - `profile`: torch.profiler over two steady decode dispatches: device
     busy ms (sum of kernel time) against the window's wall ms, the idle
-    share, and the ten kernels with the most device time.
+    share, and the ten kernels with the most device time;
+  - `chunked`: one greedy request whose LONG_PROMPT tokens prefill in
+    chunks of PREFILL_CHUNK (the CLI's default): its time to first token
+    and each chunk step's wall ms (host clock, synced after every step),
+    after one warm-up request; then the same request under torch.profiler:
+    device busy ms, the idle share, and the ten kernels with the most
+    device time.
 With no card it raises.
 """
 
@@ -35,6 +41,7 @@ from dynamo_tpu_torch.engine.engine import TorchEngine  # noqa: E402
 from dynamo_tpu_torch.engine.request import SamplingParams  # noqa: E402
 
 MODEL, BATCH, PROMPT, MAX_TOKENS, DECODE_STEPS = "llama3-1b", 8, 128, 128, 8
+PREFILL_CHUNK, LONG_PROMPT = 512, 3000
 
 
 def emit(obj) -> None:
@@ -44,8 +51,8 @@ def emit(obj) -> None:
 def main() -> int:
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
-    cfg = EngineConfig(model=MODEL, num_pages=256, page_size=64, max_pages_per_seq=32,
-                       prefill_chunk=2048, max_seqs=64, decode_steps=DECODE_STEPS,
+    cfg = EngineConfig(model=MODEL, num_pages=256, page_size=64, max_pages_per_seq=64,
+                       prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
                        eos_token_ids=(0,))
     eng = TorchEngine(cfg, device=dev)
     gen = torch.Generator().manual_seed(0)
@@ -122,18 +129,45 @@ def main() -> int:
         eng.step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", **device_time(prof, window_ms)})
+    eng.run_to_completion()
+
+    # one long prompt, prefilled in chunks
+    long_prompt = torch.randint(1, eng.adapter.vocab_size, (LONG_PROMPT,), generator=gen)
+
+    def long_request(rid: str):
+        eng.add_request(rid, long_prompt.tolist(), SamplingParams(max_tokens=1, ignore_eos=True))
+        steps_ms = []
+        t_all = time.perf_counter()
+        while eng.has_work:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+        return (time.perf_counter() - t_all) * 1e3, steps_ms
+
+    long_request("long-warm")
+    ttft_ms, steps_ms = long_request("long")
+    with torch.profiler.profile(activities=acts) as prof:
+        window_ms, _ = long_request("long-prof")
+    emit({"phase": "chunked", "prompt": LONG_PROMPT, "prefill_chunk": PREFILL_CHUNK,
+          "ttft_ms": ttft_ms, "chunk_step_ms": steps_ms, **device_time(prof, window_ms)})
+    print(card, flush=True)
+    return 0
+
+
+def device_time(prof, window_ms: float) -> dict:
+    """Device busy ms (sum of kernel time) in a profiled window, its idle
+    share, and the ten kernels with the most device time."""
     busy = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
             busy[e.key] = busy.get(e.key, 0.0) + e.self_device_time_total / 1e3
     total = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "profile", "window_ms": window_ms, "device_busy_ms": total,
-          "idle_share": 1.0 - total / window_ms,
-          "top_kernels_ms": [[k[:80], v] for k, v in top]})
-    eng.run_to_completion()
-    print(card, flush=True)
-    return 0
+    return {"window_ms": window_ms, "device_busy_ms": total,
+            "idle_share": 1.0 - total / window_ms,
+            "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
 if __name__ == "__main__":

@@ -5,9 +5,9 @@ and skips when there is none (never at import, so every worker collects
 the same tests). Run on the card with `python -m pytest -m cuda
 tests/test_torch_cuda.py`. Shapes are llama3-1b's attention widths (Hq=32,
 Hkv=8, D=64, page size 64) and a D=128 case. The write is bit-equal off
-the null page. Flash prefill (bf16 output) holds each valid (token, head)
-row within 2^-6 of the row's largest |value|, 2-4 bf16 ulps there; paged
-decode (f32 output) holds acc/l and m within 1e-4.
+the null page. Flash prefill and paged prefill (bf16 output) hold each
+valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
+ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 """
 
 import pytest
@@ -68,6 +68,40 @@ def test_flash_prefill_matches_plain(hq, hkv, d, lens):
         assert (diff <= 2.0**-6 * want[i, :n].float().abs().amax(dim=-1)).all()
 
 
+def _assert_rows_close(got, want, lens):
+    """Each valid (token, head) row within 2^-6 of its largest |value|."""
+    assert torch.isfinite(got).all()
+    for i, n in enumerate(lens):
+        diff = (got[i, :n].float() - want[i, :n].float()).abs().amax(dim=-1)
+        assert (diff <= 2.0**-6 * want[i, :n].float().abs().amax(dim=-1)).all()
+
+
+@pytest.mark.parametrize("hq,hkv,d,t,hist,cur", [
+    (32, 8, 64, 512, (0, 512, 1536, 3072), (512, 512, 300, 512)),
+    (32, 8, 64, 96, (65, 1, 0, 700), (96, 17, 0, 95)),  # partial pages, a dead row
+    (8, 8, 128, 130, (130, 64), (130, 7)),
+    (16, 2, 128, 64, (257, 0), (64, 64)),
+])
+def test_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(hq + d + t)
+    b, L, S = len(hist), 3, 64
+    mp = max(1, -(-max(hist) // S)) + 1
+    P = 1 + b * mp
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((b, t, hq, d), generator=gen, **bf)
+    kc, vc = (torch.randn((b, t, hkv, d), generator=gen, **bf) for _ in range(2))
+    k_cache, v_cache = (torch.randn((L, P, S, hkv, d), generator=gen, **bf) for _ in range(2))
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
+    pt = pt.to(torch.int32)
+    hl = torch.tensor(hist, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cur, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, k_cache, v_cache, 2, pt, hl, cl)
+    got = flash_prefill.paged_prefill_attention(*args)
+    want = flash_prefill.paged_prefill_attention_plain(*args)
+    _assert_rows_close(got, want, cur)
+
+
 @pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 8, 64), (6, 32, 8, 64), (3, 8, 8, 128)])
 def test_paged_decode_matches_plain(b, hq, hkv, d):
     dev = _card()
@@ -101,4 +135,29 @@ def test_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.flash_prefill_attention(q.float(), kv.float(), kv.float(), vl)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill.flash_prefill_attention(q[..., :32], kv[..., :32], kv[..., :32], vl)
+    assert c.launches == 1
+
+
+def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
+    dev = _card()
+    ops.reset_counts()
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((1, 64, 32, 64), **bf)
+    kv = torch.zeros((1, 64, 8, 64), **bf)
+    pool = torch.zeros((2, 4, 64, 8, 64), **bf)
+    pt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([64], dtype=torch.int32, device=dev)
+    flash_prefill.paged_prefill_attention(q, kv, kv, pool, pool, 1, pt, lens, lens)
+    c = ops.COUNTS["paged_prefill_attention"]
+    assert (c.launches, c.plain_calls) == (1, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_prefill.paged_prefill_attention(q.float(), kv, kv, pool, pool, 1, pt, lens, lens)
+    with pytest.raises(ValueError, match="int32"):
+        flash_prefill.paged_prefill_attention(q, kv, kv, pool, pool, 1, pt.long(), lens, lens)
+    with pytest.raises(ValueError, match="layer"):
+        flash_prefill.paged_prefill_attention(q, kv, kv, pool, pool, 2, pt, lens, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill.paged_prefill_attention(
+            q[..., :32], kv[..., :32], kv[..., :32], pool[..., :32], pool[..., :32], 1, pt,
+            lens, lens)
     assert c.launches == 1

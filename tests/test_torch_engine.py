@@ -4,8 +4,9 @@ Both engines run the tiny config in float32 with the same weights (the JAX
 engine's, carried over with params_from_jax). The JAX engine runs
 attention_impl="pallas" (its kernels in interpret mode on the CPU) with
 prefix caching, overlap and mixed steps off; the port runs its kernels'
-plain versions on CPU tensors. Every prompt fits in prefill_chunk=16, so
-each is one first chunk. Greedy token streams must be identical.
+plain versions on CPU tensors. Prompts up to prefill_chunk=16 tokens are
+one first chunk; longer ones, and recomputes after a preemption, prefill
+in page-aligned chunks. Greedy token streams must be identical.
 """
 
 import jax
@@ -30,6 +31,13 @@ PROMPTS = {
 MAX_TOKENS = {"a": 9, "b": 6, "c": 12, "d": 3, "e": 7}
 
 
+def _jax_engine(**overrides):
+    return JaxEngine(JaxEngineConfig.for_tests(
+        attention_impl="pallas", enable_prefix_caching=False, overlap_decode=False,
+        mixed_steps=False, **overrides,
+    ))
+
+
 def _torch_engine(jax_engine=None, **overrides):
     params = None
     if jax_engine is not None:
@@ -40,10 +48,7 @@ def _torch_engine(jax_engine=None, **overrides):
 
 @pytest.mark.parametrize("decode_steps", [1, 4])
 def test_greedy_streams_identical_to_jax_engine(decode_steps):
-    jax_eng = JaxEngine(JaxEngineConfig.for_tests(
-        attention_impl="pallas", enable_prefix_caching=False,
-        overlap_decode=False, mixed_steps=False, decode_steps=decode_steps,
-    ))
+    jax_eng = _jax_engine(decode_steps=decode_steps)
     torch_eng = _torch_engine(jax_eng, decode_steps=decode_steps)
     for rid, prompt in PROMPTS.items():
         jax_eng.add_request(rid, prompt, JaxSampling(max_tokens=MAX_TOKENS[rid], ignore_eos=True))
@@ -124,10 +129,37 @@ def test_sampler_draws_from_the_jax_samplers_distribution(temperature, top_k, to
         assert p[draws].min() > 0  # nothing outside the kept candidates
 
 
+#: prompts of 17 to 60 tokens: two to four chunks of at most 16
+LONG_PROMPTS = {
+    f"p{n}": np.random.default_rng(n).integers(1, 256, n).tolist() for n in (17, 24, 33, 47, 60)
+}
+
+
+def _serve_long_prompts(decode_steps, **overrides):
+    """Greedy streams of LONG_PROMPTS from both engines (a context of 64)."""
+    kw = dict(decode_steps=decode_steps, max_pages_per_seq=16, **overrides)
+    jax_eng = _jax_engine(**kw)
+    torch_eng = _torch_engine(jax_eng, **kw)
+    for rid, prompt in LONG_PROMPTS.items():
+        jax_eng.add_request(rid, prompt, JaxSampling(max_tokens=3, ignore_eos=True))
+        torch_eng.add_request(rid, prompt, SamplingParams(max_tokens=3, ignore_eos=True))
+    return jax_eng.run_to_completion(), torch_eng.run_to_completion(), torch_eng
+
+
 def test_prompt_longer_than_one_chunk_is_refused():
-    eng = _torch_engine()
-    with pytest.raises(NotImplementedError, match="paged_prefill_attention"):
-        eng.add_request("long", list(range(1, 18)))
+    """(The name is kept from when the port refused such prompts.) Prompts
+    longer than one chunk prefill in page-aligned chunks, some of them in
+    batches beside other prompts' first chunks; the greedy streams equal
+    JaxEngine's with one and with four fused decode steps."""
+    for decode_steps in (1, 4):
+        want, got, eng = _serve_long_prompts(decode_steps)
+        assert got == want
+        assert {rid: len(t) for rid, t in got.items()} == {rid: 3 for rid in LONG_PROMPTS}
+        # 181 prompt tokens went through the prefill path, in more steps
+        # than the one a single budget of 64 tokens would take
+        assert eng.metrics.prefill_tokens == sum(map(len, LONG_PROMPTS.values()))
+        assert eng.metrics.prefill_dispatches > 3
+        assert eng.allocator.num_active == 0
 
 
 @pytest.mark.parametrize(
@@ -162,19 +194,101 @@ def test_every_knob_of_the_jax_config_is_ported_or_refused():
     assert dataclasses.replace(cfg, decode_steps=2).decode_steps == 2
 
 
+#: 7 usable pages of 4 slots: the 14-token prompt takes 4, the 6-token one
+#: 2. Both outgrow their pages on the same step; the older takes the last
+#: free page, so the younger's growth must evict the older, which then
+#: holds 17 tokens and recomputes them as two chunks once the younger has
+#: finished (its 26 tokens then fill all 7 pages)
+SMALL_POOL = dict(num_pages=8, decode_steps=1, admission_watermark=0.0)
+SMALL_POOL_WORK = {"long": (list(range(1, 15)), 12), "short": (list(range(1, 7)), 16)}
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(prefill_token_budget=4), dict(prefill_token_budget=3),
+    dict(prefill_token_budget=8, prefill_budget_policy="adaptive"),
+    dict(prefill_budget_policy="greedy"), dict(prefill_budget_max=32),
+    dict(prefill_budget_max=100, prefill_budget_policy="adaptive"),
+])
+def test_prefill_budget_knobs_follow_the_jax_config(knobs):
+    """The step budget may be below the chunk (down to one page), as in the
+    reference; the policy and its ceiling are validated the same way."""
+    try:
+        want = JaxEngineConfig.for_tests(**knobs)
+    except ValueError:
+        with pytest.raises(ValueError):
+            EngineConfig.for_tests(**knobs)
+        return
+    got = EngineConfig.for_tests(**knobs)
+    assert got.effective_prefill_budget == want.effective_prefill_budget
+    assert got.effective_prefill_budget_max == want.effective_prefill_budget_max
+
+
 def test_preemption_past_one_chunk_is_refused():
-    """Recompute after a preemption restarts the victim from position 0;
-    when its prompt plus output outgrows one chunk it would need chunked
-    prefill, so the step raises instead."""
-    # 7 usable pages of 4 slots: the 14-token prompt takes 4, the 6-token
-    # one 2. Both outgrow their pages on the same step; the older takes the
-    # last free page, so the younger's growth must evict the older, which
-    # then holds 17 tokens
-    eng = _torch_engine(num_pages=8, decode_steps=1, admission_watermark=0.0)
-    eng.add_request("long", list(range(1, 15)), SamplingParams(max_tokens=16, ignore_eos=True))
-    eng.add_request("short", list(range(1, 7)), SamplingParams(max_tokens=16, ignore_eos=True))
-    with pytest.raises(NotImplementedError, match="preempting long"):
-        eng.run_to_completion()
+    """(The name is kept from when the port refused this preemption.) The
+    victim of a preemption that holds more than one chunk of tokens
+    recomputes through chunked prefill: both requests are served, with
+    streams identical to JaxEngine's on the same pool."""
+    jax_eng = _jax_engine(**SMALL_POOL)
+    torch_eng = _torch_engine(jax_eng, **SMALL_POOL)
+    for rid, (prompt, n) in SMALL_POOL_WORK.items():
+        jax_eng.add_request(rid, prompt, JaxSampling(max_tokens=n, ignore_eos=True))
+        torch_eng.add_request(rid, prompt, SamplingParams(max_tokens=n, ignore_eos=True))
+    want = jax_eng.run_to_completion()
+    got = torch_eng.run_to_completion()
+    assert got == want
+    assert {rid: len(t) for rid, t in got.items()} == {"long": 12, "short": 16}
+    assert torch_eng.scheduler.preemptions >= 1
+    assert torch_eng.scheduler.preemptions == jax_eng.scheduler.preemptions
+    # the victim recomputed its 17 tokens: longer than one chunk of 16
+    assert torch_eng.metrics.prefill_tokens == 14 + 6 + 17
+
+
+def test_runner_serves_every_stream_through_a_long_preemption():
+    """Two streams through AsyncEngineRunner on the small pool: the
+    preemption of the longer one recomputes through chunked prefill, and
+    both streams finish with every token (no stream fails)."""
+    import threading
+    import time
+
+    from dynamo_tpu_torch.engine.async_engine import AsyncEngineRunner
+    from dynamo_tpu_torch.preprocessor.preprocessor import PreprocessedRequest
+
+    eng = _torch_engine(**SMALL_POOL)
+    runner = AsyncEngineRunner(eng)
+    got: dict[str, list] = {}
+
+    def stream(rid, prompt, n):
+        items = runner.generate(PreprocessedRequest(
+            request_id=rid, token_ids=prompt, max_tokens=n, ignore_eos=True))
+        got[rid] = list(items)
+
+    def pending() -> int:
+        with runner._lock:
+            return len(runner._pending)
+
+    # both requests wait in the runner's queue, "long" first, before its
+    # loop starts, so the engine admits them in one step in that order
+    threads = []
+    for rid, work in SMALL_POOL_WORK.items():
+        threads.append(threading.Thread(target=stream, args=(rid, *work), daemon=True))
+        threads[-1].start()
+        deadline = time.monotonic() + 30
+        while pending() < len(threads) and time.monotonic() < deadline:
+            time.sleep(0.01)
+    assert pending() == 2
+    runner.start()
+    try:
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        runner.stop()
+    for rid, (_, n) in SMALL_POOL_WORK.items():
+        items = got[rid]
+        assert sum(len(i["token_ids"]) for i in items) == n
+        assert items[-1]["finish_reason"] == "length"
+    assert eng.scheduler.preemptions >= 1
+    assert eng.metrics.prefill_tokens == 14 + 6 + 17  # "long" recomputed 17 tokens
 
 
 def test_no_card_without_asking_for_the_cpu_raises():
@@ -185,9 +299,12 @@ def test_no_card_without_asking_for_the_cpu_raises():
 @pytest.mark.parametrize("num_pages,seed", [(40, 0), (9, 1), (9, 2)])
 def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
     """The same request stream through both schedulers (prefix caching
-    and mixed steps off), with a stand-in token per scheduled row: the
-    same batches, page counts, preemptions and finishes, step by step.
-    9 pages force preemption; every recompute stays within one chunk."""
+    and mixed steps off), with a stand-in token per sampled row: the same
+    batches, pieces, page counts, preemptions and finishes, step by step.
+    Prompts run up to 24 tokens, so some prefill in chunks of at most 16;
+    each stream runs under the default budget, and under a budget of 8
+    tokens with the fixed and with the adaptive policy. 9 pages force
+    preemption, and recomputes past one chunk."""
     from dynamo_tpu.engine.page_table import PageAllocator as JaxAllocator
     from dynamo_tpu.engine.request import Request as JaxRequest
     from dynamo_tpu.engine.scheduler import Scheduler as JaxScheduler
@@ -196,9 +313,8 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
     from dynamo_tpu_torch.engine.scheduler import Scheduler
 
     rng = np.random.default_rng(seed)
-    work = [(f"r{i}", rng.integers(1, 200, rng.integers(1, 9)).tolist(), int(rng.integers(1, 9)))
+    work = [(f"r{i}", rng.integers(1, 200, rng.integers(1, 25)).tolist(), int(rng.integers(1, 9)))
             for i in range(10)]
-    kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0)
 
     def drive(sched, make):
         reqs = [make(rid, prompt, n) for rid, prompt, n in work]
@@ -212,11 +328,15 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
             if batch is None:
                 trace.append(("idle", done))
                 continue
-            rows = [p.request for p in batch.prefill] or list(batch.decode)
+            rows = list(batch.decode)
             for p in batch.prefill:
                 p.request.num_computed_tokens += p.length
-                p.request.state = type(p.request.state)("decode")
-            trace.append((batch.kind, [(r.request_id, len(r.pages)) for r in rows], done,
+                if p.request.num_computed_tokens >= len(p.request.prompt_tokens):
+                    p.request.state = type(p.request.state)("decode")
+                    rows.append(p.request)
+            trace.append((batch.kind, [(p.request.request_id, p.start, p.length)
+                                       for p in batch.prefill],
+                          [(r.request_id, len(r.pages)) for r in rows], done,
                           sched.preemptions))
             for r in rows:
                 r.output_tokens.append(7)
@@ -224,14 +344,20 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
                     sched.finish(r)
         return trace
 
-    want = drive(
-        JaxScheduler(JaxEngineConfig.for_tests(enable_prefix_caching=False, mixed_steps=False, **kw),
-                     JaxAllocator(num_pages, 4)),
-        lambda rid, p, n: JaxRequest(rid, p, JaxSampling(max_tokens=n)),
-    )
-    got = drive(Scheduler(EngineConfig.for_tests(**kw), PageAllocator(num_pages, 4)),
-                lambda rid, p, n: Request(rid, p, SamplingParams(max_tokens=n)))
-    assert got == want
-    assert len(want) < 400
-    if num_pages == 9:  # the small pool did preempt
-        assert max(step[-1] for step in want if step[0] != "idle") > 0
+    for budget in ({}, dict(prefill_token_budget=8),
+                   dict(prefill_token_budget=8, prefill_budget_policy="adaptive")):
+        kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0, **budget)
+        want = drive(
+            JaxScheduler(JaxEngineConfig.for_tests(enable_prefix_caching=False,
+                                                   mixed_steps=False, **kw),
+                         JaxAllocator(num_pages, 4)),
+            lambda rid, p, n: JaxRequest(rid, p, JaxSampling(max_tokens=n)),
+        )
+        got = drive(Scheduler(EngineConfig.for_tests(**kw), PageAllocator(num_pages, 4)),
+                    lambda rid, p, n: Request(rid, p, SamplingParams(max_tokens=n)))
+        assert got == want
+        assert len(want) < 400
+        # some prompt ran as more than one piece, and some piece had history
+        assert any(start > 0 for step in want if step[0] != "idle" for _, start, _ in step[1])
+        if num_pages == 9:  # the small pool did preempt
+            assert max(step[-1] for step in want if step[0] != "idle") > 0

@@ -161,12 +161,47 @@ def test_token_ids_cover_the_usage(server):
     ("/v1/chat/completions", {"model": "tiny", "messages": MESSAGES, "logprobs": True}, 400),
     ("/v1/chat/completions",
      {"model": "tiny", "messages": MESSAGES, "ext": {"return_token_ids": "yes"}}, 400),
-    # longer than one chunk, though it fits the context
-    ("/v1/completions", {"model": "tiny", "prompt": "x" * 100}, 501),
-    ("/v1/completions", {"model": "tiny", "prompt": "x" * 100, "stream": True}, 501),
 ])
 def test_refusals_are_http_statuses(server, path, body, status):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server.url + path, body)
     assert e.value.code == status
     assert "error" in json.load(e.value)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_prompt_longer_than_one_chunk_is_served(server, stream):
+    """A 100-token prompt (the server's chunk is 64 tokens) prefills in two
+    chunks and is served, unary and streaming; usage counts its tokens."""
+    body = {"model": "tiny", "prompt": "x" * 100, "max_tokens": 5,
+            "ext": {"ignore_eos": True, "return_token_ids": True}}
+    if stream:
+        events, done = _stream(server.url + "/v1/completions",
+                               {**body, "stream": True, "stream_options": {"include_usage": True}})
+        assert done
+    else:
+        with _post(server.url + "/v1/completions", body) as resp:
+            assert resp.status == 200
+            events = [json.load(resp)]
+    usage = events[-1]["usage"]
+    ids = [t for e in events for c in e["choices"] for t in c.get("token_ids", [])]
+    assert usage["prompt_tokens"] == len(ByteTokenizer().encode("x" * 100)) >= 100
+    assert usage["completion_tokens"] == len(ids) == 5
+
+
+@pytest.mark.parametrize("extra,chunk", [
+    ([], 512),                                  # the JAX CLI's default
+    (["--prefill-chunk", "128"], 128),
+    (["--prefill-chunk", "96"], None),          # not a multiple of the page size
+    (["--max-context", "256"], None),           # the default chunk exceeds the context
+    (["--max-context", "256", "--prefill-chunk", "256"], 256),
+])
+def test_prefill_chunk_defaults_to_512_and_is_validated(extra, chunk):
+    from dynamo_tpu_torch.cli.run import _parse
+
+    argv = ["run", "in=http", "out=torch", *extra]
+    if chunk is None:
+        with pytest.raises(SystemExit, match="--prefill-chunk"):
+            _parse(argv)
+    else:
+        assert _parse(argv).prefill_chunk == chunk

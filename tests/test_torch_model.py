@@ -108,15 +108,91 @@ def test_prefill_then_decode_matches_jax_forward(lens):
     assert all(c.launches == 0 for c in COUNTS.values())
 
 
+def _run_chunks(steps, jparams, tparams, jcfg, tcfg, pt, num_pages, s):
+    """Run each (tokens, positions, valid, first_chunk) step through both
+    forwards over their own pools; returns the per-step logits pairs and
+    the final pools."""
+    jkv = jllama.init_kv_pages(jcfg, num_pages, s)
+    tkv = tllama.init_kv_pages(tcfg, num_pages, s, device="cpu")
+    out = []
+    for tokens, positions, valid, first in steps:
+        jlogits, jkv = jllama.forward(
+            jparams, jcfg, jnp.asarray(tokens), jnp.asarray(positions), jnp.asarray(valid),
+            jkv, jnp.asarray(pt), first_chunk=first,
+        )
+        tlogits, tkv = tllama.forward(
+            tparams, tcfg, torch.from_numpy(tokens).long(), torch.from_numpy(positions),
+            torch.from_numpy(valid), tkv, torch.from_numpy(pt), first_chunk=first,
+        )
+        out.append((tlogits.numpy(), np.asarray(jlogits)))
+    return out, tkv, jkv
+
+
+def _chunk(tokens, start, length, t):
+    """Row inputs for `length` tokens from `start`, padded to T=t."""
+    tok = np.zeros(t, np.int32)
+    tok[:length] = tokens[start:start + length]
+    return tok, np.arange(t, dtype=np.int32) + start, np.arange(t) < length
+
+
 def test_chunk_with_history_is_refused():
-    _, tcfg, np_params = _tiny_pair()
-    params = tllama.params_from_jax(np_params, tcfg, device="cpu")
-    kv = tllama.init_kv_pages(tcfg, 8, 4, device="cpu")
-    tokens = torch.ones((1, 4), dtype=torch.long)
-    positions = torch.arange(4, 8, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="paged_prefill_attention"):
-        tllama.forward(params, tcfg, tokens, positions, torch.ones((1, 4), dtype=torch.bool),
-                       kv, torch.tensor([[1, 2, 3]], dtype=torch.int32))
+    """(The name is kept from when the port refused a chunk with history.)
+    A 40-token prompt forwarded in page-aligned chunks of 16, 16 and 8
+    (T=16): every chunk's logits match the JAX forward over the same
+    chunks within 1e-4, the pools agree on every written token, and a
+    later chunk leaves the history slots of the pages bit for bit as
+    they were."""
+    jcfg, tcfg, np_params = _tiny_pair()
+    tparams = tllama.params_from_jax(np_params, tcfg, device="cpu")
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    s, t, num_pages, n = 4, 16, 16, 40
+    rng = np.random.default_rng(40)
+    prompt = rng.integers(1, tcfg.vocab_size, n).astype(np.int32)
+    pt = (1 + rng.permutation(num_pages - 1)[:12])[None].astype(np.int32)
+    pieces = [(0, 16), (16, 16), (32, 8)]
+    steps = [tuple(x[None] for x in _chunk(prompt, a, m, t)) + (a == 0,) for a, m in pieces]
+    reset_counts()
+    logits, tkv, jkv = _run_chunks(steps, jparams, tparams, jcfg, tcfg, pt, num_pages, s)
+    for (tl, jl), (_, m) in zip(logits, pieces):
+        np.testing.assert_allclose(tl[0, :m], jl[0, :m], atol=ATOL)
+    _assert_pages_match(tkv, jkv, tcfg, pt, [n])
+    assert COUNTS["flash_prefill_attention"].plain_calls == tcfg.num_layers
+    assert COUNTS["paged_prefill_attention"].plain_calls == 2 * tcfg.num_layers
+    # the history's slots after the first two chunks, then the third chunk
+    _, before, _ = _run_chunks(steps[:2], jparams, tparams, jcfg, tcfg, pt, num_pages, s)
+    hist_pages = pt[0, : 32 // s]
+    assert torch.equal(tkv.k[:, hist_pages], before.k[:, hist_pages])
+    assert torch.equal(tkv.v[:, hist_pages], before.v[:, hist_pages])
+
+
+def test_batch_mixing_a_first_chunk_and_a_chunk_with_history():
+    """One batch whose row 0 starts a prompt at 0 and whose row 1 is the
+    second chunk of another prompt (its first chunk ran before), plus a
+    padding row: the batch runs the history path (hist_lens 0 for rows 0
+    and 2) and matches the JAX forward within 1e-4."""
+    jcfg, tcfg, np_params = _tiny_pair()
+    tparams = tllama.params_from_jax(np_params, tcfg, device="cpu")
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    s, t, num_pages = 4, 16, 32
+    rng = np.random.default_rng(7)
+    a = rng.integers(1, tcfg.vocab_size, 11).astype(np.int32)
+    b = rng.integers(1, tcfg.vocab_size, 27).astype(np.int32)
+    pt = (1 + rng.permutation(num_pages - 1)[:24]).reshape(3, 8).astype(np.int32)
+    pad = (np.zeros(t, np.int32), np.arange(t, dtype=np.int32), np.zeros(t, bool))
+    # step 1: b's first chunk alone (rows 0 and 2 padding)
+    step1 = [pad, _chunk(b, 0, 16, t), pad]
+    # step 2: a's whole prompt beside b's second chunk
+    step2 = [_chunk(a, 0, 11, t), _chunk(b, 16, 11, t), pad]
+    steps = [tuple(np.stack(c) for c in zip(*rows)) + (f,)
+             for rows, f in ((step1, True), (step2, False))]
+    reset_counts()
+    logits, tkv, jkv = _run_chunks(steps, jparams, tparams, jcfg, tcfg, pt, num_pages, s)
+    tl, jl = logits[1]
+    np.testing.assert_allclose(tl[0, :11], jl[0, :11], atol=ATOL)
+    np.testing.assert_allclose(tl[1, :11], jl[1, :11], atol=ATOL)
+    _assert_pages_match(tkv, jkv, tcfg, pt, [11, 27, 0])
+    assert COUNTS["paged_prefill_attention"].plain_calls == tcfg.num_layers
+    assert COUNTS["flash_prefill_attention"].plain_calls == tcfg.num_layers
 
 
 def test_rope_inv_freq_matches_jax_with_ntk_scaling():

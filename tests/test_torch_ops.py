@@ -1,8 +1,9 @@
-"""The port's three plain kernel versions against the JAX Pallas kernels.
+"""The port's four plain kernel versions against the JAX Pallas kernels.
 
 Inputs are made from a seed with numpy and go through both sides; the JAX
 kernels run in interpret mode on the CPU, as the JAX package's own tests
-run them, at D=128 (the Pallas kernels' lane width). Float32 throughout:
+run them, at D=128 (the Pallas kernels' lane width; one history case
+takes D=64). Float32 throughout:
 tolerance atol=rtol=2e-5 for the attention kernels (sums taken in another
 order), bit-equality for the write.
 """
@@ -14,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from dynamo_tpu.ops.flash_prefill import flash_prefill_attention as jax_flash_prefill
+from dynamo_tpu.ops.flash_prefill import paged_prefill_attention as jax_paged_prefill
 from dynamo_tpu.ops.kv_update import paged_write as jax_paged_write
 from dynamo_tpu.ops.paged_attention import paged_decode_attention as jax_paged_decode
 from dynamo_tpu_torch import ops
@@ -98,6 +100,68 @@ def test_flash_prefill_plain_matches_jax(b, t, hq, hkv, valid):
     ).numpy()
     for i, n in enumerate(valid):  # rows at or past valid_len are unspecified
         np.testing.assert_allclose(got[i, :n], ref[i, :n], **TOL)
+
+
+@pytest.mark.parametrize(
+    "b,t,hq,hkv,d,hist,cur",
+    [
+        (2, 128, 4, 2, 128, (128, 65), (128, 90)),  # full chunk beside a ragged one
+        (1, 256, 8, 2, 128, (192,), (256,)),        # GQA g=4, history of several pages
+        (2, 128, 2, 2, 128, (64, 0), (128, 0)),     # one dead row
+        (3, 64, 4, 1, 128, (65, 0, 130), (64, 33, 1)),  # partial last pages, a first chunk
+        (2, 128, 8, 2, 64, (100, 64), (128, 77)),   # D=64
+    ],
+)
+def test_paged_prefill_plain_matches_jax(b, t, hq, hkv, d, hist, cur):
+    """The reference's three cases (tests/test_flash_prefill.py), plus a
+    history that ends inside a page beside a first chunk (hist 0) and a
+    D=64 case. Rows at or past cur_lens are unspecified."""
+    s, num_pages, mp, layers, layer = 64, 16, 4, 2, 1
+    rng = np.random.default_rng(1000 * b + t + d)
+    q = rng.standard_normal((b, t, hq, d)).astype(np.float32)
+    kc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    vc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    k_cache = rng.standard_normal((layers, num_pages, s, hkv, d)).astype(np.float32)
+    v_cache = rng.standard_normal((layers, num_pages, s, hkv, d)).astype(np.float32)
+    pt = (1 + rng.permutation(num_pages - 1)[: b * mp]).reshape(b, mp).astype(np.int32)
+    hist_lens = np.asarray(hist, np.int32)
+    cur_lens = np.asarray(cur, np.int32)
+    ref = np.asarray(
+        jax_paged_prefill(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(k_cache),
+            jnp.asarray(v_cache), jnp.int32(layer), jnp.asarray(pt), jnp.asarray(hist_lens),
+            jnp.asarray(cur_lens), scale_dim=d, interpret=True,
+        )
+    )
+    ops.reset_counts()
+    got = flash_prefill.paged_prefill_attention(
+        _t(q), _t(kc), _t(vc), _t(k_cache), _t(v_cache), layer, _t(pt), _t(hist_lens),
+        _t(cur_lens), scale_dim=d,
+    ).numpy()
+    assert np.isfinite(got).all()
+    for i, n in enumerate(cur):
+        np.testing.assert_allclose(got[i, :n], ref[i, :n], **TOL)
+    c = ops.COUNTS["paged_prefill_attention"]
+    assert (c.launches, c.plain_calls) == (0, 1)
+
+
+def test_paged_prefill_counts_only_needed_work():
+    """flops and bytes count valid rows and history below hist_lens only:
+    padding rows, dead sequences and unused page slots add nothing."""
+    hq, hkv, d = 32, 8, 64
+    hist, cur = torch.tensor([0, 512, 1536, 3072]), torch.tensor([512, 512, 300, 512])
+    pairs = sum(int(c) * int(h) + int(c) * (int(c) + 1) // 2 for h, c in zip(hist, cur))
+    assert pairs == 2_734_942
+    assert flash_prefill.paged_flops(hist, cur, hq, d) == 4 * hq * d * pairs
+    assert flash_prefill.paged_bytes_moved(hist, cur, hq, hkv, d, 2) == (
+        1836 * (2 * hq + 2 * hkv) * d * 2 + 2 * 5120 * hkv * d * 2
+    )
+    # a dead row and an empty history add nothing; hist 0 is a first chunk
+    more = torch.tensor([0, 0]), torch.tensor([64, 0])
+    assert flash_prefill.paged_flops(*more, hq, d) == flash_prefill.flops(
+        torch.tensor([64]), hq, d)
+    assert flash_prefill.paged_bytes_moved(*more, hq, hkv, d, 2) == flash_prefill.bytes_moved(
+        torch.tensor([64]), hq, hkv, d, 2)
 
 
 @pytest.mark.parametrize(
