@@ -7,28 +7,35 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the serving path, from dynamo_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at llama3-1b
-     widths (page size 64), with its time, the plain version's, one library
-     call's where one computes the same function, and the card's least time
-     for the work (bound, from bytes or operations over the H100's peaks);
+     widths (page size 64), over bf16 pools and over quantized (int8, fp8)
+     pools for the three kernels that read or write them, with its time,
+     the plain version's, one library call's where one computes the same
+     function, and the card's least time for the work (bound, from bytes
+     or operations over the H100's peaks);
   4. model: random-init llama3-1b in bf16, the kernel path against the
      plain path, teacher-forced over a 256-token prompt and 32 decode steps,
      and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
-     and 32 decode steps: per-step max |delta logit| < 0.25 and argmax
-     agreement >= 90 %;
+     and 32 decode steps, over a bf16 pool, an int8 pool and an fp8 pool:
+     per-step max |delta logit| < 0.25 and argmax agreement >= 90 %; the
+     quantized kernel path is also held against the bf16 kernel path, and
+     reported without a gate;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
      prefills in three chunks, a unary chat and a completion together,
      then a streamed greedy pair and a streamed seeded sampled pair one
-     request at a time). Each asks for its token ids in its choices
-     (ext.return_token_ids): usage must count exactly the ids served, each
-     pair's ids must be identical, every kernel's launch count must rise
-     while serving and no plain version may run. TTFT is taken at the
-     client, from sending a streaming request to its first chunk that
-     carries a token.
-Then the `kernels` JSON line, the card line and, last, the contract line
-{"ok": true, "device": {...}}. With no card it exits non-zero and prints
-no result.
+     request at a time); then the same server with --kv-quantize int8 and
+     with --kv-quantize fp8, each with the long prompt and three streaming
+     chats together, then the greedy pair one request at a time. Each
+     request asks for its token ids in its choices (ext.return_token_ids):
+     usage must count exactly the ids served, each pair's ids must be
+     identical, every kernel variant of the server's pool must launch
+     while serving, no other pool variant may, and no plain version may
+     run. TTFT is taken at the client, from sending a streaming request to
+     its first chunk that carries a token.
+Then the `kernels` JSON line (one entry per kernel variant), the card line
+and, last, the contract line {"ok": true, "device": {...}}. With no card
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ import urllib.request
 import torch
 
 from dynamo_tpu_torch import ops, platform
-from dynamo_tpu_torch.ops import _build, flash_prefill, kv_update, paged_attention
+from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
 
 #: llama3-1b attention widths (LlamaConfig.llama3_1b), page size 64
 L, HQ, HKV, D, S = 16, 32, 8, 64, 64
+#: pool modes: bf16 (None) and the two quantized ones
+MODES = kv_quant.POOL_MODES
 SOURCE = {
     "paged_write": ("dynamo_tpu_torch/csrc/kv_update.cu", "dynamo_tpu/ops/kv_update.py:266"),
     "flash_prefill_attention": (
@@ -55,6 +64,12 @@ SOURCE = {
         "dynamo_tpu_torch/csrc/paged_attention.cu", "dynamo_tpu/ops/paged_attention.py:369"),
     "paged_prefill_attention": (
         "dynamo_tpu_torch/csrc/paged_prefill.cu", "dynamo_tpu/ops/flash_prefill.py:389"),
+}
+#: the `quantized` branch of each Pallas kernel that has one
+QUANT_BRANCH = {
+    "paged_write": "dynamo_tpu/ops/kv_update.py:56",
+    "paged_decode_attention": "dynamo_tpu/ops/paged_attention.py:142",
+    "paged_prefill_attention": "dynamo_tpu/ops/flash_prefill.py:185",
 }
 #: flash and paged prefill (bf16 output): each row's max |diff| against the
 #: plain version, as a share of the row's largest |value|; 2^-6 is 2-4 bf16
@@ -96,14 +111,51 @@ def bound(nbytes: float, flop: float, peaks) -> tuple[float, str]:
 # -- phase 3: kernels against their plain versions ------------------------------
 
 
-def check_paged_write(dev, peaks, gen, b: int, t: int) -> dict:
+def make_pools(shape, mode, gen, dev) -> tuple[list, dict]:
+    """Random K and V pools: bf16 normals, or normals quantized to `mode`
+    (rows of several magnitudes) with their scale planes as keywords."""
+    if mode is None:
+        return [torch.randn(shape, generator=gen, dtype=torch.bfloat16, device=dev)
+                for _ in range(2)], {}
+    pools, planes = [], []
+    for _ in range(2):
+        x = torch.randn(shape, generator=gen, device=dev)
+        x *= 0.1 + 4 * torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+        q, s = kv_quant.quantize_kv_rows(x, mode)
+        pools.append(q)
+        planes.append(s)
+        del x
+    return pools, {"k_scale": planes[0], "v_scale": planes[1]}
+
+
+def poison_past_history(pools, planes, pt, hist):
+    """Slots past each history get the byte 0x7f (NaN in e4m3, 127 in int8)
+    and a zero scale: the kernels must select them away, never multiply."""
+    pos = torch.arange(pt.shape[1] * S, device=pt.device)
+    stale = pos[None, :] >= hist.long()[:, None]
+    pages = pt.long().repeat_interleave(S, dim=1)[stale]
+    slots = (pos % S).expand_as(stale)[stale]
+    for rows in pools:
+        rows.view(torch.uint8)[:, pages, slots] = 0x7F
+    for plane in planes.values():
+        plane[:, pages, slots] = 0.0
+
+
+def dense_history(cache, scale, layer, pt, hist) -> torch.Tensor:
+    """A bf16 copy of each history [B, MP*S, Hkv, D], dequantized, for the
+    library yardstick (made before timing, never timed)."""
+    live = torch.arange(pt.shape[1] * S, device=pt.device)[None, :] < hist.long()[:, None]
+    return kv_quant.gather_history(cache, scale, layer, pt, live).to(torch.bfloat16)
+
+
+def as_bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+
+def check_paged_write(dev, peaks, gen, b: int, t: int, mode) -> dict:
     pages_per_seq = max(1, -(-t // S)) + 2
     num_pages = 1 + b * pages_per_seq
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    k_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    v_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    k_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
-    v_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
+    # the page tables and lengths first: every pool mode gets the same ones
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * pages_per_seq]
     pt = pt.reshape(b, pages_per_seq).to(torch.int32)
     if t == 1:
@@ -115,26 +167,66 @@ def check_paged_write(dev, peaks, gen, b: int, t: int) -> dict:
         pos = torch.arange(t, device=dev)[None, :].expand(b, t)
         lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
         valid = pos < lens[:, None]
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    k_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
+    v_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
+    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
     args = (pt, pos.to(torch.int32).contiguous(), valid.contiguous())
-    kc_k, vc_k = k_cache.clone(), v_cache.clone()
-    kc_p, vc_p = k_cache.clone(), v_cache.clone()
-    kv_update.paged_write(kc_k, vc_k, k_stage, v_stage, *args)
-    kv_update.paged_write_plain(kc_p, vc_p, k_stage, v_stage, *args)
+    before = [k_cache, v_cache, *planes.values()]
+    kern = [x.clone() for x in before]
+    plain = [x.clone() for x in before]
+    kp = dict(zip(planes, kern[2:]))  # the scale planes as keywords, if any
+    pp = dict(zip(planes, plain[2:]))
+    kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp)
+    kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp)
     torch.cuda.synchronize()
     # page 0 is the null page: its contents are unspecified by contract
-    err = max(
-        (kc_k[:, 1:].float() - kc_p[:, 1:].float()).abs().max().item(),
-        (vc_k[:, 1:].float() - vc_p[:, 1:].float()).abs().max().item(),
-    )
-    if err != 0.0:
-        raise AssertionError(f"paged_write B={b} T={t}: not bit-equal (max |diff| {err})")
-    ms = cuda_ms(lambda: kv_update.paged_write(kc_k, vc_k, k_stage, v_stage, *args))
-    plain_ms = cuda_ms(lambda: kv_update.paged_write_plain(kc_p, vc_p, k_stage, v_stage, *args))
-    b_ms, by = bound(kv_update.bytes_moved(k_stage, valid.cpu(), S), 0.0, peaks)
-    return {"kernel": "paged_write", "B": b, "T": t, "L": L, "Hkv": HKV, "D": D, "S": S,
-            "tolerance": "bit-equal on every page but the null page 0",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": b_ms, "bound_by": by}
+    for g, w in zip(kern, plain):
+        if not torch.equal(as_bytes(g)[:, 1:], as_bytes(w)[:, 1:]):
+            n = int((as_bytes(g)[:, 1:] != as_bytes(w)[:, 1:]).sum())
+            raise AssertionError(f"paged_write {mode or 'bf16'} B={b} T={t}: not bit-equal "
+                                 f"({n} elements differ)")
+    ms = cuda_ms(lambda: kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp))
+    plain_ms = cuda_ms(
+        lambda: kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp))
+    library_ms, library = None, "none: no single PyTorch call quantizes and lands the rows"
+    if mode is None:
+        library_ms = index_copy_write(kern, k_stage, v_stage, *args)
+        library = ("Tensor.index_copy_ on each pool viewed as [L, P*S, Hkv*D] over "
+                   "precomputed flat slot indices (K and V, timed together)")
+    nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode)
+    b_ms, by = bound(nbytes, 0.0, peaks)
+    return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": L,
+            "Hkv": HKV, "D": D, "S": S,
+            "tolerance": "bit-equal on every page but the null page 0"
+                         + ("" if mode is None else ", narrow bytes and scale planes"),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": library, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
+
+
+def index_copy_write(pools, k_stage, v_stage, pt, pos, valid) -> float:
+    """Time of the bf16 write as one index_copy_ per pool (the library
+    yardstick), after checking that it lands what the kernel landed."""
+    b, t = pos.shape
+    run = min(t, S)
+    first_pos = pos[:, ::run].long()
+    first_valid = valid[:, ::run]
+    pages = torch.gather(pt.long(), 1, (first_pos // S).clamp(0, pt.shape[1] - 1))
+    pages = torch.where(first_valid, pages, 0)
+    slot0 = torch.where(first_valid, first_pos % S, 0)
+    idx = ((pages * S + slot0)[:, :, None] + torch.arange(run, device=pos.device)).reshape(-1)
+    flat = [x.clone().view(L, -1, HKV * D) for x in pools[:2]]
+    src = [x.view(L, b * t, HKV * D) for x in (k_stage, v_stage)]
+
+    def call():
+        for dst, s in zip(flat, src):
+            dst.index_copy_(1, idx, s)
+
+    call()
+    for dst, want in zip(flat, pools[:2]):
+        if not torch.equal(dst.view(want.shape)[:, 1:], want[:, 1:]):
+            raise AssertionError("paged_write: the index_copy_ yardstick lands other rows")
+    return cuda_ms(call)
 
 
 def row_errors(got, ref, lens) -> tuple[float, float]:
@@ -180,37 +272,43 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
-def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int) -> dict:
+def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int,
+                        mode) -> dict:
     b = len(hist)
     mp = max(1, -(-max(hist) // S))
     num_pages = 1 + b * mp
+    pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
+    pt = pt.reshape(b, mp).to(torch.int32)
     bf = dict(dtype=torch.bfloat16, device=dev)
     q = torch.randn((b, t, HQ, D), generator=gen, **bf)
     k_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
     v_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
-    k_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    v_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
-    pt = pt.reshape(b, mp).to(torch.int32)
+    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
     hist_lens = torch.tensor(hist, dtype=torch.int32, device=dev)
     cur_lens = torch.tensor(cur, dtype=torch.int32, device=dev)
+    if mode is not None:
+        poison_past_history((k_cache, v_cache), planes, pt, hist_lens)
     layer = L - 2
     args = (q, k_cur, v_cur, k_cache, v_cache, layer, pt, hist_lens, cur_lens)
-    got = flash_prefill.paged_prefill_attention(*args, scale_dim=D)
-    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D)
+    got = flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes)
+    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes)
     torch.cuda.synchronize()
+    name = kv_quant.variant("paged_prefill_attention", mode)
     err, rel = row_errors(got, ref, cur_lens)
     if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
-        raise AssertionError(f"paged_prefill_attention B={b} T={t}: a row's max |diff| is "
+        raise AssertionError(f"{name} B={b} T={t}: a row's max |diff| is "
                              f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
-    ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D))
-    plain_ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D))
-    # the library yardstick attends over a dense copy of each sequence's
+    ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes))
+    plain_ms = cuda_ms(
+        lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes))
+    # the library yardstick attends over a bf16 copy of each (dequantized)
     # history followed by its chunk (the copy is not timed), with the same
     # mask: history below hist_lens, the chunk causally below cur_lens
     n_hist = mp * S
-    dense_k = torch.cat([k_cache[layer][pt.long()].reshape(b, n_hist, HKV, D), k_cur], 1)
-    dense_v = torch.cat([v_cache[layer][pt.long()].reshape(b, n_hist, HKV, D), v_cur], 1)
+    dense_k = torch.cat([dense_history(k_cache, planes.get("k_scale"), layer, pt, hist_lens),
+                         k_cur], 1)
+    dense_v = torch.cat([dense_history(v_cache, planes.get("v_scale"), layer, pt, hist_lens),
+                         v_cur], 1)
     pos = torch.arange(t, device=dev)
     hist_live = (torch.arange(n_hist, device=dev)[None, :] < hist_lens[:, None])
     cur_live = (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < cur_lens[:, None, None])
@@ -218,27 +316,27 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
     qt, kt, vt = q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, D, 2)
+    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, D, 2,
+                                             mode)
     flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, D)
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": "paged_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
+    return {"kernel": name, "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
             "S": S, "hist_lens": hist, "cur_lens": cur,
             "tolerance": f"bf16, each (token, head) row below cur_lens: max |diff| <= "
-                         f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)",
+                         f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)"
+                         + ("" if mode is None else "; slots past each history hold "
+                            "byte 0x7f and scale 0"),
             "max_abs_err": err, "max_row_rel_err": rel,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
-                       "dense copy of each history followed by its chunk",
+                       "dense bf16 copy of each (dequantized) history followed by its chunk",
             "flop": flop, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
-def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
+def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
     mp = max_hist // S
     num_pages = 1 + b * mp
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    k_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    v_cache = torch.randn((L, num_pages, S, HKV, D), generator=gen, **bf)
-    q = torch.randn((b, HQ, D), generator=gen, **bf)
+    # the page tables and lengths first: every pool mode gets the same ones
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
     pt = pt.reshape(b, mp).to(torch.int32)
     hist = torch.randint(1, max_hist + 1, (b,), generator=gen, device=dev)
@@ -247,12 +345,16 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
         hist[1] = 0  # no history: (acc, m, l) = (0, -inf, 0)
         hist[2] = max_hist
     hist = hist.to(torch.int32)
+    q = torch.randn((b, HQ, D), generator=gen, dtype=torch.bfloat16, device=dev)
+    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
+    if mode is not None:
+        poison_past_history((k_cache, v_cache), planes, pt, hist)
     layer = L - 3
-    acc, m, l = paged_attention.paged_decode_attention(
-        q, k_cache, v_cache, layer, pt, hist, scale_dim=D)
-    racc, rm, rl = paged_attention.paged_decode_attention_plain(
-        q, k_cache, v_cache, layer, pt, hist, scale_dim=D)
+    args = (q, k_cache, v_cache, layer, pt, hist)
+    acc, m, l = paged_attention.paged_decode_attention(*args, scale_dim=D, **planes)
+    racc, rm, rl = paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes)
     torch.cuda.synchronize()
+    name = kv_quant.variant("paged_decode_attention", mode)
     some = hist > 0
     err = (acc / l[..., None] - racc / rl[..., None])[some].abs().max().item()
     m_err = (m - rm)[some].abs().max().item()
@@ -261,53 +363,54 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int) -> dict:
     )
     if not (err <= DECODE_ATOL and m_err <= DECODE_ATOL) or not empty_ok:
         raise AssertionError(
-            f"paged_decode_attention B={b}: max |acc/l diff| {err}, max |m diff| {m_err} "
+            f"{name} B={b}: max |acc/l diff| {err}, max |m diff| {m_err} "
             f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
 
-    def call():
-        return paged_attention.paged_decode_attention(
-            q, k_cache, v_cache, layer, pt, hist, scale_dim=D)
-
-    def plain():
-        return paged_attention.paged_decode_attention_plain(
-            q, k_cache, v_cache, layer, pt, hist, scale_dim=D)
-
-    ms, plain_ms = cuda_ms(call), cuda_ms(plain)
-    # the library yardstick attends over a dense copy of each history
-    # (the gather itself is not timed): one SDPA call with a length mask
-    dense_k = k_cache[layer][pt.long()].reshape(b, mp * S, HKV, D).transpose(1, 2)
-    dense_v = v_cache[layer][pt.long()].reshape(b, mp * S, HKV, D).transpose(1, 2)
+    ms = cuda_ms(lambda: paged_attention.paged_decode_attention(*args, scale_dim=D, **planes))
+    plain_ms = cuda_ms(
+        lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes))
+    # the library yardstick attends over a bf16 copy of each (dequantized)
+    # history (the copy is not timed): one SDPA call with a length mask
+    dense_k = dense_history(k_cache, planes.get("k_scale"), layer, pt, hist).transpose(1, 2)
+    dense_v = dense_history(v_cache, planes.get("v_scale"), layer, pt, hist).transpose(1, 2)
     live = (torch.arange(mp * S, device=dev)[None, :] < hist[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live,
                                       enable_gqa=True))
-    nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, D, 2)
+    nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, D, 2, mode)
     flop = 4 * HQ * D * int(hist.long().sum())
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": "paged_decode_attention", "B": b, "Hq": HQ, "Hkv": HKV, "D": D, "S": S,
+    return {"kernel": name, "B": b, "Hq": HQ, "Hkv": HKV, "D": D, "S": S,
             "history_tokens": int(hist.long().sum()), "max_history": int(hist.max()),
             "tolerance": f"f32, max |acc/l diff| and |m diff| <= {DECODE_ATOL}; "
-                         "zero history exactly (0, -inf, 0)",
+                         "zero history exactly (0, -inf, 0)"
+                         + ("" if mode is None else "; slots past each history hold "
+                            "byte 0x7f and scale 0"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
-                       "dense copy of the history, normalized output",
-            "bound_ms": b_ms, "bound_by": by}
+                       "dense bf16 copy of the (dequantized) history, normalized output",
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
 def phase_kernels(dev, peaks) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [
-        check_paged_write(dev, peaks, gen, 32, 1),
-        check_paged_write(dev, peaks, gen, 8, 512),
-        check_flash_prefill(dev, peaks, gen, 8, 512),
-        check_paged_decode(dev, peaks, gen, 1, 2048),
-        check_paged_decode(dev, peaks, gen, 32, 2048),
-        # a first chunk through this kernel, a ragged chunk, long histories
-        check_paged_prefill(dev, peaks, gen, [0, 512, 1536, 3072], [512, 512, 300, 512], 512),
-    ]
+    gen = torch.Generator(device=dev)
+    cases = [check_flash_prefill(dev, peaks, gen.manual_seed(0), 8, 512)]
+    for mode in MODES:
+        # each shape from its own seed, so every pool mode sees the same
+        # page tables, lengths and staged rows
+        cases += [
+            check_paged_write(dev, peaks, gen.manual_seed(1), 32, 1, mode),
+            check_paged_write(dev, peaks, gen.manual_seed(2), 8, 512, mode),
+            check_paged_decode(dev, peaks, gen.manual_seed(3), 1, 2048, mode),
+            check_paged_decode(dev, peaks, gen.manual_seed(4), 32, 2048, mode),
+            # a first chunk through this kernel, a ragged chunk, long histories
+            check_paged_prefill(dev, peaks, gen.manual_seed(5), [0, 512, 1536, 3072],
+                                [512, 512, 300, 512], 512, mode),
+        ]
+        torch.cuda.empty_cache()
     for c in cases:
         emit({"phase": "kernels", **c})
-    # the kernels line reports each kernel at its last (largest) shape above
+    # the kernels line reports each variant at its last (largest) shape above
     return {c["kernel"]: c for c in cases}
 
 
@@ -316,66 +419,83 @@ def phase_kernels(dev, peaks) -> dict:
 
 def phase_model(dev) -> list[dict]:
     """The model gate over a prompt in one first chunk, and over a longer
-    prompt in chunks whose later ones attend over their history."""
+    prompt in chunks whose later ones attend over their history, over a
+    bf16 pool and over an int8 and an fp8 pool. Every path takes the plain
+    path's greedy token (teacher forcing)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.registry import get_model
 
     adapter = get_model("llama3-1b", dtype="bfloat16")
     cfg = adapter.config
     params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
-    selector = {"kernel": ops.KERNELS, "plain": ops.PLAIN}
+    gates = [(None, (256,), 32), (None, (512, 512, 256), 32),
+             ("int8", (512, 512, 256), 32), ("fp8", (512, 512, 256), 32)]
     results = []
     with torch.no_grad():
-        for chunks, steps in (((256,), 32), ((512, 512, 256), 32)):
+        for mode, chunks, steps in gates:
+            # path name -> (ops, pool mode); "bf16" is the unquantized kernel path
+            paths = {"kernel": (ops.KERNELS, mode), "plain": (ops.PLAIN, mode)}
+            if mode is not None:
+                paths["bf16"] = (ops.KERNELS, None)
             prompt_len = sum(chunks)
             num_pages = 2 + (prompt_len + steps) // S
             pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
-            pools = {name: adapter.init_kv(num_pages, S, dev) for name in ("kernel", "plain")}
+            pools = {name: adapter.init_kv(num_pages, S, dev, kv_quantize=m)
+                     for name, (_, m) in paths.items()}
             gen = torch.Generator(device=dev).manual_seed(1)
             tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
-            worst, agree, rows = 0.0, 0, 0
+            stats = {pair: [0.0, 0, 0] for pair in (("kernel", "plain"), ("kernel", "bf16"))}
+            label = f"model gate, {mode or 'bf16'} pool, chunks {chunks}"
 
-            def both(tok, pos, first_chunk):
+            def run_all(tok, pos, first_chunk):
                 out = {}
                 val = torch.ones(tok.shape, dtype=torch.bool, device=dev)
-                for name in ("kernel", "plain"):
+                for name, (path_ops, _) in paths.items():
                     out[name], _ = llama.forward(params, cfg, tok, pos, val, pools[name], pt,
-                                                 first_chunk=first_chunk, ops=selector[name])
-                return out["kernel"][0], out["plain"][0]  # [T, V] each
+                                                 first_chunk=first_chunk, ops=path_ops)
+                return {k: v[0] for k, v in out.items()}  # [T, V] each
 
-            def gate(got, want, step):
-                nonlocal worst, agree, rows
-                d = (got.float() - want.float()).abs().amax(dim=-1)  # per position
-                worst = max(worst, d.max().item())
-                agree += int((got.argmax(-1) == want.argmax(-1)).sum())
-                rows += got.shape[0]
-                if d.max().item() >= GATE_MAX_DLOGIT:
-                    raise AssertionError(f"model gate, chunks {chunks}: step {step} "
-                                         f"max |dlogit| {d.max().item()}")
+            def gate(out, step):
+                for (a, b_), st in stats.items():
+                    if b_ not in out:
+                        continue
+                    d = (out[a].float() - out[b_].float()).abs().amax(dim=-1)  # per position
+                    st[0] = max(st[0], d.max().item())
+                    st[1] += int((out[a].argmax(-1) == out[b_].argmax(-1)).sum())
+                    st[2] += out[a].shape[0]
+                    if b_ == "plain" and d.max().item() >= GATE_MAX_DLOGIT:
+                        raise AssertionError(f"{label}: step {step} max |dlogit| "
+                                             f"{d.max().item()}")
 
             start = 0
             for i, n in enumerate(chunks):  # the prompt, chunk by chunk
                 pos = torch.arange(start, start + n, dtype=torch.int32, device=dev)[None]
-                got, want = both(tokens[:, start:start + n], pos, start == 0)
-                gate(got, want, f"chunk {i}")
+                out = run_all(tokens[:, start:start + n], pos, start == 0)
+                gate(out, f"chunk {i}")
                 start += n
-            nxt = want[-1].argmax()
+            nxt = out["plain"][-1].argmax()
             for step in range(steps):
-                # teacher forcing: both paths take the plain path's greedy token
+                # teacher forcing: every path takes the plain path's greedy token
                 pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
-                got, want = both(nxt.view(1, 1), pos, False)
-                gate(got, want, step)
-                nxt = want[-1].argmax()
+                out = run_all(nxt.view(1, 1), pos, False)
+                gate(out, step)
+                nxt = out["plain"][-1].argmax()
+            worst, agree, rows = stats[("kernel", "plain")]
             rate = agree / rows
             result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16",
-                      "prompt": prompt_len, "chunks": list(chunks), "decode_steps": steps,
-                      "max_abs_dlogit": worst, "argmax_agreement": rate,
-                      "gate": f"max |dlogit| < {GATE_MAX_DLOGIT}, "
-                              f"argmax agreement >= {GATE_ARGMAX}"}
+                      "kv_quantize": mode, "prompt": prompt_len, "chunks": list(chunks),
+                      "decode_steps": steps, "max_abs_dlogit": worst, "argmax_agreement": rate,
+                      "gate": f"kernel path against plain path: max |dlogit| < "
+                              f"{GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}"}
+            if mode is not None:
+                qw, qa, qr = stats[("kernel", "bf16")]
+                result.update({"vs_bf16_pool_max_abs_dlogit": qw,
+                               "vs_bf16_pool_argmax_agreement": qa / qr,
+                               "vs_bf16_pool": "the quantized kernel path against the bf16 "
+                                               "kernel path, reported without a gate"})
             emit(result)
             if rate < GATE_ARGMAX:
-                raise AssertionError(f"model gate, chunks {chunks}: argmax agreement "
-                                     f"{rate} < {GATE_ARGMAX}")
+                raise AssertionError(f"{label}: argmax agreement {rate} < {GATE_ARGMAX}")
             results.append(result)
             del pools
     del params
@@ -418,12 +538,25 @@ def _post(url, body) -> tuple[int, list, list[int], float | None]:
     return status, out, ids, ttft
 
 
-def phase_serve(card: str) -> dict:
+def serve_variants(mode) -> list[str]:
+    """The kernel variants a server over a `mode` pool must launch."""
+    return ["flash_prefill_attention"] + [
+        kv_quant.variant(n, mode)
+        for n in ("paged_write", "paged_decode_attention", "paged_prefill_attention")]
+
+
+def phase_serve(card: str, mode) -> dict:
+    """Serve over a bf16 pool (mode None: the full request mix) or a
+    quantized one (the long prompt and three streaming chats together,
+    then the greedy pair one at a time)."""
     from dynamo_tpu_torch.cli.run import start_server
 
     # no --prefill-chunk: the CLI's default chunk (512) is what is served
-    server = start_server(["run", "in=http", "out=torch", "--model", "llama3-1b",
-                           "--port", "0", "--dtype", "bfloat16", "--max-context", "2048"])
+    argv = ["run", "in=http", "out=torch", "--model", "llama3-1b", "--port", "0",
+            "--dtype", "bfloat16", "--max-context", "2048"]
+    if mode is not None:
+        argv += ["--kv-quantize", mode]
+    server = start_server(argv)
     try:
         chat = server.url + "/v1/chat/completions"
         # every choice carries its token ids (random weights over a
@@ -440,17 +573,27 @@ def phase_serve(card: str) -> dict:
             # tokens, so at least three chunks of 512
             (chat, {"model": "llama3-1b", "max_tokens": 32, "ext": ext, **stream,
                     "messages": [{"role": "user", "content": "a long prompt: " + "abcdefgh " * 135}]}),
-            (chat, {"model": "llama3-1b", "max_tokens": 64, "ext": ext,
-                    "messages": [{"role": "user", "content": "a unary chat"}]}),
-            (server.url + "/v1/completions",
-             {"model": "llama3-1b", "prompt": "Once upon a time", "max_tokens": 48, "ext": ext}),
         ]
         greedy = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
                          "messages": [{"role": "user", "content": "greedy twice"}]})
-        seeded = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
-                         "seed": 7, "temperature": 0.8, "top_p": 0.95,
-                         "messages": [{"role": "user", "content": "sampled twice"}]})
-        jobs += [greedy, seeded, greedy, seeded]
+        if mode is None:
+            jobs += [
+                (chat, {"model": "llama3-1b", "max_tokens": 64, "ext": ext,
+                        "messages": [{"role": "user", "content": "a unary chat"}]}),
+                (server.url + "/v1/completions",
+                 {"model": "llama3-1b", "prompt": "Once upon a time", "max_tokens": 48,
+                  "ext": ext}),
+            ]
+            seeded = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
+                             "seed": 7, "temperature": 0.8, "top_p": 0.95,
+                             "messages": [{"role": "user", "content": "sampled twice"}]})
+            first = len(jobs)
+            jobs += [greedy, seeded, greedy, seeded]
+            pairs = ((first, first + 2), (first + 1, first + 3))
+        else:
+            first = len(jobs)
+            jobs += [greedy, greedy]
+            pairs = ((first, first + 1),)
         results: list = [None] * len(jobs)
 
         def run(i):
@@ -461,10 +604,10 @@ def phase_serve(card: str) -> dict:
 
         ops.reset_counts()
         t0 = time.perf_counter()
-        # the first six together; then each pair's requests one at a time:
+        # the first wave together; then each pair's requests one at a time:
         # alone, both of a pair run the same shapes, so they must agree to
         # the bit (other batch sizes round bf16 GEMMs differently)
-        for wave in (range(0, 6), [6], [7], [8], [9]):
+        for wave in [range(first)] + [[i] for i in range(first, len(jobs))]:
             threads = [threading.Thread(target=run, args=(i,)) for i in wave]
             for t in threads:
                 t.start()
@@ -473,43 +616,56 @@ def phase_serve(card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
-        chunk = server.runner.engine.config.prefill_chunk
+        engine = server.runner.engine
+        chunk = engine.config.prefill_chunk
+        pool = {"kv_pool_bytes": engine.metrics.kv_pool_bytes,
+                "kv_pool_bytes_dense_equiv": engine.metrics.kv_pool_bytes_dense_equiv,
+                "pool_dtype": str(engine.kv.k.dtype)}
     finally:
         server.stop()
+        del server
+        torch.cuda.empty_cache()
 
+    label = f"serve, {mode or 'bf16'} pool"
     out_tokens = 0
     ttft = []
     prompt_tokens = []
     for (url, body), res in zip(jobs, results):
         if isinstance(res, Exception):
             raise res
-        status, out, ids, first = res
+        status, out, ids, first_token = res
         if status != 200:
-            raise AssertionError(f"{url}: status {status}")
+            raise AssertionError(f"{label}: {url}: status {status}")
         use = out[-1]["usage"]
         if use["completion_tokens"] != len(ids) or len(ids) != body["max_tokens"]:
-            raise AssertionError(f"{url}: usage {use} but {len(ids)} token ids served")
+            raise AssertionError(f"{label}: {url}: usage {use} but {len(ids)} token ids served")
         prompt_tokens.append(use["prompt_tokens"])
         out_tokens += len(ids)
         if body.get("stream"):
-            ttft.append(first)
-    for a, b in ((6, 8), (7, 9)):  # the greedy pair and the seeded pair
+            ttft.append(first_token)
+    for a, b in pairs:  # the greedy pair (and the seeded pair)
         if results[a][2] != results[b][2]:
-            raise AssertionError(f"requests {a} and {b} should be identical")
+            raise AssertionError(f"{label}: requests {a} and {b} should be identical")
     if prompt_tokens[3] <= 1200 or chunk != 512:
-        raise AssertionError(f"the long request's prompt is {prompt_tokens[3]} tokens, "
-                             f"served at a chunk of {chunk}")
+        raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
+                             f"tokens, served at a chunk of {chunk}")
+    want = serve_variants(mode)
     for name, (launches, plain) in counts.items():
-        if launches == 0 or plain != 0:
-            raise AssertionError(f"serve: {name} launched {launches} times, plain ran {plain}")
-    result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16", "card": card,
-              "prefill_chunk": chunk, "requests": len(jobs), "prompt_tokens": prompt_tokens,
+        if plain != 0 or (launches == 0) == (name in want):
+            raise AssertionError(f"{label}: {name} launched {launches} times, plain ran "
+                                 f"{plain} (the pool's variants: {want})")
+    result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16",
+              "kv_quantize": mode, "card": card, "prefill_chunk": chunk,
+              "requests": len(jobs), "prompt_tokens": prompt_tokens,
               "output_tokens": out_tokens, "wall_s": wall,
               "tok_s": out_tokens / wall, "ttft_p50_s": statistics.median(ttft),
               "ttft_s": ttft,
               "ttft": "at the client, from sending a streaming request to the first SSE "
                       "chunk that carries a token",
-              "launches": {k: v[0] for k, v in counts.items()},
+              **pool,
+              "dense_equiv_over_pool_bytes": pool["kv_pool_bytes_dense_equiv"]
+              / pool["kv_pool_bytes"],
+              "launches": {k: v[0] for k, v in counts.items() if k in want},
               "plain_calls": {k: v[1] for k, v in counts.items()}}
     emit(result)
     return result
@@ -522,6 +678,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -536,16 +693,25 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": report})
     kernels = phase_kernels(dev, peaks)
     phase_model(dev)
-    serve = phase_serve(card)
+    # each server's run is the main path of its pool's kernel variants
+    launches = {}
+    for mode in MODES:  # flash_prefill_attention counts from the bf16 server
+        for name, n in phase_serve(card, mode)["launches"].items():
+            launches.setdefault(name, n)
     lines = []
     for name, (src, replaces) in SOURCE.items():
-        c = kernels[name]
-        lines.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": serve["launches"][name], "max_abs_err": c["max_abs_err"],
-            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-        })
+        for mode in MODES if name in QUANT_BRANCH else (None,):
+            variant = kv_quant.variant(name, mode)
+            c = kernels[variant]
+            lines.append({
+                "name": variant, "route": "cuda", "source": src,
+                "replaces": replaces if mode is None
+                else f"{replaces}; quantized branch {QUANT_BRANCH[name]}",
+                "launches": launches[variant], "max_abs_err": c["max_abs_err"],
+                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            })
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

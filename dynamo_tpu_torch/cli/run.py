@@ -6,8 +6,9 @@ Counterpart of dynamo_tpu/cli/run.py for the `in=http out=<engine>` shape,
 with the TorchEngine as the engine. With no checkpoint the model is
 random-init from a fixed seed and serves the byte tokenizer, as the JAX
 CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
-tokens (512 by default, as the JAX CLI's). It runs on the GPU unless
-`--device cpu` is given.
+tokens (512 by default, as the JAX CLI's). `--kv-quantize int8|fp8`
+stores the KV pages quantized, as the JAX CLI's flag does. It runs on the
+GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.
@@ -52,6 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
                       help="decode steps fused per host sync")
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    runp.add_argument(
+        "--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
+        help="KV-cache page quantization: pages store int8 (or fp8) rows with "
+             "per-token f32 scales, about twice the tokens in the same memory",
+    )
     runp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -80,6 +86,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         max_seqs=args.max_seqs,
         decode_steps=args.decode_steps,
         dtype=args.dtype,
+        kv_quantize=args.kv_quantize,
         eos_token_ids=eos_token_ids,
     )
 

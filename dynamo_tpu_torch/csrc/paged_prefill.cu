@@ -1,7 +1,10 @@
-// Prefill attention for a chunk with history, for Hopper (sm_90a).
+// Prefill attention for a chunk with history, for Hopper (sm_90a), over
+// bf16 and quantized (int8, fp8) pools.
 //
 // Replaces: dynamo_tpu/ops/flash_prefill.py::paged_prefill_attention, the
-// Pallas kernel _hist_kernel (pallas_call at flash_prefill.py:389).
+// Pallas kernel _hist_kernel (pallas_call at flash_prefill.py:389); with a
+// quantized pool its `quantized` branch dequantizes each history page
+// after its DMA (flash_prefill.py:125-145, :185-189).
 //
 // Row t of sequence b attends to its history keys 0 .. hist_lens[b]-1,
 // read from the paged pools through page_tables, and causally to the
@@ -10,7 +13,8 @@
 //
 // Bound on the H100: operations once the history is a few hundred tokens,
 // 4 * Hq * D * (cur * hist + cur * (cur + 1) / 2) FLOPs per sequence
-// against about ((2*Hq + 2*Hkv) * cur + 2*Hkv * hist) * D * 2 bytes.
+// against about ((2*Hq + 2*Hkv) * cur + 2*Hkv * hist) * D * 2 bytes (a
+// quantized pool reads (D + 4) bytes per history row instead of 2 * D).
 // Design (FA2-style, registers): one CTA per (sequence, kv head, 64-row
 // query tile), the g = Hq/Hkv query heads of the kv group folded into the
 // rows (row r = head_in_group * (64/g) + token), so every K/V tile staged
@@ -28,11 +32,21 @@
 // (every tile of a sequence with cur_lens 0) writes zeros and returns.
 // K/V tiles load synchronously; a cp.async/TMA pipeline and wgmma are
 // later work.
+// A quantized pool's history tile loads 64 keys of narrow values, widened
+// exactly to bf16 into the same shared K/V tiles (so the mma.sync path is
+// the bf16 one), and the keys' scales: each score column takes its key's
+// k-scale in f32 before the online softmax, and each probability its
+// key's v-scale in f32 before it rounds to bf16 as PV's A operand, while
+// the denominator sums the unscaled probabilities. The chunk's own K/V
+// stay bf16 and unscaled. Keys past the history are masked by selection
+// (their tile rows are zeros and their scores -1e30), never by a product
+// with a mask or a zero scale.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -48,7 +62,8 @@ template <int D>
 struct Smem {
   static constexpr int STRIDE = D + 8;  // bf16 row stride: conflict-free fragment loads
   static constexpr size_t TILE = (size_t)ROWS * STRIDE;  // ROWS == BK
-  static constexpr size_t BYTES = 3 * TILE * sizeof(__nv_bfloat16);  // Q, K, V
+  // Q, K, V tiles, then the history keys' k- and v-scales (quantized pools)
+  static constexpr size_t BYTES = 3 * TILE * sizeof(__nv_bfloat16) + 2 * BK * sizeof(float);
 };
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -72,18 +87,15 @@ __device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* lo, const _
   return l | (h << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, T, Hq, D]
     const __nv_bfloat16* __restrict__ k_cur,   // [B, T, Hkv, D]
     const __nv_bfloat16* __restrict__ v_cur,   // [B, T, Hkv, D]
-    const __nv_bfloat16* __restrict__ k_pool,  // [L, P, S, Hkv, D]
-    const __nv_bfloat16* __restrict__ v_pool,  // [L, P, S, Hkv, D]
+    const KV* __restrict__ k_pool,              // [L, P, S, Hkv, D]
+    const KV* __restrict__ v_pool,              // [L, P, S, Hkv, D]
+    const float* __restrict__ k_scale,         // [L, P, S, Hkv] (quantized pools)
+    const float* __restrict__ v_scale,
     const int* __restrict__ page_tables,       // [B, MP]
     const int* __restrict__ hist_lens,         // [B]
     const int* __restrict__ cur_lens,          // [B]
@@ -98,6 +110,9 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ks = qs + Smem<D>::TILE;
   __nv_bfloat16* vs = ks + Smem<D>::TILE;
+  float* kscl = reinterpret_cast<float*>(vs + Smem<D>::TILE);  // [BK] (quantized)
+  float* vscl = kscl + BK;                                      // [BK] (quantized)
+  constexpr bool QUANT = kvq::Kv<KV>::QUANT;
 
   const int g = Hq / Hkv;
   const int toks = ROWS / g;  // tokens per tile
@@ -176,10 +191,13 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
       if (in_hist) {
         if (key < hist) {
           const int page = page_tables[(size_t)b * MP + key / S];
-          const size_t off =
-              ((((size_t)layer * P + page) * S + key % S) * Hkv + h) * D + c * VEC;
-          kv = *reinterpret_cast<const uint4*>(k_pool + off);
-          vv = *reinterpret_cast<const uint4*>(v_pool + off);
+          const size_t row = (((size_t)layer * P + page) * S + key % S) * Hkv + h;
+          kv = kvq::load8(k_pool + row * D + c * VEC);
+          vv = kvq::load8(v_pool + row * D + c * VEC);
+          if (QUANT && c == 0) {
+            kscl[r] = k_scale[row];
+            vscl[r] = v_scale[row];
+          }
         }
       } else if (key < cur) {
         const size_t off = (((size_t)b * T + key) * Hkv + h) * D + c * VEC;
@@ -212,7 +230,10 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
         const int key = k0 + n * 8 + 2 * tq + (c & 1);
         const bool live =
             in_hist ? key < hist : (key <= tok_row[c >> 1] && key < cur);
-        const float x = live ? s[n][c] * scale_log2 : MASKED;
+        // a history key's k-scale only where it is live: masked keys select
+        const float sk = (QUANT && in_hist && live) ? s[n][c] * kscl[n * 8 + 2 * tq + (c & 1)]
+                                                    : s[n][c];
+        const float x = live ? sk * scale_log2 : MASKED;
         s[n][c] = x;
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
@@ -246,14 +267,24 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
       o[dn][3] *= alpha[1];
     }
 
-    // O += P V: the score fragments of keys 16kk .. 16kk+15 are PV's A operand
+    // O += P V: the score fragments of keys 16kk .. 16kk+15 are PV's A
+    // operand; a quantized history key's probability takes its v-scale
+    // first (a masked key's probability is 0 and its V row zeros)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
+      float w[4] = {1.f, 1.f, 1.f, 1.f};  // keys 16kk + 2tq + {0, 1, 8, 9}
+      if (QUANT && in_hist) {
+        const int k = kk * 16 + 2 * tq;
+        w[0] = k0 + k < hist ? vscl[k] : 0.f;
+        w[1] = k0 + k + 1 < hist ? vscl[k + 1] : 0.f;
+        w[2] = k0 + k + 8 < hist ? vscl[k + 8] : 0.f;
+        w[3] = k0 + k + 9 < hist ? vscl[k + 9] : 0.f;
+      }
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = kvq::pack2(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]);
+      pa[1] = kvq::pack2(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]);
+      pa[2] = kvq::pack2(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]);
+      pa[3] = kvq::pack2(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3]);
       const __nv_bfloat16* vrow = vs + (kk * 16 + 2 * tq) * ST + gr;
 #pragma unroll
       for (int dn = 0; dn < DTILES; ++dn) {
@@ -285,45 +316,68 @@ __global__ void __launch_bounds__(THREADS) paged_prefill_kernel(
   }
 }
 
-template <int D>
+template <int D, typename KV>
 int launch(const void* q, const void* k_cur, const void* v_cur, const void* k_pool,
-           const void* v_pool, const void* page_tables, const void* hist_lens,
+           const void* v_pool, const void* k_scale, const void* v_scale,
+           const void* page_tables, const void* hist_lens,
            const void* cur_lens, void* out, int B, int T, int Hq, int Hkv, int layer, int P,
            int S, int MP, float scale, cudaStream_t stream) {
   const size_t smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      paged_prefill_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || T == 0) return 0;
   const int toks = ROWS / (Hq / Hkv);
   const dim3 grid((T + toks - 1) / toks, Hkv, B);
-  paged_prefill_kernel<D><<<grid, THREADS, smem, stream>>>(
+  paged_prefill_kernel<D, KV><<<grid, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cur, (const __nv_bfloat16*)v_cur,
-      (const __nv_bfloat16*)k_pool, (const __nv_bfloat16*)v_pool, (const int*)page_tables,
+      (const KV*)k_pool, (const KV*)v_pool, (const float*)k_scale, (const float*)v_scale,
+      (const int*)page_tables,
       (const int*)hist_lens, (const int*)cur_lens, (__nv_bfloat16*)out, T, Hq, Hkv, layer, P,
       S, MP, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
+template <typename KV>
+int launch_d(const void* q, const void* k_cur, const void* v_cur, const void* k_pool,
+             const void* v_pool, const void* k_scale, const void* v_scale,
+             const void* page_tables, const void* hist_lens, const void* cur_lens, void* out,
+             int B, int T, int Hq, int Hkv, int D, int layer, int P, int S, int MP,
+             float scale, cudaStream_t st) {
+  if (D == 64) {
+    return launch<64, KV>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
+                         hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale, st);
+  }
+  if (D == 128) {
+    return launch<128, KV>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
+                          hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale,
+                          st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// kind: 0 a bf16 pool, 1 int8, 2 fp8 (e4m3); the scale planes are null for 0.
 extern "C" int dyn_paged_prefill(const void* q, const void* k_cur, const void* v_cur,
-                                 const void* k_pool, const void* v_pool,
-                                 const void* page_tables, const void* hist_lens,
-                                 const void* cur_lens, void* out, int B, int T, int Hq,
-                                 int Hkv, int D, int layer, int P, int S, int MP, float scale,
-                                 void* stream) {
+                                 const void* k_pool, const void* v_pool, const void* k_scale,
+                                 const void* v_scale, const void* page_tables,
+                                 const void* hist_lens, const void* cur_lens, void* out,
+                                 int kind, int B, int T, int Hq, int Hkv, int D, int layer,
+                                 int P, int S, int MP, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || ROWS % (Hq / Hkv) != 0 || S <= 0 || MP <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (kind != 0 && (k_scale == nullptr || v_scale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) {
-    return launch<64>(q, k_cur, v_cur, k_pool, v_pool, page_tables, hist_lens, cur_lens, out,
-                      B, T, Hq, Hkv, layer, P, S, MP, scale, st);
-  }
-  if (D == 128) {
-    return launch<128>(q, k_cur, v_cur, k_pool, v_pool, page_tables, hist_lens, cur_lens, out,
-                       B, T, Hq, Hkv, layer, P, S, MP, scale, st);
-  }
+#define DYN_PREFILL(TY)                                                                  \
+  launch_d<TY>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables, hist_lens, \
+               cur_lens, out, B, T, Hq, Hkv, D, layer, P, S, MP, scale, st)
+  if (kind == 0) return DYN_PREFILL(__nv_bfloat16);
+  if (kind == 1) return DYN_PREFILL(int8_t);
+  if (kind == 2) return DYN_PREFILL(__nv_fp8_e4m3);
+#undef DYN_PREFILL
   return (int)cudaErrorInvalidValue;
 }

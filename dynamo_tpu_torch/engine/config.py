@@ -29,7 +29,6 @@ UNPORTED = {
     "spec_cooldown_steps": (16,),
     "max_waiting": (None,),
     "quantize": (None,),
-    "kv_quantize": (None,),
     "attention_impl": ("auto", "pallas"),
     "dp": (1,),
     "tp": (1,),
@@ -86,6 +85,11 @@ class _PortedKnobs:
     eos_token_ids: tuple[int, ...] = ()
     #: dtype name for params/KV ("bfloat16" | "float32")
     dtype: str = "bfloat16"
+    #: KV-cache page quantization: None | "int8" | "fp8". Pages store the
+    #: narrow dtype with per-(page, slot, kv-head) f32 scale planes, about
+    #: halving the bytes per cached token; the page write quantizes and
+    #: the attention kernels dequantize the history
+    kv_quantize: Optional[str] = None
     #: random seed for request seeds (sampling)
     seed: int = 0
 
@@ -118,6 +122,10 @@ class _PortedKnobs:
             )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
+        if self.kv_quantize not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"kv_quantize must be None, 'int8' or 'fp8', got {self.kv_quantize!r}"
+            )
 
     @property
     def max_context(self) -> int:

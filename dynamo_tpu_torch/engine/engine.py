@@ -61,6 +61,11 @@ class EngineMetrics:
     #: time spent waiting for decode ids to reach the host (includes the
     #: device time of the steps not yet finished when the wait starts)
     time_decode_sync_ms: float = 0.0
+    #: device bytes the KV pool occupies (quantized pages and their scale
+    #: planes) and what the same pool costs in the model dtype: their
+    #: ratio is the cache capacity kv_quantize buys
+    kv_pool_bytes: int = 0
+    kv_pool_bytes_dense_equiv: int = 0
 
     def to_dict(self) -> dict:
         return asdict(self)
@@ -80,7 +85,14 @@ class TorchEngine:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = self.adapter.init_params(gen)
         self.params = params
-        self.kv = self.adapter.init_kv(config.num_pages, config.page_size, self.device)
+        self.kv = self.adapter.init_kv(
+            config.num_pages, config.page_size, self.device, kv_quantize=config.kv_quantize
+        )
+        pool = [x for x in self.kv if x is not None]
+        self.metrics.kv_pool_bytes = sum(x.numel() * x.element_size() for x in pool)
+        self.metrics.kv_pool_bytes_dense_equiv = (
+            (self.kv.k.numel() + self.kv.v.numel()) * self.adapter.config.dtype.itemsize
+        )
 
     # -- public API --------------------------------------------------------
 

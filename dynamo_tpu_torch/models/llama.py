@@ -14,6 +14,12 @@ Layouts match the JAX package at every public function: KV pools
 [L, P, S, Hkv, D] with page 0 the null page, staged KV [L, B, T, Hkv, D],
 q [B, T, Hq, D], weights [in, out] stacked over layers. The pools keep the
 true head_dim (the JAX package pads it to 128 lanes for the TPU).
+
+Quantized KV pages (`kv_quantize` "int8" or "fp8"): the pools hold narrow
+rows with f32 scale planes [L, P, S, Hkv] (ops/kv_quant.py). Only the pool
+is quantized: the layers stage K/V in the model dtype and the write
+quantizes them; readers dequantize the history, while a decode step's own
+token and a chunk's own K/V enter attention exact.
 """
 
 from __future__ import annotations
@@ -27,6 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops import KERNELS, Ops
+from dynamo_tpu_torch.ops.kv_quant import (  # noqa: F401 (the model's API, as the JAX package's)
+    dequantize_kv_rows,
+    kv_quant_spec,
+    quantize_kv_rows,
+)
 from dynamo_tpu_torch.platform import resolve_device
 
 
@@ -78,10 +89,14 @@ class LlamaConfig:
 
 class KVPages(NamedTuple):
     """Paged KV cache: k, v [L, P, S, Hkv, D]. Page 0 is the null page:
-    padding writes land there and no page table names it."""
+    padding writes land there and no page table names it. A quantized
+    cache holds int8 or fp8 rows, and k_scale, v_scale [L, P, S, Hkv] f32
+    hold one scale per row."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def num_pages(self) -> int:
@@ -91,26 +106,71 @@ class KVPages(NamedTuple):
     def page_size(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
-def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int, device) -> KVPages:
+
+def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int, device,
+                  kv_quantize: Optional[str] = None) -> KVPages:
+    """Zeroed pools of the model dtype, or of kv_quantize's narrow dtype
+    with zeroed scale planes."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quantize:
+        qdtype, _ = kv_quant_spec(kv_quantize)
+        return KVPages(
+            k=torch.zeros(shape, dtype=qdtype, device=device),
+            v=torch.zeros(shape, dtype=qdtype, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
     return KVPages(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
     )
 
 
-def kv_pages_from_jax(k: np.ndarray, v: np.ndarray, cfg: LlamaConfig,
-                      device=None) -> KVPages:
+def kv_page_bytes(cfg: LlamaConfig, page_size: int, kv_quantize: Optional[str] = None,
+                  dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes one page costs across all layers, K and V (and their scale
+    planes when quantized: D narrow bytes and a 4-byte scale per row).
+    The port's rows are head_dim wide (the JAX package counts its
+    lane-padded kv_head_dim)."""
+    rows = 2 * cfg.num_layers * page_size * cfg.num_kv_heads
+    if kv_quantize:
+        qdtype, _ = kv_quant_spec(kv_quantize)
+        return rows * (cfg.head_dim * qdtype.itemsize + 4)
+    return rows * cfg.head_dim * (dtype or cfg.dtype).itemsize
+
+
+def kv_pages_from_jax(k: np.ndarray, v: np.ndarray, cfg: LlamaConfig, device=None,
+                      k_scale: Optional[np.ndarray] = None,
+                      v_scale: Optional[np.ndarray] = None) -> KVPages:
     """The JAX package's KVPages (as numpy, possibly lane-padded to 128)
-    as the port's pools: the padding lanes are stripped. On `cuda`
-    unless the caller asks for `cpu`."""
+    as the port's pools: the padding lanes are stripped. A quantized pool
+    passes its scale planes too, its rows as int8, or as a uint8 view of
+    float8_e4m3fn; padding lanes quantize to 0 and leave the scales as
+    they are. On `cuda` unless the caller asks for `cpu`."""
     device = resolve_device(device)
     d = cfg.head_dim
-    return KVPages(
-        k=torch.tensor(np.asarray(k[..., :d], np.float32), dtype=cfg.dtype, device=device),
-        v=torch.tensor(np.asarray(v[..., :d], np.float32), dtype=cfg.dtype, device=device),
-    )
+    if k_scale is None:
+        return KVPages(
+            k=torch.tensor(np.asarray(k[..., :d], np.float32), dtype=cfg.dtype, device=device),
+            v=torch.tensor(np.asarray(v[..., :d], np.float32), dtype=cfg.dtype, device=device),
+        )
+
+    def rows(x):
+        x = np.ascontiguousarray(x[..., :d])
+        if x.dtype == np.uint8:
+            return torch.from_numpy(x).view(torch.float8_e4m3fn).to(device)
+        if x.dtype != np.int8:
+            raise ValueError(f"quantized rows arrive as int8 or uint8, not {x.dtype}")
+        return torch.from_numpy(x).to(device)
+
+    def plane(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return KVPages(k=rows(k), v=rows(v), k_scale=plane(k_scale), v_scale=plane(v_scale))
 
 
 # -- parameters -------------------------------------------------------------------
@@ -230,7 +290,8 @@ def attention_block(q, k, v, kv: KVPages, layer: int, page_tables, positions, va
         hist = positions[:, 0].contiguous()  # tokens already in the pages
         qd = q[:, 0].contiguous()
         acc, m, l = ops.paged_decode_attention(
-            qd, kv.k, kv.v, layer, page_tables, hist, scale_dim=cfg.head_dim
+            qd, kv.k, kv.v, layer, page_tables, hist, scale_dim=cfg.head_dim,
+            k_scale=kv.k_scale, v_scale=kv.v_scale,
         )  # acc [B, Hq, D] unnormalized, m/l [B, Hq]
         # exact merge of the current (unwritten) token into the flash state
         kv_of = torch.arange(cfg.num_heads, device=q.device) // cfg.q_per_kv
@@ -257,6 +318,7 @@ def attention_block(q, k, v, kv: KVPages, layer: int, page_tables, positions, va
         out = ops.paged_prefill_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), kv.k, kv.v, layer,
             page_tables, hist_lens, cur_lens, scale_dim=cfg.head_dim,
+            k_scale=kv.k_scale, v_scale=kv.v_scale,
         )
         attn = out.reshape(b, t, cfg.num_heads * cfg.head_dim).to(q.dtype)
     return attn, (k, v)
@@ -277,8 +339,9 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
     h = params["embed"][tokens].to(cfg.dtype)  # [B, T, H]
     cos, sin = rope_tables(positions, cfg)
     stage_shape = (cfg.num_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
-    k_stage = torch.empty(stage_shape, dtype=kv.k.dtype, device=h.device)
-    v_stage = torch.empty(stage_shape, dtype=kv.v.dtype, device=h.device)
+    # the model dtype, also over a quantized pool: the write quantizes
+    k_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
+    v_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
     for li in range(cfg.num_layers):
         x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps)
         q = (x @ lp["wq"][li]).reshape(b, t, cfg.num_heads, cfg.head_dim)
@@ -300,8 +363,10 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
 
 
 def land_staged_kv(kv: KVPages, staged, page_tables, positions, valid, ops: Ops = KERNELS):
-    """Land the layer loop's staged K/V in the pools with one write."""
-    ops.paged_write(kv.k, kv.v, staged[0], staged[1], page_tables, positions, valid)
+    """Land the layer loop's staged K/V in the pools with one write (which
+    quantizes them for a quantized pool)."""
+    ops.paged_write(kv.k, kv.v, staged[0], staged[1], page_tables, positions, valid,
+                    k_scale=kv.k_scale, v_scale=kv.v_scale)
     return kv
 
 

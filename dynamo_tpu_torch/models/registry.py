@@ -36,8 +36,10 @@ class ModelAdapter:
     def init_params(self, generator: torch.Generator) -> dict:
         return llama.init_params(generator, self.config)
 
-    def init_kv(self, num_pages: int, page_size: int, device) -> llama.KVPages:
-        return llama.init_kv_pages(self.config, num_pages, page_size, device)
+    def init_kv(self, num_pages: int, page_size: int, device,
+                kv_quantize: Optional[str] = None) -> llama.KVPages:
+        return llama.init_kv_pages(self.config, num_pages, page_size, device,
+                                   kv_quantize=kv_quantize)
 
     def forward_hidden(self, params, tokens, positions, valid, kv, page_tables, **kw):
         return llama.forward_hidden(

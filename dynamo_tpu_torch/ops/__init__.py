@@ -2,7 +2,10 @@
 
 Every wrapper launches its hand-written CUDA kernel for CUDA tensors (or
 raises) and calls its plain PyTorch version for CPU tensors. Launches and
-plain calls are counted separately, so a run can show which one it used.
+plain calls are counted separately, so a run can show which one it used,
+and so is each pool mode of the three kernels that read or write the
+pools: `paged_write` (a model-dtype pool), `paged_write.int8` and
+`paged_write.fp8` (quantized pools, ops/kv_quant.py).
 """
 
 from __future__ import annotations
@@ -11,10 +14,14 @@ from typing import Callable, NamedTuple
 
 from dynamo_tpu_torch.ops import flash_prefill, kv_update, paged_attention
 from dynamo_tpu_torch.ops._counts import KernelCounts
+from dynamo_tpu_torch.ops.kv_quant import POOL_MODES, variant
 
 
 class Ops(NamedTuple):
-    """The functions the model's forward calls for its four kernels."""
+    """The functions the model's forward calls for its four kernels.
+    `paged_write`, `paged_decode_attention` and `paged_prefill_attention`
+    take `k_scale=None, v_scale=None`: the scale planes of a quantized
+    pool."""
 
     paged_write: Callable
     flash_prefill_attention: Callable
@@ -37,12 +44,18 @@ PLAIN = Ops(
     flash_prefill.paged_prefill_attention_plain,
 )
 
-#: kernel name -> its counts
+#: kernel variant name (`paged_write`, `paged_write.int8`, ...) -> its counts
 COUNTS: dict[str, KernelCounts] = {
-    "paged_write": kv_update.counts,
     "flash_prefill_attention": flash_prefill.counts,
-    "paged_decode_attention": paged_attention.counts,
-    "paged_prefill_attention": flash_prefill.paged_counts,
+    **{
+        variant(name, mode): per_mode[mode]
+        for name, per_mode in (
+            ("paged_write", kv_update.counts),
+            ("paged_decode_attention", paged_attention.counts),
+            ("paged_prefill_attention", flash_prefill.paged_counts),
+        )
+        for mode in POOL_MODES
+    },
 }
 
 

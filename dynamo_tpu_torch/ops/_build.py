@@ -3,9 +3,9 @@
 Each `dynamo_tpu_torch/csrc/<name>.cu` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Builds run at first use, never at import, into `build/
-torch_kernels/` at the repository root, keyed by a hash of the source and
-the flags so an edited source rebuilds. A missing nvcc or a failed build
-raises; nothing falls back.
+torch_kernels/` at the repository root, keyed by a hash of the source, the
+shared headers and the flags, so an edited source rebuilds. A missing
+nvcc or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -52,7 +52,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where library `name` is built: keyed by its source, the shared
+    headers (csrc/*.cuh) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -138,7 +141,8 @@ def check(err: int, kernel: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer; None is the null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device) -> ctypes.c_void_p:

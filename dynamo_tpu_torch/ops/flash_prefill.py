@@ -15,12 +15,14 @@ has history (chunked prefill). q [B, T, Hq, D], k_cur/v_cur [B, T, Hkv, D]
 sequence b attends to history keys 0 .. hist_lens[b]-1 (read through the
 page table; a partial last page is masked) and causally to current keys
 0 .. t below cur_lens[b], under one softmax. Rows at or past cur_lens are
-unspecified but finite.
+unspecified but finite. A quantized pool (int8 or fp8 rows) comes with its
+`k_scale`/`v_scale` planes [L, P, S, Hkv] f32: the history reads
+dequantized, and the chunk's own K/V (model dtype) as they are.
 
 In both, query head j reads kv head j // (Hq/Hkv) and queries scale by
 1/sqrt(scale_dim). On CUDA tensors the kernels in csrc/flash_prefill.cu
-and csrc/paged_prefill.cu run (bf16, D of 64 or 128); on CPU tensors the
-plain versions below do the same work.
+and csrc/paged_prefill.cu run (bf16 q/k/v, bf16 or quantized pools, D of
+64 or 128); on CPU tensors the plain versions below do the same work.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ import torch
 
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
+from dynamo_tpu_torch.ops.kv_quant import gather_history, kind, pool_mode, variants
 
 #: counts of flash_prefill_attention
 counts = KernelCounts()
-#: counts of paged_prefill_attention
-paged_counts = KernelCounts()
+#: counts of paged_prefill_attention: pool mode (None, "int8", "fp8") -> counts
+paged_counts = variants()
 
 _NAME = "flash_prefill_attention"
 _PAGED = "paged_prefill_attention"
@@ -142,50 +145,58 @@ def _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
 
 
 def paged_prefill_attention_plain(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
-                                  hist_lens, cur_lens, *, scale_dim: Optional[int] = None):
+                                  hist_lens, cur_lens, *, scale_dim: Optional[int] = None,
+                                  k_scale=None, v_scale=None):
     """Plain PyTorch version of `paged_prefill_attention` (same contract):
-    gathers each sequence's history densely and attends over it and the
-    chunk under one mask, in float32."""
-    paged_counts.plain_calls += 1
+    gathers (and dequantizes) each sequence's history densely and attends
+    over it and the chunk under one mask, in float32."""
+    paged_counts[pool_mode(_PAGED, k_cache, v_cache, k_scale, v_scale)].plain_calls += 1
     _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
                         hist_lens, cur_lens)
     b, t, hq, d = q.shape
     s, hkv = k_cache.shape[2], k_cache.shape[3]
     g = hq // hkv
     n_hist = page_tables.shape[1] * s
-    pt = page_tables.long()
-    keys = torch.cat([k_cache[int(layer)][pt].reshape(b, n_hist, hkv, d), k_cur], dim=1)
-    vals = torch.cat([v_cache[int(layer)][pt].reshape(b, n_hist, hkv, d), v_cur], dim=1)
-    qf = q.float().reshape(b, t, hkv, g, d) * (1.0 / math.sqrt(scale_dim or d))
-    scores = torch.einsum("btkgd,bskd->bkgts", qf, keys.float())
     hpos = torch.arange(n_hist, device=q.device)
+    live = hpos[None, :] < hist_lens[:, None].long()  # [B, history]
+    keys = torch.cat([gather_history(k_cache, k_scale, layer, page_tables, live),
+                      k_cur.float()], dim=1)
+    vals = torch.cat([gather_history(v_cache, v_scale, layer, page_tables, live),
+                      v_cur.float()], dim=1)
+    qf = q.float().reshape(b, t, hkv, g, d) * (1.0 / math.sqrt(scale_dim or d))
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, keys)
     pos = torch.arange(t, device=q.device)
-    hist_live = (hpos[None, :] < hist_lens[:, None].long())[:, None, :].expand(b, t, n_hist)
+    hist_live = live[:, None, :].expand(b, t, n_hist)
     causal = pos[None, :] <= pos[:, None]  # [T(query), T(key)]
     cur_live = causal[None] & (pos[None, None, :] < cur_lens[:, None, None].long())
     mask = torch.cat([hist_live, cur_live], dim=2)  # [B, T, history + T]
     scores = scores.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgts,bskd->btkgd", probs, vals.float())
+    out = torch.einsum("bkgts,bskd->btkgd", probs, vals)
     return out.reshape(b, t, hq, d).to(q.dtype)
 
 
 def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
-                            hist_lens, cur_lens, *, scale_dim: Optional[int] = None):
+                            hist_lens, cur_lens, *, scale_dim: Optional[int] = None,
+                            k_scale=None, v_scale=None):
     """Attention for a chunk with history; see the module docstring for
     the contract."""
-    tensors = (q, k_cur, v_cur, k_cache, v_cache, page_tables, hist_lens, cur_lens)
+    scales = tuple(x for x in (k_scale, v_scale) if x is not None)
+    tensors = (q, k_cur, v_cur, k_cache, v_cache, page_tables, hist_lens, cur_lens) + scales
     if not on_cuda(_PAGED, *tensors):
         return paged_prefill_attention_plain(
             q, k_cur, v_cur, k_cache, v_cache, layer, page_tables, hist_lens, cur_lens,
-            scale_dim=scale_dim,
+            scale_dim=scale_dim, k_scale=k_scale, v_scale=v_scale,
         )
+    mode = pool_mode(_PAGED, k_cache, v_cache, k_scale, v_scale)
     _check_paged_shapes(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
                         hist_lens, cur_lens)
     b, t, hq, d = q.shape
     _, p, s, hkv, _ = k_cache.shape
-    require(all(x.dtype == torch.bfloat16 for x in (q, k_cur, v_cur, k_cache, v_cache)),
-            _PAGED, "the CUDA kernel takes bfloat16 q, k_cur/v_cur and pools")
+    pools = () if mode is not None else (k_cache, v_cache)
+    require(all(x.dtype == torch.bfloat16 for x in (q, k_cur, v_cur) + pools),
+            _PAGED, "the CUDA kernel takes bfloat16 q, k_cur/v_cur and bfloat16, int8 or "
+                    "fp8 pools")
     require(all(x.dtype == torch.int32 for x in (page_tables, hist_lens, cur_lens)),
             _PAGED, "page_tables, hist_lens and cur_lens must be int32")
     require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
@@ -195,17 +206,17 @@ def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_table
     out = torch.empty_like(q)
     fn = _build.function(
         "paged_prefill", "dyn_paged_prefill",
-        [_build.PTR] * 9 + [_build.INT] * 9 + [_build.FLOAT, _build.PTR],
+        [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR],
     )
     err = fn(
         _build.ptr(q), _build.ptr(k_cur), _build.ptr(v_cur), _build.ptr(k_cache),
-        _build.ptr(v_cache), _build.ptr(page_tables), _build.ptr(hist_lens),
-        _build.ptr(cur_lens), _build.ptr(out),
-        b, t, hq, hkv, d, int(layer), p, s, page_tables.shape[1],
+        _build.ptr(v_cache), _build.ptr(k_scale), _build.ptr(v_scale),
+        _build.ptr(page_tables), _build.ptr(hist_lens), _build.ptr(cur_lens), _build.ptr(out),
+        kind(mode), b, t, hq, hkv, d, int(layer), p, s, page_tables.shape[1],
         1.0 / math.sqrt(scale_dim or d), _build.stream(q.device),
     )
     _build.check(err, _PAGED)
-    paged_counts.launches += 1
+    paged_counts[mode].launches += 1
     return out
 
 
@@ -219,11 +230,14 @@ def paged_flops(hist_lens, cur_lens, hq: int, d: int) -> int:
     return 4 * hq * d * pairs
 
 
-def paged_bytes_moved(hist_lens, cur_lens, hq: int, hkv: int, d: int, itemsize: int) -> int:
+def paged_bytes_moved(hist_lens, cur_lens, hq: int, hkv: int, d: int, itemsize: int,
+                      kv_quantize=None) -> int:
     """Least bytes one call must move: each valid row's q, k_cur and v_cur
     read once and its output written once, and each history token's K and
-    V read once (rows at or past cur_lens are unspecified, so the function
-    need not write them)."""
+    V read once (a quantized row: d narrow bytes and its f32 scale). Rows
+    at or past cur_lens are unspecified, so the function need not write
+    them."""
     tokens = int(torch.as_tensor(cur_lens).long().sum())
     hist = int(torch.as_tensor(hist_lens).long().sum())
-    return (tokens * (2 * hq + 2 * hkv) + 2 * hist * hkv) * d * itemsize
+    row = d * itemsize if kv_quantize is None else d + 4
+    return tokens * (2 * hq + 2 * hkv) * d * itemsize + 2 * hist * hkv * row

@@ -1,8 +1,11 @@
 """The paged KV write: one step's staged K/V for all layers lands in the pools.
 
 Counterpart of dynamo_tpu/ops/kv_update.py::paged_write. The model stages
-each layer's new K/V ([L, B, T, Hkv, D]) during its layer loop and this
-lands them in the pools ([L, P, S, Hkv, D]) in place, once per step.
+each layer's new K/V ([L, B, T, Hkv, D], model dtype) during its layer
+loop and this lands them in the pools ([L, P, S, Hkv, D]) in place, once
+per step. A quantized pool (int8 or fp8 rows, with `k_scale`/`v_scale`
+planes [L, P, S, Hkv] f32) quantizes each staged row as it lands and
+lands its scale beside it (ops/kv_quant.py::quantize_kv_rows).
 
 Runs: each run is min(T, S) consecutive slots of one (sequence, page),
 placed by its first token (decode runs are one slot; prefill chunks start
@@ -23,9 +26,11 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
+from dynamo_tpu_torch.ops._counts import on_cuda, require
+from dynamo_tpu_torch.ops.kv_quant import kind, pool_mode, quantize_kv_rows, variants
 
-counts = KernelCounts()
+#: pool mode (None, "int8", "fp8") -> counts
+counts = variants()
 
 _NAME = "paged_write"
 
@@ -48,9 +53,11 @@ def _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, va
     return run
 
 
-def paged_write_plain(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid):
+def paged_write_plain(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid,
+                      *, k_scale=None, v_scale=None):
     """Plain PyTorch version of `paged_write` (same contract)."""
-    counts.plain_calls += 1
+    mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
+    counts[mode].plain_calls += 1
     run = _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid)
     L, b, t = k_stage.shape[:3]
     s, mp = k_cache.shape[2], page_tables.shape[1]
@@ -64,51 +71,81 @@ def paged_write_plain(k_cache, v_cache, k_stage, v_stage, page_tables, positions
     page_ids = pages[:, :, None].expand(-1, -1, run).reshape(-1)
     slots = (slot0[:, :, None] + lane).reshape(-1)
     tail = k_stage.shape[3:]
-    k_cache[:, page_ids, slots] = k_stage.reshape(L, b * t, *tail).to(k_cache.dtype)
-    v_cache[:, page_ids, slots] = v_stage.reshape(L, b * t, *tail).to(v_cache.dtype)
-    return k_cache, v_cache
+    k_rows = k_stage.reshape(L, b * t, *tail)
+    v_rows = v_stage.reshape(L, b * t, *tail)
+    if mode is None:
+        k_cache[:, page_ids, slots] = k_rows.to(k_cache.dtype)
+        v_cache[:, page_ids, slots] = v_rows.to(v_cache.dtype)
+        return k_cache, v_cache
+    for rows, cache, scale in ((k_rows, k_cache, k_scale), (v_rows, v_cache, v_scale)):
+        q, sc = quantize_kv_rows(rows, mode)
+        cache[:, page_ids, slots] = q
+        scale[:, page_ids, slots] = sc
+    return k_cache, v_cache, k_scale, v_scale
 
 
-def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid):
+def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid,
+                *, k_scale=None, v_scale=None):
     """Write one step's staged K/V for all layers into the pools in place.
 
     k_cache, v_cache: [L, P, S, Hkv, D]; k_stage, v_stage: [L, B, T, Hkv, D]
-    of the pools' dtype; page_tables [B, MP] int32; positions [B, T] int32
-    (absolute); valid [B, T] bool. Returns (k_cache, v_cache).
+    (the pools' dtype, or the model dtype for a quantized pool);
+    page_tables [B, MP] int32; positions [B, T] int32 (absolute); valid
+    [B, T] bool; k_scale, v_scale [L, P, S, Hkv] f32 with an int8 or fp8
+    pool. Returns (k_cache, v_cache), and the scale planes after them when
+    quantized.
     """
     args = (k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid)
-    if not on_cuda(_NAME, *args):
-        return paged_write_plain(*args)
+    scales = tuple(x for x in (k_scale, v_scale) if x is not None)
+    if not on_cuda(_NAME, *args, *scales):
+        return paged_write_plain(*args, k_scale=k_scale, v_scale=v_scale)
+    mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
     run = _check_shapes(*args)
-    require(k_stage.dtype == k_cache.dtype and v_stage.dtype == v_cache.dtype,
-            _NAME, "staged K/V must have the pools' dtype")
+    if mode is None:
+        require(k_stage.dtype == k_cache.dtype and v_stage.dtype == v_cache.dtype,
+                _NAME, "staged K/V must have the pools' dtype")
+    else:
+        require(k_stage.dtype == torch.bfloat16 and v_stage.dtype == torch.bfloat16,
+                _NAME, "the quantizing CUDA kernel takes bfloat16 staged K/V")
     require(page_tables.dtype == torch.int32 and positions.dtype == torch.int32,
             _NAME, "page_tables and positions must be int32")
     require(valid.dtype == torch.bool, _NAME, "valid must be bool")
-    require(all(x.is_contiguous() for x in args), _NAME, "all tensors must be contiguous")
+    require(all(x.is_contiguous() for x in args + scales),
+            _NAME, "all tensors must be contiguous")
     L, p, s, hkv, d = k_cache.shape
     b, t = k_stage.shape[1], k_stage.shape[2]
     row_bytes = hkv * d * k_cache.element_size()
-    require(row_bytes % 16 == 0, _NAME, f"a token row of {row_bytes} bytes is not a multiple of 16")
+    if mode is None:
+        require(row_bytes % 16 == 0, _NAME,
+                f"a token row of {row_bytes} bytes is not a multiple of 16")
+    else:
+        require(d in (64, 128), _NAME,
+                f"the quantizing CUDA kernel takes head_dim 64 or 128, not {d}")
     fn = _build.function(
-        "kv_update", "dyn_paged_write", [_build.PTR] * 7 + [_build.INT] * 8 + [_build.PTR]
+        "kv_update", "dyn_paged_write", [_build.PTR] * 9 + [_build.INT] * 11 + [_build.PTR]
     )
     err = fn(
         _build.ptr(k_stage), _build.ptr(v_stage), _build.ptr(k_cache),
-        _build.ptr(v_cache), _build.ptr(page_tables), _build.ptr(positions),
-        _build.ptr(valid),
-        L, p, s, b, t, page_tables.shape[1], run, row_bytes,
+        _build.ptr(v_cache), _build.ptr(k_scale), _build.ptr(v_scale),
+        _build.ptr(page_tables), _build.ptr(positions), _build.ptr(valid),
+        kind(mode), L, p, s, b, t, page_tables.shape[1], run, hkv, d, row_bytes,
         _build.stream(k_cache.device),
     )
     _build.check(err, _NAME)
-    counts.launches += 1
-    return k_cache, v_cache
+    counts[mode].launches += 1
+    if mode is None:
+        return k_cache, v_cache
+    return k_cache, v_cache, k_scale, v_scale
 
 
-def bytes_moved(k_stage, valid, page_size: int) -> int:
+def bytes_moved(k_stage, valid, page_size: int, kv_quantize=None) -> int:
     """Least bytes the write must move: each run that lands in a real page
-    (its first token valid), K and V, read once and written once."""
+    (its first token valid), K and V, read once and written once. A
+    quantized pool writes each row's narrow values (one byte each) and its
+    f32 scale."""
     run = min(k_stage.shape[2], page_size)
-    rows = int(valid[:, ::run].sum()) * run
-    row_bytes = k_stage.shape[3] * k_stage.shape[4] * k_stage.element_size()
-    return 2 * 2 * k_stage.shape[0] * rows * row_bytes
+    rows = int(valid[:, ::run].sum()) * run * k_stage.shape[3]  # (token, kv head) rows
+    d = k_stage.shape[4]
+    row_in = d * k_stage.element_size()
+    row_out = row_in if kv_quantize is None else d + 4
+    return 2 * k_stage.shape[0] * rows * (row_in + row_out)

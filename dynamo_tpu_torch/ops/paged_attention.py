@@ -6,11 +6,13 @@ q [B, Hq, D] (post-rope, unscaled), pools [L, P, S, Hkv, D], the pools'
 in the pages). Returns the UNNORMALIZED acc [B, Hq, D] f32 and the running
 max m and denominator l [B, Hq] f32 over the history only; the caller
 folds in the current token (models/llama.py). Zero history gives acc=0,
-m=-inf, l=0.
+m=-inf, l=0. A quantized pool (int8 or fp8 rows) comes with its
+`k_scale`/`v_scale` planes [L, P, S, Hkv] f32, and the history reads
+dequantized.
 
 On CUDA tensors the split-KV kernel in csrc/paged_attention.cu runs (bf16
-pools, D of 64 or 128); on CPU tensors the plain version below does the
-same work.
+q, bf16 or quantized pools, D of 64 or 128); on CPU tensors the plain
+version below does the same work.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ from typing import Optional
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
+from dynamo_tpu_torch.ops._counts import on_cuda, require
+from dynamo_tpu_torch.ops.kv_quant import gather_history, kind, pool_mode, variants
 
-counts = KernelCounts()
+#: pool mode (None, "int8", "fp8") -> counts
+counts = variants()
 
 _NAME = "paged_decode_attention"
 #: CTAs the split plan aims for, per streaming multiprocessor
@@ -61,21 +65,21 @@ def _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens):
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, layer, page_tables, history_lens,
-                                 *, scale_dim: Optional[int] = None):
+                                 *, scale_dim: Optional[int] = None, k_scale=None,
+                                 v_scale=None):
     """Plain PyTorch version of `paged_decode_attention` (same contract):
-    gathers the history densely, computed in float32."""
-    counts.plain_calls += 1
+    gathers (and dequantizes) the history densely, computed in float32."""
+    counts[pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)].plain_calls += 1
     _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens)
     b, hq, d = q.shape
     s, hkv = k_cache.shape[2], k_cache.shape[3]
     g = hq // hkv
     mp = page_tables.shape[1]
-    pt = page_tables.long()
-    k = k_cache[int(layer)][pt].reshape(b, mp * s, hkv, d).float()
-    v = v_cache[int(layer)][pt].reshape(b, mp * s, hkv, d).float()
+    live = torch.arange(mp * s, device=q.device)[None, :] < history_lens[:, None].long()
+    k = gather_history(k_cache, k_scale, layer, page_tables, live)
+    v = gather_history(v_cache, v_scale, layer, page_tables, live)
     qf = q.float().reshape(b, hkv, g, d) * (1.0 / math.sqrt(scale_dim or d))
     scores = torch.einsum("bkgd,bskd->bkgs", qf, k)
-    live = torch.arange(mp * s, device=q.device)[None, :] < history_lens[:, None].long()
     scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
     m = scores.amax(dim=-1)  # -inf where there is no history
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -86,20 +90,23 @@ def paged_decode_attention_plain(q, k_cache, v_cache, layer, page_tables, histor
 
 
 def paged_decode_attention(q, k_cache, v_cache, layer, page_tables, history_lens,
-                           *, scale_dim: Optional[int] = None):
+                           *, scale_dim: Optional[int] = None, k_scale=None, v_scale=None):
     """History-only flash decode attention; see the module docstring."""
-    tensors = (q, k_cache, v_cache, page_tables, history_lens)
+    scales = tuple(x for x in (k_scale, v_scale) if x is not None)
+    tensors = (q, k_cache, v_cache, page_tables, history_lens) + scales
     if not on_cuda(_NAME, *tensors):
         return paged_decode_attention_plain(
-            q, k_cache, v_cache, layer, page_tables, history_lens, scale_dim=scale_dim
+            q, k_cache, v_cache, layer, page_tables, history_lens, scale_dim=scale_dim,
+            k_scale=k_scale, v_scale=v_scale,
         )
+    mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
     _check_shapes(q, k_cache, v_cache, layer, page_tables, history_lens)
     b, hq, d = q.shape
     L, p, s, hkv, _ = k_cache.shape
     g = hq // hkv
     mp = page_tables.shape[1]
-    require(q.dtype == torch.bfloat16 and k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
-            _NAME, "the CUDA kernel takes bfloat16 q and pools")
+    require(q.dtype == torch.bfloat16 and (mode is not None or k_cache.dtype == q.dtype),
+            _NAME, "the CUDA kernel takes bfloat16 q and bfloat16, int8 or fp8 pools")
     require(page_tables.dtype == torch.int32 and history_lens.dtype == torch.int32,
             _NAME, "page_tables and history_lens must be int32")
     require(d in (64, 128), _NAME, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
@@ -118,24 +125,28 @@ def paged_decode_attention(q, k_cache, v_cache, layer, page_tables, history_lens
     l = torch.empty((b, hq), **f32)
     fn = _build.function(
         "paged_attention", "dyn_paged_decode",
-        [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR],
+        [_build.PTR] * 13 + [_build.INT] * 11 + [_build.FLOAT, _build.PTR],
     )
     err = fn(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+        _build.ptr(k_scale), _build.ptr(v_scale),
         _build.ptr(page_tables), _build.ptr(history_lens),
         _build.ptr(part_acc), _build.ptr(part_m), _build.ptr(part_l),
         _build.ptr(acc), _build.ptr(m), _build.ptr(l),
-        b, hq, hkv, d, int(layer), p, s, mp, splits, per,
+        kind(mode), b, hq, hkv, d, int(layer), p, s, mp, splits, per,
         1.0 / math.sqrt(scale_dim or d), _build.stream(dev),
     )
     _build.check(err, _NAME)
-    counts.launches += 1
+    counts[mode].launches += 1
     return acc, m, l
 
 
-def bytes_moved(history_lens, hq: int, hkv: int, d: int, itemsize: int) -> int:
+def bytes_moved(history_lens, hq: int, hkv: int, d: int, itemsize: int,
+                kv_quantize=None) -> int:
     """Least bytes one call must move: each history row of K and V read
-    once, q read once, acc/m/l written once."""
+    once (a quantized row: d narrow bytes and its f32 scale), q read once,
+    acc/m/l written once."""
     hist = int(torch.as_tensor(history_lens).long().sum())
     b = int(torch.as_tensor(history_lens).numel())
-    return 2 * hist * hkv * d * itemsize + b * hq * d * itemsize + b * hq * (d + 2) * 4
+    row = d * itemsize if kv_quantize is None else d + 4
+    return 2 * hist * hkv * row + b * hq * d * itemsize + b * hq * (d + 2) * 4

@@ -1,9 +1,10 @@
 """Where a TorchEngine step spends its time, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_engine.py
+    python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
-bf16, random-init weights from a fixed seed: BATCH greedy requests of
+bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
+--kv-quantize, a quantized one: BATCH greedy requests of
 PROMPT random tokens each and MAX_TOKENS output tokens, `decode_steps`
 DECODE_STEPS. Prints JSON lines:
   - `steps`: per step kind, the count and the mean wall ms (host clock
@@ -26,6 +27,7 @@ With no card it raises.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -48,12 +50,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
+                    help="quantize the KV pages (the CLI's flag)")
+    args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
     cfg = EngineConfig(model=MODEL, num_pages=256, page_size=64, max_pages_per_seq=64,
                        prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
-                       eos_token_ids=(0,))
+                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
     eng = TorchEngine(cfg, device=dev)
     gen = torch.Generator().manual_seed(0)
 
@@ -66,7 +72,11 @@ def main() -> int:
     # warm-up wave (first cuBLAS calls, kernel builds), then the timed wave
     add_batch("warm")
     eng.run_to_completion()
-    eng.metrics = type(eng.metrics)()  # count the timed wave only
+    # count the timed wave only (the pool's gauges stay)
+    eng.metrics = type(eng.metrics)(
+        kv_pool_bytes=eng.metrics.kv_pool_bytes,
+        kv_pool_bytes_dense_equiv=eng.metrics.kv_pool_bytes_dense_equiv,
+    )
     add_batch("r")
     per_kind: dict[str, list[float]] = {}
     tokens = 0
@@ -78,7 +88,8 @@ def main() -> int:
         per_kind.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
         tokens += sum(len(o.new_token_ids) for o in outs)
     wall = time.perf_counter() - t_all
-    emit({"phase": "steps", "card": card, "model": MODEL, "batch": BATCH,
+    emit({"phase": "steps", "card": card, "model": MODEL, "kv_quantize": args.kv_quantize,
+          "batch": BATCH,
           "prompt": PROMPT, "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS,
           "output_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
           "by_kind": {k: {"count": len(v), "mean_ms": sum(v) / len(v)}

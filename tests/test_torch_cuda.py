@@ -8,13 +8,15 @@ Hkv=8, D=64, page size 64) and a D=128 case. The write is bit-equal off
 the null page. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
+Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
+write's narrow bytes and scales are bit-equal too.
 """
 
 import pytest
 import torch
 
 from dynamo_tpu_torch import ops
-from dynamo_tpu_torch.ops import flash_prefill, kv_update, paged_attention
+from dynamo_tpu_torch.ops import flash_prefill, kv_quant, kv_update, paged_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +163,148 @@ def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
             q[..., :32], kv[..., :32], kv[..., :32], pool[..., :32], pool[..., :32], 1, pt,
             lens, lens)
     assert c.launches == 1
+
+
+# -- quantized pools (int8, fp8) ----------------------------------------------------
+
+
+def _quantized_pool(shape, mode, gen, dev):
+    """Random rows quantized on the card, with their f32 scale planes."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    x = x * (0.1 + 4 * torch.rand(shape[:-1] + (1,), generator=gen, device=dev))
+    return kv_quant.quantize_kv_rows(x, mode)
+
+
+def _stale_past_history(pools, pt, hist, page_size):
+    """Slots past each history get the byte 0x7f (NaN in e4m3, 127 in
+    int8) and a zero scale: the kernels must select them away."""
+    pos = torch.arange(pt.shape[1] * page_size, device=pt.device)
+    stale = pos[None, :] >= torch.tensor(hist, device=pt.device)[:, None]  # [B, MP*S]
+    pages = pt.long().repeat_interleave(page_size, dim=1)[stale]
+    slots = (pos % page_size).expand_as(stale)[stale]
+    for rows in pools[:2]:
+        rows.view(torch.uint8)[:, pages, slots] = 0x7F
+    for plane in pools[2:]:
+        plane[:, pages, slots] = 0.0
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("b,t", [(4, 1), (3, 128), (2, 64)])
+def test_quantized_paged_write_bit_equal(b, t, mode):
+    """Narrow bytes and scales bit-equal to the plain version off the null
+    page; padding runs leave page 0 as it was."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(b * 100 + t + len(mode))
+    L, P, S, hkv, d, mp = 4, 1 + 8 * b, 64, 8, 64, 8
+    k_cache, k_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+    v_cache, v_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    k_stage, v_stage = (3 * torch.randn((L, b, t, hkv, d), generator=gen, **bf)
+                        for _ in range(2))
+    k_stage[0, 0, 0, 0] = 0.0  # a zero row: the 1e-8 scale floor
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
+    pt = pt.to(torch.int32)
+    if t == 1:
+        pos = torch.randint(0, mp * S, (b, 1), generator=gen, device=dev).to(torch.int32)
+        valid = torch.tensor([[True]] * (b - 1) + [[False]], device=dev)
+    else:
+        pos = torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t).contiguous()
+        valid = pos < torch.tensor([t, t // 2 + 1, 1][:b], device=dev)[:, None]
+    before = (k_cache, v_cache, k_scale, v_scale)
+    ops.reset_counts()
+    got = kv_update.paged_write(*(x.clone() for x in before[:2]), k_stage, v_stage, pt, pos,
+                                valid, k_scale=k_scale.clone(), v_scale=v_scale.clone())
+    want = kv_update.paged_write_plain(*(x.clone() for x in before[:2]), k_stage, v_stage, pt,
+                                       pos, valid, k_scale=k_scale.clone(),
+                                       v_scale=v_scale.clone())
+    for g, w, x in zip(got, want, before):
+        g, w, x = (y.view(torch.uint8) if y.dtype == torch.float8_e4m3fn else y
+                   for y in (g, w, x))
+        assert torch.equal(g[:, 1:], w[:, 1:])  # page 0 is the null page
+        assert torch.equal(g[:, 0], x[:, 0])  # the kernel skips padding runs
+    c = ops.COUNTS[f"paged_write.{mode}"]
+    assert (c.launches, c.plain_calls) == (1, 1)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 8, 64), (6, 32, 8, 64), (3, 8, 8, 128)])
+def test_quantized_paged_decode_matches_plain(b, hq, hkv, d, mode):
+    """acc/l and m within 1e-4 of the plain version over a quantized pool
+    whose slots past each history hold NaN-encoding bytes and zero
+    scales; zero history exactly (0, -inf, 0)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(b * hq + d + len(mode))
+    L, S, mp = 3, 64, 12
+    P = 1 + b * mp
+    pools = [*_quantized_pool((L, P, S, hkv, d), mode, gen, dev),
+             *_quantized_pool((L, P, S, hkv, d), mode, gen, dev)]
+    k_cache, k_scale, v_cache, v_scale = pools
+    q = torch.randn((b, hq, d), generator=gen, dtype=torch.bfloat16, device=dev)
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
+    pt = pt.to(torch.int32)
+    lens = [mp * S - 5, 0, 1, 64, 65, 300][:b]
+    _stale_past_history((k_cache, v_cache, k_scale, v_scale), pt, lens, S)
+    hist = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, k_cache, v_cache, 1, pt, hist)
+    planes = dict(k_scale=k_scale, v_scale=v_scale)
+    acc, m, l = paged_attention.paged_decode_attention(*args, **planes)
+    racc, rm, rl = paged_attention.paged_decode_attention_plain(*args, **planes)
+    some = hist > 0
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+    assert (acc[some] / l[some][..., None] - racc[some] / rl[some][..., None]).abs().max() <= 1e-4
+    assert (m[some] - rm[some]).abs().max() <= 1e-4
+    assert (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv,d,t,hist,cur", [
+    (32, 8, 64, 512, (0, 512, 1536, 3072), (512, 512, 300, 512)),
+    (32, 8, 64, 96, (65, 1, 0, 700), (96, 17, 0, 95)),  # partial pages, a dead row
+    (16, 2, 128, 64, (257, 0), (64, 64)),
+])
+def test_quantized_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur, mode):
+    """Each valid row within 2^-6 of its largest |value| over a quantized
+    pool whose slots past each history hold NaN-encoding bytes and zero
+    scales."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(hq + d + t + len(mode))
+    b, L, S = len(hist), 3, 64
+    mp = max(1, -(-max(hist) // S)) + 1
+    P = 1 + b * mp
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((b, t, hq, d), generator=gen, **bf)
+    kc, vc = (torch.randn((b, t, hkv, d), generator=gen, **bf) for _ in range(2))
+    k_cache, k_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+    v_cache, v_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
+    pt = pt.to(torch.int32)
+    _stale_past_history((k_cache, v_cache, k_scale, v_scale), pt, hist, S)
+    hl = torch.tensor(hist, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cur, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, k_cache, v_cache, 2, pt, hl, cl)
+    planes = dict(k_scale=k_scale, v_scale=v_scale)
+    got = flash_prefill.paged_prefill_attention(*args, **planes)
+    want = flash_prefill.paged_prefill_attention_plain(*args, **planes)
+    _assert_rows_close(got, want, cur)
+
+
+def test_quantized_variants_are_counted_and_bad_inputs_raise():
+    dev = _card()
+    ops.reset_counts()
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((1, 32, 64), **bf)
+    pool = torch.zeros((2, 4, 64, 8, 64), dtype=torch.int8, device=dev)
+    planes = torch.zeros((2, 4, 64, 8), device=dev)
+    pt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    hist = torch.tensor([70], dtype=torch.int32, device=dev)
+    paged_attention.paged_decode_attention(q, pool, pool, 1, pt, hist,
+                                           k_scale=planes, v_scale=planes)
+    assert (ops.COUNTS["paged_decode_attention.int8"].launches,
+            ops.COUNTS["paged_decode_attention"].launches) == (1, 0)
+    with pytest.raises(ValueError, match="scale planes"):
+        paged_attention.paged_decode_attention(q, pool, pool, 1, pt, hist)
+    with pytest.raises(ValueError, match="float32"):
+        paged_attention.paged_decode_attention(q, pool, pool, 1, pt, hist,
+                                               k_scale=planes.bfloat16(),
+                                               v_scale=planes.bfloat16())
+    assert ops.COUNTS["paged_decode_attention.int8"].launches == 1

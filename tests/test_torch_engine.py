@@ -165,7 +165,7 @@ def test_prompt_longer_than_one_chunk_is_refused():
 @pytest.mark.parametrize(
     "knob", [
         {"enable_prefix_caching": True}, {"overlap_decode": True}, {"mixed_steps": True},
-        {"decode_kstep": 4}, {"kv_quantize": "int8"}, {"tp": 2}, {"fleet_telemetry": True},
+        {"decode_kstep": 4}, {"quantize": "int8"}, {"tp": 2}, {"fleet_telemetry": True},
         {"attention_impl": "xla"}, {"spec_draft_tokens": 8},
     ],
 )

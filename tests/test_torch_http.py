@@ -13,6 +13,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from dynamo_tpu_torch.cli.run import start_server
 from dynamo_tpu_torch.preprocessor.tokenizer import ByteTokenizer
@@ -205,3 +206,46 @@ def test_prefill_chunk_defaults_to_512_and_is_validated(extra, chunk):
             _parse(argv)
     else:
         assert _parse(argv).prefill_chunk == chunk
+
+
+def test_kv_quantize_int8_server_serves_a_streaming_chat():
+    """The CLI with --kv-quantize int8 (on the CPU) serves a streaming chat
+    whose prompt prefills in two chunks over the int8 pool: usage counts
+    its tokens, and every write and history read took the int8 variant."""
+    from dynamo_tpu_torch import ops
+
+    srv = start_server(ARGS + ["--kv-quantize", "int8"])
+    try:
+        assert srv.runner.engine.kv.k.dtype == torch.int8 and srv.runner.engine.kv.quantized
+        ops.reset_counts()
+        messages = [{"role": "user", "content": "a longer prompt " * 5}]
+        events, done = _stream(srv.url + "/v1/chat/completions", {
+            "model": "tiny", "messages": messages, "max_tokens": 6, "stream": True,
+            "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True, "return_token_ids": True},
+        })
+    finally:
+        srv.stop()
+    assert done
+    ids = [t for e in events for c in e["choices"] for t in c.get("token_ids", [])]
+    usage = events[-1]["usage"]
+    assert usage["completion_tokens"] == len(ids) == 6
+    assert usage["prompt_tokens"] == _prompt_tokens(messages) > 64
+    for name in ("paged_write", "paged_decode_attention", "paged_prefill_attention"):
+        assert ops.COUNTS[f"{name}.int8"].plain_calls > 0
+        assert ops.COUNTS[name].plain_calls == 0
+
+
+@pytest.mark.parametrize("flag,mode", [
+    ([], None), (["--kv-quantize", "int8"], "int8"), (["--kv-quantize", "fp8"], "fp8"),
+    (["--kv-quantize", "int4"], "refused"),
+])
+def test_kv_quantize_flag_reaches_the_engine_config(flag, mode):
+    from dynamo_tpu_torch.cli.run import _parse, engine_config
+
+    argv = ["run", "in=http", "out=torch", *flag]
+    if mode == "refused":
+        with pytest.raises(SystemExit):
+            _parse(argv)
+    else:
+        assert engine_config(_parse(argv), ()).kv_quantize == mode
