@@ -7,11 +7,13 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the serving path, from dynamo_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at llama3-1b
-     widths (page size 64), over bf16 pools and over quantized (int8, fp8)
+     widths (page size 64; flash prefill also at llama3-8b's head dim of
+     128 and at a 4,096-token chunk), over bf16 pools and over quantized (int8, fp8)
      pools for the three kernels that read or write them, with its time,
      the plain version's, one library call's where one computes the same
-     function, and the card's least time for the work (bound, from bytes
-     or operations over the H100's peaks);
+     function (each by CUDA events around 20 back-to-back calls, so the
+     host's work between launches is in it), and the card's least time for
+     the work (bound, from bytes or operations over the H100's peaks);
   4. model: random-init llama3-1b in bf16, the kernel path against the
      plain path, teacher-forced over a 256-token prompt and 32 decode steps,
      and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
@@ -32,7 +34,13 @@ Phases, each fatal on failure:
      identical, every kernel variant of the server's pool must launch
      while serving, no other pool variant may, and no plain version may
      run. TTFT is taken at the client, from sending a streaming request to
-     its first chunk that carries a token.
+     its first chunk that carries a token;
+  6. device times: each phase-3 case's kernel and library call again, 20
+     calls under torch.profiler: `device_ms` and `library_device_ms` are
+     the summed device time of every CUDA kernel the loop launched, per
+     call, without the host's work; `library_kernels` names the kernels
+     the library call ran (its backend). It runs last so that no profiler
+     session precedes the serve phase. The phase-3 lines print here.
 Then the `kernels` JSON line (one entry per kernel variant), the card line
 and, last, the contract line {"ok": true, "device": {...}}. With no card
 it exits non-zero and prints no result.
@@ -98,6 +106,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, list[str]]:
+    """Device time of fn() per call, and the names of the kernels it ran:
+    the same warmed loop of `iters` calls as `cuda_ms`, under
+    torch.profiler, summing device_time over every CUDA kernel event of the
+    loop. Unlike `cuda_ms` it leaves out the host's work between launches
+    (a wrapper's checks, allocation, the ctypes call), which sets `cuda_ms`
+    for a kernel shorter than that work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no CUDA kernel: no device time")
+    return sum(e.device_time for e in kernels) / 1e3 / iters, sorted({e.name for e in kernels})
+
+
+def timings(kernel, plain, library=None) -> dict:
+    """A kernel's times beside its plain version's and, where one PyTorch
+    call computes the same function, that call's, by CUDA events around
+    the loop (host work included): `ms`, `plain_ms`, `library_ms`. The
+    kernel and library calls are kept under "calls" for
+    `phase_device_times`, which profiles them after the servers have run,
+    so that no profiler session comes before the serve phase's timings."""
+    return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+            "library_ms": None if library is None else cuda_ms(library),
+            "calls": (kernel, library)}
+
+
+def phase_device_times(cases: list[dict]) -> None:
+    """Each case's `device_ms` and `library_device_ms` (the profiler's
+    kernel time per call) and the kernels each call launched."""
+    for c in cases:
+        kernel, library = c.pop("calls")
+        c["device_ms"], c["device_kernels"] = device_ms(kernel)
+        c["library_device_ms"], c["library_kernels"] = (
+            (None, []) if library is None else device_ms(library))
 
 
 def bound(nbytes: float, flop: float, peaks) -> tuple[float, str]:
@@ -186,27 +237,28 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode) -> dict:
             n = int((as_bytes(g)[:, 1:] != as_bytes(w)[:, 1:]).sum())
             raise AssertionError(f"paged_write {mode or 'bf16'} B={b} T={t}: not bit-equal "
                                  f"({n} elements differ)")
-    ms = cuda_ms(lambda: kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp))
-    plain_ms = cuda_ms(
-        lambda: kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp))
-    library_ms, library = None, "none: no single PyTorch call quantizes and lands the rows"
+    library_call, library = None, "none: no single PyTorch call quantizes and lands the rows"
     if mode is None:
-        library_ms = index_copy_write(kern, k_stage, v_stage, *args)
+        library_call = index_copy_write(kern, k_stage, v_stage, *args)
         library = ("Tensor.index_copy_ on each pool viewed as [L, P*S, Hkv*D] over "
                    "precomputed flat slot indices (K and V, timed together)")
+    times = timings(
+        lambda: kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp),
+        lambda: kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp),
+        library_call)
     nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode)
     b_ms, by = bound(nbytes, 0.0, peaks)
     return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": L,
             "Hkv": HKV, "D": D, "S": S,
             "tolerance": "bit-equal on every page but the null page 0"
                          + ("" if mode is None else ", narrow bytes and scale planes"),
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": 0.0, **times,
             "library": library, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
-def index_copy_write(pools, k_stage, v_stage, pt, pos, valid) -> float:
-    """Time of the bf16 write as one index_copy_ per pool (the library
-    yardstick), after checking that it lands what the kernel landed."""
+def index_copy_write(pools, k_stage, v_stage, pt, pos, valid):
+    """The bf16 write as one index_copy_ per pool (the library yardstick),
+    checked to land what the kernel landed; returns the call to time."""
     b, t = pos.shape
     run = min(t, S)
     first_pos = pos[:, ::run].long()
@@ -226,7 +278,7 @@ def index_copy_write(pools, k_stage, v_stage, pt, pos, valid) -> float:
     for dst, want in zip(flat, pools[:2]):
         if not torch.equal(dst.view(want.shape)[:, 1:], want[:, 1:]):
             raise AssertionError("paged_write: the index_copy_ yardstick lands other rows")
-    return cuda_ms(call)
+    return call
 
 
 def row_errors(got, ref, lens) -> tuple[float, float]:
@@ -239,34 +291,34 @@ def row_errors(got, ref, lens) -> tuple[float, float]:
     return diff.max().item(), (diff / scale).max().item()
 
 
-def check_flash_prefill(dev, peaks, gen, b: int, t: int) -> dict:
+def check_flash_prefill(dev, peaks, gen, b: int, t: int, ragged: bool = True,
+                        d: int = D) -> dict:
     bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, HQ, D), generator=gen, **bf)
-    k = torch.randn((b, t, HKV, D), generator=gen, **bf)
-    v = torch.randn((b, t, HKV, D), generator=gen, **bf)
-    lens = [t, t - 12, (3 * t) // 4 + 1, t // 2, t // 4 + 1, 64, 33, 1][:b]
+    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
+    k = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    v = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    lens = [t, t - 12, (3 * t) // 4 + 1, t // 2, t // 4 + 1, 64, 33, 1][:b] if ragged else []
     valid_len = torch.tensor(lens + [t] * (b - len(lens)), dtype=torch.int32, device=dev)
-    got = flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=D)
-    ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=D)
+    got = flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=d)
+    ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=d)
     torch.cuda.synchronize()
     err, rel = row_errors(got, ref, valid_len)
     if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_prefill_attention B={b} T={t}: a row's max |diff| is "
+        raise AssertionError(f"flash_prefill_attention B={b} T={t} D={d}: a row's max |diff| is "
                              f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
-    ms = cuda_ms(lambda: flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=D))
-    plain_ms = cuda_ms(
-        lambda: flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=D))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, D, 2)
-    b_ms, by = bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, D), peaks)
-    return {"kernel": "flash_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
+    times = timings(
+        lambda: flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=d),
+        lambda: flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=d),
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, d, 2)
+    b_ms, by = bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, d), peaks)
+    return {"kernel": "flash_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": d,
             "valid_len": valid_len.tolist(),
             "tolerance": f"bf16, each (token, head) row below valid_len: max |diff| <= "
                          f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)",
-            "max_abs_err": err, "max_row_rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err, "max_row_rel_err": rel, **times,
             "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
                        "over the whole padded chunk",
             "bound_ms": b_ms, "bound_by": by}
@@ -298,9 +350,6 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
     if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
         raise AssertionError(f"{name} B={b} T={t}: a row's max |diff| is "
                              f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
-    ms = cuda_ms(lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes))
-    plain_ms = cuda_ms(
-        lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes))
     # the library yardstick attends over a bf16 copy of each (dequantized)
     # history followed by its chunk (the copy is not timed), with the same
     # mask: history below hist_lens, the chunk causally below cur_lens
@@ -315,7 +364,10 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
     mask = torch.cat([hist_live[:, None, :].expand(b, t, n_hist), cur_live], 2)[:, None]
     qt, kt, vt = q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    times = timings(
+        lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes),
+        lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes),
+        lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, D, 2,
                                              mode)
     flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, D)
@@ -326,8 +378,7 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
                          f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)"
                          + ("" if mode is None else "; slots past each history hold "
                             "byte 0x7f and scale 0"),
-            "max_abs_err": err, "max_row_rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err, "max_row_rel_err": rel, **times,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
                        "dense bf16 copy of each (dequantized) history followed by its chunk",
             "flop": flop, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
@@ -366,17 +417,16 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
             f"{name} B={b}: max |acc/l diff| {err}, max |m diff| {m_err} "
             f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
 
-    ms = cuda_ms(lambda: paged_attention.paged_decode_attention(*args, scale_dim=D, **planes))
-    plain_ms = cuda_ms(
-        lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes))
     # the library yardstick attends over a bf16 copy of each (dequantized)
     # history (the copy is not timed): one SDPA call with a length mask
     dense_k = dense_history(k_cache, planes.get("k_scale"), layer, pt, hist).transpose(1, 2)
     dense_v = dense_history(v_cache, planes.get("v_scale"), layer, pt, hist).transpose(1, 2)
     live = (torch.arange(mp * S, device=dev)[None, :] < hist[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live,
-                                      enable_gqa=True))
+    times = timings(
+        lambda: paged_attention.paged_decode_attention(*args, scale_dim=D, **planes),
+        lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes),
+        lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live, enable_gqa=True))
     nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, D, 2, mode)
     flop = 4 * HQ * D * int(hist.long().sum())
     b_ms, by = bound(nbytes, flop, peaks)
@@ -386,7 +436,7 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
                          "zero history exactly (0, -inf, 0)"
                          + ("" if mode is None else "; slots past each history hold "
                             "byte 0x7f and scale 0"),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": err, **times,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
                        "dense bf16 copy of the (dequantized) history, normalized output",
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
@@ -394,7 +444,15 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
 
 def phase_kernels(dev, peaks) -> dict:
     gen = torch.Generator(device=dev)
-    cases = [check_flash_prefill(dev, peaks, gen.manual_seed(0), 8, 512)]
+    cases = [
+        # every row valid: SDPA computes no more than the kernel needs; at
+        # the main path's widths, at llama3-8b's head dim and at a long T
+        check_flash_prefill(dev, peaks, gen.manual_seed(6), 8, 512, ragged=False),
+        check_flash_prefill(dev, peaks, gen.manual_seed(7), 4, 1024, ragged=False, d=128),
+        check_flash_prefill(dev, peaks, gen.manual_seed(8), 1, 4096, ragged=False),
+        # the main path's ragged first chunk, last so the kernels line reports it
+        check_flash_prefill(dev, peaks, gen.manual_seed(0), 8, 512),
+    ]
     for mode in MODES:
         # each shape from its own seed, so every pool mode sees the same
         # page tables, lengths and staged rows
@@ -408,10 +466,7 @@ def phase_kernels(dev, peaks) -> dict:
                                 [512, 512, 300, 512], 512, mode),
         ]
         torch.cuda.empty_cache()
-    for c in cases:
-        emit({"phase": "kernels", **c})
-    # the kernels line reports each variant at its last (largest) shape above
-    return {c["kernel"]: c for c in cases}
+    return cases
 
 
 # -- phase 4: the model gate ------------------------------------------------------
@@ -691,13 +746,18 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": report})
-    kernels = phase_kernels(dev, peaks)
+    cases = phase_kernels(dev, peaks)
     phase_model(dev)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     for mode in MODES:  # flash_prefill_attention counts from the bf16 server
         for name, n in phase_serve(card, mode)["launches"].items():
             launches.setdefault(name, n)
+    phase_device_times(cases)
+    for c in cases:
+        emit({"phase": "kernels", **c})
+    # the kernels line reports each variant at its last shape above
+    kernels = {c["kernel"]: c for c in cases}
     lines = []
     for name, (src, replaces) in SOURCE.items():
         for mode in MODES if name in QUANT_BRANCH else (None,):
@@ -708,8 +768,9 @@ def main() -> int:
                 "replaces": replaces if mode is None
                 else f"{replaces}; quantized branch {QUANT_BRANCH[name]}",
                 "launches": launches[variant], "max_abs_err": c["max_abs_err"],
-                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"], "library_device_ms": c["library_device_ms"],
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

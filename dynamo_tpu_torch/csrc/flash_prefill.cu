@@ -3,237 +3,473 @@
 // Replaces: dynamo_tpu/ops/flash_prefill.py::flash_prefill_attention, the
 // Pallas kernel _prefill_kernel (pallas_call at flash_prefill.py:484).
 //
-// Bound on the H100: operations at B*T of a few thousand tokens,
-// 4 * Hq * D * (causal query-key pairs) FLOPs per layer against about
-// (2*Hq + 2*Hkv) * D * B*T * 2 bytes.
-// Design (FA2-style): one CTA per (sequence, kv head, 64-row query tile).
-// The g = Hq/Hkv query heads of the kv group fold into the tile's rows
-// (row r = head_in_group * (64/g) + token), so each K/V tile staged in
-// shared memory serves all g heads. Four warps each own 16 rows: QK^T and
-// PV run on the tensor cores through WMMA 16x16x16 bf16 fragments with
-// f32 accumulation; the online softmax runs per row in f32 with warp
-// shuffles. Key tiles above the causal frontier of the query tile, or at
-// or past valid_len, are never loaded. Keys past valid_len inside a
-// loaded tile are zero-filled and masked. Tiles whose queries are all
-// padding write zeros, so padding rows stay finite. wgmma/TMA are later
-// work.
+// Bound on the H100: for B sequences of valid lengths n_b, at least
+// 4 * Hq * D * sum_b n_b (n_b + 1) / 2 FLOPs (QK^T and PV over the causal
+// triangle) and (2 * Hq + 2 * Hkv) * D * 2 * sum_b n_b bytes (q, k, v read
+// once, out written once); the time bound is the larger of FLOPs / 989e12
+// and bytes / 3.35e12. For llama3-1b's main case (B=8, T=512, lens 512,
+// 500, 385, 256, 129, 64, 33, 1; Hq 32, Hkv 8, D 64) that is 3.07 GFLOP
+// (0.0031 ms) against 19.25 MB (0.00575 ms): bytes bound a ragged batch of
+// short sequences, operations bound long ones (n above about 740).
+//
+// Design (one CTA per (query tile, sequence, kv head), 256 threads):
+// - Tiles: 128 query rows per CTA, two consumer warpgroups of 64 rows (one
+//   wgmma M each). The g = Hq/Hkv heads of the kv group fold into the rows
+//   token-major (row r = token offset r / g, head r % g), so one K/V tile
+//   serves all g heads and a CTA covers 128 / g tokens: 32 for llama3-1b,
+//   so each sequence's K/V prefix is read by T/32 CTAs.
+// - Products: S = Q K^T is wgmma m64n64k16 with Q and the K tile both
+//   K-major shared-memory operands; O += P V is wgmma m64nDk16 with P as
+//   the A operand in registers (the S accumulator rounded to bf16 in
+//   place: the accumulator's layout is the A fragment's) and the V tile a
+//   shared-memory B operand read MN-major (transposed by the descriptor).
+//   Every shared tile is stored in the 128-byte swizzle, 64 columns (128
+//   bytes) per row block, so the wgmma reads are conflict-free; the
+//   descriptors carry SBO 1024 (eight 128-byte rows) and, for V at D=128,
+//   LBO = one 64-column block.
+// - Softmax in registers: scores are scaled by log2(e) / sqrt(D) and the
+//   online max and sum run in f32 on the accumulator fragments with exp2f,
+//   the max reduced over the four lanes that share a row. The O
+//   accumulator stays in registers for the whole key loop; each thread
+//   keeps a partial row sum, reduced once at the end. No S, P or O tile
+//   touches shared memory.
+// - Asynchronous K/V ring: STAGES (2) buffers of [64 keys, D] K and V,
+//   filled with cp.async (16 bytes a thread, one commit group per tile);
+//   tile j+1 is in flight while tile j is multiplied. Keys at or past
+//   valid_len are zero-filled by the copy (src-size 0), never read.
+// - Masks: key tiles above the CTA's causal frontier or at or past
+//   valid_len are never loaded; a warpgroup skips the tiles above its own
+//   frontier; tiles wholly below its first token and below valid_len skip
+//   the mask arithmetic; the diagonal and valid_len-edge tiles mask by
+//   selection (score = -inf), never by a product. Key 0 is live for every
+//   row of a live CTA, so every row's max is finite after the first tile.
+//   A CTA whose queries are all at or past valid_len writes zeros and
+//   returns; rows past valid_len in a live CTA attend over all valid keys,
+//   so they are finite too.
+// - Order: the 1-D grid walks query tiles last (longest) first, so the
+//   CTAs with the most key tiles start first and the causal tail is short.
+// - Shared memory per CTA: Q 128 x D bf16 plus STAGES x (K + V) 64 x D
+//   bf16 and nothing else, with 1 KiB to align the swizzle atoms: D=64
+//   16 + 32 + 1 KiB (50,176 bytes), D=128 32 + 64 + 1 KiB (99,328 bytes).
+//   Registers (ptxas, CUDA 12.8, sm_90a): 120 a thread at D=64, 162 at
+//   D=128, no spills; so two CTAs (four warpgroups) share an SM at D=64
+//   and one at D=128. Per thread: the O accumulator (D/2 floats), S (32
+//   floats) and P (16 words).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int ROWS = 64;   // query rows per CTA
-constexpr int BK = 64;     // keys per K/V tile
-constexpr int WARPS = 4;   // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 8;     // bf16 per 16-byte vector
-constexpr float MASKED = -1e30f;
+constexpr int ROWS = 128;    // query rows per CTA: two consumer warpgroups
+constexpr int WG_ROWS = 64;  // rows per warpgroup, one wgmma M
+constexpr int BK = 64;       // keys per K/V tile
+constexpr int STAGES = 2;    // depth of the K/V ring
+constexpr int THREADS = 256;
+constexpr int VEC = 8;       // bf16 per 16-byte chunk
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Layout {
-  static constexpr int QS = D + 8;   // bf16 row stride of the Q, K, V tiles
-  static constexpr int SS = BK + 4;  // f32 row stride of the score tile
-  static constexpr int PS = BK + 8;  // bf16 row stride of the probability tile
-  static constexpr int OS = D + 4;   // f32 row stride of the output tile
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + (size_t)ROWS * QS * 2;
-  static constexpr size_t v_off = k_off + (size_t)BK * QS * 2;
-  static constexpr size_t s_off = v_off + (size_t)BK * QS * 2;
-  static constexpr size_t p_off = s_off + (size_t)ROWS * SS * 4;
-  static constexpr size_t o_off = p_off + (size_t)ROWS * PS * 2;
-  static constexpr size_t m_off = o_off + (size_t)ROWS * OS * 4;
-  static constexpr size_t l_off = m_off + (size_t)ROWS * 4;
-  static constexpr size_t bytes = l_off + (size_t)ROWS * 4;
+struct Smem {
+  static constexpr int Q_BYTES = ROWS * D * 2;
+  static constexpr int TILE_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int BYTES = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int ALLOC = BYTES + 1024;        // the base is aligned up to 1024
 };
 
+// Byte offset of 16-byte chunk `c` (0..7) of row `r` in a region of
+// 128-byte rows under the 128-byte swizzle (chunk index ^= row % 8).
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes by the generic proxy (cp.async) made visible to
+// wgmma's reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of an accumulator register
+// across the asynchronous wgmma that owns it
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (each in 16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// S (64 x 64, f32) = A (64 x 16, K-major in shared memory) * B (64 x 16,
+// K-major in shared memory)^T; accumulate 0 overwrites S.
+
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a_desc,
+                                                   uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// O (64 x D, f32) += P (64 x 16, bf16 A fragments) * V (16 x D, MN-major)
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t b_desc) {
+  if constexpr (D == 64) {
+    wgmma_rs_m64n64k16(o, a, b_desc);
+  } else {
+    wgmma_rs_m64n128k16(o, a, b_desc);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One K/V tile (keys k0 .. k0+63) into a ring stage; keys at or past vlen
+// are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_kv(uint32_t ks, uint32_t vs, const __nv_bfloat16* kb,
+                                        const __nv_bfloat16* vb, int k0, int vlen, int Hkv,
+                                        int tid) {
+  constexpr int CH = D / VEC;  // 16-byte chunks per row
+#pragma unroll
+  for (int n = 0; n < BK * CH / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / CH, c = i % CH;
+    const bool live = k0 + r < vlen;
+    const size_t off = live ? (size_t)(k0 + r) * Hkv * D + c * VEC : 0;
+    const uint32_t so = (uint32_t)((c / 8) * BK * 128) + swizzled(r, c % 8);
+    cp_async16(ks + so, kb + off, live);
+    cp_async16(vs + so, vb + off, live);
+  }
+}
+
+template <int D, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, T, Hq, D]
     const __nv_bfloat16* __restrict__ k,  // [B, T, Hkv, D]
     const __nv_bfloat16* __restrict__ v,  // [B, T, Hkv, D]
     const int* __restrict__ valid_len,    // [B]
     __nv_bfloat16* __restrict__ out,      // [B, T, Hq, D]
-    int T, int Hq, int Hkv, float scale) {
-  using Lay = Layout<D>;
-  constexpr int DV = D / VEC;  // 16-byte vectors per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::v_off);
-  float* ss = reinterpret_cast<float*>(smem + Lay::s_off);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + Lay::p_off);
-  float* os = reinterpret_cast<float*>(smem + Lay::o_off);
-  float* ms = reinterpret_cast<float*>(smem + Lay::m_off);
-  float* ls = reinterpret_cast<float*>(smem + Lay::l_off);
+    int B, int T, int Hq, int Hkv, float scale_log2) {
+  using S = Smem<D>;
+  constexpr int CH = D / VEC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;
 
   const int g = Hq / Hkv;
-  const int toks = ROWS / g;  // tokens per tile
-  const int q0 = blockIdx.x * toks;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int toks = ROWS / g;  // tokens per CTA
+  const int tiles = (T + toks - 1) / toks;
+  // longest first: the last query tile of every (sequence, kv head) first
+  const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));
+  const int rest = (int)(blockIdx.x % (B * Hkv));
+  const int b = rest / Hkv;
+  const int h = rest % Hkv;
+  const int q0 = tile * toks;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int vlen = min(valid_len[b], T);
 
   if (q0 >= vlen) {
-    // every query of this tile is padding: finite zeros, nothing loaded
+    // every query of this CTA is padding: finite zeros, nothing loaded
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < ROWS * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV;
-      const int tok = q0 + r % toks;
+    for (int i = tid; i < ROWS * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH;
+      const int tok = q0 + r / g;
       if (tok < T) {
-        const size_t off = (((size_t)b * T + tok) * Hq + h * g + r / toks) * D;
+        const size_t off = (((size_t)b * T + tok) * Hq + h * g + r % g) * D;
         *reinterpret_cast<uint4*>(out + off + c * VEC) = zero;
       }
     }
     return;
   }
 
-  for (int i = tid; i < ROWS * DV; i += THREADS) {
-    const int r = i / DV, c = i % DV;
-    const int tok = q0 + r % toks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (tok < T) {
-      const size_t off = (((size_t)b * T + tok) * Hq + h * g + r / toks) * D;
-      val = *reinterpret_cast<const uint4*>(q + off + c * VEC);
-    }
-    *reinterpret_cast<uint4*>(qs + r * Lay::QS + c * VEC) = val;
+  // Q (rows past T zero-filled) with the first K/V tile, one commit group
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / CH, c = i % CH;
+    const int tok = q0 + r / g;
+    const bool live = tok < T;
+    const size_t off = live ? (((size_t)b * T + tok) * Hq + h * g + r % g) * D + c * VEC : 0;
+    cp_async16(qs + (uint32_t)((c / 8) * ROWS * 128) + swizzled(r, c % 8), q + off, live);
   }
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    os[(i / D) * Lay::OS + i % D] = 0.f;
-  }
-  if (tid < ROWS) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.f;
-  }
-
-  const int r0 = warp * 16;
-  // keys [0, kend) can matter to some row of this tile (causal frontier)
+  const __nv_bfloat16* kb = k + ((size_t)b * T * Hkv + h) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * T * Hkv + h) * D;
+  // keys [0, kend) can matter to some row of this CTA (causal frontier)
   const int kend = min(q0 + toks, vlen);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (key < vlen) {
-        const size_t off = (((size_t)b * T + key) * Hkv + h) * D + c * VEC;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * Lay::QS + c * VEC) = kv;
-      *reinterpret_cast<uint4*>(vs + r * Lay::QS + c * VEC) = vv;
-    }
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the 64 keys of the tile
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  const int nk = (kend + BK - 1) / BK;
+  auto k_stage = [&](int s) { return base + S::Q_BYTES + (uint32_t)(s * S::STAGE_BYTES); };
+  load_kv<D>(k_stage(0), k_stage(0) + S::TILE_BYTES, kb, vb, 0, vlen, Hkv, tid);
+  cp_async_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, qs + r0 * Lay::QS + kk * 16, Lay::QS);
-        wmma::load_matrix_sync(fb, ks + (n * 16) * Lay::QS + kk * 16, Lay::QS);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(ss + r0 * Lay::SS + n * 16, acc, Lay::SS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax per row: each lane holds two of the 64 columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int tok = q0 + r % toks;
-      const int key0 = k0 + lane;
-      const int key1 = k0 + lane + 32;
-      float s0 = ss[r * Lay::SS + lane] * scale;
-      float s1 = ss[r * Lay::SS + lane + 32] * scale;
-      if (key0 > tok || key0 >= vlen) s0 = MASKED;
-      if (key1 > tok || key1 >= vlen) s1 = MASKED;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float alpha = expf(m_old - m_new);
-      ps[r * Lay::PS + lane] = __float2bfloat16(p0);
-      ps[r * Lay::PS + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) os[r * Lay::OS + d] *= alpha;
-      __syncwarp();  // every lane has read ms[r] before lane 0 moves it
-      if (lane == 0) {
-        ms[r] = m_new;
-        ls[r] = ls[r] * alpha + sum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + r0 * Lay::OS + n * 16, Lay::OS, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, ps + r0 * Lay::PS + kk * 16, Lay::PS);
-        wmma::load_matrix_sync(fb, vs + (kk * 16) * Lay::QS + n * 16, Lay::QS);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(os + r0 * Lay::OS + n * 16, acc, Lay::OS, wmma::mem_row_major);
-    }
+  for (int s = 1; s < STAGES - 1; ++s) {
+    if (s < nk) load_kv<D>(k_stage(s), k_stage(s) + S::TILE_BYTES, kb, vb, s * BK, vlen, Hkv, tid);
+    cp_async_commit();
   }
-  __syncwarp();
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    const int tok = q0 + r % toks;
-    if (tok >= T) continue;
-    const float inv = 1.f / fmaxf(ls[r], 1e-30f);
-    __nv_bfloat16* dst = out + (((size_t)b * T + tok) * Hq + h * g + r / toks) * D;
-    for (int d = lane; d < D; d += 32) dst[d] = __float2bfloat16(os[r * Lay::OS + d] * inv);
+  const int wg = tid / 128;  // consumer warpgroup
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row_a = wg * WG_ROWS + warp * 16 + lane / 4;  // this thread's rows: a and a + 8
+  const int tok_a = q0 + row_a / g;
+  const int tok_b = q0 + (row_a + 8) / g;
+  const int wg_first = q0 + (wg * WG_ROWS) / g;  // the warpgroup's first and last tokens
+  const int wg_last = q0 + (wg * WG_ROWS + WG_ROWS - 1) / g;
+  const bool wg_live = wg_first < vlen;
+  const int col = (lane % 4) * 2;  // this thread's first column in each 8-column block
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile j have landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's have, and every warpgroup is done with tile j - 1
+    {
+      const int jn = j + STAGES - 1;  // refill the stage tile j - 1 used
+      if (jn < nk) {
+        const uint32_t st = k_stage(jn % STAGES);
+        load_kv<D>(st, st + S::TILE_BYTES, kb, vb, jn * BK, vlen, Hkv, tid);
+      }
+      cp_async_commit();
+    }
+    const int k0 = j * BK;
+    if (!wg_live || k0 > wg_last) continue;  // warpgroup-uniform
+    const uint32_t ks = k_stage(j % STAGES);
+    const uint32_t vs = ks + S::TILE_BYTES;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pin(s[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (uint32_t)((kk % 4) * 32);  // 16 columns within the block
+      const uint64_t da = smem_desc(
+          qs + (uint32_t)((kk / 4) * ROWS * 128 + wg * WG_ROWS * 128) + off, 16, 1024);
+      const uint64_t db = smem_desc(ks + (uint32_t)((kk / 4) * BK * 128) + off, 16, 1024);
+      wgmma_ss_m64n64k16(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pin(s[i]);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+    if (k0 + BK - 1 > wg_first || k0 + BK > vlen) {
+      // the diagonal or the valid_len edge: mask by selection
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + 8 * i + col + (c & 1);
+          const int tok = c < 2 ? tok_a : tok_b;
+          s[4 * i + c] = (key > tok || key >= vlen) ? -INFINITY : s[4 * i + c];
+        }
+      }
+    }
+
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx_a = fmaxf(mx_a, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[4 * i] = exp2f(s[4 * i] - mn_a);
+      s[4 * i + 1] = exp2f(s[4 * i + 1] - mn_a);
+      s[4 * i + 2] = exp2f(s[4 * i + 2] - mn_b);
+      s[4 * i + 3] = exp2f(s[4 * i + 3] - mn_b);
+      sum_a += s[4 * i] + s[4 * i + 1];
+      sum_b += s[4 * i + 2] + s[4 * i + 3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= alpha_a;
+      o[4 * i + 1] *= alpha_a;
+      o[4 * i + 2] *= alpha_b;
+      o[4 * i + 3] *= alpha_b;
+    }
+    // P as bf16 A fragments: 16 keys per k-step, the accumulator's n8
+    // blocks 2kk and 2kk+1
+    uint32_t p[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // 16 keys = 16 rows of 128 bytes; LBO is one 64-column block of V
+      wgmma_pv<D>(o, p[kk], smem_desc(vs + (uint32_t)(kk * 16 * 128), BK * 128, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  // l is at least 1 for every row of a live warpgroup (its max contributes
+  // exp2(0)); a warpgroup wholly past valid_len writes zeros
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  const int head_a = h * g + row_a % g;
+  const int head_b = h * g + (row_a + 8) % g;
+  __nv_bfloat16* dst_a = out + (((size_t)b * T + tok_a) * Hq + head_a) * D + col;
+  __nv_bfloat16* dst_b = out + (((size_t)b * T + tok_b) * Hq + head_b) * D + col;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (tok_a < T)
+      *reinterpret_cast<uint32_t*>(dst_a + 8 * i) = pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
+    if (tok_b < T)
+      *reinterpret_cast<uint32_t*>(dst_b + 8 * i) =
+          pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* valid_len,
-           void* out, int B, int T, int Hq, int Hkv, float scale,
-           cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D, int MIN_BLOCKS>
+int launch(const void* q, const void* k, const void* v, const void* valid_len, void* out,
+           int B, int T, int Hq, int Hkv, float scale, cudaStream_t stream) {
+  const int smem = Smem<D>::ALLOC;
+  auto kernel = flash_prefill_kernel<D, MIN_BLOCKS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int toks = ROWS / (Hq / Hkv);
-  const dim3 grid((T + toks - 1) / toks, Hkv, B);
-  flash_prefill_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const long long blocks = (long long)((T + toks - 1) / toks) * B * Hkv;
+  if (blocks <= 0) return (int)cudaSuccess;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)valid_len, (__nv_bfloat16*)out, T, Hq, Hkv, scale);
+      (const int*)valid_len, (__nv_bfloat16*)out, B, T, Hq, Hkv, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int dyn_flash_prefill(const void* q, const void* k, const void* v,
-                                 const void* valid_len, void* out, int B, int T,
-                                 int Hq, int Hkv, int D, float scale, void* stream) {
+                                 const void* valid_len, void* out, int B, int T, int Hq,
+                                 int Hkv, int D, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || ROWS % (Hq / Hkv) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (D == 64) return launch<64>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
-  if (D == 128) return launch<128>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
+  // D=64 fits two CTAs an SM in registers; D=128's accumulator takes one
+  if (D == 64) return launch<64, 2>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
+  if (D == 128) return launch<128, 1>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

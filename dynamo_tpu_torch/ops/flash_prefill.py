@@ -43,8 +43,12 @@ paged_counts = variants()
 
 _NAME = "flash_prefill_attention"
 _PAGED = "paged_prefill_attention"
-#: query rows per CTA in the kernel: tokens x the g heads of one kv group
-TILE_ROWS = 64
+#: query rows per CTA in the kernel (two wgmma warpgroups of 64): tokens x
+#: the g heads of one kv group, so g must divide it
+TILE_ROWS = 128
+#: query rows per CTA in the paged prefill kernel (csrc/paged_prefill.cu
+#: ROWS): g must divide it too
+PAGED_TILE_ROWS = 64
 
 
 def _check_shapes(q, k, v, valid_len):
@@ -200,8 +204,8 @@ def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_table
     require(all(x.dtype == torch.int32 for x in (page_tables, hist_lens, cur_lens)),
             _PAGED, "page_tables, hist_lens and cur_lens must be int32")
     require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
-    require(TILE_ROWS % (hq // hkv) == 0, _PAGED,
-            f"the query group size {hq // hkv} must divide {TILE_ROWS}")
+    require(PAGED_TILE_ROWS % (hq // hkv) == 0, _PAGED,
+            f"the query group size {hq // hkv} must divide {PAGED_TILE_ROWS}")
     require(all(x.is_contiguous() for x in tensors), _PAGED, "all tensors must be contiguous")
     out = torch.empty_like(q)
     fn = _build.function(

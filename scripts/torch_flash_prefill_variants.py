@@ -1,0 +1,166 @@
+"""Time builds of the flash prefill kernel against each other and SDPA, on
+one NVIDIA GPU.
+
+    python3 scripts/torch_flash_prefill_variants.py [--source NAME=PATH ...]
+
+Builds, one nvcc each and all started together, every source that exports
+`dyn_flash_prefill` with the C signature of
+dynamo_tpu_torch/csrc/flash_prefill.cu:
+  - `committed`: csrc/flash_prefill.cu as it is (query tiles longest first);
+  - `forward`: the same source with its grid walking query tiles first to
+    last (shortest first), the one line of the order changed;
+  - each `--source NAME=PATH`, e.g. an earlier design of the kernel saved
+    with `git show <commit>:dynamo_tpu_torch/csrc/flash_prefill.cu`.
+Each case (bf16 q/k/v from a fixed seed, Hq 32, Hkv 8) is checked, every
+build against `flash_prefill_attention_plain` (each row's max |diff| at
+most 2^-6 of its largest |value|, finite everywhere), then timed in the
+order A B C, C B A: first every build's `ms` (CUDA events around 20 warmed
+calls, host work included), then its `device_ms` (the same calls under
+torch.profiler, kernel time per call), beside SDPA over the whole padded
+chunk (`library_ms`, `library_device_ms`). Each build is called through
+its C entry point directly, with the output allocated once, so the builds
+pay the same host work. Prints one JSON line per (case, build), then the
+card's name and power limit. With no card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from dynamo_tpu_torch import platform  # noqa: E402
+from dynamo_tpu_torch.ops import _build, flash_prefill  # noqa: E402
+
+HQ, HKV = 32, 8
+#: (name, B, T, D, valid lengths or None for every token valid)
+CASES = (
+    ("ragged", 8, 512, 64, [512, 500, 385, 256, 129, 64, 33, 1]),
+    ("full", 8, 512, 64, None),
+    ("d128", 4, 1024, 128, None),
+    ("long", 1, 4096, 64, None),
+)
+ORDER_LINE = "const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));"
+FORWARD_LINE = "const int tile = (int)(blockIdx.x / (B * Hkv));"
+OUT_DIR = ROOT / "build" / "torch_kernels" / "variants"
+
+
+def sources(extra: list[str]) -> dict[str, str]:
+    """name -> CUDA source text of every build to time."""
+    committed = (_build.CSRC / "flash_prefill.cu").read_text()
+    if committed.count(ORDER_LINE) != 1:
+        raise RuntimeError("csrc/flash_prefill.cu: the grid order line is not found once")
+    out = {"committed": committed, "forward": committed.replace(ORDER_LINE, FORWARD_LINE)}
+    for item in extra:
+        name, _, path = item.partition("=")
+        if not path or name in out:
+            raise SystemExit(f"--source takes a new NAME=PATH, not {item!r}")
+        out[name] = Path(path).read_text()
+    return out
+
+
+def build(srcs: dict[str, str]) -> dict[str, tuple[object, list[str]]]:
+    """Compile every source in parallel; name -> (entry point, ptxas lines)."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in srcs.items():
+        cu = OUT_DIR / f"{name}.cu"
+        cu.write_text(text)
+        cmd = [_build.nvcc(), *_build.FLAGS, "-I", str(_build.CSRC),
+               "-o", str(OUT_DIR / f"lib{name}.so"), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        fn = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so")).dyn_flash_prefill
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_build.PTR] * 5 + [_build.INT] * 5 + [_build.FLOAT, _build.PTR]
+        fns[name] = (fn, [line.strip() for line in log.splitlines()
+                          if "registers" in line or "spill" in line])
+    return fns
+
+
+def caller(fn, q, k, v, valid_len, out):
+    b, t, hq, d = q.shape
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(valid_len),
+            _build.ptr(out), b, t, hq, k.shape[2], d, 1.0 / math.sqrt(d),
+            _build.stream(q.device))
+
+    def call():
+        _build.check(fn(*args), "dyn_flash_prefill")
+    return call
+
+
+def run_case(fns, peaks, name, b, t, d, lens, dev) -> list[dict]:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
+    k = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    v = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    valid_len = torch.tensor(lens or [t] * b, dtype=torch.int32, device=dev)
+    ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=d)
+    calls, rows = {}, {}
+    for vname, (fn, ptxas) in fns.items():
+        out = torch.full_like(q, float("nan"))
+        calls[vname] = caller(fn, q, k, v, valid_len, out)
+        calls[vname]()
+        torch.cuda.synchronize()
+        err, rel = chip_smoke.row_errors(out, ref, valid_len)
+        if not (rel <= chip_smoke.PREFILL_ROW_RTOL) or not torch.isfinite(out).all():
+            raise AssertionError(f"{vname} {name}: a row's max |diff| is {rel} of its "
+                                 f"largest value (limit {chip_smoke.PREFILL_ROW_RTOL})")
+        rows[vname] = {"case": name, "build": vname, "B": b, "T": t, "Hq": HQ, "Hkv": HKV,
+                       "D": d, "valid_len": valid_len.tolist(), "max_abs_err": err,
+                       "max_row_rel_err": rel, "ptxas": ptxas, "ms": [], "device_ms": []}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+    order = list(calls) + list(reversed(calls))
+    library = {"library_ms": [], "library_device_ms": []}
+    for vname in order:
+        rows[vname]["ms"].append(chip_smoke.cuda_ms(calls[vname]))
+    library["library_ms"].append(chip_smoke.cuda_ms(sdpa))
+    for vname in order:
+        rows[vname]["device_ms"].append(chip_smoke.device_ms(calls[vname])[0])
+    dms, kernels = chip_smoke.device_ms(sdpa)
+    library["library_device_ms"].append(dms)
+    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, d, 2)
+    b_ms, by = chip_smoke.bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, d), peaks)
+    return [{**r, **library, "library_kernels": kernels, "bound_ms": b_ms, "bound_by": by}
+            for r in rows.values()]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the kernel builds run only on the card")
+    dev = torch.device("cuda", 0)
+    peaks = platform.device_peaks(torch.cuda.get_device_name(0))
+    fns = build(sources(args.source))
+    for case in CASES:
+        for row in run_case(fns, peaks, *case, dev):
+            print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    print(platform.card_info(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

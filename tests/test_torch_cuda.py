@@ -4,7 +4,9 @@ Marked `cuda`; each test decides inside itself whether a card is present
 and skips when there is none (never at import, so every worker collects
 the same tests). Run on the card with `python -m pytest -m cuda
 tests/test_torch_cuda.py`. Shapes are llama3-1b's attention widths (Hq=32,
-Hkv=8, D=64, page size 64) and a D=128 case. The write is bit-equal off
+Hkv=8, D=64, page size 64) and a D=128 case; flash prefill also runs every
+group size its 128-row tile takes up to 8 at D 64 and 128, and T around
+its tile edges. The write is bit-equal off
 the null page. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
@@ -51,23 +53,40 @@ def test_paged_write_bit_equal(b, t):
         assert torch.equal(g[:, 0], before[:, 0])  # the kernel skips padding runs
 
 
-@pytest.mark.parametrize("hq,hkv,d,lens", [
-    (32, 8, 64, (200, 129, 64, 1)), (8, 8, 128, (130, 7)), (16, 2, 64, (96,)),
-])
-def test_flash_prefill_matches_plain(hq, hkv, d, lens):
+def _flash_lengths(t):
+    """Eight sequences of a T-token chunk: lengths T, 0 and 1 in one batch,
+    and a half, T-1, and three short ones."""
+    return (t, 0, 1, max(1, t // 2), max(1, t - 1), min(t, 129), min(t, 65), min(t, 33))
+
+
+#: (Hq, Hkv, D, T, valid lengths). The kernel's CTA holds 128 rows (128/g
+#: tokens) and streams 64-key tiles through a two-stage ring, so a row past
+#: 128 keys wraps the ring.
+FLASH_CASES = [
+    (32, 8, 64, 203, (200, 129, 64, 1)),
+    (8, 8, 128, 133, (130, 7)),
+    (16, 2, 64, 99, (96,)),
+    # every group size at both head dims; lengths 0, 1 and T together, and
+    # rows whose keys wrap the ring (257, 300)
+    *[(2 * g, 2, d, 300, (300, 0, 1, 257, 129)) for g in (1, 2, 4, 8) for d in (64, 128)],
+    # the tile edges: T around one and two CTAs of llama3-1b (32 tokens) and
+    # around the key tile (64) and the ring (128)
+    *[(32, 8, 64, t, _flash_lengths(t)) for t in (1, 31, 32, 33, 127, 128, 129, 512, 1000)],
+]
+
+
+@pytest.mark.parametrize("hq,hkv,d,t,lens", FLASH_CASES)
+def test_flash_prefill_matches_plain(hq, hkv, d, t, lens):
     dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(hq + d)
-    b, t = len(lens), max(lens) + 3
+    gen = torch.Generator(device=dev).manual_seed(hq + d + t)
+    b = len(lens)
     bf = dict(dtype=torch.bfloat16, device=dev)
     q = torch.randn((b, t, hq, d), generator=gen, **bf)
     k, v = (torch.randn((b, t, hkv, d), generator=gen, **bf) for _ in range(2))
     vl = torch.tensor(lens, dtype=torch.int32, device=dev)
     got = flash_prefill.flash_prefill_attention(q, k, v, vl)
     want = flash_prefill.flash_prefill_attention_plain(q, k, v, vl)
-    assert torch.isfinite(got).all()
-    for i, n in enumerate(lens):
-        diff = (got[i, :n].float() - want[i, :n].float()).abs().amax(dim=-1)
-        assert (diff <= 2.0**-6 * want[i, :n].float().abs().amax(dim=-1)).all()
+    _assert_rows_close(got, want, lens)
 
 
 def _assert_rows_close(got, want, lens):
@@ -137,6 +156,8 @@ def test_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.flash_prefill_attention(q.float(), kv.float(), kv.float(), vl)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill.flash_prefill_attention(q[..., :32], kv[..., :32], kv[..., :32], vl)
+    with pytest.raises(ValueError, match="must divide 128"):  # g = 3
+        flash_prefill.flash_prefill_attention(q[:, :, :12], kv[:, :, :4], kv[:, :, :4], vl)
     assert c.launches == 1
 
 
