@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the serving path, from dynamo_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at llama3-1b
-     widths (page size 64; flash prefill also at llama3-8b's head dim of
-     128 and at a 4,096-token chunk), over bf16 pools and over quantized (int8, fp8)
+     widths (page size 64; flash prefill and bf16 paged decode also at
+     llama3-8b's head dim of 128, flash prefill at a 4,096-token chunk),
+     over bf16 pools and over quantized (int8, fp8)
      pools for the three kernels that read or write them, with its time,
      the plain version's, one library call's where one computes the same
      function (each by CUDA events around 20 back-to-back calls, so the
@@ -37,9 +38,11 @@ Phases, each fatal on failure:
      its first chunk that carries a token;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
-     the summed device time of every CUDA kernel the loop launched, per
-     call, without the host's work; `library_kernels` names the kernels
-     the library call ran (its backend). It runs last so that no profiler
+     the device time of the CUDA kernels one call launches (each kernel's
+     mean over the launches recorded, times its launches in one call
+     profiled apart), without the host's work;
+     `library_kernels` names the kernels the library call ran (its
+     backend). It runs last so that no profiler
      session precedes the serve phase. The phase-3 lines print here.
 Then the `kernels` JSON line (one entry per kernel variant), the card line
 and, last, the contract line {"ok": true, "device": {...}}. With no card
@@ -108,25 +111,52 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, list[str]]:
-    """Device time of fn() per call, and the names of the kernels it ran:
+def _kernel_times(fn, calls: int) -> dict[str, list[float]]:
+    """Device time (us) of each kernel launch torch.profiler recorded over
+    `calls` calls of fn(), by kernel name. A spin kernel before and after
+    the calls (left out of the result) keeps a launch the profiler drops at
+    a session's edge from being one of fn's."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    times: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            times.setdefault(e.name, []).append(e.device_time)
+    return times
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> tuple[float, list[str]]:
+    """Device time of fn() per call, and the names of the kernels it ran.
+    One call profiled on its own gives each kernel's launches per call;
     the same warmed loop of `iters` calls as `cuda_ms`, under
-    torch.profiler, summing device_time over every CUDA kernel event of the
-    loop. Unlike `cuda_ms` it leaves out the host's work between launches
-    (a wrapper's checks, allocation, the ctypes call), which sets `cuda_ms`
-    for a kernel shorter than that work."""
+    torch.profiler, gives each kernel's mean device time over the launches
+    recorded; per call is the sum over kernels of mean x launches. The
+    profiler can miss a launch of the loop (it recorded 19 of 20 on the
+    H100), so neither the loop's sum over `iters` nor its count of
+    launches is exact. Unlike `cuda_ms` it leaves out the host's work
+    between launches (a wrapper's checks, allocation, the ctypes call),
+    which sets `cuda_ms` for a kernel shorter than that work. The launches
+    per call are the most any one-call session recorded; a try whose loop
+    and one-call sessions name different kernels is made again, up to
+    `tries`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no CUDA kernel: no device time")
-    return sum(e.device_time for e in kernels) / 1e3 / iters, sorted({e.name for e in kernels})
+    launches: dict[str, int] = {}
+    for _ in range(tries):
+        for name, t in _kernel_times(fn, 1).items():
+            launches[name] = max(launches.get(name, 0), len(t))
+        times = _kernel_times(fn, iters)
+        if times and set(times) == set(launches):
+            per_call = sum(statistics.fmean(times[k]) * n for k, n in launches.items())
+            return per_call / 1e3, sorted(launches)
+    raise AssertionError(f"torch.profiler recorded no launches of one call that agree with "
+                         f"those of {iters} in {tries} tries")
 
 
 def timings(kernel, plain, library=None) -> dict:
@@ -384,7 +414,9 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
             "flop": flop, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
-def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
+def decode_inputs(dev, gen, b: int, max_hist: int, mode, d: int = D) -> tuple[tuple, dict]:
+    """A decode case's arguments (q, pools, layer, page tables, history
+    lengths) and, for a quantized pool, its scale planes as keywords."""
     mp = max_hist // S
     num_pages = 1 + b * mp
     # the page tables and lengths first: every pool mode gets the same ones
@@ -396,41 +428,56 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode) -> dict:
         hist[1] = 0  # no history: (acc, m, l) = (0, -inf, 0)
         hist[2] = max_hist
     hist = hist.to(torch.int32)
-    q = torch.randn((b, HQ, D), generator=gen, dtype=torch.bfloat16, device=dev)
-    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
+    q = torch.randn((b, HQ, d), generator=gen, dtype=torch.bfloat16, device=dev)
+    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, d), mode, gen, dev)
     if mode is not None:
         poison_past_history((k_cache, v_cache), planes, pt, hist)
-    layer = L - 3
-    args = (q, k_cache, v_cache, layer, pt, hist)
-    acc, m, l = paged_attention.paged_decode_attention(*args, scale_dim=D, **planes)
-    racc, rm, rl = paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes)
-    torch.cuda.synchronize()
-    name = kv_quant.variant("paged_decode_attention", mode)
+    return (q, k_cache, v_cache, L - 3, pt, hist), planes
+
+
+def decode_errors(got, ref, hist) -> tuple[float, float, bool]:
+    """Max |acc/l diff| and |m diff| where there is history, and whether
+    every row with none is exactly (0, -inf, 0)."""
+    (acc, m, l), (racc, rm, rl) = got, ref
     some = hist > 0
     err = (acc / l[..., None] - racc / rl[..., None])[some].abs().max().item()
     m_err = (m - rm)[some].abs().max().item()
     empty_ok = bool(
         (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
     )
-    if not (err <= DECODE_ATOL and m_err <= DECODE_ATOL) or not empty_ok:
-        raise AssertionError(
-            f"{name} B={b}: max |acc/l diff| {err}, max |m diff| {m_err} "
-            f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
+    return err, m_err, empty_ok
 
-    # the library yardstick attends over a bf16 copy of each (dequantized)
-    # history (the copy is not timed): one SDPA call with a length mask
+
+def decode_library(args, planes):
+    """The library yardstick: one SDPA call with a length mask over a bf16
+    copy of each (dequantized) history, made here and not timed."""
+    q, k_cache, v_cache, layer, pt, hist = args
     dense_k = dense_history(k_cache, planes.get("k_scale"), layer, pt, hist).transpose(1, 2)
     dense_v = dense_history(v_cache, planes.get("v_scale"), layer, pt, hist).transpose(1, 2)
-    live = (torch.arange(mp * S, device=dev)[None, :] < hist[:, None])[:, None, None, :]
+    live = (torch.arange(pt.shape[1] * S, device=q.device)[None, :] < hist[:, None])
+    live = live[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    times = timings(
-        lambda: paged_attention.paged_decode_attention(*args, scale_dim=D, **planes),
-        lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=D, **planes),
-        lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live, enable_gqa=True))
-    nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, D, 2, mode)
-    flop = 4 * HQ * D * int(hist.long().sum())
+    return lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live, enable_gqa=True)
+
+
+def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode, d: int = D) -> dict:
+    args, planes = decode_inputs(dev, gen, b, max_hist, mode, d)
+    hist = args[-1]
+    kernel = lambda: paged_attention.paged_decode_attention(*args, scale_dim=d, **planes)  # noqa: E731
+    plain = lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=d, **planes)  # noqa: E731
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    name = kv_quant.variant("paged_decode_attention", mode)
+    err, m_err, empty_ok = decode_errors(got, ref, hist)
+    if not (err <= DECODE_ATOL and m_err <= DECODE_ATOL) or not empty_ok:
+        raise AssertionError(
+            f"{name} B={b} D={d}: max |acc/l diff| {err}, max |m diff| {m_err} "
+            f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
+    times = timings(kernel, plain, decode_library(args, planes))
+    nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, d, 2, mode)
+    flop = 4 * HQ * d * int(hist.long().sum())
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": name, "B": b, "Hq": HQ, "Hkv": HKV, "D": D, "S": S,
+    return {"kernel": name, "B": b, "Hq": HQ, "Hkv": HKV, "D": d, "S": S,
             "history_tokens": int(hist.long().sum()), "max_history": int(hist.max()),
             "tolerance": f"f32, max |acc/l diff| and |m diff| <= {DECODE_ATOL}; "
                          "zero history exactly (0, -inf, 0)"
@@ -452,6 +499,9 @@ def phase_kernels(dev, peaks) -> dict:
         check_flash_prefill(dev, peaks, gen.manual_seed(8), 1, 4096, ragged=False),
         # the main path's ragged first chunk, last so the kernels line reports it
         check_flash_prefill(dev, peaks, gen.manual_seed(0), 8, 512),
+        # decode at llama3-8b's widths (Hq 32, Hkv 8, D 128), before the D=64
+        # cases so the kernels line reports the main path's shape
+        check_paged_decode(dev, peaks, gen.manual_seed(9), 32, 2048, None, d=128),
     ]
     for mode in MODES:
         # each shape from its own seed, so every pool mode sees the same

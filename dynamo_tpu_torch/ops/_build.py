@@ -31,8 +31,9 @@ FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
-#: ctypes argument types: pointers and the stream as void*, sizes as int
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: ctypes argument types: pointers and the stream as void*, sizes as int,
+#: buffer lengths as long long
+PTR, INT, FLOAT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def nvcc() -> str:
@@ -127,10 +128,38 @@ def function(name: str, symbol: str, argtypes: list):
     returning a cudaError_t; its argument types are set once."""
     fn = _fns.get(symbol)
     if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _fns[symbol] = fn
+        fn = _fns[symbol] = entry(load(name), symbol, argtypes)
+    return fn
+
+
+def build_variants(srcs: dict[str, str], out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile each named CUDA source text with the kernels' flags and
+    csrc/ on the include path, one nvcc each, all started together, into
+    `out_dir/lib<name>.so` (for timing builds of one kernel against each
+    other). Returns name -> (loaded library, nvcc's log with ptxas's
+    report); a failed build raises."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in srcs.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        cmd = [nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(out_dir / f"lib{name}.so"), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        built[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), log)
+    return built
+
+
+def entry(lib: ctypes.CDLL, symbol: str, argtypes: list):
+    """C entry point `symbol` of a loaded library, returning a cudaError_t."""
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
     return fn
 
 

@@ -26,10 +26,8 @@ card's name and power limit. With no card it raises.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
-import subprocess
 import sys
 from pathlib import Path
 
@@ -71,26 +69,11 @@ def sources(extra: list[str]) -> dict[str, str]:
 
 def build(srcs: dict[str, str]) -> dict[str, tuple[object, list[str]]]:
     """Compile every source in parallel; name -> (entry point, ptxas lines)."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in srcs.items():
-        cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(text)
-        cmd = [_build.nvcc(), *_build.FLAGS, "-I", str(_build.CSRC),
-               "-o", str(OUT_DIR / f"lib{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so")).dyn_flash_prefill
-        fn.restype = ctypes.c_int
-        fn.argtypes = [_build.PTR] * 5 + [_build.INT] * 5 + [_build.FLOAT, _build.PTR]
-        fns[name] = (fn, [line.strip() for line in log.splitlines()
-                          if "registers" in line or "spill" in line])
-    return fns
+    argtypes = [_build.PTR] * 5 + [_build.INT] * 5 + [_build.FLOAT, _build.PTR]
+    return {name: (_build.entry(lib, "dyn_flash_prefill", argtypes),
+                   [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line])
+            for name, (lib, log) in _build.build_variants(srcs, OUT_DIR).items()}
 
 
 def caller(fn, q, k, v, valid_len, out):
@@ -99,7 +82,7 @@ def caller(fn, q, k, v, valid_len, out):
             _build.ptr(out), b, t, hq, k.shape[2], d, 1.0 / math.sqrt(d),
             _build.stream(q.device))
 
-    def call():
+    def call(keep=out):  # the kernel writes it through `args`' raw pointer
         _build.check(fn(*args), "dyn_flash_prefill")
     return call
 

@@ -6,7 +6,9 @@ the same tests). Run on the card with `python -m pytest -m cuda
 tests/test_torch_cuda.py`. Shapes are llama3-1b's attention widths (Hq=32,
 Hkv=8, D=64, page size 64) and a D=128 case; flash prefill also runs every
 group size its 128-row tile takes up to 8 at D 64 and 128, and T around
-its tile edges. The write is bit-equal off
+its tile edges; paged decode runs groups of 1 to 32 heads at D 64 and 128,
+histories around its 64-key stages, batches cut into one split and into
+several, and calls on two streams at once. The write is bit-equal off
 the null page. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from dynamo_tpu_torch import ops
-from dynamo_tpu_torch.ops import flash_prefill, kv_quant, kv_update, paged_attention
+from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -123,24 +125,150 @@ def test_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur):
     _assert_rows_close(got, want, cur)
 
 
-@pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 8, 64), (6, 32, 8, 64), (3, 8, 8, 128)])
-def test_paged_decode_matches_plain(b, hq, hkv, d):
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(b * hq + d)
-    L, S, mp = 3, 64, 12
+#: (Hq, Hkv): groups of 1, 4, 7, 8 and 32 query heads per kv head
+DECODE_GROUPS = [(8, 8), (32, 8), (28, 4), (64, 8), (32, 1)]
+#: pages per sequence in the decode tests' page tables (page size 64)
+DECODE_MP = 12
+#: zero, one token, around one page, a history that ends inside the ring's
+#: fourth stage, a full page table
+DECODE_HISTORIES = [0, 1, 63, 64, 65, 3 * 64 + 29, DECODE_MP * 64]
+
+
+def _decode_batch(dev, hq, hkv, d, mode, splits):
+    """A batch of DECODE_HISTORIES (cycled) that the split plan cuts into
+    several splits, or the smallest power of two it gives one split."""
+    if splits == "several":
+        b = len(DECODE_HISTORIES)
+        assert paged_attention.launch_plan(dev, b, hq, hkv, d, DECODE_MP, mode)[0] > 1
+        return b
+    b = len(DECODE_HISTORIES)
+    while paged_attention.launch_plan(dev, b, hq, hkv, d, DECODE_MP, mode)[0] > 1:
+        b *= 2
+    return b
+
+
+def _decode_inputs(dev, hq, hkv, d, mode, splits, seed, page_size=64, mp=DECODE_MP,
+                   lens=None):
+    """q, pools (and scale planes), page tables and history lengths
+    (DECODE_HISTORIES cycled, or `lens`); a quantized pool's slots past
+    each history hold NaN-encoding bytes and zero scales."""
+    b = len(lens) if lens is not None else _decode_batch(dev, hq, hkv, d, mode, splits)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, S = 3, page_size
     P = 1 + b * mp
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    k_cache, v_cache = (torch.randn((L, P, S, hkv, d), generator=gen, **bf) for _ in range(2))
-    q = torch.randn((b, hq, d), generator=gen, **bf)
+    planes = {}
+    if mode is None:
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        k_cache, v_cache = (torch.randn((L, P, S, hkv, d), generator=gen, **bf) for _ in range(2))
+    else:
+        k_cache, k_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+        v_cache, v_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
+        planes = dict(k_scale=k_scale, v_scale=v_scale)
+    q = torch.randn((b, hq, d), generator=gen, dtype=torch.bfloat16, device=dev)
     pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
     pt = pt.to(torch.int32)
-    hist = torch.tensor([mp * S - 5, 0, 1, 64, 65, 300][:b], dtype=torch.int32, device=dev)
-    acc, m, l = paged_attention.paged_decode_attention(q, k_cache, v_cache, 1, pt, hist)
-    racc, rm, rl = paged_attention.paged_decode_attention_plain(q, k_cache, v_cache, 1, pt, hist)
+    if lens is None:
+        lens = [DECODE_HISTORIES[i % len(DECODE_HISTORIES)] for i in range(b)]
+    if mode is not None:
+        _stale_past_history((k_cache, v_cache, *planes.values()), pt, lens, S)
+    hist = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return (q, k_cache, v_cache, 1, pt, hist), planes
+
+
+def _assert_decode_close(got, want, hist):
+    """acc/l and m within 1e-4 where there is history; zero history
+    exactly (0, -inf, 0)."""
+    acc, m, l = got
+    racc, rm, rl = want
     some = hist > 0
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
     assert (acc[some] / l[some][..., None] - racc[some] / rl[some][..., None]).abs().max() <= 1e-4
     assert (m[some] - rm[some]).abs().max() <= 1e-4
     assert (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
+
+
+@pytest.mark.parametrize("splits", ["several", "one"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", DECODE_GROUPS)
+def test_paged_decode_matches_plain(hq, hkv, d, splits):
+    dev = _card()
+    args, _ = _decode_inputs(dev, hq, hkv, d, None, splits, seed=hq * hkv + d)
+    _assert_decode_close(paged_attention.paged_decode_attention(*args),
+                         paged_attention.paged_decode_attention_plain(*args), args[-1])
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+@pytest.mark.parametrize("page_size,mp", [(16, 300), (32, 9), (128, 5)])
+def test_paged_decode_page_sizes(page_size, mp, mode):
+    """Page sizes whose pages are smaller and larger than the kernel's
+    64-key stages; 300 pages of 16 at B=1 cut into several pages a split."""
+    dev = _card()
+    full = page_size * mp
+    lens = [full - 3] if mp > 100 else [0, full, full - page_size - 1, 1, page_size + 1]
+    args, planes = _decode_inputs(dev, 32, 8, 64, mode, None, seed=page_size + mp,
+                                  page_size=page_size, mp=mp, lens=lens)
+    splits, per = paged_attention.launch_plan(dev, len(lens), 32, 8, 64, mp, mode)[:2]
+    assert splits > 1 and (per > 1 or mp < 100)
+    _assert_decode_close(paged_attention.paged_decode_attention(*args, **planes),
+                         paged_attention.paged_decode_attention_plain(*args, **planes), args[-1])
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_paged_decode_is_deterministic(mode):
+    """Two calls on the same inputs are bit-identical: the last CTA of a
+    sequence merges the splits in split order, whichever finished last."""
+    dev = _card()
+    args, planes = _decode_inputs(dev, 32, 8, 64, mode, "several", seed=11)
+    first = paged_attention.paged_decode_attention(*args, **planes)
+    second = paged_attention.paged_decode_attention(*args, **planes)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_paged_decode_on_two_streams():
+    """Calls on two streams at once, each cut into several splits: each
+    stream has its own ticket counters and partial states, so both merge
+    their own splits."""
+    dev = _card()
+    cases = [_decode_inputs(dev, 32, 8, 64, mode, "several", seed=21 + i)
+             for i, mode in enumerate((None, "int8"))]
+    wants = [paged_attention.paged_decode_attention_plain(*a, **p) for a, p in cases]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize(dev)
+    gots = []
+    for stream, (args, planes) in zip(streams, cases):
+        with torch.cuda.stream(stream):
+            gots.append(paged_attention.paged_decode_attention(*args, **planes))
+    torch.cuda.synchronize(dev)
+    for got, want, (args, _) in zip(gots, wants, cases):
+        _assert_decode_close(got, want, args[-1])
+
+
+def test_paged_decode_refuses_a_small_workspace():
+    """The C entry point checks the workspace against the layout it owns:
+    one float or counter short is refused before any launch."""
+    dev = _card()
+    args, _ = _decode_inputs(dev, 32, 8, 64, None, "several", seed=5)
+    q, k_cache, v_cache, layer, pt, hist = args
+    b, hq, d = q.shape
+    L, p, s, hkv, _ = k_cache.shape
+    mp = pt.shape[1]
+    splits, per, groups, floats = paged_attention.launch_plan(dev, b, hq, hkv, d, mp, None)
+    assert splits > 1
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32),
+           torch.empty((b, hq), **f32))
+    fn = _build.function("paged_attention", "dyn_paged_decode", paged_attention.DECODE_ARGTYPES)
+    for n_floats, n_counters in ((floats - 1, b * groups), (floats, b * groups - 1)):
+        partials = torch.empty(n_floats, **f32)
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+        err = fn(*map(_build.ptr, (q, k_cache, v_cache, None, None, pt, hist)),
+                 _build.ptr(partials), n_floats,
+                 _build.ptr(counters), n_counters,
+                 *map(_build.ptr, out), 0, b, hq, hkv, d, layer, p, s, mp,
+                 splits, per, 0.125, _build.stream(dev))
+        assert err != 0
+        assert (counters == 0).all()
 
 
 def test_launches_are_counted_and_bad_inputs_raise():
@@ -248,33 +376,17 @@ def test_quantized_paged_write_bit_equal(b, t, mode):
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 8, 64), (6, 32, 8, 64), (3, 8, 8, 128)])
-def test_quantized_paged_decode_matches_plain(b, hq, hkv, d, mode):
+@pytest.mark.parametrize("splits", ["several", "one"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", DECODE_GROUPS)
+def test_quantized_paged_decode_matches_plain(hq, hkv, d, splits, mode):
     """acc/l and m within 1e-4 of the plain version over a quantized pool
     whose slots past each history hold NaN-encoding bytes and zero
     scales; zero history exactly (0, -inf, 0)."""
     dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(b * hq + d + len(mode))
-    L, S, mp = 3, 64, 12
-    P = 1 + b * mp
-    pools = [*_quantized_pool((L, P, S, hkv, d), mode, gen, dev),
-             *_quantized_pool((L, P, S, hkv, d), mode, gen, dev)]
-    k_cache, k_scale, v_cache, v_scale = pools
-    q = torch.randn((b, hq, d), generator=gen, dtype=torch.bfloat16, device=dev)
-    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
-    pt = pt.to(torch.int32)
-    lens = [mp * S - 5, 0, 1, 64, 65, 300][:b]
-    _stale_past_history((k_cache, v_cache, k_scale, v_scale), pt, lens, S)
-    hist = torch.tensor(lens, dtype=torch.int32, device=dev)
-    args = (q, k_cache, v_cache, 1, pt, hist)
-    planes = dict(k_scale=k_scale, v_scale=v_scale)
-    acc, m, l = paged_attention.paged_decode_attention(*args, **planes)
-    racc, rm, rl = paged_attention.paged_decode_attention_plain(*args, **planes)
-    some = hist > 0
-    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
-    assert (acc[some] / l[some][..., None] - racc[some] / rl[some][..., None]).abs().max() <= 1e-4
-    assert (m[some] - rm[some]).abs().max() <= 1e-4
-    assert (acc[~some] == 0).all() and (l[~some] == 0).all() and torch.isneginf(m[~some]).all()
+    args, planes = _decode_inputs(dev, hq, hkv, d, mode, splits, seed=hq * hkv + d + len(mode))
+    _assert_decode_close(paged_attention.paged_decode_attention(*args, **planes),
+                         paged_attention.paged_decode_attention_plain(*args, **planes), args[-1])
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])

@@ -200,14 +200,20 @@ def test_paged_decode_plain_matches_jax(hq, hkv, hist):
     assert np.isneginf(m.numpy()[empty]).all()
 
 
+@pytest.mark.parametrize("ctas_per_sm", [1, 2, 4])
 @pytest.mark.parametrize("batch", [1, 3, 32, 64, 300])
-@pytest.mark.parametrize("max_pages", [1, 7, 32, 64])
-def test_decode_split_plan_covers_every_page(batch, max_pages):
-    splits, per = paged_attention.decode_split_plan(batch, 8, max_pages, num_sms=132)
-    assert splits >= 1 and per >= 1
+@pytest.mark.parametrize("max_pages", [1, 7, 32, 64, 300])
+def test_decode_split_plan_covers_every_page(batch, max_pages, ctas_per_sm):
+    max_splits = 128  # the kernel's, from dyn_paged_decode_layout
+    splits, per = paged_attention.decode_split_plan(batch, 8, max_pages, num_sms=132,
+                                                    ctas_per_sm=ctas_per_sm,
+                                                    max_splits=max_splits)
+    assert 1 <= splits <= max_splits and per >= 1
     assert splits * per >= max_pages > (splits - 1) * per  # no empty tail split
-    if batch * 8 < 132:  # small batch: the splits fill the SMs
+    if batch * 8 < 132:  # small batch: the splits cover the SMs
         assert batch * 8 * splits >= min(132, batch * 8 * max_pages)
+    if splits > 1:  # never more CTAs than the waves the plan fills
+        assert batch * 8 * splits <= paged_attention.WAVES * 132 * ctas_per_sm
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_it():
