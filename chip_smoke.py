@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the serving path, from dynamo_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at llama3-1b
-     widths (page size 64; flash prefill and bf16 paged decode also at
-     llama3-8b's head dim of 128, flash prefill at a 4,096-token chunk),
+     widths (page size 64; flash prefill, bf16 paged decode and bf16 paged
+     prefill also at llama3-8b's head dim of 128, flash prefill at a
+     4,096-token chunk, paged prefill also at one long prompt's late chunk),
      over bf16 pools and over quantized (int8, fp8)
      pools for the three kernels that read or write them, with its time,
      the plain version's, one library call's where one computes the same
@@ -354,55 +355,71 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int, ragged: bool = True,
             "bound_ms": b_ms, "bound_by": by}
 
 
-def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int,
-                        mode) -> dict:
+def paged_prefill_inputs(dev, gen, hist: list[int], cur: list[int], t: int, mode,
+                         d: int = D) -> tuple[tuple, dict]:
+    """A paged prefill case's arguments (q, k_cur, v_cur, pools, layer, page
+    tables, history and chunk lengths) and, for a quantized pool, its scale
+    planes as keywords; slots past each quantized history are poisoned."""
     b = len(hist)
     mp = max(1, -(-max(hist) // S))
     num_pages = 1 + b * mp
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
     pt = pt.reshape(b, mp).to(torch.int32)
     bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, HQ, D), generator=gen, **bf)
-    k_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
-    v_cur = torch.randn((b, t, HKV, D), generator=gen, **bf)
-    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
+    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
+    k_cur = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    v_cur = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, d), mode, gen, dev)
     hist_lens = torch.tensor(hist, dtype=torch.int32, device=dev)
     cur_lens = torch.tensor(cur, dtype=torch.int32, device=dev)
     if mode is not None:
         poison_past_history((k_cache, v_cache), planes, pt, hist_lens)
-    layer = L - 2
-    args = (q, k_cur, v_cur, k_cache, v_cache, layer, pt, hist_lens, cur_lens)
-    got = flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes)
-    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes)
-    torch.cuda.synchronize()
-    name = kv_quant.variant("paged_prefill_attention", mode)
-    err, rel = row_errors(got, ref, cur_lens)
-    if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
-        raise AssertionError(f"{name} B={b} T={t}: a row's max |diff| is "
-                             f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
-    # the library yardstick attends over a bf16 copy of each (dequantized)
-    # history followed by its chunk (the copy is not timed), with the same
-    # mask: history below hist_lens, the chunk causally below cur_lens
-    n_hist = mp * S
+    return (q, k_cur, v_cur, k_cache, v_cache, L - 2, pt, hist_lens, cur_lens), planes
+
+
+def paged_prefill_library(args, planes):
+    """The library yardstick: one SDPA call over a bf16 copy of each
+    (dequantized) history followed by its chunk (the copy is made here and
+    not timed), with the same mask: history below hist_lens, the chunk
+    causally below cur_lens."""
+    q, k_cur, v_cur, k_cache, v_cache, layer, pt, hist_lens, cur_lens = args
+    b, t = q.shape[:2]
+    n_hist = pt.shape[1] * S
     dense_k = torch.cat([dense_history(k_cache, planes.get("k_scale"), layer, pt, hist_lens),
                          k_cur], 1)
     dense_v = torch.cat([dense_history(v_cache, planes.get("v_scale"), layer, pt, hist_lens),
                          v_cur], 1)
-    pos = torch.arange(t, device=dev)
-    hist_live = (torch.arange(n_hist, device=dev)[None, :] < hist_lens[:, None])
+    pos = torch.arange(t, device=q.device)
+    hist_live = (torch.arange(n_hist, device=q.device)[None, :] < hist_lens[:, None])
     cur_live = (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < cur_lens[:, None, None])
     mask = torch.cat([hist_live[:, None, :].expand(b, t, n_hist), cur_live], 2)[:, None]
     qt, kt, vt = q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int,
+                        mode, d: int = D) -> dict:
+    args, planes = paged_prefill_inputs(dev, gen, hist, cur, t, mode, d)
+    hist_lens, cur_lens = args[-2:]
+    b = len(hist)
+    got = flash_prefill.paged_prefill_attention(*args, scale_dim=d, **planes)
+    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=d, **planes)
+    torch.cuda.synchronize()
+    name = kv_quant.variant("paged_prefill_attention", mode)
+    err, rel = row_errors(got, ref, cur_lens)
+    if not (rel <= PREFILL_ROW_RTOL) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} B={b} T={t} D={d}: a row's max |diff| is "
+                             f"{rel} of its largest value (limit {PREFILL_ROW_RTOL})")
     times = timings(
-        lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=D, **planes),
-        lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=D, **planes),
-        lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, D, 2,
+        lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=d, **planes),
+        lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=d, **planes),
+        paged_prefill_library(args, planes))
+    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, d, 2,
                                              mode)
-    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, D)
+    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, d)
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": name, "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": D,
+    return {"kernel": name, "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": d,
             "S": S, "hist_lens": hist, "cur_lens": cur,
             "tolerance": f"bf16, each (token, head) row below cur_lens: max |diff| <= "
                          f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)"
@@ -412,6 +429,14 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa=True) over a "
                        "dense bf16 copy of each (dequantized) history followed by its chunk",
             "flop": flop, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
+
+
+#: paged prefill cases (hist_lens, cur_lens, T, seed): one long prompt's
+#: sixth 512-token chunk (3,000 tokens in all, under one wave of CTAs), then
+#: the main case, a first chunk beside chunks with long histories, last so
+#: the kernels line reports it
+PAGED_PREFILL_CASES = (([2560], [440], 512, 10),
+                       ([0, 512, 1536, 3072], [512, 512, 300, 512], 512, 5))
 
 
 def decode_inputs(dev, gen, b: int, max_hist: int, mode, d: int = D) -> tuple[tuple, dict]:
@@ -502,6 +527,9 @@ def phase_kernels(dev, peaks) -> dict:
         # decode at llama3-8b's widths (Hq 32, Hkv 8, D 128), before the D=64
         # cases so the kernels line reports the main path's shape
         check_paged_decode(dev, peaks, gen.manual_seed(9), 32, 2048, None, d=128),
+        # the main paged prefill case at llama3-8b's head dim
+        check_paged_prefill(dev, peaks, gen.manual_seed(11), *PAGED_PREFILL_CASES[-1][:3],
+                            None, d=128),
     ]
     for mode in MODES:
         # each shape from its own seed, so every pool mode sees the same
@@ -511,9 +539,9 @@ def phase_kernels(dev, peaks) -> dict:
             check_paged_write(dev, peaks, gen.manual_seed(2), 8, 512, mode),
             check_paged_decode(dev, peaks, gen.manual_seed(3), 1, 2048, mode),
             check_paged_decode(dev, peaks, gen.manual_seed(4), 32, 2048, mode),
-            # a first chunk through this kernel, a ragged chunk, long histories
-            check_paged_prefill(dev, peaks, gen.manual_seed(5), [0, 512, 1536, 3072],
-                                [512, 512, 300, 512], 512, mode),
+        ] + [
+            check_paged_prefill(dev, peaks, gen.manual_seed(seed), hist, cur, t, mode)
+            for hist, cur, t, seed in PAGED_PREFILL_CASES
         ]
         torch.cuda.empty_cache()
     return cases

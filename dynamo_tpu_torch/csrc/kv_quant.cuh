@@ -14,7 +14,11 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace kvq {
+
+using warp_mma::pack_bf16;
 
 template <typename T>
 struct Kv;
@@ -35,6 +39,18 @@ struct Kv<int8_t> {
   static __device__ __forceinline__ float decode(uint32_t byte) {
     return (float)(int8_t)(uint8_t)byte;
   }
+  // four values (one word, the first in the low byte) as four bf16: each
+  // byte x + 128 below 2^23's mantissa, less 2^23 + 128, which is exact and
+  // spends a byte permute and an add where a conversion is quarter-rate
+  static __device__ __forceinline__ uint2 widen4(uint32_t word) {
+    const uint32_t u = word ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u | k)) - 8388736.f;
+    }
+    return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+  }
 };
 
 template <>
@@ -49,12 +65,18 @@ struct Kv<__nv_fp8_e4m3> {
     const __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)byte, __NV_E4M3);
     return __half2float(__half(h));
   }
+  // four values (one word, the first in the low byte) as four bf16, two
+  // at a time through f16 (exact: e4m3 fits f16, and its 4 significant
+  // bits fit bf16)
+  static __device__ __forceinline__ uint2 widen4(uint32_t word) {
+    const __half2_raw lo =
+        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word & 0xffffu), __NV_E4M3);
+    const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> 16), __NV_E4M3);
+    const float2 a = __half22float2(__half2(lo));
+    const float2 b = __half22float2(__half2(hi));
+    return make_uint2(pack_bf16(a.x, a.y), pack_bf16(b.x, b.y));
+  }
 };
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Eight consecutive pool values as eight bf16 (16 bytes): a bf16 pool's
 // 16 bytes as they are, a narrow pool's 8 bytes widened exactly.
@@ -64,14 +86,9 @@ __device__ __forceinline__ uint4 load8(const T* p) {
     return *reinterpret_cast<const uint4*>(p);
   } else {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const uint32_t w[2] = {raw.x, raw.y};
-    uint32_t out[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t word = w[i / 2] >> (16 * (i % 2));
-      out[i] = pack2(Kv<T>::decode(word & 0xffu), Kv<T>::decode((word >> 8) & 0xffu));
-    }
-    return make_uint4(out[0], out[1], out[2], out[3]);
+    const uint2 a = Kv<T>::widen4(raw.x);
+    const uint2 b = Kv<T>::widen4(raw.y);
+    return make_uint4(a.x, a.y, b.x, b.y);
   }
 }
 

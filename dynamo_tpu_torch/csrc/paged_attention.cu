@@ -131,15 +131,15 @@ struct Cfg {
 // byte) as two bf16, exactly
 template <typename T>
 __device__ __forceinline__ uint32_t widen2(uint32_t two) {
-  return kvq::pack2(kvq::Kv<T>::decode(two & 0xffu), kvq::Kv<T>::decode((two >> 8) & 0xffu));
+  return pack_bf16(kvq::Kv<T>::decode(two & 0xffu), kvq::Kv<T>::decode((two >> 8) & 0xffu));
 }
 
 // a, b as bf16 hi and the rounding remainder as bf16 lo: hi + lo holds
 // a and b to about 2^-17
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = kvq::pack2(a, b);
+  hi = pack_bf16(a, b);
   const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
-  lo = kvq::pack2(a - h.x, b - h.y);
+  lo = pack_bf16(a - h.x, b - h.y);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {

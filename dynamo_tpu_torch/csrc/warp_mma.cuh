@@ -1,7 +1,9 @@
 // Warp-level building blocks for sm_90a kernels that stage tiles with
 // cp.async and multiply them with mma.sync: asynchronous global-to-shared
 // copies with commit/wait groups, ldmatrix fragment loads, and the
-// m16n8k16 bf16 product with f32 accumulation. Used by paged_attention.cu.
+// m16n8k16 bf16 product with f32 accumulation, and the bf16 pair packer.
+// Used by paged_attention.cu, flash_prefill.cu, paged_prefill.cu and
+// kv_quant.cuh.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * gr + tq, gr in 0..7,
 // tq in 0..3): A (16 x 16, row-major) a0 = A[gr][2tq..2tq+1], a1 =
@@ -16,6 +18,13 @@
 #include <stdint.h>
 
 namespace warp_mma {
+
+// two f32 as two bf16 (round to nearest even) in one register, lo in the
+// low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

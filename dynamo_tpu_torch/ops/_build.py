@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -132,17 +133,20 @@ def function(name: str, symbol: str, argtypes: list):
     return fn
 
 
-def build_variants(srcs: dict[str, str], out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """Compile each named CUDA source text with the kernels' flags and
-    csrc/ on the include path, one nvcc each, all started together, into
+def build_variants(srcs: dict[str, str | Path], out_dir: Path) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile each named CUDA source with the kernels' flags and csrc/ on
+    the include path, one nvcc each, all started together, into
     `out_dir/lib<name>.so` (for timing builds of one kernel against each
-    other). Returns name -> (loaded library, nvcc's log with ptxas's
+    other). A source given as text is written to `out_dir/<name>.cu`; a
+    file is compiled where it lies, so the headers beside it come before
+    csrc/'s. Returns name -> (loaded library, nvcc's log with ptxas's
     report); a failed build raises."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in srcs.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
+    for name, src in srcs.items():
+        cu = src if isinstance(src, Path) else out_dir / f"{name}.cu"
+        if not isinstance(src, Path):
+            cu.write_text(src)
         cmd = [nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(out_dir / f"lib{name}.so"), str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -153,6 +157,36 @@ def build_variants(srcs: dict[str, str], out_dir: Path) -> dict[str, tuple[ctype
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         built[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), log)
     return built
+
+
+def variant_sources(name: str, extra: list[str]) -> dict[str, Path]:
+    """Sources for `build_variants`: `committed` (csrc/<name>.cu) and, for
+    each `NAME=PATH` in `extra`, that file (e.g. an earlier design of the
+    kernel in a `git archive` of its commit's csrc/, so that it builds
+    against its own headers). Raises ValueError for an entry that is not
+    NAME=PATH, a NAME given twice, or a PATH that is not a file."""
+    out = {"committed": CSRC / f"{name}.cu"}
+    for item in extra:
+        label, _, path = item.partition("=")
+        if not path or label in out or not Path(path).is_file():
+            raise ValueError(f"--source takes a new NAME=PATH of a file, not {item!r}")
+        out[label] = Path(path).resolve()
+    return out
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Registers per kernel instance in nvcc's log (ptxas -v), keyed by the
+    instance's mangled name."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out[current] = int(m.group(1))
+            current = None
+    return out
 
 
 def entry(lib: ctypes.CDLL, symbol: str, argtypes: list):

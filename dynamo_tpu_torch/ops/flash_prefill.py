@@ -27,6 +27,7 @@ and csrc/paged_prefill.cu run (bf16 q/k/v, bf16 or quantized pools, D of
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -46,9 +47,8 @@ _PAGED = "paged_prefill_attention"
 #: query rows per CTA in the kernel (two wgmma warpgroups of 64): tokens x
 #: the g heads of one kv group, so g must divide it
 TILE_ROWS = 128
-#: query rows per CTA in the paged prefill kernel (csrc/paged_prefill.cu
-#: ROWS): g must divide it too
-PAGED_TILE_ROWS = 64
+#: ctypes argument types of dyn_paged_prefill (csrc/paged_prefill.cu)
+PAGED_ARGTYPES = [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR]
 
 
 def _check_shapes(q, k, v, valid_len):
@@ -180,6 +180,15 @@ def paged_prefill_attention_plain(q, k_cur, v_cur, k_cache, v_cache, layer, page
     return out.reshape(b, t, hq, d).to(q.dtype)
 
 
+@functools.cache
+def paged_tile_rows() -> int:
+    """Query rows per CTA of the paged prefill kernel, from
+    csrc/paged_prefill.cu, which alone defines them (dyn_paged_prefill_rows):
+    tokens x the g heads of one kv group, so g must divide it. Builds the
+    kernel on first use."""
+    return int(_build.function("paged_prefill", "dyn_paged_prefill_rows", [])())
+
+
 def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_tables,
                             hist_lens, cur_lens, *, scale_dim: Optional[int] = None,
                             k_scale=None, v_scale=None):
@@ -204,14 +213,12 @@ def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_table
     require(all(x.dtype == torch.int32 for x in (page_tables, hist_lens, cur_lens)),
             _PAGED, "page_tables, hist_lens and cur_lens must be int32")
     require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
-    require(PAGED_TILE_ROWS % (hq // hkv) == 0, _PAGED,
-            f"the query group size {hq // hkv} must divide {PAGED_TILE_ROWS}")
+    rows = paged_tile_rows()
+    require(rows % (hq // hkv) == 0, _PAGED,
+            f"the query group size {hq // hkv} must divide {rows}")
     require(all(x.is_contiguous() for x in tensors), _PAGED, "all tensors must be contiguous")
     out = torch.empty_like(q)
-    fn = _build.function(
-        "paged_prefill", "dyn_paged_prefill",
-        [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR],
-    )
+    fn = _build.function("paged_prefill", "dyn_paged_prefill", PAGED_ARGTYPES)
     err = fn(
         _build.ptr(q), _build.ptr(k_cur), _build.ptr(v_cur), _build.ptr(k_cache),
         _build.ptr(v_cache), _build.ptr(k_scale), _build.ptr(v_scale),

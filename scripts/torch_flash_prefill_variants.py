@@ -9,8 +9,9 @@ dynamo_tpu_torch/csrc/flash_prefill.cu:
   - `committed`: csrc/flash_prefill.cu as it is (query tiles longest first);
   - `forward`: the same source with its grid walking query tiles first to
     last (shortest first), the one line of the order changed;
-  - each `--source NAME=PATH`, e.g. an earlier design of the kernel saved
-    with `git show <commit>:dynamo_tpu_torch/csrc/flash_prefill.cu`.
+  - each `--source NAME=PATH`, e.g. an earlier design of the kernel from
+    `git archive <commit> dynamo_tpu_torch/csrc | tar -x -C DIR`, compiled
+    where it lies so that it includes the headers of its own commit.
 Each case (bf16 q/k/v from a fixed seed, Hq 32, Hkv 8) is checked, every
 build against `flash_prefill_attention_plain` (each row's max |diff| at
 most 2^-6 of its largest |value|, finite everywhere), then timed in the
@@ -53,21 +54,7 @@ FORWARD_LINE = "const int tile = (int)(blockIdx.x / (B * Hkv));"
 OUT_DIR = ROOT / "build" / "torch_kernels" / "variants"
 
 
-def sources(extra: list[str]) -> dict[str, str]:
-    """name -> CUDA source text of every build to time."""
-    committed = (_build.CSRC / "flash_prefill.cu").read_text()
-    if committed.count(ORDER_LINE) != 1:
-        raise RuntimeError("csrc/flash_prefill.cu: the grid order line is not found once")
-    out = {"committed": committed, "forward": committed.replace(ORDER_LINE, FORWARD_LINE)}
-    for item in extra:
-        name, _, path = item.partition("=")
-        if not path or name in out:
-            raise SystemExit(f"--source takes a new NAME=PATH, not {item!r}")
-        out[name] = Path(path).read_text()
-    return out
-
-
-def build(srcs: dict[str, str]) -> dict[str, tuple[object, list[str]]]:
+def build(srcs: dict[str, str | Path]) -> dict[str, tuple[object, list[str]]]:
     """Compile every source in parallel; name -> (entry point, ptxas lines)."""
     argtypes = [_build.PTR] * 5 + [_build.INT] * 5 + [_build.FLOAT, _build.PTR]
     return {name: (_build.entry(lib, "dyn_flash_prefill", argtypes),
@@ -132,11 +119,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     args = ap.parse_args()
+    try:
+        srcs = _build.variant_sources("flash_prefill", args.source)
+    except ValueError as e:
+        ap.error(str(e))
+    if "forward" in srcs:
+        ap.error("--source NAME may not be 'forward', the committed kernel's twin")
+    committed = srcs["committed"].read_text()
+    if committed.count(ORDER_LINE) != 1:
+        raise RuntimeError("csrc/flash_prefill.cu: the grid order line is not found once")
+    srcs = {"committed": srcs.pop("committed"),
+            "forward": committed.replace(ORDER_LINE, FORWARD_LINE), **srcs}
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel builds run only on the card")
     dev = torch.device("cuda", 0)
     peaks = platform.device_peaks(torch.cuda.get_device_name(0))
-    fns = build(sources(args.source))
+    fns = build(srcs)
     for case in CASES:
         for row in run_case(fns, peaks, *case, dev):
             print(json.dumps(row), flush=True)

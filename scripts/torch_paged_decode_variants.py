@@ -5,8 +5,9 @@ one NVIDIA GPU.
 
 Builds, one nvcc each and all started together, `committed`
 (dynamo_tpu_torch/csrc/paged_attention.cu as it is) and each `--source
-NAME=PATH`, e.g. an earlier design of the kernel saved with `git show
-<commit>:dynamo_tpu_torch/csrc/paged_attention.cu`. A build that exports
+NAME=PATH`, e.g. an earlier design of the kernel from `git archive
+<commit> dynamo_tpu_torch/csrc | tar -x -C DIR`, which is compiled where
+it lies and so includes the headers of its own commit. A build that exports
 `dyn_paged_decode_layout` takes the committed C signature (one launch; a
 ticket-counter workspace laid out as the build says) and the committed
 split plan over its own resident CTAs per SM; one that exports no
@@ -36,7 +37,6 @@ import argparse
 import ctypes
 import json
 import math
-import re
 import sys
 from pathlib import Path
 
@@ -64,31 +64,6 @@ PTR, INT, FLOAT = _build.PTR, _build.INT, _build.FLOAT
 INTP = ctypes.POINTER(ctypes.c_int)
 #: the earlier design's fixed CTAs per SM for its split plan
 EARLIER_CTAS_PER_SM = 2
-
-
-def sources(extra: list[str]) -> dict[str, str]:
-    """name -> CUDA source text of every build to time."""
-    out = {"committed": (_build.CSRC / "paged_attention.cu").read_text()}
-    for item in extra:
-        name, _, path = item.partition("=")
-        if not path or name in out:
-            raise SystemExit(f"--source takes a new NAME=PATH, not {item!r}")
-        out[name] = Path(path).read_text()
-    return out
-
-
-def registers(log: str) -> dict[str, int]:
-    """ptxas's registers per kernel instance, keyed by its mangled name."""
-    out, entry = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry is not None:
-            out[entry] = int(m.group(1))
-            entry = None
-    return out
 
 
 def caller(lib, args, planes, mode, d, dev):
@@ -182,13 +157,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     args = ap.parse_args()
+    try:
+        srcs = _build.variant_sources("paged_attention", args.source)
+    except ValueError as e:
+        ap.error(str(e))
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel builds run only on the card")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     peaks = platform.device_peaks(torch.cuda.get_device_name(0))
-    builds = {name: (lib, registers(log))
-              for name, (lib, log) in _build.build_variants(sources(args.source), OUT_DIR).items()}
+    builds = {name: (lib, _build.ptxas_registers(log))
+              for name, (lib, log) in _build.build_variants(srcs, OUT_DIR).items()}
     for case in CASES:
         for row in run_case(builds, peaks, *case, dev):
             print(json.dumps(row), flush=True)

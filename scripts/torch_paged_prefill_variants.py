@@ -1,0 +1,137 @@
+"""Time builds of the paged prefill kernel against each other and SDPA, on
+one NVIDIA GPU.
+
+    python3 scripts/torch_paged_prefill_variants.py [--source NAME=PATH ...]
+
+Builds, one nvcc each and all started together, `committed`
+(dynamo_tpu_torch/csrc/paged_prefill.cu as it is) and each `--source
+NAME=PATH`, e.g. an earlier design of the kernel from `git archive
+<commit> dynamo_tpu_torch/csrc | tar -x -C DIR`, which is compiled where
+it lies and so includes the headers of its own commit. Every build takes the
+same C signature (`dyn_paged_prefill`) and is called through it with its
+output allocated once and held by its caller, so the builds pay the same
+host work.
+
+Cases, made exactly as chip_smoke.py makes its paged prefill cases (Hq 32,
+Hkv 8, page size 64, T=512): B=4 with histories (0, 512, 1536, 3072) and
+chunks (512, 512, 300, 512), and B=1 with history 2,560 and chunk 440 (one
+long prompt's sixth chunk), over bf16, int8 and fp8 pools at D=64, and the
+B=4 case over a bf16 pool at D=128. Each build is checked against
+`paged_prefill_attention_plain` (each row below cur_lens within 2^-6 of
+its largest |value|, finite output), then timed in the order A B, B A by
+`device_ms` (torch.profiler, kernel time per call over 20 warmed calls),
+beside SDPA over a dense bf16 copy of each history and its chunk
+(`library_device_ms`), the package's wrapper around the committed kernel
+(`wrapper_device_ms`: the served path) and the operations bound. Prints
+one JSON line per (case, build), with ptxas's registers for the kernel
+instance, then the card's name and power limit. With no card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from dynamo_tpu_torch import platform  # noqa: E402
+from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant  # noqa: E402
+
+#: (name, hist_lens, cur_lens, T, pool mode, D, seed): chip_smoke.py's cases
+CASES = tuple(
+    (name, hist, cur, t, mode, 64, seed)
+    for mode in kv_quant.POOL_MODES
+    for name, (hist, cur, t, seed) in zip(("b1", "b4"), chip_smoke.PAGED_PREFILL_CASES)
+) + (("b4_d128", *chip_smoke.PAGED_PREFILL_CASES[-1][:3], None, 128, 11),)
+OUT_DIR = ROOT / "build" / "torch_kernels" / "prefill_variants"
+
+
+def caller(lib, args, planes, mode, d):
+    """A call of one build's C entry point on fixed inputs, its output
+    allocated here once; returns (call, output)."""
+    q, k_cur, v_cur, k_cache, v_cache, layer, pt, hist_lens, cur_lens = args
+    b, t, hq, _ = q.shape
+    _, p, s, hkv, _ = k_cache.shape
+    out = torch.empty_like(q)
+    fn = _build.entry(lib, "dyn_paged_prefill", flash_prefill.PAGED_ARGTYPES)
+    full = (*map(_build.ptr, (q, k_cur, v_cur, k_cache, v_cache, planes.get("k_scale"),
+                              planes.get("v_scale"), pt, hist_lens, cur_lens, out)),
+            kv_quant.kind(mode), b, t, hq, hkv, d, int(layer), p, s, pt.shape[1],
+            1.0 / math.sqrt(d), _build.stream(q.device))
+
+    def call(keep=(args, planes, out)):  # the kernel reads and writes them through `full`
+        _build.check(fn(*full), "dyn_paged_prefill")
+    return call, out
+
+
+def run_case(builds, peaks, name, hist, cur, t, mode, d, seed, dev) -> list[dict]:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args, planes = chip_smoke.paged_prefill_inputs(dev, gen, hist, cur, t, mode, d)
+    hist_lens, cur_lens = args[-2:]
+    ref = flash_prefill.paged_prefill_attention_plain(*args, scale_dim=d, **planes)
+    # the kernel instance's template arguments <D, pool type, ...> in its mangled name
+    tag = f"ILi{d}E" + {None: "13__nv_bfloat16", "int8": "a", "fp8": "13__nv_fp8_e4m3"}[mode]
+    calls, rows = {}, {}
+    for bname, (lib, regs) in builds.items():
+        call, out = caller(lib, args, planes, mode, d)
+        calls[bname] = call
+        call()
+        torch.cuda.synchronize()
+        err, rel = chip_smoke.row_errors(out, ref, cur_lens)
+        if not (rel <= chip_smoke.PREFILL_ROW_RTOL) or not torch.isfinite(out).all():
+            raise AssertionError(f"{bname} {name} {mode}: a row's max |diff| is {rel} of its "
+                                 f"largest value (limit {chip_smoke.PREFILL_ROW_RTOL})")
+        ptxas = {k: v for k, v in regs.items() if tag in k}
+        rows[bname] = {"case": name, "build": bname, "mode": mode or "bf16", "B": len(hist),
+                       "T": t, "Hq": chip_smoke.HQ, "Hkv": chip_smoke.HKV, "D": d,
+                       "S": chip_smoke.S, "hist_lens": hist, "cur_lens": cur,
+                       "max_abs_err": err, "max_row_rel_err": rel, "registers": ptxas,
+                       "device_ms": []}
+    order = list(calls) + list(reversed(calls))
+    for bname in order:
+        rows[bname]["device_ms"].append(chip_smoke.device_ms(calls[bname])[0])
+    # the served path: the committed kernel behind the package's wrapper
+    wrapper_ms = chip_smoke.device_ms(
+        lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=d, **planes))[0]
+    lib_ms, kernels = chip_smoke.device_ms(chip_smoke.paged_prefill_library(args, planes))
+    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), chip_smoke.HQ,
+                                             chip_smoke.HKV, d, 2, mode)
+    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), chip_smoke.HQ, d)
+    b_ms, by = chip_smoke.bound(nbytes, flop, peaks)
+    return [{**r, "wrapper_device_ms": wrapper_ms, "library_device_ms": lib_ms,
+             "library_kernels": kernels, "flop": flop, "bytes": nbytes, "bound_ms": b_ms,
+             "bound_by": by} for r in rows.values()]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    args = ap.parse_args()
+    try:
+        srcs = _build.variant_sources("paged_prefill", args.source)
+    except ValueError as e:
+        ap.error(str(e))
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the kernel builds run only on the card")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peaks = platform.device_peaks(torch.cuda.get_device_name(0))
+    builds = {name: (lib, _build.ptxas_registers(log))
+              for name, (lib, log) in _build.build_variants(srcs, OUT_DIR).items()}
+    for case in CASES:
+        for row in run_case(builds, peaks, *case, dev):
+            print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    print(platform.card_info(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

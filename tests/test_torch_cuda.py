@@ -8,8 +8,11 @@ Hkv=8, D=64, page size 64) and a D=128 case; flash prefill also runs every
 group size its 128-row tile takes up to 8 at D 64 and 128, and T around
 its tile edges; paged decode runs groups of 1 to 32 heads at D 64 and 128,
 histories around its 64-key stages, batches cut into one split and into
-several, and calls on two streams at once. The write is bit-equal off
-the null page. Flash prefill and paged prefill (bf16 output) hold each
+several, and calls on two streams at once; paged prefill runs page sizes
+16, 64 and 128, groups of 1 to 32 heads at D 64 and 128, histories that
+end inside a key tile, a call captured in a CUDA graph and replayed on
+new lengths, and two calls that must agree bit for bit. The write is
+bit-equal off the null page. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -99,30 +102,129 @@ def _assert_rows_close(got, want, lens):
         assert (diff <= 2.0**-6 * want[i, :n].float().abs().amax(dim=-1)).all()
 
 
-@pytest.mark.parametrize("hq,hkv,d,t,hist,cur", [
-    (32, 8, 64, 512, (0, 512, 1536, 3072), (512, 512, 300, 512)),
-    (32, 8, 64, 96, (65, 1, 0, 700), (96, 17, 0, 95)),  # partial pages, a dead row
-    (8, 8, 128, 130, (130, 64), (130, 7)),
-    (16, 2, 128, 64, (257, 0), (64, 64)),
-])
-def test_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur):
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(hq + d + t)
-    b, L, S = len(hist), 3, 64
-    mp = max(1, -(-max(hist) // S)) + 1
+def _prefill_cases(cases):
+    """pytest params (Hq, Hkv, D, T, hist, cur, page size) from cases
+    whose page size, when left out, is 64; a page size of 64 keeps the id
+    the case had before page sizes were a parameter."""
+    out = []
+    for i, (hq, hkv, d, t, hist, cur, *s) in enumerate(cases):
+        s = s[0] if s else 64
+        tag = "" if s == 64 else f"-s{s}"
+        out.append(pytest.param(hq, hkv, d, t, hist, cur, s,
+                                id=f"{hq}-{hkv}-{d}-{t}-hist{i}-cur{i}{tag}"))
+    return out
+
+
+#: cases of both pool kinds: page sizes smaller and larger than the
+#: kernel's 64-key tiles, every group size from 1 to 32 heads (g=32 leaves
+#: 4 tokens a 128-row tile), and histories that end inside a tile, so the
+#: chunk starts inside a page
+PREFILL_MORE = [
+    (32, 8, 64, 200, (0, 37, 300, 1000), (200, 150, 1, 77), 16),
+    (32, 8, 64, 130, (129, 0, 400), (130, 64, 100), 128),
+    (8, 8, 64, 100, (70, 200), (100, 3)),               # g=1
+    (64, 8, 64, 96, (64, 129), (96, 40)),               # g=8
+    (32, 2, 128, 70, (33, 0), (70, 70)),                # g=16
+    (32, 1, 64, 45, (190, 5, 0), (45, 9, 45), 16),      # g=32
+    (32, 1, 128, 40, (100,), (40,)),                    # g=32 at D=128
+    (32, 8, 64, 160, (100, 1000, 29), (160, 97, 33)),   # histories end mid-tile
+    (32, 8, 128, 96, (100, 191), (96, 50), 16),         # the same at D=128
+]
+
+
+def _seed(hq, d, t, s):
+    """A case's seed; a page size of 64 keeps the seed it had before page
+    sizes were a parameter."""
+    return hq + d + t + (0 if s == 64 else s)
+
+
+def _prefill_inputs(dev, hq, hkv, d, t, hist, cur, s, mode, seed, mp=None):
+    """q, k_cur/v_cur, the pools (random, or quantized with their scale
+    planes), page tables and lengths of one paged prefill case; a quantized
+    pool's slots past each history hold NaN-encoding bytes and zero
+    scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, L = len(hist), 3
+    mp = mp or max(1, -(-max(hist) // s)) + 1
     P = 1 + b * mp
     bf = dict(dtype=torch.bfloat16, device=dev)
     q = torch.randn((b, t, hq, d), generator=gen, **bf)
     kc, vc = (torch.randn((b, t, hkv, d), generator=gen, **bf) for _ in range(2))
-    k_cache, v_cache = (torch.randn((L, P, S, hkv, d), generator=gen, **bf) for _ in range(2))
+    planes = {}
+    if mode is None:
+        k_cache, v_cache = (torch.randn((L, P, s, hkv, d), generator=gen, **bf)
+                            for _ in range(2))
+    else:
+        k_cache, k_scale = _quantized_pool((L, P, s, hkv, d), mode, gen, dev)
+        v_cache, v_scale = _quantized_pool((L, P, s, hkv, d), mode, gen, dev)
+        planes = dict(k_scale=k_scale, v_scale=v_scale)
     pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
     pt = pt.to(torch.int32)
+    if mode is not None:
+        _stale_past_history((k_cache, v_cache, *planes.values()), pt, hist, s)
     hl = torch.tensor(hist, dtype=torch.int32, device=dev)
     cl = torch.tensor(cur, dtype=torch.int32, device=dev)
-    args = (q, kc, vc, k_cache, v_cache, 2, pt, hl, cl)
+    return (q, kc, vc, k_cache, v_cache, 2, pt, hl, cl), planes
+
+
+@pytest.mark.parametrize("hq,hkv,d,t,hist,cur,s", _prefill_cases([
+    (32, 8, 64, 512, (0, 512, 1536, 3072), (512, 512, 300, 512)),
+    (32, 8, 64, 96, (65, 1, 0, 700), (96, 17, 0, 95)),  # partial pages, a dead row
+    (8, 8, 128, 130, (130, 64), (130, 7)),
+    (16, 2, 128, 64, (257, 0), (64, 64)),
+    *PREFILL_MORE,
+]))
+def test_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur, s):
+    dev = _card()
+    args, _ = _prefill_inputs(dev, hq, hkv, d, t, hist, cur, s, None, seed=_seed(hq, d, t, s))
     got = flash_prefill.paged_prefill_attention(*args)
     want = flash_prefill.paged_prefill_attention_plain(*args)
     _assert_rows_close(got, want, cur)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_paged_prefill_is_deterministic(mode):
+    """Two calls on the same inputs are bit-identical: no atomics, every
+    row's keys are summed in one order."""
+    dev = _card()
+    args, planes = _prefill_inputs(dev, 32, 8, 64, 512, (0, 512, 1536, 3072),
+                                   (512, 512, 300, 512), 64, mode, seed=13)
+    first = flash_prefill.paged_prefill_attention(*args, **planes)
+    second = flash_prefill.paged_prefill_attention(*args, **planes)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_paged_prefill_replays_in_a_cuda_graph(mode):
+    """One call captured in a CUDA graph, replayed after new inputs (other
+    values, page tables and lengths, the same shapes) are copied into the
+    captured buffers, gives what an eager call on them gives, bit for bit:
+    the wrapper reads nothing from the device, so its launch holds for any
+    lengths."""
+    dev = _card()
+    shape = (32, 8, 64, 256)
+    args, planes = _prefill_inputs(dev, *shape, (0, 700, 64), (256, 100, 3), 64, mode,
+                                   seed=17, mp=16)
+    new_args, new_planes = _prefill_inputs(dev, *shape, (1000, 5, 0), (40, 256, 256), 64,
+                                           mode, seed=18, mp=16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm up: the build and first launch, outside the capture
+        flash_prefill.paged_prefill_attention(*args, **planes)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefill.paged_prefill_attention(*args, **planes)
+    buffers = [x for x in args if torch.is_tensor(x)] + list(planes.values())
+    news = [x for x in new_args if torch.is_tensor(x)] + list(new_planes.values())
+    for dst, src in zip(buffers, news):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = flash_prefill.paged_prefill_attention(*new_args, **new_planes)
+    assert torch.equal(out, eager)
+    _assert_rows_close(out, flash_prefill.paged_prefill_attention_plain(*new_args, **new_planes),
+                       new_args[-1].tolist())
 
 
 #: (Hq, Hkv): groups of 1, 4, 7, 8 and 32 query heads per kv head
@@ -311,6 +413,11 @@ def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.paged_prefill_attention(
             q[..., :32], kv[..., :32], kv[..., :32], pool[..., :32], pool[..., :32], 1, pt,
             lens, lens)
+    assert flash_prefill.paged_tile_rows() == 128  # the kernel's own row count
+    with pytest.raises(ValueError, match="must divide 128"):  # g = 3
+        flash_prefill.paged_prefill_attention(q[:, :, :12], kv[:, :, :4], kv[:, :, :4],
+                                              pool[..., :4, :], pool[..., :4, :], 1, pt,
+                                              lens, lens)
     assert c.launches == 1
 
 
@@ -390,32 +497,19 @@ def test_quantized_paged_decode_matches_plain(hq, hkv, d, splits, mode):
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("hq,hkv,d,t,hist,cur", [
+@pytest.mark.parametrize("hq,hkv,d,t,hist,cur,s", _prefill_cases([
     (32, 8, 64, 512, (0, 512, 1536, 3072), (512, 512, 300, 512)),
     (32, 8, 64, 96, (65, 1, 0, 700), (96, 17, 0, 95)),  # partial pages, a dead row
     (16, 2, 128, 64, (257, 0), (64, 64)),
-])
-def test_quantized_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur, mode):
+    *PREFILL_MORE,
+]))
+def test_quantized_paged_prefill_matches_plain(hq, hkv, d, t, hist, cur, s, mode):
     """Each valid row within 2^-6 of its largest |value| over a quantized
     pool whose slots past each history hold NaN-encoding bytes and zero
     scales."""
     dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(hq + d + t + len(mode))
-    b, L, S = len(hist), 3, 64
-    mp = max(1, -(-max(hist) // S)) + 1
-    P = 1 + b * mp
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, hq, d), generator=gen, **bf)
-    kc, vc = (torch.randn((b, t, hkv, d), generator=gen, **bf) for _ in range(2))
-    k_cache, k_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
-    v_cache, v_scale = _quantized_pool((L, P, S, hkv, d), mode, gen, dev)
-    pt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[: b * mp]).reshape(b, mp)
-    pt = pt.to(torch.int32)
-    _stale_past_history((k_cache, v_cache, k_scale, v_scale), pt, hist, S)
-    hl = torch.tensor(hist, dtype=torch.int32, device=dev)
-    cl = torch.tensor(cur, dtype=torch.int32, device=dev)
-    args = (q, kc, vc, k_cache, v_cache, 2, pt, hl, cl)
-    planes = dict(k_scale=k_scale, v_scale=v_scale)
+    args, planes = _prefill_inputs(dev, hq, hkv, d, t, hist, cur, s, mode,
+                                   seed=_seed(hq, d, t, s) + len(mode))
     got = flash_prefill.paged_prefill_attention(*args, **planes)
     want = flash_prefill.paged_prefill_attention_plain(*args, **planes)
     _assert_rows_close(got, want, cur)

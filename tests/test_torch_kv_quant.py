@@ -247,8 +247,32 @@ def test_quantized_paged_decode_plain_matches_jax(hq, hkv, hist, mode):
     ],
 )
 def test_quantized_paged_prefill_plain_matches_jax(b, t, hq, hkv, d, hist, cur, mode):
-    s, num_pages, mp, layers, layer = 64, 16, 4, 2, 1
-    rng = np.random.default_rng(1000 * b + t + d + len(mode))
+    _quantized_paged_prefill_case(b, t, hq, hkv, d, hist, cur, mode, s=64, num_pages=16, mp=4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "s,num_pages,mp,b,t,hist,cur",
+    [
+        (16, 24, 10, 2, 64, (150, 37), (64, 50)),  # many pages, a history ending mid-page
+        (128, 6, 2, 2, 64, (100, 200), (64, 33)),  # inside one page, over two
+    ],
+)
+def test_quantized_paged_prefill_plain_matches_jax_page_sizes(s, num_pages, mp, b, t, hist,
+                                                              cur, mode):
+    """Page sizes smaller and larger than 64 (the CUDA kernel's key tile)
+    over quantized pools: the plain version against the Pallas kernel in
+    interpret mode, GQA g=2 at D=64."""
+    _quantized_paged_prefill_case(b, t, 4, 2, 64, hist, cur, mode, s=s,
+                                  num_pages=num_pages, mp=mp)
+
+
+def _quantized_paged_prefill_case(b, t, hq, hkv, d, hist, cur, mode, *, s, num_pages, mp):
+    """One paged prefill case over a quantized pool of `num_pages` pages of
+    `s` slots, through the Pallas kernel (interpret mode) and the port's
+    plain version."""
+    layers, layer = 2, 1
+    rng = np.random.default_rng(1000 * b + t + d + len(mode) + (0 if s == 64 else s))
     q = rng.standard_normal((b, t, hq, d)).astype(np.float32)
     kc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     vc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)

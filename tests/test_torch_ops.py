@@ -116,8 +116,33 @@ def test_paged_prefill_plain_matches_jax(b, t, hq, hkv, d, hist, cur):
     """The reference's three cases (tests/test_flash_prefill.py), plus a
     history that ends inside a page beside a first chunk (hist 0) and a
     D=64 case. Rows at or past cur_lens are unspecified."""
-    s, num_pages, mp, layers, layer = 64, 16, 4, 2, 1
-    rng = np.random.default_rng(1000 * b + t + d)
+    _paged_prefill_case(b, t, hq, hkv, d, hist, cur, s=64, num_pages=16, mp=4)
+
+
+@pytest.mark.parametrize(
+    "s,num_pages,mp,b,t,hist,cur",
+    [
+        # pages of 16: histories over many pages, one ending mid-page
+        (16, 24, 10, 2, 64, (150, 37), (64, 50)),
+        (16, 24, 10, 2, 32, (16, 0), (32, 9)),
+        # pages of 128: a history inside its first page, one over two pages
+        (128, 6, 2, 2, 64, (100, 200), (64, 33)),
+        (128, 6, 2, 1, 128, (256,), (128,)),
+    ],
+)
+def test_paged_prefill_plain_matches_jax_page_sizes(s, num_pages, mp, b, t, hist, cur):
+    """Page sizes smaller and larger than 64 (the CUDA kernel's key tile):
+    the plain version against the Pallas kernel in interpret mode, GQA
+    g=2 at D=64."""
+    _paged_prefill_case(b, t, 4, 2, 64, hist, cur, s=s, num_pages=num_pages, mp=mp)
+
+
+def _paged_prefill_case(b, t, hq, hkv, d, hist, cur, *, s, num_pages, mp):
+    """One paged prefill case through the Pallas kernel (interpret mode)
+    and the port's plain version, on a pool of `num_pages` pages of `s`
+    slots and page tables of `mp` pages."""
+    layers, layer = 2, 1
+    rng = np.random.default_rng(1000 * b + t + d + (0 if s == 64 else s))
     q = rng.standard_normal((b, t, hq, d)).astype(np.float32)
     kc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     vc = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
