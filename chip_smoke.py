@@ -7,9 +7,11 @@ Phases, each fatal on failure:
   2. build: every CUDA kernel of the serving path, from dynamo_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at llama3-1b
-     widths (page size 64; flash prefill, bf16 paged decode and bf16 paged
-     prefill also at llama3-8b's head dim of 128, flash prefill at a
-     4,096-token chunk, paged prefill also at one long prompt's late chunk),
+     widths (page size 64; flash prefill, bf16 paged decode, bf16 paged
+     prefill and the write in every pool mode also at llama3-8b's head dim
+     of 128, flash prefill at a 4,096-token chunk, paged prefill also at
+     one long prompt's late chunk, the write at one long prompt's chunk of
+     512 tokens),
      over bf16 pools and over quantized (int8, fp8)
      pools for the three kernels that read or write them, with its time,
      the plain version's, one library call's where one computes the same
@@ -112,15 +114,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _kernel_times(fn, calls: int) -> dict[str, list[float]]:
+def _kernel_times(fn, calls: int, between=None) -> dict[str, list[float]]:
     """Device time (us) of each kernel launch torch.profiler recorded over
-    `calls` calls of fn(), by kernel name. A spin kernel before and after
-    the calls (left out of the result) keeps a launch the profiler drops at
-    a session's edge from being one of fn's."""
+    `calls` calls of fn(), by kernel name, each call after one of
+    `between()` where given. A spin kernel before and after the calls
+    (left out of the result) keeps a launch the profiler drops at a
+    session's edge from being one of fn's."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda._sleep(1000)
         for _ in range(calls):
+            if between is not None:
+                between()
             fn()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -131,7 +136,8 @@ def _kernel_times(fn, calls: int) -> dict[str, list[float]]:
     return times
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> tuple[float, list[str]]:
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3,
+              between=None) -> tuple[float, list[str]]:
     """Device time of fn() per call, and the names of the kernels it ran.
     One call profiled on its own gives each kernel's launches per call;
     the same warmed loop of `iters` calls as `cuda_ms`, under
@@ -144,15 +150,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> tuple[flo
     which sets `cuda_ms` for a kernel shorter than that work. The launches
     per call are the most any one-call session recorded; a try whose loop
     and one-call sessions name different kernels is made again, up to
-    `tries`."""
+    `tries`. With `between`, each call comes after one of `between()`
+    (e.g. a pass over a buffer larger than L2, so that fn starts cold),
+    whose kernels are left out; it raises if fn runs one of them."""
+    skip: set[str] = set()
+    if between is not None:
+        between()
+        skip = set(_kernel_times(between, 1))
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     launches: dict[str, int] = {}
     for _ in range(tries):
         for name, t in _kernel_times(fn, 1).items():
+            if name in skip:
+                raise ValueError(f"fn runs {name}, a kernel of `between`")
             launches[name] = max(launches.get(name, 0), len(t))
-        times = _kernel_times(fn, iters)
+        times = {k: t for k, t in _kernel_times(fn, iters, between).items() if k not in skip}
         if times and set(times) == set(launches):
             per_call = sum(statistics.fmean(times[k]) * n for k, n in launches.items())
             return per_call / 1e3, sorted(launches)
@@ -234,27 +248,45 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
 
 
-def check_paged_write(dev, peaks, gen, b: int, t: int, mode) -> dict:
-    pages_per_seq = max(1, -(-t // S)) + 2
+def paged_write_inputs(dev, gen, b: int, t: int, mode, d: int = D, full: bool = False, *,
+                       layers: int = L, page_size: int = S, hkv: int = HKV, lens=None):
+    """A write's inputs, at llama3-1b's widths unless `d`, `layers`,
+    `page_size` or `hkv` say otherwise: page tables, positions and valid
+    [B, T] (decode at T=1, each sequence at its own position and the last
+    row padding; else page-aligned chunks of random lengths, or every
+    token valid with `full`; `lens` gives each sequence's valid tokens
+    instead, 1 or 0 at T=1), staged K/V and random pools. Returns (pools
+    and scale planes before the write, k_stage, v_stage, (pt, pos, valid),
+    the scale planes' keywords)."""
+    pages_per_seq = max(1, -(-t // page_size)) + 2
     num_pages = 1 + b * pages_per_seq
     # the page tables and lengths first: every pool mode gets the same ones
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * pages_per_seq]
     pt = pt.reshape(b, pages_per_seq).to(torch.int32)
     if t == 1:
-        # decode: each sequence at its own position, the last row padding
-        pos = torch.randint(0, (pages_per_seq - 1) * S, (b, 1), generator=gen, device=dev)
-        valid = torch.ones((b, 1), dtype=torch.bool, device=dev)
-        valid[-1] = False
+        pos = torch.randint(0, (pages_per_seq - 1) * page_size, (b, 1), generator=gen,
+                            device=dev)
+        if lens is None:
+            lens = [1] * (b - 1) + [0]
     else:
         pos = torch.arange(t, device=dev)[None, :].expand(b, t)
-        lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
-        valid = pos < lens[:, None]
+        if lens is None:
+            lens = (torch.full((b,), t, device=dev) if full
+                    else torch.randint(1, t + 1, (b,), generator=gen, device=dev))
+    valid = torch.arange(t, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
     bf = dict(dtype=torch.bfloat16, device=dev)
-    k_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
-    v_stage = torch.randn((L, b, t, HKV, D), generator=gen, **bf)
-    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, D), mode, gen, dev)
+    k_stage = torch.randn((layers, b, t, hkv, d), generator=gen, **bf)
+    v_stage = torch.randn((layers, b, t, hkv, d), generator=gen, **bf)
+    (k_cache, v_cache), planes = make_pools((layers, num_pages, page_size, hkv, d), mode, gen,
+                                            dev)
     args = (pt, pos.to(torch.int32).contiguous(), valid.contiguous())
-    before = [k_cache, v_cache, *planes.values()]
+    return [k_cache, v_cache, *planes.values()], k_stage, v_stage, args, planes
+
+
+def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
+                      full: bool = False) -> dict:
+    before, k_stage, v_stage, args, planes = paged_write_inputs(dev, gen, b, t, mode, d, full)
+    valid = args[2]
     kern = [x.clone() for x in before]
     plain = [x.clone() for x in before]
     kp = dict(zip(planes, kern[2:]))  # the scale planes as keywords, if any
@@ -266,8 +298,8 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode) -> dict:
     for g, w in zip(kern, plain):
         if not torch.equal(as_bytes(g)[:, 1:], as_bytes(w)[:, 1:]):
             n = int((as_bytes(g)[:, 1:] != as_bytes(w)[:, 1:]).sum())
-            raise AssertionError(f"paged_write {mode or 'bf16'} B={b} T={t}: not bit-equal "
-                                 f"({n} elements differ)")
+            raise AssertionError(f"paged_write {mode or 'bf16'} B={b} T={t} D={d}: not "
+                                 f"bit-equal ({n} elements differ)")
     library_call, library = None, "none: no single PyTorch call quantizes and lands the rows"
     if mode is None:
         library_call = index_copy_write(kern, k_stage, v_stage, *args)
@@ -280,7 +312,7 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode) -> dict:
     nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode)
     b_ms, by = bound(nbytes, 0.0, peaks)
     return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": L,
-            "Hkv": HKV, "D": D, "S": S,
+            "Hkv": HKV, "D": d, "S": S, "every_token_valid": full,
             "tolerance": "bit-equal on every page but the null page 0"
                          + ("" if mode is None else ", narrow bytes and scale planes"),
             "max_abs_err": 0.0, **times,
@@ -291,6 +323,7 @@ def index_copy_write(pools, k_stage, v_stage, pt, pos, valid):
     """The bf16 write as one index_copy_ per pool (the library yardstick),
     checked to land what the kernel landed; returns the call to time."""
     b, t = pos.shape
+    row = k_stage.shape[3] * k_stage.shape[4]
     run = min(t, S)
     first_pos = pos[:, ::run].long()
     first_valid = valid[:, ::run]
@@ -298,8 +331,8 @@ def index_copy_write(pools, k_stage, v_stage, pt, pos, valid):
     pages = torch.where(first_valid, pages, 0)
     slot0 = torch.where(first_valid, first_pos % S, 0)
     idx = ((pages * S + slot0)[:, :, None] + torch.arange(run, device=pos.device)).reshape(-1)
-    flat = [x.clone().view(L, -1, HKV * D) for x in pools[:2]]
-    src = [x.view(L, b * t, HKV * D) for x in (k_stage, v_stage)]
+    flat = [x.clone().view(L, -1, row) for x in pools[:2]]
+    src = [x.view(L, b * t, row) for x in (k_stage, v_stage)]
 
     def call():
         for dst, s in zip(flat, src):
@@ -535,6 +568,11 @@ def phase_kernels(dev, peaks) -> dict:
         # each shape from its own seed, so every pool mode sees the same
         # page tables, lengths and staged rows
         cases += [
+            # one long prompt's chunk (every token valid) and llama3-8b's
+            # head dim, before the main path's two shapes so the kernels
+            # line reports B=8 T=512 at D=64
+            check_paged_write(dev, peaks, gen.manual_seed(12), 1, 512, mode, full=True),
+            check_paged_write(dev, peaks, gen.manual_seed(13), 8, 512, mode, d=128),
             check_paged_write(dev, peaks, gen.manual_seed(1), 32, 1, mode),
             check_paged_write(dev, peaks, gen.manual_seed(2), 8, 512, mode),
             check_paged_decode(dev, peaks, gen.manual_seed(3), 1, 2048, mode),

@@ -10,25 +10,48 @@
 // Bound on the H100: bytes. The write moves each run that lands in a
 // real page once in and once out and does little arithmetic: per (token,
 // kv head) row, 2*D bytes of bf16 in and, for a bf16 pool, 2*D out; for
-// a quantized pool D narrow bytes and a 4-byte scale out.
-// Design: one block per (run, layer), so a prefill chunk spreads over
-// L * B * T/run blocks and a decode step over L * B. A bf16 row (Hkv*D
-// elements, contiguous in both layouts) moves as 16-byte vectors,
-// neighbouring threads on neighbouring addresses. A quantized pool gives
-// each (token, kv head) row D/8 lanes (8 of them at D=64, so a warp takes
-// 4 rows at once): each lane loads 16 bytes of bf16 and keeps them in
-// registers, the row's lanes reduce its amax with shuffles, and each
-// writes its 8 quantized bytes, the row's first lane the scale; K, V and
-// both scale planes land in one launch. The quantization is the reference's to the bit: scale =
-// max(amax / qmax, 1e-8) and x / scale by IEEE division (no reciprocal,
-// no fast math), rounded half to even for int8 and saturated round to
-// nearest for e4m3. A run whose first token is padding belongs to no
-// sequence: the Pallas kernel sends it to the null page 0, whose contents
-// are unspecified and which no page table names, so this kernel skips it
-// and moves no bytes for it.
+// a quantized pool D narrow bytes and a 4-byte scale out. A run is min(T,
+// S) slots of one (sequence, page), placed by its first token; its rows
+// are contiguous in the stage, the pool and the scale plane alike.
+//
+// Design. A copy at the memory's rate needs about 18 KB of loads in
+// flight on each SM (3.35 TB/s times about 0.7 us), and a small call
+// must not wait on a chain of dependent loads.
+// - Work units and a grid from the card. Each (layer, run) is cut into
+//   units of a fixed size, so a B=1 chunk spreads over every SM and a
+//   decode row stays one unit: 512 16-byte vectors of K and as many of V
+//   (8 KB each) for a bf16 pool, 32 (token, kv head) rows of K and of V
+//   (4 KB each at D=64, 8 KB at D=128) for a quantized one. The launch is
+//   min(units, resident blocks x SMs) blocks of 128 threads
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor, once per device),
+//   each walking the units with a stride of the grid. The grid comes from
+//   B, T, L, Hkv, D and the card, never from the data: no host sync, no
+//   workspace, and a call replays in a CUDA graph.
+// - Bytes in flight. Each thread issues all of its unit's 16-byte loads of
+//   K and of V before it needs any of them (4 + 4 for a bf16 pool, D/32 +
+//   D/32 for a quantized one), and 8 or 9 blocks fit a SM at D=64.
+// - A short index chain. A unit reads its run's `valid` and `positions`
+//   entries together, then, for a live run, its rows and the page-table
+//   entry (which depends on `positions`), so a unit waits on two round
+//   trips before its stores, not the four of valid, positions, page
+//   table, rows. A padding unit costs its two index loads.
+// - A quantized pool gives each (token, kv head) row D/8 lanes of 8 values
+//   each; the row's lanes reduce the amaxes of all of a lane's K and V
+//   rows in one pass of shuffles, so K and V cost one round trip, and a
+//   row past the run skips its divisions. The quantization is the
+//   reference's to the bit: scale = max(amax / qmax, 1e-8) and x / scale
+//   by IEEE division (no reciprocal, no fast math), rounded half to even
+//   for int8 and saturated round to nearest for e4m3.
+// A run whose first token is padding belongs to no sequence: the Pallas
+// kernel sends it to the null page 0, whose contents are unspecified and
+// which no page table names, so this kernel skips it and moves no bytes
+// for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <climits>
 
 #include "kv_quant.cuh"
 
@@ -36,110 +59,191 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+// 16-byte vectors of K, and as many of V, a thread loads per unit (bf16 pools)
+constexpr int VECS = 4;
+constexpr int UNIT_VECS = VECS * THREADS;
+// (token, kv head) rows of a unit (quantized pools): 4 KB of K at D=64
+constexpr int UNIT_ROWS = 32;
+// devices whose resident-block count is cached
+constexpr int MAX_DEVICES = 64;
 
-// Quantize `rows` rows of d bf16 values (d/8 a power of two up to 32) into
-// narrow values and one scale each: every lane holds 8 values (16 bytes)
-// of a row in registers, d/8 lanes share a row and reduce its amax with
-// shuffles, and a warp takes 32/(d/8) rows at a time.
-template <typename T>
-__device__ __forceinline__ void quantize_rows(const __nv_bfloat16* __restrict__ x,
-                                              uint8_t* __restrict__ q,
-                                              float* __restrict__ scale, int rows, int d,
-                                              int first_row, int row_step, int lane) {
-  const int lpr = d / 8;  // lanes per row
-  const int sub = lane / lpr, sl = lane % lpr;
-  for (int base = first_row; base < rows; base += row_step) {
-    const int i = base + sub;
-    const bool live = i < rows;  // every lane joins the shuffles
-    const uint4 raw = live ? *reinterpret_cast<const uint4*>(x + (size_t)i * d + sl * 8)
-                           : make_uint4(0, 0, 0, 0);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float f[8];
-    float amax = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      f[2 * j] = v.x;
-      f[2 * j + 1] = v.y;
-      amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
-    }
-    for (int o = lpr / 2; o > 0; o >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    }
-    const float s = fmaxf(amax / kvq::Kv<T>::QMAX, 1e-8f);
-    uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) packed[j / 4] |= kvq::Kv<T>::encode(f[j] / s) << (8 * (j % 4));
-    if (live) {
-      *reinterpret_cast<uint2*>(q + (size_t)i * d + sl * 8) = make_uint2(packed[0], packed[1]);
-      if (sl == 0) scale[i] = s;
-    }
-  }
+struct Args {
+  const __nv_bfloat16* k_stage;  // [L, B, T, Hkv, D]
+  const __nv_bfloat16* v_stage;
+  void* k_cache;                 // [L, P, S, Hkv, D]
+  void* v_cache;
+  float* k_scale;                // [L, P, S, Hkv] (quantized pools)
+  float* v_scale;
+  const int* page_tables;        // [B, MP]
+  const int* positions;          // [B, T]
+  const unsigned char* valid;    // [B, T] bool
+  int num_pages, page_size, batch, tokens, max_pages, run, hkv;
+  int row_vecs;                  // 16-byte vectors of a token row (bf16 pools)
+  int runs_per_seq, runs;        // runs of a sequence, of a layer
+  int chunks;                    // units of a run
+  int units;                     // units of the call
+};
+
+// Unit u: chunk `chunk` of run r of layer `layer`; the run starts at
+// [B, T] index `first` of sequence b.
+struct Unit {
+  int layer, b, first, chunk;
+};
+
+__device__ __forceinline__ Unit unit_at(const Args& a, int u) {
+  Unit w;
+  w.chunk = u % a.chunks;
+  const int lr = u / a.chunks;
+  const int r = lr % a.runs;
+  w.layer = lr / a.runs;
+  w.b = r / a.runs_per_seq;
+  w.first = w.b * a.tokens + (r % a.runs_per_seq) * a.run;
+  return w;
 }
 
+__device__ __forceinline__ float amax8(uint4 raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+  }
+  return m;
+}
+
+// A lane's 8 values of one row, quantized against the row's amax; the
+// row's first lane also lands the scale.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) paged_write_kernel(
-    const __nv_bfloat16* __restrict__ k_stage,  // [L, B, T, Hkv, D]
-    const __nv_bfloat16* __restrict__ v_stage,
-    T* __restrict__ k_cache,                    // [L, P, S, Hkv, D]
-    T* __restrict__ v_cache,
-    float* __restrict__ k_scale,                // [L, P, S, Hkv] (quantized pools)
-    float* __restrict__ v_scale,
-    const int* __restrict__ page_tables,        // [B, MP]
-    const int* __restrict__ positions,          // [B, T]
-    const unsigned char* __restrict__ valid,    // [B, T] bool
-    int num_pages, int page_size, int batch, int tokens, int max_pages,
-    int run, int hkv, int d, int row_bytes) {
-  const int runs_per_seq = tokens / run;
-  const int r = blockIdx.x;
-  const int layer = blockIdx.y;
-  const int b = r / runs_per_seq;
-  const int first = b * tokens + (r % runs_per_seq) * run;  // [B, T] index
-  if (!valid[first]) return;  // a padding run: nothing to land
-  const int pos = positions[first];
-  const int page = page_tables[b * max_pages + pos / page_size];
-  const int slot0 = pos % page_size;
-  const long long src_row = (long long)layer * batch * tokens + first;  // token rows
-  const long long dst_row = ((long long)layer * num_pages + page) * page_size + slot0;
+__device__ __forceinline__ void quantize_store(uint4 raw, float amax, uint8_t* q, float* scale,
+                                               bool lead) {
+  const float s = fmaxf(amax / kvq::Kv<T>::QMAX, 1e-8f);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    packed[j / 2] |= (kvq::Kv<T>::encode(v.x / s) | kvq::Kv<T>::encode(v.y / s) << 8)
+                     << (16 * (j % 2));
+  }
+  *reinterpret_cast<uint2*>(q) = make_uint2(packed[0], packed[1]);
+  if (lead) *scale = s;
+}
+
+// One live unit at `pos`: its rows' loads, then the page-table read, then
+// the stores. D is the head dim of a quantized pool (0 for a bf16 pool).
+template <typename T, int D>
+__device__ __forceinline__ void write_unit(const Args& a, const Unit& w, int pos) {
+  const long long src_row = (long long)w.layer * a.batch * a.tokens + w.first;  // token rows
   if constexpr (!kvq::Kv<T>::QUANT) {
-    const int row_vecs = row_bytes / 16;  // 16-byte vectors per token row (any dtype)
-    const uint4* ks = reinterpret_cast<const uint4*>(k_stage) + src_row * row_vecs;
-    const uint4* vs = reinterpret_cast<const uint4*>(v_stage) + src_row * row_vecs;
-    uint4* kc = reinterpret_cast<uint4*>(k_cache) + dst_row * row_vecs;
-    uint4* vc = reinterpret_cast<uint4*>(v_cache) + dst_row * row_vecs;
-    const long long n = (long long)run * row_vecs;
-    for (long long i = threadIdx.x; i < n; i += THREADS) {
-      kc[i] = ks[i];
-      vc[i] = vs[i];
+    const long long n = (long long)a.run * a.row_vecs;  // vectors of the run
+    const int base = w.chunk * UNIT_VECS + threadIdx.x;
+    const uint4* ks = reinterpret_cast<const uint4*>(a.k_stage) + src_row * a.row_vecs;
+    const uint4* vs = reinterpret_cast<const uint4*>(a.v_stage) + src_row * a.row_vecs;
+    uint4 kr[VECS], vr[VECS];
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      if (base + j * THREADS < n) {
+        kr[j] = __ldg(ks + base + j * THREADS);
+        vr[j] = __ldg(vs + base + j * THREADS);
+      }
+    }
+    const int page = __ldg(a.page_tables + w.b * a.max_pages + pos / a.page_size);
+    const long long dst_row =
+        ((long long)w.layer * a.num_pages + page) * a.page_size + pos % a.page_size;
+    uint4* kc = reinterpret_cast<uint4*>(a.k_cache) + dst_row * a.row_vecs;
+    uint4* vc = reinterpret_cast<uint4*>(a.v_cache) + dst_row * a.row_vecs;
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      if (base + j * THREADS < n) {
+        kc[base + j * THREADS] = kr[j];
+        vc[base + j * THREADS] = vr[j];
+      }
     }
   } else {
-    // the run's (token, kv head) rows are contiguous in the stage, the
-    // pool and the scale plane alike
-    const int warp = threadIdx.x / 32;
+    constexpr int LPR = D / 8;            // lanes a row
+    constexpr int RPW = 32 / LPR;         // rows a warp covers at once
+    constexpr int RPB = RPW * WARPS;      // rows the block covers at once
+    constexpr int ROWS = UNIT_ROWS / RPB;  // rows of K, and of V, a lane holds
     const int lane = threadIdx.x % 32;
-    const int per_warp = 32 / (d / 8);
-    const long long src = src_row * hkv * d;
-    const long long dst = dst_row * hkv;  // first row of the run in the pool and its plane
-    quantize_rows<T>(k_stage + src, reinterpret_cast<uint8_t*>(k_cache) + dst * d,
-                     k_scale + dst, run * hkv, d, warp * per_warp, WARPS * per_warp, lane);
-    quantize_rows<T>(v_stage + src, reinterpret_cast<uint8_t*>(v_cache) + dst * d,
-                     v_scale + dst, run * hkv, d, warp * per_warp, WARPS * per_warp, lane);
+    const int sl = lane % LPR;
+    const int n = a.run * a.hkv;          // (token, kv head) rows of the run
+    const int base = w.chunk * UNIT_ROWS + (threadIdx.x / 32) * RPW + lane / LPR;
+    const long long src = (src_row * a.hkv + base) * D + sl * 8;  // this lane's first values
+    uint4 kr[ROWS], vr[ROWS];
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      kr[j] = vr[j] = make_uint4(0, 0, 0, 0);  // every lane joins the shuffles
+      if (base + j * RPB < n) {
+        kr[j] = __ldg(reinterpret_cast<const uint4*>(a.k_stage + src + j * RPB * D));
+        vr[j] = __ldg(reinterpret_cast<const uint4*>(a.v_stage + src + j * RPB * D));
+      }
+    }
+    const int page = __ldg(a.page_tables + w.b * a.max_pages + pos / a.page_size);
+    float ka[ROWS], va[ROWS];
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      ka[j] = amax8(kr[j]);
+      va[j] = amax8(vr[j]);
+    }
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        ka[j] = fmaxf(ka[j], __shfl_xor_sync(0xffffffffu, ka[j], o));
+        va[j] = fmaxf(va[j], __shfl_xor_sync(0xffffffffu, va[j], o));
+      }
+    }
+    // this lane's first row in the pool and its plane
+    const long long dst =
+        (((long long)w.layer * a.num_pages + page) * a.page_size + pos % a.page_size) * a.hkv +
+        base;
+    uint8_t* kq = reinterpret_cast<uint8_t*>(a.k_cache) + dst * D + sl * 8;
+    uint8_t* vq = reinterpret_cast<uint8_t*>(a.v_cache) + dst * D + sl * 8;
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      // a row past the run skips its divisions: at decode most rows of a
+      // unit are (8 of its 32 are live at Hkv=8)
+      if (base + j * RPB < n) {
+        quantize_store<T>(kr[j], ka[j], kq + j * RPB * D, a.k_scale + dst + j * RPB, sl == 0);
+        quantize_store<T>(vr[j], va[j], vq + j * RPB * D, a.v_scale + dst + j * RPB, sl == 0);
+      }
+    }
   }
 }
 
-template <typename T>
-int launch(const void* k_stage, const void* v_stage, void* k_cache, void* v_cache,
-           void* k_scale, void* v_scale, const void* page_tables, const void* positions,
-           const void* valid, int layers, int num_pages, int page_size, int batch,
-           int tokens, int max_pages, int run, int hkv, int d, int row_bytes,
-           cudaStream_t stream) {
-  if (batch == 0 || tokens == 0) return 0;
-  const dim3 grid(batch * (tokens / run), layers);
-  paged_write_kernel<T><<<grid, THREADS, 0, stream>>>(
-      (const __nv_bfloat16*)k_stage, (const __nv_bfloat16*)v_stage, (T*)k_cache,
-      (T*)v_cache, (float*)k_scale, (float*)v_scale, (const int*)page_tables,
-      (const int*)positions, (const unsigned char*)valid, num_pages, page_size, batch,
-      tokens, max_pages, run, hkv, d, row_bytes);
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) paged_write_kernel(const Args a) {
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const Unit w = unit_at(a, u);
+    const bool live = __ldg(a.valid + w.first);
+    const int pos = __ldg(a.positions + w.first);  // beside `valid`
+    if (live) write_unit<T, D>(a, w, pos);          // uniform across the block
+  }
+}
+
+template <typename T, int D>
+int launch(Args a, cudaStream_t stream) {
+  // resident blocks a SM times SMs, per device: a property of the kernel
+  // and the card, read once
+  static std::atomic<int> slots_of[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int slots = slots_of[dev].load(std::memory_order_relaxed);
+  if (slots == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_write_kernel<T, D>,
+                                                      THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    slots = sms * per_sm;
+    slots_of[dev].store(slots, std::memory_order_relaxed);
+  }
+  paged_write_kernel<T, D><<<a.units < slots ? a.units : slots, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -147,7 +251,7 @@ int launch(const void* k_stage, const void* v_stage, void* k_cache, void* v_cach
 
 // kind: 0 a pool of the staged dtype (bf16 on the model path; its token
 // rows of row_bytes are copied), 1 int8, 2 fp8 (e4m3); the scale planes
-// are null for 0.
+// are null for 0. A quantized pool takes D 64 or 128.
 extern "C" int dyn_paged_write(const void* k_stage, const void* v_stage,
                                void* k_cache, void* v_cache, void* k_scale,
                                void* v_scale, const void* page_tables,
@@ -156,26 +260,28 @@ extern "C" int dyn_paged_write(const void* k_stage, const void* v_stage,
                                int tokens, int max_pages, int run, int hkv, int d,
                                int row_bytes, void* stream) {
   if (run <= 0 || tokens % run != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (batch == 0 || tokens == 0 || layers == 0) return 0;
+  Args a{(const __nv_bfloat16*)k_stage, (const __nv_bfloat16*)v_stage, k_cache, v_cache,
+         (float*)k_scale, (float*)v_scale, (const int*)page_tables, (const int*)positions,
+         (const unsigned char*)valid, num_pages, page_size, batch, tokens, max_pages, run,
+         hkv, row_bytes / 16, tokens / run, batch * (tokens / run), 0, 0};
   if (kind == 0) {
     if (row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16>(k_stage, v_stage, k_cache, v_cache, k_scale, v_scale,
-                                 page_tables, positions, valid, layers, num_pages,
-                                 page_size, batch, tokens, max_pages, run, hkv, d,
-                                 row_bytes, st);
+    a.chunks = (int)(((long long)run * a.row_vecs + UNIT_VECS - 1) / UNIT_VECS);
+  } else {
+    if ((d != 64 && d != 128) || k_scale == nullptr || v_scale == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    a.chunks = (int)(((long long)run * hkv + UNIT_ROWS - 1) / UNIT_ROWS);
   }
-  if (d % 8 != 0 || d > 256 || 32 % (d / 8) != 0 || k_scale == nullptr || v_scale == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (kind == 1) {
-    return launch<int8_t>(k_stage, v_stage, k_cache, v_cache, k_scale, v_scale, page_tables,
-                          positions, valid, layers, num_pages, page_size, batch, tokens,
-                          max_pages, run, hkv, d, row_bytes, st);
-  }
+  const long long units = (long long)layers * a.runs * a.chunks;
+  if (units > INT_MAX / 2) return (int)cudaErrorInvalidValue;  // u + grid stays an int
+  a.units = (int)units;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kind == 0) return launch<__nv_bfloat16, 0>(a, st);
+  if (kind == 1) return d == 64 ? launch<int8_t, 64>(a, st) : launch<int8_t, 128>(a, st);
   if (kind == 2) {
-    return launch<__nv_fp8_e4m3>(k_stage, v_stage, k_cache, v_cache, k_scale, v_scale,
-                                 page_tables, positions, valid, layers, num_pages, page_size,
-                                 batch, tokens, max_pages, run, hkv, d, row_bytes, st);
+    return d == 64 ? launch<__nv_fp8_e4m3, 64>(a, st) : launch<__nv_fp8_e4m3, 128>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -57,14 +57,15 @@ def pool_mode(kernel: str, k_cache, v_cache, k_scale, v_scale) -> Optional[str]:
     """The kv_quantize mode of a pool (None when it holds the model dtype),
     checking that the scale planes come with a narrow pool and only then."""
     if k_scale is None and v_scale is None:
-        require(k_cache.dtype not in (torch.int8, torch.float8_e4m3fn), kernel,
-                f"a {k_cache.dtype} pool needs its scale planes")
+        if k_cache.dtype in (torch.int8, torch.float8_e4m3fn):  # formatted only on failure
+            raise ValueError(f"{kernel}: a {k_cache.dtype} pool needs its scale planes")
         return None
     require(k_scale is not None and v_scale is not None, kernel,
             "k_scale and v_scale come together")
     mode = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}.get(k_cache.dtype)
-    require(mode is not None and v_cache.dtype == k_cache.dtype, kernel,
-            f"scale planes need an int8 or float8_e4m3fn pool, not {k_cache.dtype}")
+    if mode is None or v_cache.dtype != k_cache.dtype:
+        raise ValueError(
+            f"{kernel}: scale planes need an int8 or float8_e4m3fn pool, not {k_cache.dtype}")
     require(k_scale.shape == k_cache.shape[:-1] and v_scale.shape == k_scale.shape, kernel,
             "scale planes must be [L, P, S, Hkv] beside the pools")
     require(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32, kernel,

@@ -26,30 +26,39 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import on_cuda, require
+from dynamo_tpu_torch.ops._counts import on_cuda
 from dynamo_tpu_torch.ops.kv_quant import kind, pool_mode, quantize_kv_rows, variants
 
 #: pool mode (None, "int8", "fp8") -> counts
 counts = variants()
 
 _NAME = "paged_write"
+#: ctypes argument types of dyn_paged_write (csrc/kv_update.cu)
+ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 11 + [_build.PTR]
+
+
+def _fail(what: str):
+    raise ValueError(f"{_NAME}: {what}")
 
 
 def _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid):
-    require(k_cache.dim() == 5 and v_cache.shape == k_cache.shape,
-            _NAME, "pools must be [L, P, S, Hkv, D] and equal in shape")
+    """The run min(T, S); each shape is checked once, and a message is
+    formatted only when its check fails."""
+    if k_cache.dim() != 5 or v_cache.shape != k_cache.shape:
+        _fail("pools must be [L, P, S, Hkv, D] and equal in shape")
+    if k_stage.dim() != 5 or v_stage.shape != k_stage.shape:
+        _fail("staged K/V must be [L, B, T, Hkv, D] and equal in shape")
     L, _, s, hkv, d = k_cache.shape
-    require(k_stage.dim() == 5 and v_stage.shape == k_stage.shape,
-            _NAME, "staged K/V must be [L, B, T, Hkv, D] and equal in shape")
-    require(k_stage.shape[0] == L and k_stage.shape[3:] == (hkv, d),
-            _NAME, f"staged {tuple(k_stage.shape)} does not fit pools {tuple(k_cache.shape)}")
-    b, t = k_stage.shape[1], k_stage.shape[2]
-    require(positions.shape == (b, t) and valid.shape == (b, t),
-            _NAME, "positions and valid must be [B, T]")
-    require(page_tables.dim() == 2 and page_tables.shape[0] == b,
-            _NAME, "page_tables must be [B, MP]")
+    L_, b, t, hkv_, d_ = k_stage.shape
+    if (L_, hkv_, d_) != (L, hkv, d):
+        _fail(f"staged {tuple(k_stage.shape)} does not fit pools {tuple(k_cache.shape)}")
+    if positions.shape != (b, t) or valid.shape != (b, t):
+        _fail("positions and valid must be [B, T]")
+    if page_tables.dim() != 2 or page_tables.shape[0] != b:
+        _fail("page_tables must be [B, MP]")
     run = min(t, s)
-    require(t % run == 0, _NAME, f"chunk T={t} must be a multiple of the run min(T, S)={run}")
+    if t % run:
+        _fail(f"chunk T={t} must be a multiple of the run min(T, S)={run}")
     return run
 
 
@@ -102,32 +111,31 @@ def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, vali
     mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
     run = _check_shapes(*args)
     if mode is None:
-        require(k_stage.dtype == k_cache.dtype and v_stage.dtype == v_cache.dtype,
-                _NAME, "staged K/V must have the pools' dtype")
-    else:
-        require(k_stage.dtype == torch.bfloat16 and v_stage.dtype == torch.bfloat16,
-                _NAME, "the quantizing CUDA kernel takes bfloat16 staged K/V")
-    require(page_tables.dtype == torch.int32 and positions.dtype == torch.int32,
-            _NAME, "page_tables and positions must be int32")
-    require(valid.dtype == torch.bool, _NAME, "valid must be bool")
-    require(all(x.is_contiguous() for x in args + scales),
-            _NAME, "all tensors must be contiguous")
+        if k_stage.dtype != k_cache.dtype or v_stage.dtype != v_cache.dtype:
+            _fail("staged K/V must have the pools' dtype")
+    elif k_stage.dtype != torch.bfloat16 or v_stage.dtype != torch.bfloat16:
+        _fail("the quantizing CUDA kernel takes bfloat16 staged K/V")
+    if page_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        _fail("page_tables and positions must be int32")
+    if valid.dtype != torch.bool:
+        _fail("valid must be bool")
+    for x in args + scales:
+        if not x.is_contiguous():
+            _fail("all tensors must be contiguous")
     L, p, s, hkv, d = k_cache.shape
-    b, t = k_stage.shape[1], k_stage.shape[2]
+    b, t = positions.shape
     row_bytes = hkv * d * k_cache.element_size()
     if mode is None:
-        require(row_bytes % 16 == 0, _NAME,
-                f"a token row of {row_bytes} bytes is not a multiple of 16")
-    else:
-        require(d in (64, 128), _NAME,
-                f"the quantizing CUDA kernel takes head_dim 64 or 128, not {d}")
-    fn = _build.function(
-        "kv_update", "dyn_paged_write", [_build.PTR] * 9 + [_build.INT] * 11 + [_build.PTR]
-    )
+        if row_bytes % 16:
+            _fail(f"a token row of {row_bytes} bytes is not a multiple of 16")
+    elif d != 64 and d != 128:
+        _fail(f"the quantizing CUDA kernel takes head_dim 64 or 128, not {d}")
+    fn = _build.function("kv_update", "dyn_paged_write", ARGTYPES)
     err = fn(
-        _build.ptr(k_stage), _build.ptr(v_stage), _build.ptr(k_cache),
-        _build.ptr(v_cache), _build.ptr(k_scale), _build.ptr(v_scale),
-        _build.ptr(page_tables), _build.ptr(positions), _build.ptr(valid),
+        k_stage.data_ptr(), v_stage.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        None if mode is None else k_scale.data_ptr(),
+        None if mode is None else v_scale.data_ptr(),
+        page_tables.data_ptr(), positions.data_ptr(), valid.data_ptr(),
         kind(mode), L, p, s, b, t, page_tables.shape[1], run, hkv, d, row_bytes,
         _build.stream(k_cache.device),
     )

@@ -12,7 +12,10 @@ several, and calls on two streams at once; paged prefill runs page sizes
 16, 64 and 128, groups of 1 to 32 heads at D 64 and 128, histories that
 end inside a key tile, a call captured in a CUDA graph and replayed on
 new lengths, and two calls that must agree bit for bit. The write is
-bit-equal off the null page. Flash prefill and paged prefill (bf16 output) hold each
+bit-equal off the null page, also where its work units and grid can break
+(more units than resident blocks, every run padding, one long prompt's
+chunk, decode at B=64, D=128, 32 runs a sequence, Hkv 1 and 2), for rows
+on the quantization's edges, and replayed in a CUDA graph. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -22,6 +25,7 @@ write's narrow bytes and scales are bit-equal too.
 import pytest
 import torch
 
+import chip_smoke
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
 
@@ -535,3 +539,145 @@ def test_quantized_variants_are_counted_and_bad_inputs_raise():
                                                k_scale=planes.bfloat16(),
                                                v_scale=planes.bfloat16())
     assert ops.COUNTS["paged_decode_attention.int8"].launches == 1
+
+
+# -- the write at the edges of its work units ----------------------------------------
+
+
+def _write_inputs(dev, mode, L, b, t, s, hkv, d, lens, seed):
+    """chip_smoke's write inputs at these widths: a page-aligned chunk whose
+    first `lens[i]` tokens are valid, or at T=1 each sequence at its own
+    position, valid where `lens[i]` is 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return chip_smoke.paged_write_inputs(dev, gen, b, t, mode, d, layers=L, page_size=s,
+                                         hkv=hkv, lens=lens)
+
+
+def _assert_write_bit_equal(pools, k_stage, v_stage, args, planes):
+    """The kernel's pools (and scale planes) bit-equal to the plain
+    version's on every page but the null page 0, which the kernel leaves
+    as it was; returns the kernel's."""
+    got = [x.clone() for x in pools]
+    want = [x.clone() for x in pools]
+    kv_update.paged_write(got[0], got[1], k_stage, v_stage, *args, **dict(zip(planes, got[2:])))
+    kv_update.paged_write_plain(want[0], want[1], k_stage, v_stage, *args,
+                                **dict(zip(planes, want[2:])))
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, pools):
+        g, w, x = (chip_smoke.as_bytes(y) for y in (g, w, x))
+        assert torch.equal(g[:, 1:], w[:, 1:])
+        assert torch.equal(g[:, 0], x[:, 0])  # the kernel skips padding runs
+    return got
+
+
+#: (L, B, T, S, Hkv, D, valid lengths): where the write's units and grid
+#: can break
+WRITE_EDGES = {
+    # 5 x 13 x 8 runs of 8 units each: 4,160 units, more than the resident
+    # blocks of any card of 132 SMs and no multiple of their count
+    "more_units_than_blocks": (5, 13, 512, 64, 8, 64,
+                               (512, 1, 64, 65, 300, 0, 512, 128, 129, 511, 2, 448, 200)),
+    "all_padding": (2, 4, 128, 64, 8, 64, (0, 0, 0, 0)),
+    "b1_t512_every_token": (16, 1, 512, 64, 8, 64, (512,)),
+    "decode_b64": (4, 64, 1, 64, 8, 64, tuple(int(i % 7 != 3) for i in range(64))),
+    "d128": (4, 3, 128, 64, 8, 128, (128, 70, 1)),
+    "s16_t512": (3, 2, 512, 16, 8, 64, (512, 250)),  # 32 runs a sequence
+    "hkv1": (3, 3, 64, 64, 1, 64, (64, 33, 1)),
+    "hkv2": (3, 3, 64, 64, 2, 128, (64, 33, 1)),
+    "hkv1_decode": (3, 5, 1, 64, 1, 64, (1, 1, 0, 1, 1)),
+    "hkv2_s16": (2, 2, 64, 16, 2, 64, (64, 17)),
+}
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("edge", list(WRITE_EDGES))
+def test_paged_write_edges_bit_equal(edge, mode):
+    """Bit-equal to the plain version where the units and the grid can
+    break: more units than resident blocks, every run padding (no page
+    changes), one long prompt's chunk, a wide decode, D=128, many runs a
+    sequence, and scale spans of 4 and 8 bytes (Hkv 1 and 2)."""
+    dev = _card()
+    L, b, t, s, hkv, d, lens = WRITE_EDGES[edge]
+    pools, k_stage, v_stage, args, planes = _write_inputs(dev, mode, L, b, t, s, hkv, d, lens,
+                                                          seed=len(edge) + 100 * b + t)
+    got = _assert_write_bit_equal(pools, k_stage, v_stage, args, planes)
+    if edge == "all_padding":
+        for g, x in zip(got, pools):
+            assert torch.equal(chip_smoke.as_bytes(g), chip_smoke.as_bytes(x))
+
+
+def _edge_rows(mode, d):
+    """Rows whose quantization sits on its edges, each exact in bf16: a zero
+    row (the 1e-8 scale floor); for int8, rows whose values divide into
+    exact halves (scales 1, 2 and 1/8, and a negative amax); for fp8, rows
+    that reach +-448 (scale 1, and amax 3 where x / scale rounds near 448),
+    ties between e4m3 neighbours and values that land among its
+    subnormals."""
+    half = torch.arange(d, dtype=torch.float32) - d // 2 + 0.5
+    rows = [torch.zeros(d)]
+    if mode == "int8":
+        for amax, r in ((127.0, half), (254.0, 2 * half), (127 / 8, half / 8), (-127.0, half)):
+            r = r.clone()
+            r[0] = amax
+            rows.append(r)
+    else:
+        r = torch.randn(d, generator=torch.Generator().manual_seed(d)).round()
+        r[:12] = torch.tensor([448, -448, 8.5, 9.5, 10.5, 11.5, 272, -272, 304, 2 ** -8,
+                               -3 * 2 ** -10, 15.5])
+        rows.append(r)
+        r = torch.full((d,), 2 ** -14)
+        r[::2] = 3.0
+        r[1::4] = -3.0
+        rows.append(r)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_paged_write_edge_rows(mode, d):
+    """Narrow bytes and scales bit-equal to the plain version for rows on
+    the quantization's edges, in K and in V, at several (token, kv head)
+    places of a unit."""
+    dev = _card()
+    pools, k_stage, v_stage, args, planes = _write_inputs(dev, mode, 2, 2, 64, 64, 8, d,
+                                                          (64, 40), seed=d + len(mode))
+    rows = _edge_rows(mode, d).to(device=dev, dtype=torch.bfloat16)
+    assert torch.equal(rows.float().cpu(), _edge_rows(mode, d))  # exact in bf16
+    for i, row in enumerate(rows):
+        for layer, stage in ((0, k_stage), (1, v_stage)):
+            stage[layer, i % 2, (7 * i) % 40, i % 8] = row
+            stage[1 - layer, 0, 63 - i, (3 * i) % 8] = -row
+    _assert_write_bit_equal(pools, k_stage, v_stage, args, planes)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_paged_write_replays_in_a_cuda_graph(mode):
+    """One write captured in a CUDA graph, replayed after new staged rows,
+    positions, valid and page tables are copied into the captured
+    buffers, lands what an eager call on them lands, bit for bit: the grid
+    comes from the shapes and the card, so the launch holds for any data."""
+    dev = _card()
+    shape = (2, 3, 128, 64, 8, 64)
+    pools, k_stage, v_stage, args, planes = _write_inputs(dev, mode, *shape, (128, 70, 1),
+                                                          seed=21)
+    _, k_new, v_new, new, _ = _write_inputs(dev, mode, *shape, (0, 128, 65), seed=22)
+    new[1].add_(128)  # the second chunk of each sequence
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm up: the build and first launch, outside the capture
+        scratch = [x.clone() for x in pools]
+        kv_update.paged_write(scratch[0], scratch[1], k_stage, v_stage, *args,
+                              **dict(zip(planes, scratch[2:])))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    captured = [x.clone() for x in pools]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kv_update.paged_write(captured[0], captured[1], k_stage, v_stage, *args,
+                              **dict(zip(planes, captured[2:])))
+    for dst, src in zip((k_stage, v_stage, *args), (k_new, v_new, *new)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = _assert_write_bit_equal(pools, k_new, v_new, new, planes)
+    for g, e in zip(captured, eager):
+        assert torch.equal(chip_smoke.as_bytes(g), chip_smoke.as_bytes(e))

@@ -34,6 +34,7 @@ from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.ops import flash_prefill, kv_update, paged_attention
+from helpers.torch_write_cases import write_params
 
 MODES = ("int8", "fp8")
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -128,22 +129,16 @@ def test_kv_page_bytes_equals_jax(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize(
-    "b,t,s,valid_rows",
-    [
-        (3, 1, 4, (1, 0, 1)),      # decode: T=1, a padding lane in the middle
-        (2, 8, 4, (8, 5)),         # page-aligned prefill runs, ragged tail
-        (2, 4, 4, (4, 0)),         # T == S, a whole padding sequence
-        (2, 2, 4, (2, 1)),         # T < S: one run shorter than a page
-    ],
-)
-def test_quantized_paged_write_byte_equal_to_jax(b, t, s, valid_rows, mode):
+@pytest.mark.parametrize("b,t,s,valid_rows,hkv", write_params())
+def test_quantized_paged_write_byte_equal_to_jax(b, t, s, valid_rows, hkv, mode):
     """The plain write over a quantized pool against the JAX
     paged_write(use_kernel=True) (Pallas in interpret mode): rows and scale
     planes byte-equal on every page but the null page 0 (both land whole
-    runs, padding tails included)."""
+    runs, padding tails included), at Hkv 1, 2 and 8."""
     rng = np.random.default_rng(31 * b + t)
-    L, P, hkv, d, mp = 2, 16, 2, 128, 4
+    L, d = 2, 128
+    mp = max(4, -(-t // s))
+    P = max(16, 1 + b * mp)
     k_raw, k_sc = _quantized_pool(rng, (L, P, s, hkv, d), mode)
     v_raw, v_sc = _quantized_pool(rng, (L, P, s, hkv, d), mode)
     k_stage = rng.standard_normal((L, b, t, hkv, d)).astype(np.float32)

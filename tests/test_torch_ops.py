@@ -20,6 +20,7 @@ from dynamo_tpu.ops.kv_update import paged_write as jax_paged_write
 from dynamo_tpu.ops.paged_attention import paged_decode_attention as jax_paged_decode
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.ops import flash_prefill, kv_update, paged_attention
+from helpers.torch_write_cases import write_params
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -28,18 +29,12 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-@pytest.mark.parametrize(
-    "b,t,s,valid_rows",
-    [
-        (3, 1, 4, (1, 0, 1)),      # decode: T=1, a padding lane in the middle
-        (2, 8, 4, (8, 5)),         # page-aligned prefill runs, ragged tail
-        (2, 4, 4, (4, 0)),         # T == S, a whole padding sequence
-        (2, 2, 4, (2, 1)),         # T < S: one run shorter than a page
-    ],
-)
-def test_paged_write_bit_equal_to_jax(b, t, s, valid_rows):
+@pytest.mark.parametrize("b,t,s,valid_rows,hkv", write_params())
+def test_paged_write_bit_equal_to_jax(b, t, s, valid_rows, hkv):
     rng = np.random.default_rng(17 * b + t)
-    L, P, hkv, d, mp = 2, 16, 2, 128, 4
+    L, d = 2, 128
+    mp = max(4, -(-t // s))
+    P = max(16, 1 + b * mp)
     k_cache = rng.standard_normal((L, P, s, hkv, d)).astype(np.float32)
     v_cache = rng.standard_normal((L, P, s, hkv, d)).astype(np.float32)
     k_stage = rng.standard_normal((L, b, t, hkv, d)).astype(np.float32)
