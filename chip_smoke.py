@@ -25,6 +25,16 @@ Phases, each fatal on failure:
      per-step max |delta logit| < 0.25 and argmax agreement >= 90 %; the
      quantized kernel path is also held against the bf16 kernel path, and
      reported without a gate;
+  4b. graphs: two llama3-1b engines on one set of random weights, one
+     replaying decode dispatches as captured CUDA graphs (the default) and
+     one running the eager loop (cuda_graphs=False), over a bf16, an int8
+     and an fp8 pool: waves of greedy requests that reach buckets 1-16 and
+     1, 2, 4 and 8 fused steps, a smaller batch after a larger one in a
+     bucket, then a wave of seeded sampled requests. Every stream must be
+     identical in both engines, the graph engine must capture each key it
+     dispatched once (`compiles`) and replay every decode dispatch, and its
+     run (counts set to 0 just before it) must launch its pool's write and
+     decode variants, counted through replays, and no plain version;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -37,7 +47,9 @@ Phases, each fatal on failure:
      usage must count exactly the ids served, each pair's ids must be
      identical, every kernel variant of the server's pool must launch
      while serving, no other pool variant may, and no plain version may
-     run. TTFT is taken at the client, from sending a streaming request to
+     run; every decode dispatch must replay a captured graph, and the
+     server's captures (`compiles`, `compile_ms`) and replays print with its
+     line. TTFT is taken at the client, from sending a streaming request to
      its first chunk that carries a token;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
@@ -674,6 +686,104 @@ def phase_model(dev) -> list[dict]:
     return results
 
 
+# -- phase 4b: decode as captured CUDA graphs against the eager loop -------------
+
+#: the served context (--max-context), whose page tables phase 4b's engines share
+SERVE_CONTEXT = 2048
+#: greedy waves of (requests, max_tokens): buckets 16, 8, 8, 4, 2, 1 and 8
+#: at 8, 8, 4, 2, 1, 8 and 8 fused steps; five rows after six in bucket 8
+GRAPH_WAVES = ((12, 17), (6, 9), (5, 5), (3, 3), (2, 2), (1, 9), (5, 9))
+#: a wave of seeded sampled requests (temperature 0.8, top-p 0.95)
+SAMPLED_WAVES = ((3, 9), (1, 3))
+
+
+def run_waves(eng, waves, tag: str, **sampling) -> dict[str, list[int]]:
+    """Each wave's requests together, prompts of 16-280 random tokens from
+    a fixed seed; returns request id -> generated ids."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for w, (n, max_tokens) in enumerate(waves):
+        for i in range(n):
+            prompt = torch.randint(1, eng.adapter.vocab_size, (16 + 24 * i,), generator=gen)
+            eng.add_request(f"{tag}{w}-{i}", prompt.tolist(),
+                            SamplingParams(max_tokens=max_tokens, ignore_eos=True, **sampling))
+        out.update(eng.run_to_completion())
+    return out
+
+
+def phase_graphs(dev) -> list[dict]:
+    """The graph path held against the eager loop, in every pool mode."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.registry import get_model
+
+    params = get_model("llama3-1b", dtype="bfloat16").init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    results = []
+    for mode in MODES:
+        # the serve's page-table width (--max-context 2048 over pages of
+        # S): the split plans and the workspace the serve's graphs run with
+        cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
+                           max_pages_per_seq=SERVE_CONTEXT // S, kv_quantize=mode,
+                           eos_token_ids=(0,))
+        runs = []
+        for graphs in (False, True):
+            eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=graphs)
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            streams = (run_waves(eng, GRAPH_WAVES, "g"),
+                       run_waves(eng, SAMPLED_WAVES, "s", temperature=0.8, top_p=0.95, seed=7))
+            torch.cuda.synchronize()
+            counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+            runs.append((eng, streams, counts, time.perf_counter() - t0))
+        (eager, want, _, eager_s), (graph, got, counts, graph_s) = runs
+        label = f"graphs, {mode or 'bf16'} pool"
+        m = graph.metrics
+        for kind, a, b in (("greedy", want[0], got[0]), ("seeded sampled", want[1], got[1])):
+            if a != b:
+                bad = sorted(r for r in a if a[r] != b.get(r))
+                raise AssertionError(f"{label}: {kind} streams differ from the eager loop's "
+                                     f"in {bad}")
+        keys = eager.step_keys
+        if sorted(graph.step_keys) != sorted(keys) or m.compiles != len(keys):
+            raise AssertionError(f"{label}: {m.compiles} captures for the keys {keys}")
+        if m.decode_replays != m.decode_dispatches or m.decode_dispatches == 0:
+            raise AssertionError(f"{label}: {m.decode_replays} replays of "
+                                 f"{m.decode_dispatches} decode dispatches")
+        # splits per decode bucket: above 1, the ticket merge ran in the graphs
+        mc = graph.adapter.config
+        splits = {k[1]: paged_attention.launch_plan(dev, k[1], mc.num_heads, mc.num_kv_heads,
+                                                    mc.head_dim, cfg.max_pages_per_seq, mode)[0]
+                  for k in keys}
+        if max(splits.values()) < 2:
+            raise AssertionError(f"{label}: no decode bucket split its pages: {splits}")
+        want_launch = [kv_quant.variant(n, mode) for n in ("paged_write", "paged_decode_attention")]
+        for name, (launches, plain) in counts.items():
+            if plain != 0 or (name in want_launch and launches == 0) or (
+                    name not in want_launch and name != "flash_prefill_attention" and launches):
+                raise AssertionError(f"{label}: {name} launched {launches} times, plain ran "
+                                     f"{plain}")
+        result = {"phase": "graphs", "model": "llama3-1b", "dtype": "bfloat16",
+                  "kv_quantize": mode, "keys": [list(k) for k in keys],
+                  "max_pages_per_seq": cfg.max_pages_per_seq, "splits_by_bucket": splits,
+                  "compiles": m.compiles, "compile_ms": m.compile_ms,
+                  "decode_dispatches": m.decode_dispatches, "decode_replays": m.decode_replays,
+                  "streams": len(got[0]) + len(got[1]),
+                  "identical": "every greedy and seeded sampled stream, to the id",
+                  "launches": {k: v[0] for k, v in counts.items() if v[0]},
+                  "eager_run_s": eager_s, "graph_run_s": graph_s,
+                  "run_s": "wall time of all waves, the graph run's captures included"}
+        emit(result)
+        results.append(result)
+        del runs, eager, graph
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
 # -- phase 5: serve ---------------------------------------------------------------
 
 
@@ -724,7 +834,7 @@ def phase_serve(card: str, mode) -> dict:
 
     # no --prefill-chunk: the CLI's default chunk (512) is what is served
     argv = ["run", "in=http", "out=torch", "--model", "llama3-1b", "--port", "0",
-            "--dtype", "bfloat16", "--max-context", "2048"]
+            "--dtype", "bfloat16", "--max-context", str(SERVE_CONTEXT)]
     if mode is not None:
         argv += ["--kv-quantize", mode]
     server = start_server(argv)
@@ -792,6 +902,8 @@ def phase_serve(card: str, mode) -> dict:
         pool = {"kv_pool_bytes": engine.metrics.kv_pool_bytes,
                 "kv_pool_bytes_dense_equiv": engine.metrics.kv_pool_bytes_dense_equiv,
                 "pool_dtype": str(engine.kv.k.dtype)}
+        graphs = {k: getattr(engine.metrics, k) for k in
+                  ("compiles", "compile_ms", "decode_dispatches", "decode_replays")}
     finally:
         server.stop()
         del server
@@ -820,6 +932,8 @@ def phase_serve(card: str, mode) -> dict:
     if prompt_tokens[3] <= 1200 or chunk != 512:
         raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
                              f"tokens, served at a chunk of {chunk}")
+    if graphs["decode_replays"] != graphs["decode_dispatches"] or not graphs["compiles"]:
+        raise AssertionError(f"{label}: decode dispatches did not all replay graphs: {graphs}")
     want = serve_variants(mode)
     for name, (launches, plain) in counts.items():
         if plain != 0 or (launches == 0) == (name in want):
@@ -833,7 +947,7 @@ def phase_serve(card: str, mode) -> dict:
               "ttft_s": ttft,
               "ttft": "at the client, from sending a streaming request to the first SSE "
                       "chunk that carries a token",
-              **pool,
+              **pool, **graphs,
               "dense_equiv_over_pool_bytes": pool["kv_pool_bytes_dense_equiv"]
               / pool["kv_pool_bytes"],
               "launches": {k: v[0] for k, v in counts.items() if k in want},
@@ -864,6 +978,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": report})
     cases = phase_kernels(dev, peaks)
     phase_model(dev)
+    phase_graphs(dev)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     for mode in MODES:  # flash_prefill_attention counts from the bf16 server

@@ -8,6 +8,12 @@ step runs the model's kernel path: the paged KV write, first-chunk flash
 prefill, prefill over a chunk with history and paged decode attention
 (dynamo_tpu_torch/ops).
 
+On the card each decode dispatch replays a CUDA graph captured for its
+step key at the key's first dispatch (`_get_step_fn`, `_cache_graph`,
+engine/step_graph.py), as the JAX engine runs a compiled program per key;
+prefill runs eagerly. The eager decode loop serves the CPU and an engine
+built with `cuda_graphs=False`.
+
 Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
 up to the chunk; B: powers of two for prefill, `decode_buckets` for
 decode), so both engines see the same padded batches.
@@ -15,6 +21,7 @@ decode), so both engines see the same padded batches.
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 import zlib
@@ -40,7 +47,9 @@ from dynamo_tpu_torch.engine.sampling import (
     sample_greedy,
 )
 from dynamo_tpu_torch.engine.scheduler import ScheduledBatch, Scheduler
+from dynamo_tpu_torch.engine.step_graph import StepGraph
 from dynamo_tpu_torch.models.registry import get_model
+from dynamo_tpu_torch.ops import paged_attention
 from dynamo_tpu_torch.platform import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -66,6 +75,13 @@ class EngineMetrics:
     #: ratio is the cache capacity kv_quantize buys
     kv_pool_bytes: int = 0
     kv_pool_bytes_dense_equiv: int = 0
+    #: decode step graphs captured (one per step key, at its first
+    #: dispatch; the JAX engine's compiles) and the wall ms of their
+    #: warm-ups and captures
+    compiles: int = 0
+    compile_ms: float = 0.0
+    #: replays of the captured decode graphs (StepGraph.replays summed)
+    decode_replays: int = 0
 
     def to_dict(self) -> dict:
         return asdict(self)
@@ -73,9 +89,20 @@ class EngineMetrics:
 
 class TorchEngine:
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
-                 device=None):
+                 device=None, *, cuda_graphs: bool = True):
+        """`cuda_graphs=False` runs decode eagerly on the card, as the JAX
+        engine runs under jax.disable_jit(); on the CPU decode is always
+        eager."""
         self.config = config
         self.device = resolve_device(device)
+        self._graphs = cuda_graphs and self.device.type == "cuda"
+        #: step key -> its step function (a StepGraph on the card)
+        self._step_fns: dict[tuple, object] = {}
+        #: the capture stream and the decode graphs' shared memory pool
+        #: (_graph_setup)
+        self._graph_stream = self._graph_pool = None
+        #: (device, counters, partials) of the decode graphs' workspace
+        self._workspace_size: tuple = ()
         self.adapter = get_model(config.model, dtype=config.dtype)
         self.allocator = PageAllocator(config.num_pages, config.page_size)
         self.scheduler = Scheduler(config, self.allocator)
@@ -109,6 +136,11 @@ class TorchEngine:
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+    @property
+    def step_keys(self) -> list[tuple]:
+        """The decode step keys dispatched so far (_get_step_fn)."""
+        return list(self._step_fns)
 
     def step(self) -> list[StepOutput]:
         batch = self.scheduler.schedule()
@@ -172,12 +204,14 @@ class TorchEngine:
             return req.sampling.seed & 0xFFFFFFFF
         return zlib.crc32(req.request_id.encode(), self.config.seed & 0xFFFFFFFF)
 
-    def _sampler(self, reqs: list[Request], pad_to: int, steps: int):
-        """fn(logits [pad_to, V], step) -> ids [pad_to] for this dispatch.
-        All-greedy batches take the argmax only; otherwise every fused
-        step's noise is made now and copied to the device once."""
+    def _sampling_arrays(self, reqs: list[Request], pad_to: int, steps: int
+                         ) -> Optional[dict[str, np.ndarray]]:
+        """The sampler's rows for this dispatch, padded to pad_to: temps,
+        top_ps, top_ks and every fused step's noise [steps, pad_to,
+        DEFAULT_K_CAP]; None when every request is greedy (the argmax-only
+        variant)."""
         if all(r.sampling.temperature <= 0.0 for r in reqs):
-            return lambda logits, step: sample_greedy(logits)
+            return None
         temps = np.zeros(pad_to, np.float32)
         top_ps = np.ones(pad_to, np.float32)
         top_ks = np.zeros(pad_to, np.int64)
@@ -192,8 +226,15 @@ class TorchEngine:
             [r.num_emitted + len(r.output_tokens) for r in reqs],
             DEFAULT_K_CAP, steps,
         ).numpy()
-        temps, top_ps, top_ks, noise = self._to_device(temps, top_ps, top_ks, noise)
-        return lambda logits, step: sample(logits, temps, top_ps, top_ks, noise[step])
+        return {"temps": temps, "top_ps": top_ps, "top_ks": top_ks, "noise": noise}
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, samp: Optional[dict], step: int) -> torch.Tensor:
+        """ids [B] for logits [B, V]: the argmax without sampler rows, else
+        a draw with step `step`'s noise (device tensors of _sampling_arrays)."""
+        if samp is None:
+            return sample_greedy(logits)
+        return sample(logits, samp["temps"], samp["top_ps"], samp["top_ks"], samp["noise"][step])
 
     # -- prefill -----------------------------------------------------------
 
@@ -231,9 +272,11 @@ class TorchEngine:
             if rows:
                 last = [pieces[i].length - 1 for i in rows]
                 d_rows, d_last = self._to_device(np.asarray(rows), np.asarray(last))
-                pick = self._sampler([pieces[i].request for i in rows], len(rows), 1)
+                samp = self._sampling_arrays([pieces[i].request for i in rows], len(rows), 1)
+                if samp is not None:
+                    samp = dict(zip(samp, self._to_device(*samp.values())))
                 logits = self.adapter.compute_logits(self.params, hidden[d_rows, d_last])
-                ids = dict(zip(rows, pick(logits, 0).cpu().tolist()))
+                ids = dict(zip(rows, self._sample(logits, samp, 0).cpu().tolist()))
             for i, piece in enumerate(pieces):
                 req = piece.request
                 req.num_computed_tokens += piece.length
@@ -304,21 +347,22 @@ class TorchEngine:
             positions[i, 0] = req.num_tokens - 1
             valid[i, 0] = True
             pt[i, : len(req.pages)] = req.pages
-        d_tokens, d_pos, d_valid, d_pt = self._to_device(tokens, positions, valid, pt)
-        pick = self._sampler(reqs, b_bucket, k_steps)
-        step_ids = []
-        for s in range(k_steps):
-            hidden, self.kv = self.adapter.forward_hidden(
-                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt
-            )
-            ids = pick(self.adapter.compute_logits(self.params, hidden[:, -1]), s)
-            step_ids.append(ids)
-            d_tokens = ids[:, None]  # fed back on the device
-            d_pos = d_pos + 1
+        arrays = {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt}
+        samp = self._sampling_arrays(reqs, b_bucket, k_steps)
+        arrays.update(samp or {})
+        # the JAX engine's kinds: one step is "decode", fused steps "decode_multi"
+        kind = "decode" if k_steps == 1 else "decode_multi"
+        fn = self._get_step_fn(kind, b_bucket, k_steps, greedy=samp is None)
+        out = fn(arrays)
         t1 = time.perf_counter()
-        ids = torch.stack(step_ids).cpu().numpy()  # [K, B]: the one host sync
+        # [K, B]: the one host sync. A replay's ids leave its static output
+        # here, before any other graph replays (StepGraph.capture)
+        ids = out.cpu().numpy()
         self.metrics.time_decode_sync_ms += (time.perf_counter() - t1) * 1e3
         self.metrics.decode_steps_run += k_steps
+        # counted where the graphs replay, so a dispatch that did not replay shows
+        self.metrics.decode_replays = sum(
+            g.replays for g in self._step_fns.values() if isinstance(g, StepGraph))
         outputs: list[StepOutput] = []
         for i, req in enumerate(reqs):
             accepted: list[int] = []
@@ -332,6 +376,88 @@ class TorchEngine:
             req.num_computed_tokens += len(accepted)
             outputs.extend(self._accept_tokens(req, accepted, finish))
         return outputs
+
+    def _decode_body(self, k_steps: int, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+        """K fused decode steps over device inputs (the keys of
+        _run_decode's arrays); returns the sampled ids [K, B]."""
+        samp = bufs if "temps" in bufs else None
+        tokens, pos = bufs["tokens"], bufs["positions"]
+        step_ids = []
+        for s in range(k_steps):
+            hidden, self.kv = self.adapter.forward_hidden(
+                self.params, tokens, pos, bufs["valid"], self.kv, bufs["page_tables"]
+            )
+            ids = self._sample(self.adapter.compute_logits(self.params, hidden[:, -1]), samp, s)
+            step_ids.append(ids)
+            tokens = ids[:, None]  # fed back on the device
+            pos = pos + 1
+        return torch.stack(step_ids)
+
+    def _decode_eager(self, k_steps: int, arrays: dict[str, np.ndarray]) -> torch.Tensor:
+        return self._decode_body(k_steps, dict(zip(arrays, self._to_device(*arrays.values()))))
+
+    def _get_step_fn(self, kind: str, b: int, k_steps: int, greedy: bool):
+        """The step function of a decode dispatch, fn(host arrays) -> ids
+        [K, B] on the device, cached by the JAX engine's key fields
+        (JaxEngine._get_step_fn: kind, batch bucket, steps, all-greedy).
+        On the card it is a CUDA graph captured at the key's first
+        dispatch (_cache_graph); on the CPU, or with cuda_graphs=False,
+        the eager loop."""
+        key = (kind, b, k_steps, greedy)
+        fn = self._step_fns.get(key)
+        if fn is None:
+            fn = (functools.partial(self._cache_graph, key) if self._graphs
+                  else functools.partial(self._decode_eager, k_steps))
+            self._step_fns[key] = fn
+        return fn
+
+    def _cache_graph(self, key: tuple, arrays: dict[str, np.ndarray]) -> torch.Tensor:
+        """Counterpart of JaxEngine._cache_jit: the key's first dispatch
+        warms its body up and captures it as a StepGraph over buffers
+        shaped like `arrays`, counted in metrics.compiles and timed in
+        compile_ms, installs the graph as the key's step function and
+        replays it. A failed capture raises; nothing falls back."""
+        t0 = time.perf_counter()
+        if self._graph_stream is None:
+            self._graph_setup()
+        graph = StepGraph({n: (a.shape, torch.from_numpy(a).dtype) for n, a in arrays.items()},
+                          self.device)
+        with torch.cuda.stream(self._graph_stream):
+            # the workspace this capture reads, at its full size (grown here,
+            # outside the capture, should another user of a stream with the
+            # same handle have replaced it), held by the graph: a later
+            # replacement in paged_attention's dict frees nothing it reads
+            graph.keep = paged_attention.workspace(*self._workspace_size)
+        graph.capture(functools.partial(self._decode_body, key[2]), self._graph_pool,
+                      self._graph_stream)
+        self._step_fns[key] = graph
+        self.metrics.compiles += 1
+        self.metrics.compile_ms += (time.perf_counter() - t0) * 1e3
+        return graph(arrays)
+
+    def _graph_setup(self) -> None:
+        """Before the first capture: the capture stream, the pool the decode
+        graphs share (up to buckets x 4 values of K x 2 sampler kinds of
+        them; see StepGraph.capture) and the size of paged decode's
+        workspace for the largest bucket's split plan, which each capture
+        makes sure of on the capture stream, outside the capture
+        (_cache_graph). The decode graphs read one set of ticket counters
+        and partials; replays run one at a time on the engine thread, so
+        no two of them use it at once."""
+        # the decode wrapper keys its workspace by an indexed device
+        dev = self.device
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._graph_stream = torch.cuda.Stream(dev)
+        self._graph_pool = torch.cuda.graph_pool_handle()
+        cfg = self.adapter.config
+        counters = partials = 0
+        for b in self.config.decode_buckets:
+            _, _, groups, n = paged_attention.launch_plan(
+                dev, b, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                self.config.max_pages_per_seq, self.config.kv_quantize)
+            counters, partials = max(counters, b * groups), max(partials, n)
+        self._workspace_size = (dev, counters, partials)
 
     # -- acceptance --------------------------------------------------------
 

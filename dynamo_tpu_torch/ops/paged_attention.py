@@ -120,10 +120,19 @@ def launch_plan(device: torch.device, batch: int, hq: int, hkv: int, d: int,
 def workspace(device: torch.device, counters: int, partials: int):
     """The ticket counters (int32, zeroed once; the kernel leaves them 0)
     and partial-state buffer (f32) of the device's current stream, grown on
-    demand. Each stream has its own, so calls on two streams never share a
-    counter; calls on one stream run in order."""
+    demand outside a CUDA graph capture. Each stream has its own, so calls
+    on two streams never share a counter; calls on one stream run in
+    order. Growth replaces the stream's entry and frees the old tensors,
+    and a stream's handle may be handed out again (PyTorch pools them), so
+    a CUDA graph captured over a workspace must hold the tensors it got
+    here for as long as it may replay."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     cnt, part = _workspace.get(key, (None, None))
+    grow = cnt is None or cnt.numel() < counters or part is None or part.numel() < partials
+    if grow and torch.cuda.is_current_stream_capturing():
+        # memory allocated here would come from the graph's pool, and the
+        # entry it replaces would be freed under graphs captured before
+        raise RuntimeError(f"{_NAME}: a workspace must be sized before its stream captures")
     if cnt is None or cnt.numel() < counters:
         cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)
     if part is None or part.numel() < partials:

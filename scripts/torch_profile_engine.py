@@ -1,28 +1,37 @@
-"""Where a TorchEngine step spends its time, on one NVIDIA GPU.
+"""Where a TorchEngine step spends its time, on one NVIDIA GPU, with decode
+dispatches replayed as captured CUDA graphs and run by the eager loop.
 
     python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
---kv-quantize, a quantized one: BATCH greedy requests of
-PROMPT random tokens each and MAX_TOKENS output tokens, `decode_steps`
-DECODE_STEPS. Prints JSON lines:
-  - `steps`: per step kind, the count and the mean wall ms (host clock
-    around `engine.step()`, which ends in a host sync), output tok/s and
-    the engine's own metrics;
-  - `forward`: one decode forward at the batch, host ms to enqueue it
+--kv-quantize, a quantized one. Two engines share the weights: `eager`
+(cuda_graphs=False) and `graphs` (the default). A wave is B greedy
+requests of PROMPT random tokens each and MAX_TOKENS output tokens,
+`decode_steps` DECODE_STEPS. Prints JSON lines:
+  - `wave`, for B in BATCHES, four waves in the order eager, graphs,
+    graphs, eager, after one untimed wave on each engine (kernel builds,
+    cuBLAS, the graph captures), and before any torch.profiler session in
+    the process: output tok/s over the wave and over its decode
+    dispatches, host ms per decode dispatch (wall ms of a dispatch less
+    its wait for the ids, the engine's time_decode_ms and
+    time_decode_sync_ms), wall ms per decode dispatch (host clock around
+    `engine.step()`, which ends in the host sync), and the engine's
+    metrics;
+  - `dispatch`, per engine and B: torch.profiler over two steady decode
+    dispatches: device busy ms per dispatch (sum of kernel time) against
+    the window's wall ms, the idle share, CUDA kernels per forward, and
+    the ten kernels with the most device time;
+  - `forward`: one eager decode forward at B=8, host ms to enqueue it
     (no sync) against device ms (CUDA events), and the number of CUDA
     kernels it launches (torch.profiler);
-  - `profile`: torch.profiler over two steady decode dispatches: device
-    busy ms (sum of kernel time) against the window's wall ms, the idle
-    share, and the ten kernels with the most device time;
   - `chunked`: one greedy request whose LONG_PROMPT tokens prefill in
     chunks of PREFILL_CHUNK (the CLI's default): its time to first token
     and each chunk step's wall ms (host clock, synced after every step),
     after one warm-up request; then the same request under torch.profiler:
     device busy ms, the idle share, and the ten kernels with the most
     device time.
-With no card it raises.
+Then the card's name and power limit. With no card it raises.
 """
 
 from __future__ import annotations
@@ -42,12 +51,71 @@ from dynamo_tpu_torch.engine.config import EngineConfig  # noqa: E402
 from dynamo_tpu_torch.engine.engine import TorchEngine  # noqa: E402
 from dynamo_tpu_torch.engine.request import SamplingParams  # noqa: E402
 
-MODEL, BATCH, PROMPT, MAX_TOKENS, DECODE_STEPS = "llama3-1b", 8, 128, 128, 8
+MODEL, PROMPT, MAX_TOKENS, DECODE_STEPS = "llama3-1b", 128, 128, 8
+#: the decode batches timed: 8, and 64, the largest decode bucket
+BATCHES = (8, 64)
 PREFILL_CHUNK, LONG_PROMPT = 512, 3000
+ACTS = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def add_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> None:
+    for i in range(batch):
+        prompt = torch.randint(1, eng.adapter.vocab_size, (PROMPT,), generator=gen)
+        eng.add_request(f"{tag}{i}", prompt.tolist(),
+                        SamplingParams(max_tokens=MAX_TOKENS, ignore_eos=True))
+
+
+def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> dict:
+    """One wave from an idle engine, counted on its own."""
+    before = eng.metrics.to_dict()
+    add_wave(eng, tag, batch, gen)
+    decode_ms, tokens, decode_tokens = [], 0, 0
+    t_all = time.perf_counter()
+    while eng.has_work:
+        decode = not eng.scheduler.waiting and all(
+            r.state.value != "prefill" for r in eng.scheduler.running)
+        t0 = time.perf_counter()
+        outs = eng.step()
+        n = sum(len(o.new_token_ids) for o in outs)
+        tokens += n
+        if decode:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            decode_tokens += n
+    wall = time.perf_counter() - t_all
+    m = {k: v - before[k] for k, v in eng.metrics.to_dict().items()}
+    n = m["decode_dispatches"]
+    return {"output_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
+            "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
+            "decode_dispatches": n, "decode_steps_run": m["decode_steps_run"],
+            "host_ms_per_dispatch": (m["time_decode_ms"] - m["time_decode_sync_ms"]) / n,
+            "wall_ms_per_dispatch": sum(decode_ms) / len(decode_ms),
+            "sync_ms_per_dispatch": m["time_decode_sync_ms"] / n,
+            "compiles": m["compiles"], "decode_replays": m["decode_replays"]}
+
+
+def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> dict:
+    """Two steady decode dispatches of a wave under torch.profiler."""
+    add_wave(eng, "p", batch, gen)
+    while eng.scheduler.waiting or any(r.state.value == "prefill" for r in eng.scheduler.running):
+        eng.step()
+    eng.step()  # one decode dispatch outside the window
+    steps = eng.metrics.decode_steps_run
+    with torch.profiler.profile(activities=ACTS) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    forwards = eng.metrics.decode_steps_run - steps
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    eng.run_to_completion()
+    out = device_time(prof, window_ms)
+    return {**out, "device_ms_per_dispatch": out["device_busy_ms"] / 2, "forwards": forwards,
+            "cuda_kernels_per_forward": kernels / forwards}
 
 
 def main(argv=None) -> int:
@@ -57,55 +125,41 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
-    cfg = EngineConfig(model=MODEL, num_pages=256, page_size=64, max_pages_per_seq=64,
+    # the largest wave holds 64 x (PROMPT + MAX_TOKENS) tokens: 256 pages
+    cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
                        prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
                        kv_quantize=args.kv_quantize, eos_token_ids=(0,))
-    eng = TorchEngine(cfg, device=dev)
+    eager = TorchEngine(cfg, device=dev, cuda_graphs=False)
+    engines = {"eager": eager, "graphs": TorchEngine(cfg, params=eager.params, device=dev)}
     gen = torch.Generator().manual_seed(0)
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS}
 
-    def add_batch(tag: str):
-        for i in range(BATCH):
-            prompt = torch.randint(1, eng.adapter.vocab_size, (PROMPT,), generator=gen)
-            eng.add_request(f"{tag}{i}", prompt.tolist(),
-                            SamplingParams(max_tokens=MAX_TOKENS, ignore_eos=True))
+    # untimed waves: builds, cuBLAS, every key's capture
+    for name, eng in engines.items():
+        for b in BATCHES:
+            timed_wave(eng, f"warm{b}", b, gen)
+    for b in BATCHES:
+        for i, name in enumerate(("eager", "graphs", "graphs", "eager")):
+            emit({"phase": "wave", **head, "batch": b, "engine": name, "order": i,
+                  **timed_wave(engines[name], f"{name}{b}-{i}", b, gen)})
 
-    # warm-up wave (first cuBLAS calls, kernel builds), then the timed wave
-    add_batch("warm")
-    eng.run_to_completion()
-    # count the timed wave only (the pool's gauges stay)
-    eng.metrics = type(eng.metrics)(
-        kv_pool_bytes=eng.metrics.kv_pool_bytes,
-        kv_pool_bytes_dense_equiv=eng.metrics.kv_pool_bytes_dense_equiv,
-    )
-    add_batch("r")
-    per_kind: dict[str, list[float]] = {}
-    tokens = 0
-    t_all = time.perf_counter()
-    while eng.has_work:
-        kind = "prefill" if eng.scheduler.waiting else "decode"
-        t0 = time.perf_counter()
-        outs = eng.step()
-        per_kind.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
-        tokens += sum(len(o.new_token_ids) for o in outs)
-    wall = time.perf_counter() - t_all
-    emit({"phase": "steps", "card": card, "model": MODEL, "kv_quantize": args.kv_quantize,
-          "batch": BATCH,
-          "prompt": PROMPT, "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS,
-          "output_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
-          "by_kind": {k: {"count": len(v), "mean_ms": sum(v) / len(v)}
-                      for k, v in per_kind.items()},
-          "engine_metrics": eng.metrics.to_dict()})
+    # profiler sessions only from here on
+    for b in BATCHES:
+        for name, eng in engines.items():
+            emit({"phase": "dispatch", **head, "batch": b, "engine": name,
+                  **profile_dispatches(eng, b, gen)})
 
-    # one decode forward: host enqueue time against device time
-    b = BATCH
+    # one eager decode forward: host enqueue time against device time
+    b = BATCHES[0]
     tok = torch.ones((b, 1), dtype=torch.long, device=dev)
     pos = torch.full((b, 1), PROMPT, dtype=torch.int32, device=dev)
     valid = torch.ones((b, 1), dtype=torch.bool, device=dev)
     pt = torch.arange(1, 1 + b * 4, dtype=torch.int32, device=dev).reshape(b, 4)
 
     def forward():
-        h, _ = eng.adapter.forward_hidden(eng.params, tok, pos, valid, eng.kv, pt)
-        return eng.adapter.compute_logits(eng.params, h[:, -1]).argmax(-1)
+        h, _ = eager.adapter.forward_hidden(eager.params, tok, pos, valid, eager.kv, pt)
+        return eager.adapter.compute_logits(eager.params, h[:, -1]).argmax(-1)
 
     with torch.no_grad():
         for _ in range(3):
@@ -120,8 +174,7 @@ def main(argv=None) -> int:
         end.record()
         torch.cuda.synchronize()
         wall_ms = start.elapsed_time(end) / 10
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=ACTS) as prof:
             forward()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -129,37 +182,24 @@ def main(argv=None) -> int:
     emit({"phase": "forward", "batch": b, "host_enqueue_ms": host_ms,
           "events_ms": wall_ms, "device_kernel_ms": dev_ms, "cuda_kernels": len(kernels)})
 
-    # two steady decode dispatches under the profiler
-    add_batch("p")
-    while eng.scheduler.waiting or any(r.state.value == "prefill" for r in eng.scheduler.running):
-        eng.step()
-    eng.step()  # one decode dispatch outside the window
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        eng.step()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "profile", **device_time(prof, window_ms)})
-    eng.run_to_completion()
-
-    # one long prompt, prefilled in chunks
-    long_prompt = torch.randint(1, eng.adapter.vocab_size, (LONG_PROMPT,), generator=gen)
+    # one long prompt, prefilled in chunks (prefill is eager in both engines)
+    long_prompt = torch.randint(1, eager.adapter.vocab_size, (LONG_PROMPT,), generator=gen)
 
     def long_request(rid: str):
-        eng.add_request(rid, long_prompt.tolist(), SamplingParams(max_tokens=1, ignore_eos=True))
+        eager.add_request(rid, long_prompt.tolist(),
+                          SamplingParams(max_tokens=1, ignore_eos=True))
         steps_ms = []
         t_all = time.perf_counter()
-        while eng.has_work:
+        while eager.has_work:
             t0 = time.perf_counter()
-            eng.step()
+            eager.step()
             torch.cuda.synchronize()
             steps_ms.append((time.perf_counter() - t0) * 1e3)
         return (time.perf_counter() - t_all) * 1e3, steps_ms
 
     long_request("long-warm")
     ttft_ms, steps_ms = long_request("long")
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=ACTS) as prof:
         window_ms, _ = long_request("long-prof")
     emit({"phase": "chunked", "prompt": LONG_PROMPT, "prefill_chunk": PREFILL_CHUNK,
           "ttft_ms": ttft_ms, "chunk_step_ms": steps_ms, **device_time(prof, window_ms)})

@@ -15,7 +15,12 @@ new lengths, and two calls that must agree bit for bit. The write is
 bit-equal off the null page, also where its work units and grid can break
 (more units than resident blocks, every run padding, one long prompt's
 chunk, decode at B=64, D=128, 32 runs a sequence, Hkv 1 and 2), for rows
-on the quantization's edges, and replayed in a CUDA graph. Flash prefill and paged prefill (bf16 output) hold each
+on the quantization's edges, and replayed in a CUDA graph. Paged decode
+(several splits, so the ticket merge runs inside the graph, in every pool
+mode) and flash prefill replay in a CUDA graph too, bit-equal to eager
+calls. The engine's decode graphs give the eager loop's token streams bit
+for bit, over each pool mode, count their captures, replays and
+launches, and keep the decode workspace they were captured over. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -27,6 +32,11 @@ import torch
 
 import chip_smoke
 from dynamo_tpu_torch import ops
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.request import SamplingParams
+from dynamo_tpu_torch.engine.step_graph import StepGraph
+from dynamo_tpu_torch.models.registry import get_model
 from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
 
 pytestmark = pytest.mark.cuda
@@ -681,3 +691,195 @@ def test_paged_write_replays_in_a_cuda_graph(mode):
     eager = _assert_write_bit_equal(pools, k_new, v_new, new, planes)
     for g, e in zip(captured, eager):
         assert torch.equal(chip_smoke.as_bytes(g), chip_smoke.as_bytes(e))
+
+
+# -- CUDA graphs ----------------------------------------------------------------
+
+
+def _capture(dev, call):
+    """call() warmed up on a side stream (the build, the first launch and
+    that stream's decode workspace, outside the capture), then captured on
+    the same stream; returns (graph, the captured call's output)."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = call()
+    return graph, out
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_paged_decode_replays_in_a_cuda_graph(mode):
+    """One call cut into several splits, captured, replayed twice after new
+    q, pools, page tables and history lengths (the same shapes) are copied
+    into the captured buffers: both replays give what an eager call on the
+    new inputs gives, bit for bit. The ticket merge runs inside the graph
+    and leaves its counters at 0 for the next replay."""
+    dev = _card()
+    args, planes = _decode_inputs(dev, 32, 8, 64, mode, "several", seed=31)
+    b = args[0].shape[0]
+    assert paged_attention.launch_plan(dev, b, 32, 8, 64, DECODE_MP, mode)[0] > 1
+    new_args, new_planes = _decode_inputs(dev, 32, 8, 64, mode, None, seed=32,
+                                          lens=DECODE_HISTORIES[::-1])
+    c = paged_attention.counts[mode]
+    launches = c.launches
+    graph, out = _capture(
+        dev, lambda: paged_attention.paged_decode_attention(*args, **planes))
+    assert c.launches == launches + 2  # the warm-up and the captured call
+    for dst, src in zip([*args, *planes.values()], [*new_args, *new_planes.values()]):
+        if torch.is_tensor(dst):
+            dst.copy_(src)
+    graph.replay()
+    first = [x.clone() for x in out]
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = paged_attention.paged_decode_attention(*new_args, **new_planes)
+    for x, y, z in zip(first, out, eager):
+        assert torch.equal(x, z) and torch.equal(y, z)
+    _assert_decode_close(out, paged_attention.paged_decode_attention_plain(
+        *new_args, **new_planes), new_args[-1])
+
+
+def test_paged_decode_refuses_to_grow_its_workspace_in_a_capture():
+    """A stream whose workspace was never sized raises inside a capture
+    instead of allocating from the graph's pool."""
+    dev = _card()
+    args, _ = _decode_inputs(dev, 32, 8, 64, None, "several", seed=33)
+    paged_attention.paged_decode_attention(*args)  # built, outside any capture
+    fresh = torch.cuda.Stream(dev)
+    paged_attention._workspace.pop((dev.index, fresh.cuda_stream), None)
+    with pytest.raises(RuntimeError, match="sized before"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            paged_attention.paged_decode_attention(*args)
+
+
+def test_flash_prefill_replays_in_a_cuda_graph():
+    """One ragged first chunk captured, replayed after new q, k, v and
+    valid lengths are copied into the captured buffers: bit-equal to an
+    eager call on them."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+
+    def inputs(lens):
+        q = torch.randn((4, 300, 32, 64), generator=gen, **bf)
+        k, v = (torch.randn((4, 300, 8, 64), generator=gen, **bf) for _ in range(2))
+        return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    args, new = inputs((300, 1, 129, 64)), inputs((0, 300, 257, 33))
+    graph, out = _capture(dev, lambda: flash_prefill.flash_prefill_attention(*args))
+    for dst, src in zip(args, new):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out, flash_prefill.flash_prefill_attention(*new))
+    _assert_rows_close(out, flash_prefill.flash_prefill_attention_plain(*new),
+                       new[-1].tolist())
+
+
+@pytest.fixture(scope="module")
+def llama_params():
+    """Random-init llama3-1b weights (bf16) from seed 0, shared by every
+    engine of the graph tests."""
+    dev = _card()
+    return get_model("llama3-1b").init_params(torch.Generator(device=dev).manual_seed(0))
+
+
+def _engines(params, mode):
+    """(eager, graphs): two llama3-1b engines over one set of weights and
+    pools of `mode`, buckets 1-8 and up to 8 fused steps."""
+    cfg = EngineConfig(model="llama3-1b", num_pages=96, page_size=64, max_pages_per_seq=8,
+                       decode_buckets=(1, 2, 4, 8), max_seqs=8, decode_steps=8,
+                       kv_quantize=mode, eos_token_ids=(0,))
+    return [TorchEngine(cfg, params=params, device="cuda", cuda_graphs=g) for g in (False, True)]
+
+
+#: waves of (requests, max_tokens): K of 8, 4, 2 and 1 over buckets 8, 4, 2
+#: and 1, then four and three rows in bucket 4 (three after four, so a stale
+#: row would show) and five rows in bucket 8 again
+GRAPH_WAVES = [(5, 9), (3, 5), (2, 3), (1, 2), (4, 9), (3, 9), (5, 9)]
+
+
+def _run_waves(eng, waves, sampling=None, tag=""):
+    """Each wave's requests together (prompts of 20-140 random tokens from
+    a fixed seed); returns request id -> generated ids."""
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for w, (n, max_tokens) in enumerate(waves):
+        for i in range(n):
+            prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+            sp = SamplingParams(max_tokens=max_tokens, ignore_eos=True, **(sampling or {}))
+            eng.add_request(f"{tag}{w}-{i}", prompt, sp)
+        out.update(eng.run_to_completion())
+    return out
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_decode_graphs_give_the_eager_streams(llama_params, mode):
+    """Greedy streams with graphs on equal the eager loop's bit for bit,
+    over K in {1, 2, 4, 8} and buckets 1-8, a smaller batch after a larger
+    one in a bucket included; each key is captured once, every decode
+    dispatch replays, and a wave run again with every key captured counts
+    the eager loop's launches, pool variant by variant, and no plain call."""
+    eager, graphs = _engines(llama_params, mode)
+    want = _run_waves(eager, GRAPH_WAVES)
+    got = _run_waves(graphs, GRAPH_WAVES)
+    assert got == want
+    keys = [k for k, fn in graphs._step_fns.items() if isinstance(fn, StepGraph)]
+    assert sorted(keys) == sorted(eager.step_keys)
+    assert {k[1] for k in keys} == {1, 2, 4, 8} and {k[2] for k in keys} == {1, 2, 4, 8}
+    m = graphs.metrics
+    assert m.compiles == len(keys) and m.compile_ms > 0
+    assert m.decode_replays == m.decode_dispatches == eager.metrics.decode_dispatches
+    assert sum(fn.replays for fn in graphs._step_fns.values()) == m.decode_replays
+    assert eager.metrics.compiles == eager.metrics.decode_replays == 0
+    counts = []
+    for eng in (eager, graphs):
+        ops.reset_counts()
+        _run_waves(eng, GRAPH_WAVES[-1:], tag="again")
+        torch.cuda.synchronize()
+        counts.append({k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
+    assert counts[0] == counts[1]
+    decode = kv_quant.variant("paged_decode_attention", mode)
+    assert counts[1][decode][0] > 0 and all(p == 0 for _, p in counts[1].values())
+    assert graphs.metrics.compiles == len(keys)  # no key was captured again
+
+
+def test_decode_graphs_hold_their_workspace(llama_params):
+    """A graph keeps the decode workspace it was captured over. The capture
+    stream's entry is replaced by a larger one (as a later user of a stream
+    with the same handle would grow it), the old tensors' memory is handed
+    out again and filled with garbage, and the replays still give the
+    eager loop's streams (one sequence: several splits, so the ticket
+    counters and partials are read)."""
+    eager, graphs = _engines(llama_params, None)
+    waves = [(1, 9)]
+    want = _run_waves(eager, waves)
+    assert _run_waves(graphs, waves) == want
+    dev, counters, partials = graphs._workspace_size
+    with torch.cuda.stream(graphs._graph_stream):
+        old = paged_attention.workspace(dev, 0, 0)
+        assert old[1].numel() > 1  # the captured plan splits its pages
+        paged_attention.workspace(dev, counters + 1, partials + 1)
+    shapes = [(t.numel(), t.dtype) for t in old]
+    del old
+    junk = [torch.full((n,), 3, dtype=dtype, device=dev) for n, dtype in shapes]
+    got = _run_waves(graphs, waves, tag="again")
+    assert {k[len("again"):]: v for k, v in got.items()} == want
+    assert graphs.metrics.compiles == 1 and graphs.metrics.decode_replays == 2
+    del junk
+
+
+def test_decode_graphs_give_the_eager_seeded_samples(llama_params):
+    """Seeded sampled requests (the sampled variant of each key, its noise
+    made on the host) draw the same ids with graphs on and off."""
+    eager, graphs = _engines(llama_params, None)
+    sampling = dict(temperature=0.8, top_p=0.95, top_k=40, seed=7)
+    waves = [(3, 9), (1, 3)]
+    want = _run_waves(eager, waves, sampling)
+    assert _run_waves(graphs, waves, sampling) == want
+    assert all(not k[3] for k in graphs.step_keys)  # the sampled variants
+    assert graphs.metrics.compiles == len(graphs.step_keys)

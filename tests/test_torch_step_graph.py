@@ -1,0 +1,129 @@
+"""The host side of the port's decode step graphs, on the CPU.
+
+A CUDA graph needs the card (tests/test_torch_cuda.py captures and replays
+them there). What runs here: the static buffers' fill, which must write
+every row of every buffer, padding included; the step keys, which must be
+the JAX engine's decode key fields for the same dispatches; and a CPU
+engine, which must capture nothing.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.engine.engine import EngineMetrics as JaxEngineMetrics
+from dynamo_tpu.engine.request import SamplingParams as JaxSampling
+from dynamo_tpu_torch.cli import run as cli_run
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.engine import EngineMetrics, TorchEngine
+from dynamo_tpu_torch.engine.request import SamplingParams
+from dynamo_tpu_torch.engine.step_graph import StaticInputs, StepGraph
+from tests.test_torch_engine import MAX_TOKENS, PROMPTS, _jax_engine, _torch_engine
+from tests.test_torch_guard import _port_modules
+
+#: a sampled dispatch's buffers at B=4, K=2 (tiny's page table of 8 pages)
+SPECS = {
+    "tokens": ((4, 1), torch.int64), "positions": ((4, 1), torch.int32),
+    "valid": ((4, 1), torch.bool), "page_tables": ((4, 8), torch.int32),
+    "temps": ((4,), torch.float32), "top_ps": ((4,), torch.float32),
+    "top_ks": ((4,), torch.int64), "noise": ((2, 4, 64), torch.float32),
+}
+
+
+def _arrays(rng, live: int) -> dict[str, np.ndarray]:
+    """Random arrays for SPECS whose rows past `live` are padding, as
+    _run_decode pads them (zero ids, positions, pages, temps and noise,
+    valid False, top_p 1)."""
+    out = {}
+    for name, (shape, dtype) in SPECS.items():
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        if np_dtype == bool:
+            a = np.ones(shape, bool)
+        else:
+            a = (rng.integers(1, 1000, shape) if np_dtype.kind == "i"
+                 else rng.random(shape) + 0.5).astype(np_dtype)
+        pad = (slice(None), slice(live, None)) if name == "noise" else slice(live, None)
+        a[pad] = 1 if name == "top_ps" else 0
+        out[name] = a
+    return out
+
+
+def test_fill_writes_every_row_of_every_buffer():
+    """A full batch, then one live row: every buffer equals the second
+    dispatch's arrays whole, so no padding row keeps the first's values."""
+    rng = np.random.default_rng(0)
+    inputs = StaticInputs(SPECS, torch.device("cpu"))
+    for live in (4, 1, 3):
+        arrays = _arrays(rng, live)
+        inputs.fill(arrays)
+        for name, (shape, dtype) in SPECS.items():
+            got = inputs.device[name]
+            assert got.shape == shape and got.dtype == dtype
+            assert np.array_equal(got.numpy(), arrays[name]), name
+
+
+def test_fill_refuses_a_missing_buffer_or_a_wrong_shape():
+    inputs = StaticInputs(SPECS, torch.device("cpu"))
+    arrays = _arrays(np.random.default_rng(1), 2)
+    with pytest.raises(ValueError, match="names"):
+        inputs.fill({k: v for k, v in arrays.items() if k != "noise"})
+    with pytest.raises(ValueError, match="shape"):
+        inputs.fill({**arrays, "page_tables": np.zeros((4, 7), np.int32)})
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+def test_step_keys_are_the_jax_engines_decode_keys(decode_steps):
+    """The same requests (greedy and seeded sampled ones, whose lengths do
+    not depend on the ids drawn) dispatch the same decode keys in both
+    engines: (kind, batch bucket, fused steps, all-greedy), the first four
+    fields of JaxEngine._get_step_fn's cache key."""
+    jax_eng = _jax_engine(decode_steps=decode_steps)
+    torch_eng = _torch_engine(decode_steps=decode_steps)
+    for i, (rid, prompt) in enumerate(PROMPTS.items()):
+        temp = 0.8 if i % 2 else 0.0
+        jax_eng.add_request(rid, prompt, JaxSampling(max_tokens=MAX_TOKENS[rid],
+                                                     temperature=temp, seed=i, ignore_eos=True))
+        torch_eng.add_request(rid, prompt, SamplingParams(max_tokens=MAX_TOKENS[rid],
+                                                          temperature=temp, seed=i,
+                                                          ignore_eos=True))
+    jax_eng.run_to_completion()
+    torch_eng.run_to_completion()
+    want = {k[:4] for k in jax_eng._jit_cache if k[0] in ("decode", "decode_multi")}
+    assert set(torch_eng.step_keys) == want
+    assert {k[3] for k in want} == {True, False}  # both sampler variants ran
+
+
+def test_a_cpu_engine_captures_nothing():
+    eng = _torch_engine(decode_steps=4)
+    for rid, prompt in PROMPTS.items():
+        eng.add_request(rid, prompt, SamplingParams(max_tokens=MAX_TOKENS[rid], ignore_eos=True))
+    eng.run_to_completion()
+    assert eng.metrics.decode_dispatches > 0 and eng.step_keys
+    assert not any(isinstance(fn, StepGraph) for fn in eng._step_fns.values())
+    assert eng.metrics.compiles == 0 and eng.metrics.compile_ms == 0.0
+    assert eng.metrics.decode_replays == 0
+    assert eng._graph_stream is None  # no stream, pool or workspace was made
+
+
+def test_cuda_graphs_is_a_constructor_keyword_only():
+    """The eager loop on the card is asked for by the constructor alone:
+    no config knob and no CLI flag names graphs."""
+    eng = TorchEngine(EngineConfig.for_tests(), device="cpu", cuda_graphs=False)
+    assert not eng._graphs
+    assert not any("graph" in f.name for f in dataclasses.fields(EngineConfig))
+    assert "graph" not in (Path(cli_run.__file__).read_text())
+
+
+def test_engine_metrics_carry_the_jax_engines_compile_fields():
+    names = {f.name: f.type for f in dataclasses.fields(EngineMetrics)}
+    jax_names = {f.name: f.type for f in dataclasses.fields(JaxEngineMetrics)}
+    for name in ("compiles", "compile_ms"):
+        assert names[name] == jax_names[name]
+    assert {"compiles", "compile_ms", "decode_replays"} <= EngineMetrics().to_dict().keys()
+
+
+def test_the_import_guard_covers_the_step_graph_module():
+    assert "dynamo_tpu_torch.engine.step_graph" in _port_modules()
