@@ -25,16 +25,24 @@ Phases, each fatal on failure:
      per-step max |delta logit| < 0.25 and argmax agreement >= 90 %; the
      quantized kernel path is also held against the bf16 kernel path, and
      reported without a gate;
-  4b. graphs: two llama3-1b engines on one set of random weights, one
-     replaying decode dispatches as captured CUDA graphs (the default) and
-     one running the eager loop (cuda_graphs=False), over a bf16, an int8
-     and an fp8 pool: waves of greedy requests that reach buckets 1-16 and
-     1, 2, 4 and 8 fused steps, a smaller batch after a larger one in a
-     bucket, then a wave of seeded sampled requests. Every stream must be
-     identical in both engines, the graph engine must capture each key it
-     dispatched once (`compiles`) and replay every decode dispatch, and its
-     run (counts set to 0 just before it) must launch its pool's write and
-     decode variants, counted through replays, and no plain version;
+  4b. graphs: three llama3-1b engines on one set of random weights, over
+     a bf16, an int8 and an fp8 pool: the eager loop (cuda_graphs=False,
+     no overlap), step graphs without overlapped decode, and step graphs
+     with it (the defaults). Waves of greedy requests that reach buckets
+     1-16 and 1, 2, 4 and 8 fused steps, a smaller batch after a larger
+     one in a bucket, prompts of 1,100 tokens (three chunks of 512: a
+     first chunk and a chunk with history that sample nothing, then one
+     that samples) and of 700 beside 100, then seeded sampled waves, one
+     with a 600-token prompt, and four requests joined by a fifth after
+     their fourth step. Every stream must be identical in all three; each graph engine must capture each key it dispatched once
+     (`compiles`), replay every prefill and decode dispatch (the replays
+     sum to the engine's step-function calls; the long prompt alone:
+     prefill_replays == prefill_dispatches == 3), and only the overlap
+     engine may speculate, with overlap_hits > 0, overlap_rollbacks > 0
+     (the fifth request's prefill) and decode replays that count its
+     rollbacks; its run (counts set to 0 just before it) must
+     launch every kernel variant of its pool, counted through replays,
+     and no plain version;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -47,9 +55,10 @@ Phases, each fatal on failure:
      usage must count exactly the ids served, each pair's ids must be
      identical, every kernel variant of the server's pool must launch
      while serving, no other pool variant may, and no plain version may
-     run; every decode dispatch must replay a captured graph, and the
-     server's captures (`compiles`, `compile_ms`) and replays print with its
-     line. TTFT is taken at the client, from sending a streaming request to
+     run; the server runs as the CLI does with no flags, with overlapped
+     decode, and every prefill and decode dispatch must replay a captured
+     graph; the server's captures (`compiles`, `compile_ms`), replays and
+     overlap counts print with its line. TTFT is taken at the client, from sending a streaming request to
      its first chunk that carries a token;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
@@ -686,35 +695,75 @@ def phase_model(dev) -> list[dict]:
     return results
 
 
-# -- phase 4b: decode as captured CUDA graphs against the eager loop -------------
+# -- phase 4b: step graphs and overlapped decode against the eager loop ----------
 
 #: the served context (--max-context), whose page tables phase 4b's engines share
 SERVE_CONTEXT = 2048
 #: greedy waves of (requests, max_tokens): buckets 16, 8, 8, 4, 2, 1 and 8
 #: at 8, 8, 4, 2, 1, 8 and 8 fused steps; five rows after six in bucket 8
 GRAPH_WAVES = ((12, 17), (6, 9), (5, 5), (3, 3), (2, 2), (1, 9), (5, 9))
-#: a wave of seeded sampled requests (temperature 0.8, top-p 0.95)
-SAMPLED_WAVES = ((3, 9), (1, 3))
+#: greedy waves of (prompt lengths, max_tokens) at the chunk of 512: one
+#: prompt alone in three chunks (a first chunk and a chunk with history
+#: that sample nothing, then one that samples), then a second chunk with
+#: history beside a prompt's only chunk
+LONG_WAVES = (((1100,), 9), ((700, 100), 9))
+#: a wave of seeded sampled requests (temperature 0.8, top-p 0.95), the
+#: last a prompt of two chunks
+SAMPLED_WAVES = ((3, 9), (1, 3), ((600,), 5))
+#: output tokens of run_late_arrival's first four requests: at 8 fused
+#: steps a dispatch, speculations that are consumed, then one rolled back
+LATE_TOKENS = 49
+#: phase 4b's engines: (name, cuda_graphs, overlap_decode)
+GRAPH_ENGINES = (("eager", False, False), ("graphs", True, False), ("overlap", True, True))
 
 
 def run_waves(eng, waves, tag: str, **sampling) -> dict[str, list[int]]:
-    """Each wave's requests together, prompts of 16-280 random tokens from
-    a fixed seed; returns request id -> generated ids."""
+    """Each wave's requests together, prompts of random tokens from a fixed
+    seed (a wave's lengths, or 16-280 tokens for a count); returns request
+    id -> generated ids."""
     from dynamo_tpu_torch.engine.request import SamplingParams
 
     gen = torch.Generator().manual_seed(3)
     out = {}
     for w, (n, max_tokens) in enumerate(waves):
-        for i in range(n):
-            prompt = torch.randint(1, eng.adapter.vocab_size, (16 + 24 * i,), generator=gen)
+        lengths = [16 + 24 * i for i in range(n)] if isinstance(n, int) else n
+        for i, length in enumerate(lengths):
+            prompt = torch.randint(1, eng.adapter.vocab_size, (length,), generator=gen)
             eng.add_request(f"{tag}{w}-{i}", prompt.tolist(),
                             SamplingParams(max_tokens=max_tokens, ignore_eos=True, **sampling))
         out.update(eng.run_to_completion())
     return out
 
 
+def run_late_arrival(eng, tag: str) -> dict[str, list[int]]:
+    """Four greedy requests of LATE_TOKENS, and one more added after their
+    fourth step, while an overlapped engine has a speculated decode
+    dispatch in flight: the newcomer's prefill rolls it back. Returns
+    request id -> generated ids."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    gen = torch.Generator().manual_seed(4)
+
+    def add(i: int, max_tokens: int) -> None:
+        prompt = torch.randint(1, eng.adapter.vocab_size, (40 + 30 * i,), generator=gen)
+        eng.add_request(f"{tag}-{i}", prompt.tolist(),
+                        SamplingParams(max_tokens=max_tokens, ignore_eos=True))
+
+    for i in range(4):
+        add(i, LATE_TOKENS)
+    out: dict[str, list[int]] = {}
+    for _ in range(4):
+        for o in eng.step():
+            out.setdefault(o.request_id, []).extend(o.new_token_ids)
+    add(4, 9)
+    for rid, ids in eng.run_to_completion().items():
+        out.setdefault(rid, []).extend(ids)
+    return out
+
+
 def phase_graphs(dev) -> list[dict]:
-    """The graph path held against the eager loop, in every pool mode."""
+    """Prefill and decode graphs, without and with overlapped decode, held
+    against the eager loop, in every pool mode."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models.registry import get_model
@@ -723,61 +772,92 @@ def phase_graphs(dev) -> list[dict]:
         torch.Generator(device=dev).manual_seed(0))
     results = []
     for mode in MODES:
-        # the serve's page-table width (--max-context 2048 over pages of
-        # S): the split plans and the workspace the serve's graphs run with
-        cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
-                           max_pages_per_seq=SERVE_CONTEXT // S, kv_quantize=mode,
-                           eos_token_ids=(0,))
-        runs = []
-        for graphs in (False, True):
+        label = f"graphs, {mode or 'bf16'} pool"
+        runs = {}
+        for name, graphs, overlap in GRAPH_ENGINES:
+            # the serve's page-table width (--max-context 2048 over pages of
+            # S) and chunk: the split plans and the workspace the serve's
+            # graphs run with
+            cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
+                               max_pages_per_seq=SERVE_CONTEXT // S, kv_quantize=mode,
+                               eos_token_ids=(0,), overlap_decode=overlap)
             eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=graphs)
             ops.reset_counts()
             t0 = time.perf_counter()
-            streams = (run_waves(eng, GRAPH_WAVES, "g"),
-                       run_waves(eng, SAMPLED_WAVES, "s", temperature=0.8, top_p=0.95, seed=7))
+            greedy = run_waves(eng, GRAPH_WAVES, "g")
+            m = eng.metrics
+            before = (m.prefill_dispatches, m.prefill_replays)
+            greedy.update(run_waves(eng, LONG_WAVES[:1], "l"))
+            alone = (m.prefill_dispatches - before[0], m.prefill_replays - before[1])
+            greedy.update(run_waves(eng, LONG_WAVES[1:], "m"))
+            greedy.update(run_late_arrival(eng, "late"))
+            sampled = run_waves(eng, SAMPLED_WAVES, "s", temperature=0.8, top_p=0.95, seed=7)
             torch.cuda.synchronize()
-            counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
-            runs.append((eng, streams, counts, time.perf_counter() - t0))
-        (eager, want, _, eager_s), (graph, got, counts, graph_s) = runs
-        label = f"graphs, {mode or 'bf16'} pool"
-        m = graph.metrics
-        for kind, a, b in (("greedy", want[0], got[0]), ("seeded sampled", want[1], got[1])):
-            if a != b:
-                bad = sorted(r for r in a if a[r] != b.get(r))
-                raise AssertionError(f"{label}: {kind} streams differ from the eager loop's "
-                                     f"in {bad}")
-        keys = eager.step_keys
-        if sorted(graph.step_keys) != sorted(keys) or m.compiles != len(keys):
-            raise AssertionError(f"{label}: {m.compiles} captures for the keys {keys}")
-        if m.decode_replays != m.decode_dispatches or m.decode_dispatches == 0:
-            raise AssertionError(f"{label}: {m.decode_replays} replays of "
-                                 f"{m.decode_dispatches} decode dispatches")
+            runs[name] = dict(
+                eng=eng, streams=(greedy, sampled), alone=alone, s=time.perf_counter() - t0,
+                counts={k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
+        want = runs["eager"]["streams"]
+        for name in ("graphs", "overlap"):
+            for kind, a, b in zip(("greedy", "seeded sampled"), want, runs[name]["streams"]):
+                if a != b:
+                    bad = sorted(r for r in a if a[r] != b.get(r))
+                    raise AssertionError(f"{label}: {kind} streams with {name} differ from the "
+                                         f"eager loop's in {bad}")
+        eager, graph = runs["eager"]["eng"], runs["graphs"]["eng"]
+        if sorted(graph.step_keys) != sorted(eager.step_keys):
+            raise AssertionError(f"{label}: graph keys {graph.step_keys}, eager {eager.step_keys}")
+        lines = {}
+        for name in ("graphs", "overlap"):
+            eng, run = runs[name]["eng"], runs[name]
+            m = eng.metrics
+            prefill = [k for k in eng.step_keys if k[0].startswith("prefill")]
+            kinds = {(k[0], k[-1]) for k in prefill}
+            # every step-function call replayed a graph; with one T bucket a
+            # step (the long prompt alone), one replay a prefill dispatch
+            ok = (m.compiles == len(eng.step_keys)
+                  and m.prefill_replays + m.decode_replays == eng.dispatches
+                  and m.prefill_replays >= m.prefill_dispatches > 0
+                  and run["alone"][0] == run["alone"][1] == 3
+                  and m.decode_replays == m.decode_dispatches + m.overlap_rollbacks > 0
+                  and len(kinds) == 4 and (m.overlap_hits > 0) == (name == "overlap")
+                  and (m.overlap_rollbacks > 0) == (name == "overlap"))
+            lines[name] = {
+                "keys": len(eng.step_keys), "prefill_keys": [list(k) for k in prefill],
+                **{k: getattr(m, k) for k in (
+                    "compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
+                    "decode_dispatches", "decode_replays", "overlap_dispatches",
+                    "overlap_hits", "overlap_rollbacks")},
+                "dispatches": eng.dispatches, "long_prompt_alone": list(run["alone"]),
+                "run_s": run["s"]}
+            if not ok:
+                raise AssertionError(f"{label}: {name}: captures, replays or overlap counts "
+                                     f"wrong: {lines[name]}")
         # splits per decode bucket: above 1, the ticket merge ran in the graphs
         mc = graph.adapter.config
         splits = {k[1]: paged_attention.launch_plan(dev, k[1], mc.num_heads, mc.num_kv_heads,
                                                     mc.head_dim, cfg.max_pages_per_seq, mode)[0]
-                  for k in keys}
+                  for k in graph.step_keys if k[0].startswith("decode")}
         if max(splits.values()) < 2:
             raise AssertionError(f"{label}: no decode bucket split its pages: {splits}")
-        want_launch = [kv_quant.variant(n, mode) for n in ("paged_write", "paged_decode_attention")]
+        # the overlap run: every kernel variant of its pool, through replays
+        counts = runs["overlap"]["counts"]
+        want_launch = serve_variants(mode)
         for name, (launches, plain) in counts.items():
-            if plain != 0 or (name in want_launch and launches == 0) or (
-                    name not in want_launch and name != "flash_prefill_attention" and launches):
+            if plain != 0 or (launches == 0) == (name in want_launch):
                 raise AssertionError(f"{label}: {name} launched {launches} times, plain ran "
-                                     f"{plain}")
+                                     f"{plain} (the pool's variants: {want_launch})")
         result = {"phase": "graphs", "model": "llama3-1b", "dtype": "bfloat16",
-                  "kv_quantize": mode, "keys": [list(k) for k in keys],
-                  "max_pages_per_seq": cfg.max_pages_per_seq, "splits_by_bucket": splits,
-                  "compiles": m.compiles, "compile_ms": m.compile_ms,
-                  "decode_dispatches": m.decode_dispatches, "decode_replays": m.decode_replays,
-                  "streams": len(got[0]) + len(got[1]),
-                  "identical": "every greedy and seeded sampled stream, to the id",
+                  "kv_quantize": mode, "max_pages_per_seq": cfg.max_pages_per_seq,
+                  "splits_by_bucket": splits, **lines,
+                  "streams": len(want[0]) + len(want[1]),
+                  "identical": "every greedy and seeded sampled stream, to the id, in the "
+                               "eager loop, with graphs, and with graphs and overlap",
                   "launches": {k: v[0] for k, v in counts.items() if v[0]},
-                  "eager_run_s": eager_s, "graph_run_s": graph_s,
-                  "run_s": "wall time of all waves, the graph run's captures included"}
+                  "eager_run_s": runs["eager"]["s"],
+                  "run_s": "wall time of all waves, a graph run's captures included"}
         emit(result)
         results.append(result)
-        del runs, eager, graph
+        del runs, eager, graph, eng
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -903,7 +983,11 @@ def phase_serve(card: str, mode) -> dict:
                 "kv_pool_bytes_dense_equiv": engine.metrics.kv_pool_bytes_dense_equiv,
                 "pool_dtype": str(engine.kv.k.dtype)}
         graphs = {k: getattr(engine.metrics, k) for k in
-                  ("compiles", "compile_ms", "decode_dispatches", "decode_replays")}
+                  ("compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
+                   "decode_dispatches", "decode_replays", "overlap_dispatches",
+                   "overlap_hits", "overlap_rollbacks")}
+        graphs["dispatches"] = engine.dispatches
+        graphs["overlap_decode"] = engine.config.overlap_decode
     finally:
         server.stop()
         del server
@@ -932,8 +1016,16 @@ def phase_serve(card: str, mode) -> dict:
     if prompt_tokens[3] <= 1200 or chunk != 512:
         raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
                              f"tokens, served at a chunk of {chunk}")
-    if graphs["decode_replays"] != graphs["decode_dispatches"] or not graphs["compiles"]:
-        raise AssertionError(f"{label}: decode dispatches did not all replay graphs: {graphs}")
+    # served as the CLI serves with no flags: overlapped decode, every
+    # prefill and decode dispatch a replay
+    if not (graphs["overlap_decode"] and graphs["compiles"]
+            and graphs["prefill_replays"] + graphs["decode_replays"] == graphs["dispatches"]
+            and graphs["prefill_replays"] >= graphs["prefill_dispatches"] > 0
+            and graphs["decode_replays"] == graphs["decode_dispatches"]
+            + graphs["overlap_rollbacks"] > 0
+            and graphs["overlap_dispatches"] == graphs["overlap_hits"]
+            + graphs["overlap_rollbacks"]):
+        raise AssertionError(f"{label}: dispatches did not all replay graphs: {graphs}")
     want = serve_variants(mode)
     for name, (launches, plain) in counts.items():
         if plain != 0 or (launches == 0) == (name in want):

@@ -7,8 +7,9 @@ with the TorchEngine as the engine. With no checkpoint the model is
 random-init from a fixed seed and serves the byte tokenizer, as the JAX
 CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
 tokens (512 by default, as the JAX CLI's). `--kv-quantize int8|fp8`
-stores the KV pages quantized, as the JAX CLI's flag does. It runs on the
-GPU unless `--device cpu` is given.
+stores the KV pages quantized, as the JAX CLI's flag does. Decode runs
+the overlapped loop unless `--no-overlap-decode` is given, as in the JAX
+CLI. It runs on the GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.
@@ -51,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     runp.add_argument("--decode-steps", type=int, default=8, dest="decode_steps",
                       help="decode steps fused per host sync")
+    runp.add_argument(
+        "--no-overlap-decode", action="store_false", dest="overlap_decode", default=True,
+        help="disable the overlapped decode loop (speculative next-step dispatch with "
+             "one-step-lagged host readback; on by default)",
+    )
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     runp.add_argument(
@@ -85,6 +91,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         prefill_chunk=args.prefill_chunk,
         max_seqs=args.max_seqs,
         decode_steps=args.decode_steps,
+        overlap_decode=args.overlap_decode,
         dtype=args.dtype,
         kv_quantize=args.kv_quantize,
         eos_token_ids=eos_token_ids,

@@ -124,6 +124,9 @@ class AsyncEngineRunner:
             for rid in aborts:
                 eng.abort_request(rid)
             if not eng.has_work:
+                # step() discards a speculation when work runs out, but an
+                # abort between steps can empty the engine with one in flight
+                eng.drain_overlap()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue

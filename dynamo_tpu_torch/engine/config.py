@@ -17,7 +17,6 @@ from typing import Optional
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
     "decode_kstep": (1,),
-    "overlap_decode": (False,),
     "mixed_steps": (False,),
     "enable_prefix_caching": (False,),
     "spec_ngram": (0,),
@@ -79,6 +78,10 @@ class _PortedKnobs:
     #: decode steps fused per host sync: tokens feed back on the device
     #: and up to K-1 tokens past a stop are computed and dropped
     decode_steps: int = 8
+    #: overlapped decode: dispatch the next decode step on speculation
+    #: (tokens fed back on the device) before the pending step's ids reach
+    #: the host, and roll it back when the batch changes
+    overlap_decode: bool = True
     #: admission watermark: keep this fraction of pages free when admitting
     admission_watermark: float = 0.02
     #: eos token ids (from the model card/tokenizer)

@@ -8,11 +8,20 @@ step runs the model's kernel path: the paged KV write, first-chunk flash
 prefill, prefill over a chunk with history and paged decode attention
 (dynamo_tpu_torch/ops).
 
-On the card each decode dispatch replays a CUDA graph captured for its
-step key at the key's first dispatch (`_get_step_fn`, `_cache_graph`,
-engine/step_graph.py), as the JAX engine runs a compiled program per key;
-prefill runs eagerly. The eager decode loop serves the CPU and an engine
-built with `cuda_graphs=False`.
+On the card each dispatch, a prefill chunk step or a decode dispatch,
+replays a CUDA graph captured for its step key at the key's first
+dispatch (`_get_step_fn`, `_cache_graph`, engine/step_graph.py), as the
+JAX engine runs a compiled program per key. The eager bodies serve the
+CPU and an engine built with `cuda_graphs=False`.
+
+Overlapped decode (config.overlap_decode, as in the JAX engine): after
+dispatching decode step N the engine dispatches step N+1 on speculation
+(same batch, positions advanced, tokens taken from step N's ids on the
+device) before it reads step N's ids, whose copy to the host started at
+the dispatch. The device computes N+1 while the host scans N. The next
+`step()` consumes the speculation if its batch is the same requests,
+each advanced by N's tokens; otherwise the speculation is rolled back
+(its ids are overshoot, dropped like fused steps past a stop).
 
 Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
 up to the chunk; B: powers of two for prefill, `decode_buckets` for
@@ -47,12 +56,15 @@ from dynamo_tpu_torch.engine.sampling import (
     sample_greedy,
 )
 from dynamo_tpu_torch.engine.scheduler import ScheduledBatch, Scheduler
-from dynamo_tpu_torch.engine.step_graph import StepGraph
+from dynamo_tpu_torch.engine.step_graph import Readback, StepGraph
 from dynamo_tpu_torch.models.registry import get_model
 from dynamo_tpu_torch.ops import paged_attention
 from dynamo_tpu_torch.platform import resolve_device
 
 logger = logging.getLogger(__name__)
+
+#: the step kinds of a decode dispatch (one step, fused steps)
+DECODE_KINDS = ("decode", "decode_multi")
 
 
 @dataclass
@@ -63,7 +75,8 @@ class EngineMetrics:
     steps: int = 0
     prefill_dispatches: int = 0
     decode_dispatches: int = 0
-    #: fused decode steps run (a dispatch runs 1..decode_steps of them)
+    #: fused decode steps of the dispatches whose ids were accepted (a
+    #: dispatch runs 1..decode_steps of them; rolled-back ones not counted)
     decode_steps_run: int = 0
     time_prefill_ms: float = 0.0
     time_decode_ms: float = 0.0
@@ -75,34 +88,61 @@ class EngineMetrics:
     #: ratio is the cache capacity kv_quantize buys
     kv_pool_bytes: int = 0
     kv_pool_bytes_dense_equiv: int = 0
-    #: decode step graphs captured (one per step key, at its first
-    #: dispatch; the JAX engine's compiles) and the wall ms of their
-    #: warm-ups and captures
+    #: step graphs captured (one per step key, at its first dispatch; the
+    #: JAX engine's compiles) and the wall ms of their warm-ups and captures
     compiles: int = 0
     compile_ms: float = 0.0
-    #: replays of the captured decode graphs (StepGraph.replays summed)
+    #: replays of the captured decode and prefill graphs (StepGraph.replays
+    #: summed over the keys of each kind)
     decode_replays: int = 0
+    prefill_replays: int = 0
+    #: overlapped decode: speculated next-step dispatches issued, consumed
+    #: as the real step, and rolled back (the batch changed under them)
+    overlap_dispatches: int = 0
+    overlap_hits: int = 0
+    overlap_rollbacks: int = 0
 
     def to_dict(self) -> dict:
         return asdict(self)
 
 
+@dataclass
+class _InflightDecode:
+    """One speculated decode dispatch whose ids are on their way to the
+    host (JaxEngine's _InflightDecode). It becomes the real step iff the
+    next scheduled batch is the same requests in the same rows, each
+    advanced by exactly the pending step's tokens."""
+
+    reqs: tuple
+    b_bucket: int
+    k_steps: int
+    greedy: bool
+    ids: Readback
+    #: per-request state the batch must show when this step is consumed
+    expected_num_tokens: tuple
+    expected_out_len: tuple
+
+
 class TorchEngine:
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
                  device=None, *, cuda_graphs: bool = True):
-        """`cuda_graphs=False` runs decode eagerly on the card, as the JAX
-        engine runs under jax.disable_jit(); on the CPU decode is always
-        eager."""
+        """`cuda_graphs=False` runs every dispatch eagerly on the card, as
+        the JAX engine runs under jax.disable_jit(); on the CPU dispatches
+        are always eager."""
         self.config = config
         self.device = resolve_device(device)
         self._graphs = cuda_graphs and self.device.type == "cuda"
         #: step key -> its step function (a StepGraph on the card)
         self._step_fns: dict[tuple, object] = {}
-        #: the capture stream and the decode graphs' shared memory pool
-        #: (_graph_setup)
+        #: the capture stream and the graphs' shared memory pool (_graph_setup)
         self._graph_stream = self._graph_pool = None
         #: (device, counters, partials) of the decode graphs' workspace
         self._workspace_size: tuple = ()
+        #: the one speculated decode dispatch in flight, or None
+        self._inflight: Optional[_InflightDecode] = None
+        #: step-function calls so far: prefill groups, decode dispatches and
+        #: speculated ones (with graphs, each is one replay)
+        self.dispatches = 0
         self.adapter = get_model(config.model, dtype=config.dtype)
         self.allocator = PageAllocator(config.num_pages, config.page_size)
         self.scheduler = Scheduler(config, self.allocator)
@@ -139,24 +179,33 @@ class TorchEngine:
 
     @property
     def step_keys(self) -> list[tuple]:
-        """The decode step keys dispatched so far (_get_step_fn)."""
+        """The step keys dispatched so far, prefill and decode (_get_step_fn)."""
         return list(self._step_fns)
 
     def step(self) -> list[StepOutput]:
         batch = self.scheduler.schedule()
         outputs = self._drain_doomed()
-        if batch is None:
-            return outputs
-        t0 = time.perf_counter()
-        if batch.kind == "prefill":
-            self.metrics.prefill_dispatches += 1
-            outputs += self._run_prefill(batch)
-            self.metrics.time_prefill_ms += (time.perf_counter() - t0) * 1e3
-        else:
-            self.metrics.decode_dispatches += 1
-            outputs += self._run_decode(batch)
-            self.metrics.time_decode_ms += (time.perf_counter() - t0) * 1e3
-        self.metrics.steps += 1
+        if batch is None or batch.kind != "decode":
+            # a speculated decode step can only be the next decode step
+            self._discard_inflight("no batch" if batch is None else "prefill scheduled")
+        if batch is not None:
+            t0 = time.perf_counter()
+            if batch.kind == "prefill":
+                self.metrics.prefill_dispatches += 1
+                outputs += self._run_prefill(batch)
+                self.metrics.time_prefill_ms += (time.perf_counter() - t0) * 1e3
+            else:
+                self.metrics.decode_dispatches += 1
+                outputs += self._run_decode(batch)
+                self.metrics.time_decode_ms += (time.perf_counter() - t0) * 1e3
+            self.metrics.steps += 1
+        if not self.scheduler.has_work:
+            # the wave ended on a stop the speculation could not foresee
+            self._discard_inflight("idle")
+        # counted where the graphs replay, so a dispatch that did not replay shows
+        graphs = [(k[0], g.replays) for k, g in self._step_fns.items() if isinstance(g, StepGraph)]
+        self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_KINDS)
+        self.metrics.prefill_replays = sum(n for kind, n in graphs if kind not in DECODE_KINDS)
         return outputs
 
     def run_to_completion(self) -> dict[str, list[int]]:
@@ -166,6 +215,11 @@ class TorchEngine:
             for out in self.step():
                 done.setdefault(out.request_id, []).extend(out.new_token_ids)
         return done
+
+    def drain_overlap(self) -> None:
+        """Discard any speculated decode dispatch in flight (the engine
+        thread calls it when idle)."""
+        self._discard_inflight("drained")
 
     def _drain_doomed(self) -> list[StepOutput]:
         """Finish requests the scheduler proved can never progress."""
@@ -196,20 +250,18 @@ class TorchEngine:
             b *= 2
         return b
 
-    def _to_device(self, *arrays: np.ndarray):
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
-
     def _request_seed(self, req: Request) -> int:
         if req.sampling.seed is not None:
             return req.sampling.seed & 0xFFFFFFFF
         return zlib.crc32(req.request_id.encode(), self.config.seed & 0xFFFFFFFF)
 
-    def _sampling_arrays(self, reqs: list[Request], pad_to: int, steps: int
+    def _sampling_arrays(self, reqs: list[Request], pad_to: int, steps: int, ahead: int = 0
                          ) -> Optional[dict[str, np.ndarray]]:
         """The sampler's rows for this dispatch, padded to pad_to: temps,
         top_ps, top_ks and every fused step's noise [steps, pad_to,
         DEFAULT_K_CAP]; None when every request is greedy (the argmax-only
-        variant)."""
+        variant). `ahead` advances each draw counter past the tokens of a
+        dispatch not yet read (a speculated one's predecessor)."""
         if all(r.sampling.temperature <= 0.0 for r in reqs):
             return None
         temps = np.zeros(pad_to, np.float32)
@@ -223,7 +275,7 @@ class TorchEngine:
         noise = np.zeros((steps, pad_to, DEFAULT_K_CAP), np.float32)
         noise[:, : len(reqs)] = gumbel_noise(
             [self._request_seed(r) for r in reqs],
-            [r.num_emitted + len(r.output_tokens) for r in reqs],
+            [r.num_emitted + len(r.output_tokens) + ahead for r in reqs],
             DEFAULT_K_CAP, steps,
         ).numpy()
         return {"temps": temps, "top_ps": top_ps, "top_ks": top_ks, "noise": noise}
@@ -239,54 +291,69 @@ class TorchEngine:
     # -- prefill -----------------------------------------------------------
 
     def _run_prefill(self, batch: ScheduledBatch) -> list[StepOutput]:
-        """Pieces grouped by T bucket run as one batched [B, T] forward. A
+        """Pieces grouped by T bucket run as one batched [B, T] dispatch. A
         group whose pieces all start at 0 runs as first chunks; any other
         group attends over each row's history (0 for a row that starts at
-        0). Only pieces that end their prompt are sampled; a group with
-        none runs the forward alone (no logits, no sampler noise)."""
-        outputs: list[StepOutput] = []
+        0). A group with a piece that ends its prompt samples every row at
+        its last token and keeps the ids of those pieces; a group with none
+        runs the forward alone (no logits, no sampler noise). Every group
+        is dispatched before any ids are read."""
         groups: dict[int, list] = {}
         for piece in batch.prefill:
             groups.setdefault(self._bucket_t(piece.length), []).append(piece)
         mp = self.config.max_pages_per_seq
+        dispatched = []
         for t_bucket, pieces in sorted(groups.items()):
             b_bucket = self._bucket_b(len(pieces))
             tokens = np.zeros((b_bucket, t_bucket), np.int64)
             positions = np.zeros((b_bucket, t_bucket), np.int32)
             valid = np.zeros((b_bucket, t_bucket), bool)
             pt = np.zeros((b_bucket, mp), np.int32)
+            last = np.zeros(b_bucket, np.int64)
             for i, piece in enumerate(pieces):
                 req = piece.request
                 tokens[i, : piece.length] = req.all_tokens[piece.start : piece.start + piece.length]
                 positions[i] = np.arange(t_bucket, dtype=np.int32) + piece.start
                 valid[i, : piece.length] = True
                 pt[i, : len(req.pages)] = req.pages
-            d_tokens, d_pos, d_valid, d_pt = self._to_device(tokens, positions, valid, pt)
-            hidden, self.kv = self.adapter.forward_hidden(
-                self.params, d_tokens, d_pos, d_valid, self.kv, d_pt,
-                first_chunk=all(p.start == 0 for p in pieces),
-            )
-            rows = [i for i, p in enumerate(pieces)
-                    if p.start + p.length >= len(p.request.prompt_tokens)]
-            ids: dict[int, int] = {}
-            if rows:
-                last = [pieces[i].length - 1 for i in rows]
-                d_rows, d_last = self._to_device(np.asarray(rows), np.asarray(last))
-                samp = self._sampling_arrays([pieces[i].request for i in rows], len(rows), 1)
-                if samp is not None:
-                    samp = dict(zip(samp, self._to_device(*samp.values())))
-                logits = self.adapter.compute_logits(self.params, hidden[d_rows, d_last])
-                ids = dict(zip(rows, self._sample(logits, samp, 0).cpu().tolist()))
+                last[i] = piece.length - 1
+            arrays = {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt}
+            first_chunk = all(p.start == 0 for p in pieces)
+            if any(p.start + p.length >= len(p.request.prompt_tokens) for p in pieces):
+                samp = self._sampling_arrays([p.request for p in pieces], b_bucket, 1)
+                arrays.update(last=last, **(samp or {}))
+                key = ("prefill", b_bucket, t_bucket, samp is None, first_chunk)
+            else:
+                key = ("prefill_nosample", b_bucket, t_bucket, first_chunk)
+            dispatched.append((pieces, self._dispatch(key, arrays)))
+        outputs: list[StepOutput] = []
+        for pieces, readback in dispatched:
+            ids = None if readback is None else readback.numpy()
             for i, piece in enumerate(pieces):
                 req = piece.request
                 req.num_computed_tokens += piece.length
                 self.metrics.prefill_tokens += piece.length
-                if i in ids:
+                if piece.start + piece.length >= len(req.prompt_tokens):
+                    tok = int(ids[i])
                     req.state = RequestState.DECODE
                     outputs.extend(self._accept_tokens(
-                        req, [ids[i]], self._finish_reason_for(req, ids[i], 1)
-                    ))
+                        req, [tok], self._finish_reason_for(req, tok, 1)))
         return outputs
+
+    def _prefill_body(self, first_chunk: bool, sampled: bool,
+                      bufs: dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """One prefill chunk step over device inputs (the keys of
+        _run_prefill's arrays); returns the ids [B] drawn at each row's
+        `last` token, or None for a step that samples nothing."""
+        hidden, self.kv = self.adapter.forward_hidden(
+            self.params, bufs["tokens"], bufs["positions"], bufs["valid"], self.kv,
+            bufs["page_tables"], first_chunk=first_chunk,
+        )
+        if not sampled:
+            return None
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        logits = self.adapter.compute_logits(self.params, hidden[rows, bufs["last"]])
+        return self._sample(logits, bufs if "temps" in bufs else None, 0)
 
     # -- decode ------------------------------------------------------------
 
@@ -333,42 +400,57 @@ class TorchEngine:
                 req.pages.extend(self.allocator.allocate(n))
         return True
 
-    def _run_decode(self, batch: ScheduledBatch) -> list[StepOutput]:
-        reqs = list(batch.decode)
-        b_bucket = self.config.decode_bucket_for(len(reqs))
-        mp = self.config.max_pages_per_seq
-        k_steps = self._pick_decode_steps(reqs)
-        tokens = np.zeros((b_bucket, 1), np.int64)
+    def _decode_arrays(self, reqs: list[Request], b_bucket: int, ahead: int
+                       ) -> dict[str, np.ndarray]:
+        """Positions, valid and page tables of a decode dispatch that starts
+        `ahead` tokens past each request's last known token."""
         positions = np.zeros((b_bucket, 1), np.int32)
         valid = np.zeros((b_bucket, 1), bool)
-        pt = np.zeros((b_bucket, mp), np.int32)
+        pt = np.zeros((b_bucket, self.config.max_pages_per_seq), np.int32)
         for i, req in enumerate(reqs):
-            tokens[i, 0] = req.all_tokens[-1]
-            positions[i, 0] = req.num_tokens - 1
+            positions[i, 0] = req.num_tokens - 1 + ahead
             valid[i, 0] = True
             pt[i, : len(req.pages)] = req.pages
-        arrays = {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt}
+        return {"positions": positions, "valid": valid, "page_tables": pt}
+
+    def _run_decode(self, batch: ScheduledBatch) -> list[StepOutput]:
+        reqs = list(batch.decode)
+        inflight, self._inflight = self._inflight, None
+        if inflight is not None:
+            if self._inflight_matches(inflight, reqs):
+                return self._consume_inflight(inflight)
+            self._inflight = inflight  # handed back for the count
+            self._discard_inflight("decode batch changed")
+        b_bucket = self.config.decode_bucket_for(len(reqs))
+        k_steps = self._pick_decode_steps(reqs)
+        tokens = np.zeros((b_bucket, 1), np.int64)
+        for i, req in enumerate(reqs):
+            tokens[i, 0] = req.all_tokens[-1]
+        arrays = {"tokens": tokens, **self._decode_arrays(reqs, b_bucket, 0)}
         samp = self._sampling_arrays(reqs, b_bucket, k_steps)
         arrays.update(samp or {})
         # the JAX engine's kinds: one step is "decode", fused steps "decode_multi"
-        kind = "decode" if k_steps == 1 else "decode_multi"
-        fn = self._get_step_fn(kind, b_bucket, k_steps, greedy=samp is None)
-        out = fn(arrays)
+        kind = DECODE_KINDS[k_steps > 1]
+        ids = self._dispatch((kind, b_bucket, k_steps, samp is None), arrays)
+        # keep the device busy past this step before waiting for its ids
+        self._maybe_speculate(reqs, b_bucket, k_steps, samp is None, ids)
+        return self._decode_postprocess(reqs, k_steps, ids)
+
+    def _decode_postprocess(self, reqs: list[Request], k_steps: int,
+                            ids: Readback) -> list[StepOutput]:
+        """Wait for a decode dispatch's ids [K, B] (copied to the host since
+        it was dispatched), then scan them for finishes, dropping tokens
+        past a stop, and accept the rest."""
         t1 = time.perf_counter()
-        # [K, B]: the one host sync. A replay's ids leave its static output
-        # here, before any other graph replays (StepGraph.capture)
-        ids = out.cpu().numpy()
+        host = ids.numpy()
         self.metrics.time_decode_sync_ms += (time.perf_counter() - t1) * 1e3
         self.metrics.decode_steps_run += k_steps
-        # counted where the graphs replay, so a dispatch that did not replay shows
-        self.metrics.decode_replays = sum(
-            g.replays for g in self._step_fns.values() if isinstance(g, StepGraph))
         outputs: list[StepOutput] = []
         for i, req in enumerate(reqs):
             accepted: list[int] = []
             finish: Optional[FinishReason] = None
             for kk in range(k_steps):
-                tok = int(ids[kk, i])
+                tok = int(host[kk, i])
                 accepted.append(tok)
                 finish = self._finish_reason_for(req, tok, len(accepted))
                 if finish is not None:
@@ -393,25 +475,116 @@ class TorchEngine:
             pos = pos + 1
         return torch.stack(step_ids)
 
-    def _decode_eager(self, k_steps: int, arrays: dict[str, np.ndarray]) -> torch.Tensor:
-        return self._decode_body(k_steps, dict(zip(arrays, self._to_device(*arrays.values()))))
+    # -- overlapped decode (JaxEngine: _maybe_speculate .. drain_overlap) ---
 
-    def _get_step_fn(self, kind: str, b: int, k_steps: int, greedy: bool):
-        """The step function of a decode dispatch, fn(host arrays) -> ids
-        [K, B] on the device, cached by the JAX engine's key fields
-        (JaxEngine._get_step_fn: kind, batch bucket, steps, all-greedy).
-        On the card it is a CUDA graph captured at the key's first
-        dispatch (_cache_graph); on the CPU, or with cuda_graphs=False,
-        the eager loop."""
-        key = (kind, b, k_steps, greedy)
+    def _maybe_speculate(self, reqs: list[Request], b_bucket: int, k_prev: int,
+                         greedy: bool, prev: Readback) -> None:
+        """Dispatch the next decode step before the pending one's ids reach
+        the host: the same batch, positions advanced by k_prev, tokens the
+        pending step's last ids, copied on the device. Only when the
+        scheduler keeps the batch (no admissible waiting request, nothing
+        mid-prefill), every request surely outlives the pending step's
+        k_prev tokens, and the pages can pre-grow to cover the window."""
+        if not self.config.overlap_decode or not self.scheduler.decode_batch_stable():
+            return
+        k_next = k_prev
+        for req in reqs:
+            if len(req.output_tokens) + req.num_emitted + k_prev >= req.sampling.max_tokens:
+                return  # the pending step finishes it: the batch will change
+            if req.num_tokens + k_prev >= self.config.max_context:
+                return
+            # never write KV past the page table
+            k_next = min(k_next, self.config.max_context - (req.num_tokens + k_prev) + 1)
+        k_next = self._pow2_floor(k_next)  # reuse the key family
+        if not self._grow_pages_for(reqs, k_prev + k_next - 1):
+            return
+        arrays = {"tokens": prev.device[-1][:, None], **self._decode_arrays(reqs, b_bucket, k_prev)}
+        # the pending step advances every draw counter by its k
+        samp = self._sampling_arrays(reqs, b_bucket, k_next, ahead=k_prev)
+        arrays.update(samp or {})
+        ids = self._dispatch((DECODE_KINDS[k_next > 1], b_bucket, k_next, greedy), arrays)
+        self.metrics.overlap_dispatches += 1
+        self._inflight = _InflightDecode(
+            reqs=tuple(reqs), b_bucket=b_bucket, k_steps=k_next, greedy=greedy, ids=ids,
+            expected_num_tokens=tuple(r.num_tokens + k_prev for r in reqs),
+            expected_out_len=tuple(len(r.output_tokens) + k_prev for r in reqs),
+        )
+
+    @staticmethod
+    def _inflight_matches(inflight: _InflightDecode, reqs: list[Request]) -> bool:
+        """The speculation is this step iff the batch is the same requests
+        (identity: a resubmitted id is a new object) in the same rows, each
+        advanced by exactly the pending step's tokens (a preemption resets
+        output_tokens and fails here)."""
+        if len(reqs) != len(inflight.reqs):
+            return False
+        return all(
+            r is spec and r.num_tokens == nt and len(r.output_tokens) == n_out
+            for r, spec, nt, n_out in zip(reqs, inflight.reqs, inflight.expected_num_tokens,
+                                          inflight.expected_out_len)
+        )
+
+    def _consume_inflight(self, inflight: _InflightDecode) -> list[StepOutput]:
+        """The speculated dispatch is this step: speculate the next one (so
+        the device does not drain), then read its ids, whose copy to the
+        host started when it was dispatched, and accept them."""
+        self.metrics.overlap_hits += 1
+        reqs = list(inflight.reqs)
+        self._maybe_speculate(reqs, inflight.b_bucket, inflight.k_steps, inflight.greedy,
+                              inflight.ids)
+        return self._decode_postprocess(reqs, inflight.k_steps, inflight.ids)
+
+    def _discard_inflight(self, why: str) -> None:
+        """Roll back a speculated dispatch. Its ids are overshoot, dropped
+        like fused steps past a stop. Its KV writes are harmless: for a
+        request that goes on they hold the true tokens at the true
+        positions, and the real dispatch writes them again before any
+        read; for a finished or preempted request they sit in freed pages,
+        which a next owner writes, later on the same stream, before it
+        reads them. Pages grown for the window stay with their requests."""
+        if self._inflight is None:
+            return
+        self._inflight = None
+        self.metrics.overlap_rollbacks += 1
+        logger.debug("overlap rollback: %s", why)
+
+    # -- step functions ----------------------------------------------------
+
+    def _dispatch(self, key: tuple, arrays: dict) -> Optional[Readback]:
+        """Run one dispatch through its key's step function; returns the
+        Readback of its ids (None for a prefill step that samples nothing)."""
+        self.dispatches += 1
+        return self._get_step_fn(key)(arrays)
+
+    def _body(self, key: tuple):
+        """The body of a step key: K fused decode steps, or one prefill
+        chunk step that samples or not, over the dispatch's device inputs."""
+        if key[0] in DECODE_KINDS:
+            return functools.partial(self._decode_body, key[2])
+        return functools.partial(self._prefill_body, key[-1], key[0] == "prefill")
+
+    def _get_step_fn(self, key: tuple):
+        """The step function of a dispatch, fn(inputs) -> Readback, cached
+        by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
+        (kind, batch bucket, steps, all-greedy), for prefill ("prefill", B
+        bucket, T bucket, all-greedy, first chunk) and ("prefill_nosample",
+        B bucket, T bucket, first chunk). An input is a host array or a
+        device tensor. On the card it is a CUDA graph captured at the
+        key's first dispatch (_cache_graph); on the CPU, or with
+        cuda_graphs=False, the eager body."""
         fn = self._step_fns.get(key)
         if fn is None:
-            fn = (functools.partial(self._cache_graph, key) if self._graphs
-                  else functools.partial(self._decode_eager, k_steps))
+            fn = functools.partial(self._cache_graph if self._graphs else self._run_eager, key)
             self._step_fns[key] = fn
         return fn
 
-    def _cache_graph(self, key: tuple, arrays: dict[str, np.ndarray]) -> torch.Tensor:
+    def _run_eager(self, key: tuple, arrays: dict) -> Optional[Readback]:
+        bufs = {n: a if isinstance(a, torch.Tensor) else torch.from_numpy(a).to(self.device)
+                for n, a in arrays.items()}
+        out = self._body(key)(bufs)
+        return None if out is None else Readback(out)
+
+    def _cache_graph(self, key: tuple, arrays: dict) -> Optional[Readback]:
         """Counterpart of JaxEngine._cache_jit: the key's first dispatch
         warms its body up and captures it as a StepGraph over buffers
         shaped like `arrays`, counted in metrics.compiles and timed in
@@ -420,30 +593,33 @@ class TorchEngine:
         t0 = time.perf_counter()
         if self._graph_stream is None:
             self._graph_setup()
-        graph = StepGraph({n: (a.shape, torch.from_numpy(a).dtype) for n, a in arrays.items()},
-                          self.device)
-        with torch.cuda.stream(self._graph_stream):
-            # the workspace this capture reads, at its full size (grown here,
-            # outside the capture, should another user of a stream with the
-            # same handle have replaced it), held by the graph: a later
-            # replacement in paged_attention's dict frees nothing it reads
-            graph.keep = paged_attention.workspace(*self._workspace_size)
-        graph.capture(functools.partial(self._decode_body, key[2]), self._graph_pool,
-                      self._graph_stream)
+        specs = {n: (tuple(a.shape), a.dtype if isinstance(a, torch.Tensor)
+                     else torch.from_numpy(a).dtype) for n, a in arrays.items()}
+        graph = StepGraph(specs, self.device)
+        if key[0] in DECODE_KINDS:
+            with torch.cuda.stream(self._graph_stream):
+                # the workspace this capture reads, at its full size (grown
+                # here, outside the capture, should another user of a stream
+                # with the same handle have replaced it), held by the graph:
+                # a later replacement in paged_attention's dict frees nothing
+                # it reads
+                graph.keep = paged_attention.workspace(*self._workspace_size)
+        graph.capture(self._body(key), self._graph_pool, self._graph_stream)
         self._step_fns[key] = graph
         self.metrics.compiles += 1
         self.metrics.compile_ms += (time.perf_counter() - t0) * 1e3
         return graph(arrays)
 
     def _graph_setup(self) -> None:
-        """Before the first capture: the capture stream, the pool the decode
-        graphs share (up to buckets x 4 values of K x 2 sampler kinds of
-        them; see StepGraph.capture) and the size of paged decode's
-        workspace for the largest bucket's split plan, which each capture
-        makes sure of on the capture stream, outside the capture
-        (_cache_graph). The decode graphs read one set of ticket counters
-        and partials; replays run one at a time on the engine thread, so
-        no two of them use it at once."""
+        """Before the first capture: the capture stream, the pool every
+        step graph shares (per decode bucket up to 4 values of K x 2
+        sampler kinds; per prefill B and T bucket, 2 sampler kinds x 2
+        chunk kinds and 2 non-sampling ones; see StepGraph.capture) and the
+        size of paged decode's workspace for the largest bucket's split
+        plan, which each decode capture makes sure of on the capture
+        stream, outside the capture (_cache_graph). The decode graphs read
+        one set of ticket counters and partials; replays run one at a time
+        on the engine's stream, so no two of them use it at once."""
         # the decode wrapper keys its workspace by an indexed device
         dev = self.device
         if dev.index is None:

@@ -93,6 +93,17 @@ class Scheduler:
         need = self._pages_for(self.waiting[0])
         return self.allocator.num_free - need >= self._watermark_pages()
 
+    def decode_batch_stable(self) -> bool:
+        """The overlap contract (EngineConfig.overlap_decode): absent
+        request-side events, the next `schedule()` returns the same decode
+        batch iff no running request still needs prefill and no waiting
+        request is admissible now. The engine checks the request side
+        (finish, abort, preemption) per request when it consumes the
+        speculation."""
+        if any(r.state == RequestState.PREFILL for r in self.running):
+            return False
+        return not (self.waiting and self.can_admit_head())
+
     # -- the step ----------------------------------------------------------
 
     def schedule(self) -> Optional[ScheduledBatch]:

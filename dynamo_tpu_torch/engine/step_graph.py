@@ -1,15 +1,20 @@
-"""A decode dispatch captured as a CUDA graph.
+"""Engine dispatches captured as CUDA graphs, and their readback.
 
 The JAX engine compiles one XLA program per step key and launches a
-decode dispatch, all its fused steps, as that one program
-(dynamo_tpu/engine/engine.py: `_get_step_fn`, cached and counted by
-`_cache_jit`). The port's counterpart is a CUDA graph per key, captured at
-the key's first dispatch over static device buffers and replayed after the
-dispatch's host arrays are copied into them (TorchEngine._get_step_fn).
+dispatch, a prefill chunk step or all the fused steps of a decode
+dispatch, as that one program (dynamo_tpu/engine/engine.py: `_get_step_fn`,
+cached and counted by `_cache_jit`). The port's counterpart is a CUDA
+graph per key, captured at the key's first dispatch over static device
+buffers and replayed after the dispatch's inputs are copied into them
+(TorchEngine._get_step_fn).
 
 `StaticInputs` holds the buffers, each with a pinned host twin that a
-dispatch's array is written into and copied from asynchronously.
-`StepGraph` warms its body up, captures it, and replays it.
+dispatch's array is written into and copied from asynchronously, or
+filled on the device from another dispatch's output (a speculated decode
+dispatch's tokens). `StepGraph` warms its body up, captures it, and
+replays it. `Readback` starts a dispatch's output on its way to pinned
+host memory as soon as it is enqueued, so later replays may run before
+the host reads it (the overlapped decode loop).
 
 Kernel launches inside a graph are counted through replays: a capture
 runs nothing, so the launches its wrappers counted are taken back and
@@ -18,7 +23,7 @@ added again on every replay (ops.COUNTS).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,46 +31,91 @@ import torch
 from dynamo_tpu_torch.ops import COUNTS
 
 
+class Readback:
+    """A dispatch's output on the device and its copy to the host. On the
+    card the copy goes into a pinned tensor of its own, enqueued on the
+    current stream right after the dispatch, with an event after it: no
+    later replay can overwrite the output before the copy has read it,
+    and `numpy()` waits for the copy alone. On the CPU the output is
+    already on the host."""
+
+    def __init__(self, out: torch.Tensor):
+        #: the output on the device, valid until the next dispatch (a
+        #: graph's static output is rewritten by later replays)
+        self.device = out
+        self._ready = None
+        self._host = out
+        if out.is_cuda:
+            # PyTorch's pinned allocator keeps this block until the copy ran
+            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host.copy_(out, non_blocking=True)
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+
+    def numpy(self) -> np.ndarray:
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.numpy()
+
+
 class StaticInputs:
-    """Named device buffers of fixed shapes and dtypes, each landed from a
-    pinned host twin by an asynchronous copy. Every fill writes every
-    buffer whole (padding rows too), so no buffer keeps a row of an
-    earlier dispatch."""
+    """Named device buffers of fixed shapes and dtypes. Every fill writes
+    every buffer whole (padding rows too), so no buffer keeps a row of an
+    earlier dispatch: a host array lands from the buffer's pinned host twin
+    by an asynchronous copy, a device tensor by a device-to-device copy,
+    both on the current stream, after the dispatches enqueued before and
+    before the replay that reads them."""
 
     def __init__(self, specs: dict[str, tuple[tuple[int, ...], torch.dtype]],
                  device: torch.device):
-        # pinned, so the copies are asynchronous; a host twin is rewritten
-        # only after the dispatch's ids reached the host, which follows its copy
-        self._host = {name: torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+        cuda = device.type == "cuda"
+        # pinned, so the copies are asynchronous
+        self._host = {name: torch.zeros(shape, dtype=dtype, pin_memory=cuda)
                       for name, (shape, dtype) in specs.items()}
         self.host = {name: t.numpy() for name, t in self._host.items()}
         #: the device buffers a captured body reads
         self.device = {name: torch.zeros(shape, dtype=dtype, device=device)
                        for name, (shape, dtype) in specs.items()}
+        #: recorded after a fill's copies: the next fill rewrites the twins
+        #: only once the copies have read them (a dispatch without readback,
+        #: or one speculated before the last one was read, comes back to
+        #: its twins before the device has run that far)
+        self._copied = torch.cuda.Event() if cuda else None
 
-    def fill(self, arrays: dict[str, np.ndarray]) -> None:
-        """Copy every named array, whole, into its device buffer."""
+    def fill(self, arrays: dict[str, np.ndarray | torch.Tensor]) -> None:
+        """Copy every named array or device tensor, whole, into its buffer."""
         if arrays.keys() != self.host.keys():
             raise ValueError(f"a fill names {sorted(arrays)}, the buffers are {sorted(self.host)}")
         for name, a in arrays.items():
-            dst = self.host[name]
-            if a.shape != dst.shape:
-                raise ValueError(f"{name}: array of shape {a.shape} for a buffer of {dst.shape}")
-            dst[...] = a
+            buf = self.device[name]
+            if tuple(a.shape) != tuple(buf.shape):
+                raise ValueError(f"{name}: input of shape {tuple(a.shape)} for a buffer of "
+                                 f"{tuple(buf.shape)}")
+            if isinstance(a, torch.Tensor) and (a.dtype != buf.dtype or a.device != buf.device):
+                raise ValueError(f"{name}: a {a.dtype} tensor on {a.device} for a {buf.dtype} "
+                                 f"buffer on {buf.device}")
+        if self._copied is not None:
+            self._copied.synchronize()
+        for name, a in arrays.items():
+            if isinstance(a, torch.Tensor):
+                self.device[name].copy_(a)
+                continue
+            self.host[name][...] = a
             self.device[name].copy_(self._host[name], non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
 
 
 class StepGraph:
     """One step key's body, captured over its own StaticInputs. Calling it
-    fills the buffers from host arrays, replays, and returns the static
-    output, which the caller must copy out before any other graph that
-    shares the memory pool replays (see `capture`)."""
+    fills the buffers, replays, and returns a Readback of the static
+    output (None for a body without one)."""
 
     def __init__(self, specs: dict[str, tuple[tuple[int, ...], torch.dtype]],
                  device: torch.device):
         self.inputs = StaticInputs(specs, device)
         self.graph = torch.cuda.CUDAGraph()
-        self.out: torch.Tensor | None = None
+        self.out: Optional[torch.Tensor] = None
         #: kernel variant -> launches (and plain calls) one replay makes
         self.launches: dict[str, tuple[int, int]] = {}
         self.replays = 0
@@ -73,16 +123,21 @@ class StepGraph:
         #: decode workspace it was captured over)
         self.keep: tuple = ()
 
-    def capture(self, body: Callable[[dict], torch.Tensor], pool,
+    def capture(self, body: Callable[[dict], Optional[torch.Tensor]], pool,
                 stream: torch.cuda.Stream) -> None:
         """Run body once on `stream` outside any capture, over the buffers
         as they are (zero: padding rows only, valid False, no history, so
         the write lands nothing and attention reads only the null page),
         which builds every kernel and starts cuBLAS there; then capture it
-        on `stream` into `pool`. Graphs sharing a pool may reuse each
-        other's intermediate memory, which is safe only because they
-        replay one at a time and each replay's output is read before the
-        next replay."""
+        on `stream` into `pool`.
+
+        Graphs sharing a pool may place one graph's output where another
+        graph's intermediates live, so a replay may overwrite the output
+        of any earlier replay. That is safe because every read of an
+        output is enqueued on the engine's stream before the next replay:
+        its copy to the host (Readback, started at the dispatch) and its
+        copy into the next dispatch's inputs (StaticInputs.fill). Replays
+        run one at a time on that stream."""
         dev_stream = torch.cuda.current_stream(stream.device)
         stream.wait_stream(dev_stream)
         with torch.cuda.stream(stream):
@@ -97,11 +152,11 @@ class StepGraph:
             if n != (0, 0):
                 self.launches[k] = n
 
-    def __call__(self, arrays: dict[str, np.ndarray]) -> torch.Tensor:
+    def __call__(self, arrays: dict[str, np.ndarray | torch.Tensor]) -> Optional[Readback]:
         self.inputs.fill(arrays)
         self.graph.replay()
         self.replays += 1
         for k, (launches, plain) in self.launches.items():
             COUNTS[k].launches += launches
             COUNTS[k].plain_calls += plain
-        return self.out
+        return None if self.out is None else Readback(self.out)

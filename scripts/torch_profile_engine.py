@@ -1,36 +1,41 @@
-"""Where a TorchEngine step spends its time, on one NVIDIA GPU, with decode
-dispatches replayed as captured CUDA graphs and run by the eager loop.
+"""Where a TorchEngine step spends its time, on one NVIDIA GPU: dispatches
+run by the eager loop, replayed as captured CUDA graphs, and replayed with
+the overlapped decode loop.
 
     python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
---kv-quantize, a quantized one. Two engines share the weights: `eager`
-(cuda_graphs=False) and `graphs` (the default). A wave is B greedy
-requests of PROMPT random tokens each and MAX_TOKENS output tokens,
-`decode_steps` DECODE_STEPS. Prints JSON lines:
-  - `wave`, for B in BATCHES, four waves in the order eager, graphs,
-    graphs, eager, after one untimed wave on each engine (kernel builds,
-    cuBLAS, the graph captures), and before any torch.profiler session in
-    the process: output tok/s over the wave and over its decode
-    dispatches, host ms per decode dispatch (wall ms of a dispatch less
-    its wait for the ids, the engine's time_decode_ms and
-    time_decode_sync_ms), wall ms per decode dispatch (host clock around
-    `engine.step()`, which ends in the host sync), and the engine's
-    metrics;
+--kv-quantize, a quantized one. Three engines share the weights: `eager`
+(cuda_graphs=False, overlap_decode=False), `graphs` (prefill and decode
+graphs, overlap_decode=False) and `overlap` (graphs and overlapped decode,
+the defaults). A wave is B greedy requests of PROMPT random tokens each and
+MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
+  - `wave`, for B in BATCHES, six waves in the order eager, graphs,
+    overlap, overlap, graphs, eager, after one untimed wave on each engine
+    (kernel builds, cuBLAS, the graph captures), and before any
+    torch.profiler session in the process: output tok/s over the wave and
+    over its decode steps, host ms per decode dispatch (wall ms of a decode
+    step less its wait for the ids, the engine's time_decode_ms and
+    time_decode_sync_ms; under overlap it holds the speculated dispatch's
+    host work), wall ms per decode step (host clock around
+    `engine.step()`), and the engine's metrics;
   - `dispatch`, per engine and B: torch.profiler over two steady decode
-    dispatches: device busy ms per dispatch (sum of kernel time) against
-    the window's wall ms, the idle share, CUDA kernels per forward, and
-    the ten kernels with the most device time;
+    steps, from a synced device (a speculated dispatch made before ends
+    before the window) to a sync after them: device busy ms per step (sum
+    of kernel time) against the window's wall ms, the idle share, CUDA
+    kernels per forward, and the ten kernels with the most device time;
   - `forward`: one eager decode forward at B=8, host ms to enqueue it
     (no sync) against device ms (CUDA events), and the number of CUDA
     kernels it launches (torch.profiler);
-  - `chunked`: one greedy request whose LONG_PROMPT tokens prefill in
-    chunks of PREFILL_CHUNK (the CLI's default): its time to first token
-    and each chunk step's wall ms (host clock, synced after every step),
-    after one warm-up request; then the same request under torch.profiler:
-    device busy ms, the idle share, and the ten kernels with the most
-    device time.
+  - `chunked`, for the `eager` and `graphs` engines: one greedy request
+    whose LONG_PROMPT tokens prefill in chunks of PREFILL_CHUNK (the CLI's
+    default), after one warm-up request (builds and captures): its time to
+    first token (host clock from adding it to its first token, no other
+    sync), then the same request with a sync after every step (each chunk
+    step's wall ms), then under torch.profiler with no sync but the first
+    token's: device busy ms against the time to that token, the idle
+    share, and the ten kernels with the most device time.
 Then the card's name and power limit. With no card it raises.
 """
 
@@ -40,6 +45,7 @@ import argparse
 import json
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -94,7 +100,8 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> 
             "host_ms_per_dispatch": (m["time_decode_ms"] - m["time_decode_sync_ms"]) / n,
             "wall_ms_per_dispatch": sum(decode_ms) / len(decode_ms),
             "sync_ms_per_dispatch": m["time_decode_sync_ms"] / n,
-            "compiles": m["compiles"], "decode_replays": m["decode_replays"]}
+            **{k: m[k] for k in ("compiles", "decode_replays", "prefill_replays",
+                                 "overlap_dispatches", "overlap_hits", "overlap_rollbacks")}}
 
 
 def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> dict:
@@ -105,6 +112,9 @@ def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> di
     eng.step()  # one decode dispatch outside the window
     steps = eng.metrics.decode_steps_run
     with torch.profiler.profile(activities=ACTS) as prof:
+        # a speculated dispatch made before the window ends before it, so
+        # the window holds two dispatches' device work with overlap too
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step()
         eng.step()
@@ -129,8 +139,11 @@ def main(argv=None) -> int:
     cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
                        prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
                        kv_quantize=args.kv_quantize, eos_token_ids=(0,))
-    eager = TorchEngine(cfg, device=dev, cuda_graphs=False)
-    engines = {"eager": eager, "graphs": TorchEngine(cfg, params=eager.params, device=dev)}
+    eager = TorchEngine(replace(cfg, overlap_decode=False), device=dev, cuda_graphs=False)
+    engines = {"eager": eager,
+               "graphs": TorchEngine(replace(cfg, overlap_decode=False), params=eager.params,
+                                     device=dev),
+               "overlap": TorchEngine(cfg, params=eager.params, device=dev)}
     gen = torch.Generator().manual_seed(0)
     head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
             "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS}
@@ -140,7 +153,7 @@ def main(argv=None) -> int:
         for b in BATCHES:
             timed_wave(eng, f"warm{b}", b, gen)
     for b in BATCHES:
-        for i, name in enumerate(("eager", "graphs", "graphs", "eager")):
+        for i, name in enumerate(("eager", "graphs", "overlap", "overlap", "graphs", "eager")):
             emit({"phase": "wave", **head, "batch": b, "engine": name, "order": i,
                   **timed_wave(engines[name], f"{name}{b}-{i}", b, gen)})
 
@@ -182,27 +195,37 @@ def main(argv=None) -> int:
     emit({"phase": "forward", "batch": b, "host_enqueue_ms": host_ms,
           "events_ms": wall_ms, "device_kernel_ms": dev_ms, "cuda_kernels": len(kernels)})
 
-    # one long prompt, prefilled in chunks (prefill is eager in both engines)
+    # one long prompt, prefilled in chunks: eager, and replayed as graphs
     long_prompt = torch.randint(1, eager.adapter.vocab_size, (LONG_PROMPT,), generator=gen)
 
-    def long_request(rid: str):
-        eager.add_request(rid, long_prompt.tolist(),
-                          SamplingParams(max_tokens=1, ignore_eos=True))
-        steps_ms = []
+    def long_request(eng: TorchEngine, rid: str, sync: bool):
+        """(ms to the first token, each step's wall ms): a sync after every
+        step only when `sync`."""
+        eng.add_request(rid, long_prompt.tolist(), SamplingParams(max_tokens=1, ignore_eos=True))
+        steps_ms, ttft_ms = [], None
         t_all = time.perf_counter()
-        while eager.has_work:
+        while eng.has_work:
             t0 = time.perf_counter()
-            eager.step()
-            torch.cuda.synchronize()
+            outs = eng.step()
+            if sync:
+                torch.cuda.synchronize()
             steps_ms.append((time.perf_counter() - t0) * 1e3)
-        return (time.perf_counter() - t_all) * 1e3, steps_ms
+            if ttft_ms is None and any(o.new_token_ids for o in outs):
+                ttft_ms = (time.perf_counter() - t_all) * 1e3
+        return ttft_ms, steps_ms
 
-    long_request("long-warm")
-    ttft_ms, steps_ms = long_request("long")
-    with torch.profiler.profile(activities=ACTS) as prof:
-        window_ms, _ = long_request("long-prof")
-    emit({"phase": "chunked", "prompt": LONG_PROMPT, "prefill_chunk": PREFILL_CHUNK,
-          "ttft_ms": ttft_ms, "chunk_step_ms": steps_ms, **device_time(prof, window_ms)})
+    for name in ("eager", "graphs"):
+        eng = engines[name]
+        long_request(eng, f"long-warm-{name}", True)
+        ttft_ms, _ = long_request(eng, f"long-{name}", False)
+        synced_ttft_ms, steps_ms = long_request(eng, f"long-sync-{name}", True)
+        with torch.profiler.profile(activities=ACTS) as prof:
+            window_ms, _ = long_request(eng, f"long-prof-{name}", False)
+        emit({"phase": "chunked", "engine": name, "prompt": LONG_PROMPT,
+              "prefill_chunk": PREFILL_CHUNK, "ttft_ms": ttft_ms,
+              "synced_ttft_ms": synced_ttft_ms, "chunk_step_ms": steps_ms,
+              "prefill_replays": eng.metrics.prefill_replays, "compiles": eng.metrics.compiles,
+              **device_time(prof, window_ms)})
     print(card, flush=True)
     return 0
 

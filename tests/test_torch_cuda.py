@@ -20,7 +20,11 @@ on the quantization's edges, and replayed in a CUDA graph. Paged decode
 mode) and flash prefill replay in a CUDA graph too, bit-equal to eager
 calls. The engine's decode graphs give the eager loop's token streams bit
 for bit, over each pool mode, count their captures, replays and
-launches, and keep the decode workspace they were captured over. Flash prefill and paged prefill (bf16 output) hold each
+launches, and keep the decode workspace they were captured over; its
+prefill graphs (first chunks, chunks with history, chunks that sample
+nothing) do the same, and under overlapped decode a key replayed twice in
+a row, and a prefill replayed between a speculated dispatch and its
+readback, leave every id the eager loop's. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -33,7 +37,7 @@ import torch
 import chip_smoke
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.engine import DECODE_KINDS, TorchEngine
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.engine.step_graph import StepGraph
 from dynamo_tpu_torch.models.registry import get_model
@@ -788,13 +792,16 @@ def llama_params():
     return get_model("llama3-1b").init_params(torch.Generator(device=dev).manual_seed(0))
 
 
-def _engines(params, mode):
+def _engines(params, mode, overlap=(False, False), **knobs):
     """(eager, graphs): two llama3-1b engines over one set of weights and
-    pools of `mode`, buckets 1-8 and up to 8 fused steps."""
-    cfg = EngineConfig(model="llama3-1b", num_pages=96, page_size=64, max_pages_per_seq=8,
-                       decode_buckets=(1, 2, 4, 8), max_seqs=8, decode_steps=8,
-                       kv_quantize=mode, eos_token_ids=(0,))
-    return [TorchEngine(cfg, params=params, device="cuda", cuda_graphs=g) for g in (False, True)]
+    pools of `mode`, buckets 1-8 and up to 8 fused steps, with overlapped
+    decode as `overlap` says for each."""
+    cfg = dict(model="llama3-1b", num_pages=96, page_size=64, max_pages_per_seq=8,
+               decode_buckets=(1, 2, 4, 8), max_seqs=8, decode_steps=8, kv_quantize=mode,
+               eos_token_ids=(0,))
+    cfg.update(knobs)
+    return [TorchEngine(EngineConfig(**cfg, overlap_decode=o), params=params, device="cuda",
+                        cuda_graphs=g) for g, o in zip((False, True), overlap)]
 
 
 #: waves of (requests, max_tokens): K of 8, 4, 2 and 1 over buckets 8, 4, 2
@@ -803,14 +810,15 @@ def _engines(params, mode):
 GRAPH_WAVES = [(5, 9), (3, 5), (2, 3), (1, 2), (4, 9), (3, 9), (5, 9)]
 
 
-def _run_waves(eng, waves, sampling=None, tag=""):
-    """Each wave's requests together (prompts of 20-140 random tokens from
-    a fixed seed); returns request id -> generated ids."""
+def _run_waves(eng, waves, sampling=None, tag="", length=lambda i: 20 + 30 * i):
+    """Each wave's requests together (prompts of length(i) random tokens,
+    20-140 by default, from a fixed seed); returns request id -> generated
+    ids."""
     gen = torch.Generator().manual_seed(5)
     out = {}
     for w, (n, max_tokens) in enumerate(waves):
         for i in range(n):
-            prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+            prompt = torch.randint(1, 128_000, (length(i),), generator=gen).tolist()
             sp = SamplingParams(max_tokens=max_tokens, ignore_eos=True, **(sampling or {}))
             eng.add_request(f"{tag}{w}-{i}", prompt, sp)
         out.update(eng.run_to_completion())
@@ -823,18 +831,21 @@ def test_decode_graphs_give_the_eager_streams(llama_params, mode):
     over K in {1, 2, 4, 8} and buckets 1-8, a smaller batch after a larger
     one in a bucket included; each key is captured once, every decode
     dispatch replays, and a wave run again with every key captured counts
-    the eager loop's launches, pool variant by variant, and no plain call."""
+    the eager loop's launches, pool variant by variant, and no plain call.
+    (Overlap off in both: the prefill steps replay graphs too.)"""
     eager, graphs = _engines(llama_params, mode)
     want = _run_waves(eager, GRAPH_WAVES)
     got = _run_waves(graphs, GRAPH_WAVES)
     assert got == want
     keys = [k for k, fn in graphs._step_fns.items() if isinstance(fn, StepGraph)]
     assert sorted(keys) == sorted(eager.step_keys)
-    assert {k[1] for k in keys} == {1, 2, 4, 8} and {k[2] for k in keys} == {1, 2, 4, 8}
+    decode = [k for k in keys if k[0] in DECODE_KINDS]
+    assert {k[1] for k in decode} == {1, 2, 4, 8} and {k[2] for k in decode} == {1, 2, 4, 8}
     m = graphs.metrics
     assert m.compiles == len(keys) and m.compile_ms > 0
     assert m.decode_replays == m.decode_dispatches == eager.metrics.decode_dispatches
-    assert sum(fn.replays for fn in graphs._step_fns.values()) == m.decode_replays
+    assert sum(fn.replays for fn in graphs._step_fns.values()) == (
+        m.decode_replays + m.prefill_replays) == graphs.dispatches
     assert eager.metrics.compiles == eager.metrics.decode_replays == 0
     counts = []
     for eng in (eager, graphs):
@@ -869,7 +880,8 @@ def test_decode_graphs_hold_their_workspace(llama_params):
     junk = [torch.full((n,), 3, dtype=dtype, device=dev) for n, dtype in shapes]
     got = _run_waves(graphs, waves, tag="again")
     assert {k[len("again"):]: v for k, v in got.items()} == want
-    assert graphs.metrics.compiles == 1 and graphs.metrics.decode_replays == 2
+    # one prefill key and one decode key
+    assert graphs.metrics.compiles == 2 and graphs.metrics.decode_replays == 2
     del junk
 
 
@@ -881,5 +893,87 @@ def test_decode_graphs_give_the_eager_seeded_samples(llama_params):
     waves = [(3, 9), (1, 3)]
     want = _run_waves(eager, waves, sampling)
     assert _run_waves(graphs, waves, sampling) == want
-    assert all(not k[3] for k in graphs.step_keys)  # the sampled variants
+    # the sampled variants
+    assert all(not k[3] for k in graphs.step_keys if k[0] in ("prefill",) + DECODE_KINDS)
     assert graphs.metrics.compiles == len(graphs.step_keys)
+
+
+#: prompts of 300, 170, 40 and 110 tokens at a chunk of 128: first chunks
+#: and chunks with history in one step, and steps that sample nothing
+PREFILL_LENGTH = (300, 170, 40, 110).__getitem__
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_prefill_graphs_give_the_eager_streams(llama_params, mode):
+    """Prefill chunk steps replayed as graphs give the eager streams bit for
+    bit, greedy and seeded sampled: first chunks, chunks with history and
+    chunks that sample nothing, with every dispatch a replay."""
+    eager, graphs = _engines(llama_params, mode, prefill_chunk=128)
+    sampling = dict(temperature=0.8, top_p=0.95, seed=7)
+    for eng in (eager, graphs):
+        ops.reset_counts()
+        eng.streams = (_run_waves(eng, [(4, 5), (1, 3)], length=PREFILL_LENGTH),
+                       _run_waves(eng, [(3, 4)], sampling, "s", length=PREFILL_LENGTH))
+        torch.cuda.synchronize()
+        # the graph engine's warm-ups launch too
+        eng.counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+    assert graphs.streams == eager.streams
+    keys = set(graphs.step_keys)
+    assert keys == set(eager.step_keys)
+    prefill = {(k[0], k[-1]) for k in keys if k[0] not in DECODE_KINDS}
+    assert prefill == {(kind, first) for kind in ("prefill", "prefill_nosample")
+                       for first in (True, False)}
+    m = graphs.metrics
+    assert m.prefill_replays >= m.prefill_dispatches == eager.metrics.prefill_dispatches > 0
+    assert m.prefill_replays + m.decode_replays == graphs.dispatches == eager.dispatches
+    assert m.compiles == len(keys)
+    for name in ("paged_prefill_attention", "flash_prefill_attention"):
+        assert graphs.counts[kv_quant.variant(name, mode if "paged" in name else None)][0] > 0
+    assert all(plain == 0 for _, plain in graphs.counts.values())
+
+
+def test_overlap_replays_one_decode_key_twice_in_a_row(llama_params):
+    """One step at a time with overlap on: each speculated dispatch replays
+    the key its predecessor just replayed, its tokens copied from that
+    replay's output before it is overwritten; the ids equal the eager
+    loop's without overlap."""
+    eager, graphs = _engines(llama_params, None, overlap=(False, True), decode_steps=1)
+    waves = [(3, 12), (1, 9)]
+    want = _run_waves(eager, waves)
+    assert _run_waves(graphs, waves) == want
+    m = graphs.metrics
+    assert m.overlap_hits > 10 and m.overlap_hits + m.overlap_rollbacks == m.overlap_dispatches
+    decode = [k for k in graphs.step_keys if k[0] in DECODE_KINDS]
+    assert {k[:3] for k in decode} == {("decode", 4, 1), ("decode", 1, 1)}
+    assert m.decode_replays == m.decode_dispatches + m.overlap_rollbacks
+
+
+def test_a_prefill_replay_before_a_readback_changes_no_id(llama_params):
+    """A speculated decode replay is in flight when a request arrives: its
+    prefill (a 500-token chunk, whose graph shares the pool) replays before
+    the speculation's ids are read. The ids read then are the tokens the
+    eager loop without overlap generates at those positions, in the same
+    batch. (Later ids are not compared: the late request changes the
+    batch's bucket, and bf16 GEMMs round differently at another size.)"""
+    eager, graphs = _engines(llama_params, None, overlap=(False, True), decode_steps=1)
+    want = _run_waves(eager, [(2, 12)])
+    late = torch.randint(1, 128_000, (500,), generator=torch.Generator().manual_seed(9))
+    gen = torch.Generator().manual_seed(5)
+    for i in range(2):
+        prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+        graphs.add_request(f"0-{i}", prompt, SamplingParams(max_tokens=12, ignore_eos=True))
+    got: dict[str, list[int]] = {}
+    while graphs._inflight is None or min(map(len, got.values())) < 4:
+        for o in graphs.step():
+            got.setdefault(o.request_id, []).extend(o.new_token_ids)
+    inflight = graphs._inflight
+    at = {r.request_id: len(r.output_tokens) for r in inflight.reqs}
+    replays = graphs.metrics.prefill_replays
+    graphs.add_request("late", late.tolist(), SamplingParams(max_tokens=4, ignore_eos=True))
+    graphs.step()  # the prefill: rolls the speculation back
+    assert graphs._inflight is None and graphs.metrics.prefill_replays == replays + 1
+    assert graphs.metrics.overlap_rollbacks == 1
+    ids = inflight.ids.numpy()  # read after the prefill replay
+    for row, (rid, n) in enumerate(at.items()):
+        assert got[rid] == want[rid][:n] and ids[0, row] == want[rid][n], rid
+    graphs.run_to_completion()

@@ -170,7 +170,13 @@ def test_prompt_longer_than_one_chunk_is_refused():
     ],
 )
 def test_unported_knob_is_refused_by_name(knob):
+    """(overlap_decode=True keeps its case from when the port refused it;
+    the case now checks that the knob is served.)"""
     (name,) = knob
+    if name == "overlap_decode":
+        assert EngineConfig.for_tests(**knob).overlap_decode is True
+        assert EngineConfig.for_tests(overlap_decode=False).overlap_decode is False
+        return
     with pytest.raises(NotImplementedError, match=name):
         EngineConfig.for_tests(**knob)
 
@@ -187,7 +193,7 @@ def test_every_knob_of_the_jax_config_is_ported_or_refused():
     ported = {f.name for f in dataclasses.fields(EngineConfig)}
     assert jax_knobs == ported | UNPORTED.keys()
     assert not ported & UNPORTED.keys()
-    off = dict(enable_prefix_caching=False, overlap_decode=False, mixed_steps=False,
+    off = dict(enable_prefix_caching=False, mixed_steps=False,
                fleet_telemetry=False, flight_recorder=False, stall_watchdog=False)
     cfg = EngineConfig(**dataclasses.asdict(JaxEngineConfig.for_tests(**off)))
     assert cfg == EngineConfig.for_tests()

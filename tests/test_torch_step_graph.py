@@ -1,10 +1,11 @@
-"""The host side of the port's decode step graphs, on the CPU.
+"""The host side of the port's step graphs, on the CPU.
 
 A CUDA graph needs the card (tests/test_torch_cuda.py captures and replays
 them there). What runs here: the static buffers' fill, which must write
-every row of every buffer, padding included; the step keys, which must be
-the JAX engine's decode key fields for the same dispatches; and a CPU
-engine, which must capture nothing.
+every row of every buffer, padding included, from host arrays or device
+tensors; the step keys, decode and prefill, which must be the JAX engine's
+key fields for the same dispatches; and a CPU engine, which must capture
+nothing.
 """
 
 import dataclasses
@@ -14,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
 from dynamo_tpu.engine.engine import EngineMetrics as JaxEngineMetrics
+from dynamo_tpu.engine.engine import JaxEngine
 from dynamo_tpu.engine.request import SamplingParams as JaxSampling
 from dynamo_tpu_torch.cli import run as cli_run
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import EngineMetrics, TorchEngine
+from dynamo_tpu_torch.engine.engine import DECODE_KINDS, EngineMetrics, TorchEngine
 from dynamo_tpu_torch.engine.request import SamplingParams
-from dynamo_tpu_torch.engine.step_graph import StaticInputs, StepGraph
+from dynamo_tpu_torch.engine.step_graph import Readback, StaticInputs, StepGraph
 from tests.test_torch_engine import MAX_TOKENS, PROMPTS, _jax_engine, _torch_engine
 from tests.test_torch_guard import _port_modules
 
@@ -91,9 +94,69 @@ def test_step_keys_are_the_jax_engines_decode_keys(decode_steps):
                                                           ignore_eos=True))
     jax_eng.run_to_completion()
     torch_eng.run_to_completion()
-    want = {k[:4] for k in jax_eng._jit_cache if k[0] in ("decode", "decode_multi")}
-    assert set(torch_eng.step_keys) == want
+    want = {k[:4] for k in jax_eng._jit_cache if k[0] in DECODE_KINDS}
+    assert {k for k in torch_eng.step_keys if k[0] in DECODE_KINDS} == want
     assert {k[3] for k in want} == {True, False}  # both sampler variants ran
+
+
+def test_fill_takes_a_device_tensor_and_refuses_a_wrong_dtype():
+    """A speculated decode dispatch's tokens come from the last dispatch's
+    ids on the device: a tensor input is copied whole like an array, and
+    one of another dtype (or shape) than its buffer is refused."""
+    inputs = StaticInputs(SPECS, torch.device("cpu"))
+    arrays = _arrays(np.random.default_rng(2), 3)
+    ids = torch.arange(7, 11, dtype=torch.int64)[:, None]
+    inputs.fill({**arrays, "tokens": ids})
+    assert torch.equal(inputs.device["tokens"], ids)
+    assert np.array_equal(inputs.device["noise"].numpy(), arrays["noise"])
+    with pytest.raises(ValueError, match="int32"):
+        inputs.fill({**arrays, "tokens": ids.to(torch.int32)})
+    with pytest.raises(ValueError, match="shape"):
+        inputs.fill({**arrays, "tokens": ids[:3]})
+
+
+def test_readback_of_a_cpu_tensor_is_the_tensor():
+    ids = torch.tensor([[3, 4], [5, 6]])
+    got = Readback(ids)
+    assert got.device is ids and np.array_equal(got.numpy(), ids.numpy())
+
+
+#: a prompt of three chunks of 16 (two that sample nothing), one of two,
+#: and two short ones, then one long prompt alone (a first chunk that
+#: samples nothing); odd requests seeded sampled
+KEY_PROMPTS = {"long": list(range(1, 49)), "mid": list(range(3, 23)), "s0": [9, 8, 7],
+               "s1": [5, 6, 7, 8, 9, 10]}
+ALONE = {"alone": list(range(2, 42))}
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+def test_prefill_step_keys_are_the_jax_engines_prefill_keys(decode_steps):
+    """The same requests dispatch the same prefill keys in both engines:
+    JaxEngine._get_step_fn's cache key projected onto (kind, B bucket, T
+    bucket, all-greedy, first chunk) for "prefill", and onto (kind, B, T,
+    first chunk) for "prefill_nosample", whose key has no sampler kind.
+    The workload runs first chunks, chunks with history and chunks that
+    sample nothing, greedy and sampled. (The keys do not depend on the JAX
+    engine's attention, so it runs its quicker XLA one here.)"""
+    jax_cfg = JaxEngineConfig.for_tests(attention_impl="xla", enable_prefix_caching=False,
+                                        mixed_steps=False, decode_steps=decode_steps,
+                                        max_pages_per_seq=16)
+    engines = (JaxEngine(jax_cfg),
+               _torch_engine(decode_steps=decode_steps, max_pages_per_seq=16))
+    for eng, sampling in zip(engines, (JaxSampling, SamplingParams)):
+        for wave in (KEY_PROMPTS, ALONE):
+            for i, (rid, prompt) in enumerate(wave.items()):
+                eng.add_request(rid, prompt, sampling(max_tokens=3, temperature=0.8 * (i % 2),
+                                                      seed=i, ignore_eos=True))
+            eng.run_to_completion()
+    jax_eng, torch_eng = engines
+    want = {(k[0], k[1], k[2], k[3], k[5]) if k[0] == "prefill" else (k[0], k[1], k[2], k[5])
+            for k in jax_eng._jit_cache if k[0].startswith("prefill")}
+    got = {k for k in torch_eng.step_keys if k[0] not in DECODE_KINDS}
+    assert got == want
+    sampled = {k for k in got if k[0] == "prefill"}
+    assert {k[3] for k in sampled} == {k[4] for k in sampled} == {True, False}
+    assert {k[3] for k in got if k[0] == "prefill_nosample"} == {True, False}
 
 
 def test_a_cpu_engine_captures_nothing():
@@ -104,7 +167,7 @@ def test_a_cpu_engine_captures_nothing():
     assert eng.metrics.decode_dispatches > 0 and eng.step_keys
     assert not any(isinstance(fn, StepGraph) for fn in eng._step_fns.values())
     assert eng.metrics.compiles == 0 and eng.metrics.compile_ms == 0.0
-    assert eng.metrics.decode_replays == 0
+    assert eng.metrics.decode_replays == eng.metrics.prefill_replays == 0
     assert eng._graph_stream is None  # no stream, pool or workspace was made
 
 
@@ -122,7 +185,10 @@ def test_engine_metrics_carry_the_jax_engines_compile_fields():
     jax_names = {f.name: f.type for f in dataclasses.fields(JaxEngineMetrics)}
     for name in ("compiles", "compile_ms"):
         assert names[name] == jax_names[name]
-    assert {"compiles", "compile_ms", "decode_replays"} <= EngineMetrics().to_dict().keys()
+    for name in ("overlap_dispatches", "overlap_hits", "overlap_rollbacks"):
+        assert names[name] == jax_names[name]
+    assert {"compiles", "compile_ms", "decode_replays", "prefill_replays"} <= (
+        EngineMetrics().to_dict().keys())
 
 
 def test_the_import_guard_covers_the_step_graph_module():
