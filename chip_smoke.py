@@ -10,8 +10,9 @@ Phases, each fatal on failure:
      widths (page size 64; flash prefill, bf16 paged decode, bf16 paged
      prefill and the write in every pool mode also at llama3-8b's head dim
      of 128, flash prefill at a 4,096-token chunk, paged prefill also at
-     one long prompt's late chunk, the write at one long prompt's chunk of
-     512 tokens),
+     one long prompt's late chunk and at a prefix-cache hit's piece (B=1,
+     T=256, 1,088 cached tokens of history, 200 new), the write at one
+     long prompt's chunk of 512 tokens),
      over bf16 pools and over quantized (int8, fp8)
      pools for the three kernels that read or write them, with its time,
      the plain version's, one library call's where one computes the same
@@ -34,7 +35,9 @@ Phases, each fatal on failure:
      first chunk and a chunk with history that sample nothing, then one
      that samples) and of 700 beside 100, then seeded sampled waves, one
      with a 600-token prompt, and four requests joined by a fifth after
-     their fourth step. Every stream must be identical in all three; each graph engine must capture each key it dispatched once
+     their fourth step (prefix caching off: the 700- and 600-token prompts
+     repeat the 1,100-token one's first tokens and would hit its pages).
+     Every stream must be identical in all three; each graph engine must capture each key it dispatched once
      (`compiles`), replay every prefill and decode dispatch (the replays
      sum to the engine's step-function calls; the long prompt alone:
      prefill_replays == prefill_dispatches == 3), and only the overlap
@@ -43,14 +46,45 @@ Phases, each fatal on failure:
      rollbacks; its run (counts set to 0 just before it) must
      launch every kernel variant of its pool, counted through replays,
      and no plain version;
+  4c. prefix: one llama3-1b engine a pool mode (bf16, int8, fp8), built
+     as the CLI builds it with no flags but the model, the pool and the
+     serve's context: prefix caching, graphs and overlapped decode on,
+     chunk 512, page 64. A warm request (a 1,100-token prefix and a
+     40-token tail, 16 tokens) registers the prefix's 17 whole pages,
+     whose bytes (K, V, scale planes) are copied; then one wave of six
+     greedy requests of 24 tokens: the prefix with tails of 1, 63, 200 and
+     700 tokens, the prefix's 17 pages exactly, and a prompt that shares
+     no page. cached_tokens on each first output must be 1,088, 1,024 for
+     the prompt cached whole (its last page recomputed) and 0 for the
+     unrelated one; the copied pages' bytes must be unchanged; only the
+     uncached tokens prefill, and paged prefill launches once a layer for
+     each replay of a chunk key with history; no page is evicted; the
+     dispatch counts keep phase 4b's identities. clear_cache() must
+     return every cached page, and the warm request and the wave again
+     must give the same streams bit for bit. An eager twin (the same
+     config, cuda_graphs=False, caching on) must serve the warm request
+     and the wave to the same streams and cached_tokens bit for bit, so a
+     graph replay of a chunk key with history that read a wrong page table
+     would show. The model gate on the hit
+     path: the 200-token tail's piece over the prefix's pages written by
+     the warm prompt's own forward, against a cold forward of the whole
+     prompt in chunks of 512 into fresh pages, kernel and plain paths
+     (max |delta logit| < 0.25, argmax >= 90 %). Printed only: the host ms
+     of hashing the 1,140-token prompt's chain and a decode wave's
+     appends, and the synced engine TTFT of a 1,300-token prompt with
+     1,088 tokens cached against the same prompt cold;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
      prefills in three chunks, a unary chat and a completion together,
-     then a streamed greedy pair and a streamed seeded sampled pair one
-     request at a time); then the same server with --kv-quantize int8 and
-     with --kv-quantize fp8, each with the long prompt and three streaming
-     chats together, then the greedy pair one request at a time. Each
+     then two streaming chats that share a system message of about 1,100
+     bytes, then a streamed greedy pair and a streamed seeded sampled pair,
+     one request at a time); then the same server with --kv-quantize int8
+     and with --kv-quantize fp8, each with the long prompt and three
+     streaming chats together, then the shared-system pair and the greedy
+     pair one request at a time. The first of the shared-system pair must
+     have no usage.prompt_tokens_details, the second cached_tokens of the
+     prompts' common whole pages (at most all but its last page). Each
      request asks for its token ids in its choices (ext.return_token_ids):
      usage must count exactly the ids served, each pair's ids must be
      identical, every kernel variant of the server's pool must launch
@@ -85,6 +119,7 @@ import urllib.request
 import torch
 
 from dynamo_tpu_torch import ops, platform
+from dynamo_tpu_torch.preprocessor.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
 
 #: llama3-1b attention widths (LlamaConfig.llama3_1b), page size 64
@@ -486,10 +521,11 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
 
 
 #: paged prefill cases (hist_lens, cur_lens, T, seed): one long prompt's
-#: sixth 512-token chunk (3,000 tokens in all, under one wave of CTAs), then
-#: the main case, a first chunk beside chunks with long histories, last so
-#: the kernels line reports it
-PAGED_PREFILL_CASES = (([2560], [440], 512, 10),
+#: sixth 512-token chunk (3,000 tokens in all, under one wave of CTAs), a
+#: prefix-cache hit's piece (17 cached pages of 64, then a 200-token tail
+#: in the T bucket of 256), then the main case, a first chunk beside
+#: chunks with long histories, last so the kernels line reports it
+PAGED_PREFILL_CASES = (([2560], [440], 512, 10), ([1088], [200], 256, 14),
                        ([0, 512, 1536, 3072], [512, 512, 300, 512], 512, 5))
 
 
@@ -609,6 +645,13 @@ def phase_kernels(dev, peaks) -> dict:
 # -- phase 4: the model gate ------------------------------------------------------
 
 
+def logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int, int]:
+    """Two paths' logits [T, V] at the same positions: (max |delta logit|,
+    positions whose argmax agrees, positions)."""
+    d = (a.float() - b.float()).abs().amax(dim=-1)
+    return d.max().item(), int((a.argmax(-1) == b.argmax(-1)).sum()), a.shape[0]
+
+
 def phase_model(dev) -> list[dict]:
     """The model gate over a prompt in one first chunk, and over a longer
     prompt in chunks whose later ones attend over their history, over a
@@ -651,13 +694,12 @@ def phase_model(dev) -> list[dict]:
                 for (a, b_), st in stats.items():
                     if b_ not in out:
                         continue
-                    d = (out[a].float() - out[b_].float()).abs().amax(dim=-1)  # per position
-                    st[0] = max(st[0], d.max().item())
-                    st[1] += int((out[a].argmax(-1) == out[b_].argmax(-1)).sum())
-                    st[2] += out[a].shape[0]
-                    if b_ == "plain" and d.max().item() >= GATE_MAX_DLOGIT:
-                        raise AssertionError(f"{label}: step {step} max |dlogit| "
-                                             f"{d.max().item()}")
+                    worst, agree, rows = logit_gap(out[a], out[b_])
+                    st[0] = max(st[0], worst)
+                    st[1] += agree
+                    st[2] += rows
+                    if b_ == "plain" and worst >= GATE_MAX_DLOGIT:
+                        raise AssertionError(f"{label}: step {step} max |dlogit| {worst}")
 
             start = 0
             for i, n in enumerate(chunks):  # the prompt, chunk by chunk
@@ -777,10 +819,13 @@ def phase_graphs(dev) -> list[dict]:
         for name, graphs, overlap in GRAPH_ENGINES:
             # the serve's page-table width (--max-context 2048 over pages of
             # S) and chunk: the split plans and the workspace the serve's
-            # graphs run with
+            # graphs run with; prefix caching off, as the 700- and 600-token
+            # prompts repeat the 1,100-token one's first tokens and a hit
+            # would change their chunks (phase "prefix" serves the hits)
             cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
                                max_pages_per_seq=SERVE_CONTEXT // S, kv_quantize=mode,
-                               eos_token_ids=(0,), overlap_decode=overlap)
+                               eos_token_ids=(0,), overlap_decode=overlap,
+                               enable_prefix_caching=False)
             eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=graphs)
             ops.reset_counts()
             t0 = time.perf_counter()
@@ -864,6 +909,298 @@ def phase_graphs(dev) -> list[dict]:
     return results
 
 
+# -- phase "prefix": prefix caching at the CLI's defaults -------------------------
+
+#: the shared prefix (17 whole pages of 64 and 12 tokens of an 18th) and the
+#: warm request's tail
+PREFIX_LEN, WARM_TAIL = 1100, 40
+#: the wave: tails after the shared prefix (the 700-token one's uncached
+#: 712 tokens span two chunks of 512), beside a prompt of the prefix's 17
+#: whole pages (cached whole: its last page is recomputed) and a prompt of
+#: COLD_LEN tokens that shares no page
+WAVE_TAILS = (1, 63, 200, 700)
+COLD_LEN = 300
+#: greedy tokens a request: the warm one's, then each wave request's
+WARM_TOKENS, WAVE_TOKENS = 16, 24
+#: the tail of the hit timed against the same prompt served cold
+TIMED_TAIL = 200
+
+
+def prefix_prompts(vocab: int) -> tuple[list[int], dict[str, list[int]], list[int]]:
+    """(the warm request's prompt, the wave's prompts by request id, the
+    shared prefix), random tokens from a fixed seed."""
+    gen = torch.Generator().manual_seed(17)
+    draw = lambda n: torch.randint(1, vocab, (n,), generator=gen).tolist()  # noqa: E731
+    prefix = draw(PREFIX_LEN)
+    warm = prefix + draw(WARM_TAIL)
+    wave = {f"tail{n}": prefix + draw(n) for n in WAVE_TAILS}
+    wave["whole"] = prefix[: (PREFIX_LEN // S) * S]
+    wave["cold"] = draw(COLD_LEN)
+    return warm, wave, prefix
+
+
+def serve_requests(eng, prompts: dict[str, list[int]], max_tokens: int
+                   ) -> tuple[dict[str, list[int]], dict[str, int]]:
+    """The requests together, greedy, to completion: (request id -> ids,
+    request id -> cached_tokens of its first output)."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    for rid, prompt in prompts.items():
+        eng.add_request(rid, prompt, SamplingParams(max_tokens=max_tokens, ignore_eos=True))
+    streams: dict[str, list[int]] = {}
+    cached: dict[str, int] = {}
+    while eng.has_work:
+        for o in eng.step():
+            streams.setdefault(o.request_id, []).extend(o.new_token_ids)
+            if o.cached_tokens is not None:
+                cached.setdefault(o.request_id, o.cached_tokens)
+    return streams, cached
+
+
+def page_bytes(eng, pages) -> list[torch.Tensor]:
+    """Copies of the pages' K and V rows and scale planes, every layer."""
+    idx = torch.tensor(sorted(pages), device=eng.kv.k.device)
+    return [as_bytes(x[:, idx]).clone() for x in eng.kv if x is not None]
+
+
+def synced_ttft_ms(eng, rid: str, prompt: list[int]) -> tuple[float, int]:
+    """(ms from a synced device and the request's arrival to its first
+    token on the host, the prompt tokens the cache served) for one request
+    alone."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cached = serve_requests(eng, {rid: prompt}, 1)
+    return (time.perf_counter() - t0) * 1e3, cached[rid]
+
+
+def hash_ms(prompt: list[int], salt: str) -> dict:
+    """Host ms of the chain of one prompt (its full blocks of S), and of
+    appending a decode wave's tokens (WAVE_TOKENS to each of six chains)."""
+    from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        TokenBlockSequence(prompt, block_size=S, salt=salt)
+    chain_ms = (time.perf_counter() - t0) * 1e3 / reps
+    chains = [TokenBlockSequence(prompt[: S * 10 + 7 * i], block_size=S, salt=salt)
+              for i in range(6)]
+    t0 = time.perf_counter()
+    for chain in chains:
+        for t in range(WAVE_TOKENS):
+            chain.append(t)
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    return {"prompt_tokens": len(prompt), "chain_ms": chain_ms,
+            "decode_wave_append_ms": wave_ms, "decode_wave_tokens": 6 * WAVE_TOKENS}
+
+
+def prefix_gate(dev, adapter, params, mode, warm: list[int], hit: list[int]) -> dict:
+    """The model gate on the hit path: the hit prompt's uncached tokens
+    computed as a chunk with history over the pages the warm prompt's own
+    forward wrote (its chunks of 512), against a cold forward of the whole
+    hit prompt in chunks of 512 into fresh pages, by the kernel path and by
+    the plain path, each at the positions of the hit's piece."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    cached = PREFIX_LEN // S * S  # the hit prompt shares the warm one's prefix
+    pages = -(-len(hit) // S) + -(-len(warm) // S) + 1
+
+    def forward(pool, path_ops, tokens, start, pt):
+        """Logits of tokens[start:], padded as the engine pads a piece (to
+        its T bucket: a power of two from 32)."""
+        n = len(tokens) - start
+        t = 32
+        while t < n:
+            t *= 2
+        tok = torch.zeros((1, t), dtype=torch.long, device=dev)
+        tok[0, :n] = torch.tensor(tokens[start:], device=dev)
+        pos = torch.arange(start, start + t, dtype=torch.int32, device=dev)[None]
+        val = (torch.arange(t, device=dev) < n)[None]
+        logits, _ = llama.forward(params, cfg, tok, pos, val, pool, pt,
+                                  first_chunk=start == 0, ops=path_ops)
+        return logits[0, :n]
+
+    def chunked(pool, path_ops, tokens, pt):
+        out = None
+        for start in range(0, len(tokens), 512):
+            out = forward(pool, path_ops, tokens[: start + 512], start, pt)
+        return out
+
+    with torch.no_grad():
+        pool = adapter.init_kv(pages, S, dev, kv_quantize=mode)
+        n_warm = -(-len(warm) // S)
+        warm_pt = torch.arange(1, 1 + n_warm, dtype=torch.int32, device=dev)[None]
+        chunked(pool, ops.KERNELS, warm, warm_pt)
+        # the hit's table: the warm prompt's cached pages, then fresh ones
+        fresh = torch.arange(1 + n_warm, pages, dtype=torch.int32, device=dev)
+        hit_pt = torch.cat([warm_pt[0, : cached // S], fresh])[None]
+        got = forward(pool, ops.KERNELS, hit, cached, hit_pt)
+        result = {"cached_tokens": cached, "piece_tokens": len(hit) - cached}
+        for name, path_ops in (("kernel", ops.KERNELS), ("plain", ops.PLAIN)):
+            cold = adapter.init_kv(pages, S, dev, kv_quantize=mode)
+            cold_pt = torch.arange(1, pages, dtype=torch.int32, device=dev)[None]
+            want = chunked(cold, path_ops, hit, cold_pt)
+            rows = len(hit) - cached
+            worst, agree, n = logit_gap(got, want[-rows:])
+            result[f"vs_cold_{name}"] = {"max_abs_dlogit": worst, "argmax_agreement": agree / n}
+            if not (worst < GATE_MAX_DLOGIT and agree / n >= GATE_ARGMAX):
+                raise AssertionError(f"prefix gate, {mode or 'bf16'} pool: the hit path against "
+                                     f"the cold {name} path: max |dlogit| {worst}, argmax "
+                                     f"agreement {agree / n}")
+            del cold
+        del pool
+    return result
+
+
+def phase_prefix(dev, card: str) -> list[dict]:
+    """Prefix caching on one TorchEngine per pool mode, built as the CLI
+    builds it with no flags but the model, the pool mode and the serve's
+    context (caching, graphs and overlapped decode on, chunk 512, page 64).
+    A warm request, then a wave that hits its pages: cached_tokens on each
+    first output, the registered pages' bytes unchanged, the hits' pieces
+    run through paged prefill, no eviction, the dispatch identities of
+    phase 4b; then clear_cache() and the warm request and the wave again,
+    bit for bit; the same on an eager twin (cuda_graphs=False), bit for
+    bit; the model gate on the hit path; printed, not gated: the
+    hash's host ms and a hit's synced engine TTFT against the same prompt
+    served cold."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.step_graph import StepGraph
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    adapter = get_model("llama3-1b", dtype="bfloat16")
+    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
+    warm, wave, prefix = prefix_prompts(adapter.vocab_size)
+    full = PREFIX_LEN // S * S
+    want_cached = {**{f"tail{n}": full for n in WAVE_TAILS}, "whole": full - S, "cold": 0}
+    results = []
+    for mode in MODES:
+        label = f"prefix, {mode or 'bf16'} pool"
+        t_mode = time.perf_counter()
+        argv = ["run", "--model", "llama3-1b", "--max-context", str(SERVE_CONTEXT)]
+        args = cli_run._parse(argv + (["--kv-quantize", mode] if mode else []))
+        cfg = cli_run.engine_config(args, ModelDeploymentCard(name=args.model).eos_token_ids)
+        events = []
+        eng = TorchEngine(cfg, params=params, device=dev, on_kv_event=events.append)
+        if not (cfg.enable_prefix_caching and cfg.overlap_decode and eng._graphs
+                and cfg.prefill_chunk == 512 and cfg.page_size == S):
+            raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
+        runs = []
+        for round_ in range(2):
+            warm_out = serve_requests(eng, {"warm": warm}, WARM_TOKENS)
+            pages = sorted(eng.allocator._page_meta)
+            if len(pages) != PREFIX_LEN // S:
+                raise AssertionError(f"{label}: the warm request registered {len(pages)} pages")
+            before = page_bytes(eng, pages)
+            m = eng.metrics
+            replays = {k: g.replays for k, g in eng._step_fns.items() if isinstance(g, StepGraph)}
+            prefill_tokens = m.prefill_tokens
+            n_events = len(events)  # clear_cache() emits `removed` too
+            ops.reset_counts()
+            out = serve_requests(eng, wave, WAVE_TOKENS)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in ops.COUNTS.items() if c.launches}
+            runs.append((warm_out, out))
+            if out[1] != want_cached:
+                raise AssertionError(f"{label}: cached_tokens {out[1]}, want {want_cached}")
+            if not all(torch.equal(a, b) for a, b in zip(before, page_bytes(eng, pages))):
+                raise AssertionError(f"{label}: a wave that hit the cached pages wrote them")
+            uncached = sum(len(p) - out[1][rid] for rid, p in wave.items())
+            if m.prefill_tokens - prefill_tokens != uncached:
+                raise AssertionError(f"{label}: prefilled {m.prefill_tokens - prefill_tokens} "
+                                     f"tokens, {uncached} uncached")
+            # the hits' pieces all have history: paged prefill launches one
+            # per layer for each replay (and capture warm-up) of a chunk
+            # key with history, through the graphs
+            paged = kv_quant.variant("paged_prefill_attention", mode)
+            with_history = sum(
+                (g.replays - replays.get(k, 0) + (k not in replays))
+                * g.launches.get(paged, (0, 0))[0]
+                for k, g in eng._step_fns.items()
+                if isinstance(g, StepGraph) and k[0].startswith("prefill") and not k[-1])
+            if not launches.get(paged, 0) == with_history > 0:
+                raise AssertionError(f"{label}: {paged} launched {launches.get(paged, 0)} times "
+                                     f"in the wave, {with_history} by the chunk keys")
+            if any(e.kind == "removed" for e in events[n_events:]):
+                raise AssertionError(f"{label}: the pool evicted a cached page")
+            ok = (m.compiles == len(eng.step_keys)
+                  and m.prefill_replays + m.decode_replays == eng.dispatches
+                  and m.prefill_replays >= m.prefill_dispatches > 0
+                  and m.decode_replays == m.decode_dispatches + m.overlap_rollbacks > 0
+                  and m.overlap_dispatches == m.overlap_hits + m.overlap_rollbacks
+                  and m.overlap_hits > 0)
+            if not ok:
+                raise AssertionError(f"{label}: captures, replays or overlap counts wrong: "
+                                     f"{m.to_dict()}")
+            n_cached = len(eng.allocator._page_meta)
+            if eng.allocator.clear_cache() != n_cached or eng.allocator._page_meta or (
+                    eng.allocator.num_free != cfg.num_pages - 1):
+                raise AssertionError(f"{label}: clear_cache() left cached pages")
+            if round_ == 0:
+                first_wave = {"launches": launches, "paged_prefill_by_chunk_keys": with_history,
+                              "prefilled_tokens": uncached,
+                              "wave_stored_events": len(events) - n_events,
+                              "cached_pages_cleared": n_cached}
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{label}: the repeat after clear_cache() differs")
+        gate = prefix_gate(dev, adapter, params, mode, warm, wave[f"tail{TIMED_TAIL}"])
+        # a hit (the prefix's pages cached by the warm request) against the
+        # same prompt cold, each after one untimed run that captures its keys
+        gen = torch.Generator().manual_seed(18)
+        tails = [torch.randint(1, adapter.vocab_size, (TIMED_TAIL,), generator=gen).tolist()
+                 for _ in range(2)]
+        serve_requests(eng, {"warm": warm}, 1)
+        synced_ttft_ms(eng, "hit0", prefix + tails[0])
+        hit_ms, hit_cached = synced_ttft_ms(eng, "hit1", prefix + tails[1])
+        eng.allocator.clear_cache()
+        synced_ttft_ms(eng, "cold0", prefix + tails[1])
+        eng.allocator.clear_cache()
+        cold_ms, cold_cached = synced_ttft_ms(eng, "cold1", prefix + tails[1])
+        if (hit_cached, cold_cached) != (full, 0):
+            raise AssertionError(f"{label}: timed requests cached {hit_cached}, {cold_cached}")
+        m, dispatches = eng.metrics, eng.dispatches
+        del eng
+        torch.cuda.empty_cache()
+        # the eager twin: graphs replay every piece above, so only this
+        # holds a replayed chunk key with history against the eager loop
+        eager = TorchEngine(cfg, params=params, device=dev, cuda_graphs=False)
+        eager_run = (serve_requests(eager, {"warm": warm}, WARM_TOKENS),
+                     serve_requests(eager, wave, WAVE_TOKENS))
+        if eager_run != runs[0]:
+            raise AssertionError(f"{label}: the eager twin's streams or cached_tokens differ "
+                                 f"from the graphs'")
+        del eager
+        result = {"phase": "prefix", "model": "llama3-1b", "dtype": "bfloat16",
+                  "kv_quantize": mode, "card": card, "prefix_tokens": PREFIX_LEN,
+                  "warm_prompt": len(warm), "wave_prompts": {k: len(v) for k, v in wave.items()},
+                  "cached_tokens": runs[0][1][1], "registered_pages_snapshot": PREFIX_LEN // S,
+                  "identical": "the warm request's and the wave's streams, to the id, before "
+                               "and after clear_cache(); the snapshot pages' bytes (K, V and "
+                               "scale planes) unchanged by the wave; the eager twin's "
+                               "streams and cached_tokens equal to the graphs'",
+                  **first_wave, "prefix_hit_rate": m.prefix_hit_rate,
+                  **{k: getattr(m, k) for k in (
+                      "compiles", "prefill_dispatches", "prefill_replays", "decode_dispatches",
+                      "decode_replays", "overlap_dispatches", "overlap_hits",
+                      "overlap_rollbacks")},
+                  "dispatches": dispatches, "gate": gate,
+                  "ttft_hit_ms": hit_ms, "ttft_cold_ms": cold_ms,
+                  "ttft": f"synced engine time from arrival to the first token on the host, "
+                          f"one request of {PREFIX_LEN + TIMED_TAIL} tokens alone: {full} "
+                          "cached, against the same prompt after clear_cache()",
+                  "hash": hash_ms(warm, args.model), "run_s": time.perf_counter() - t_mode}
+        emit(result)
+        results.append(result)
+        del events
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
 # -- phase 5: serve ---------------------------------------------------------------
 
 
@@ -897,6 +1234,13 @@ def _post(url, body) -> tuple[int, list, list[int], float | None]:
                 raise AssertionError(f"{url}: stream did not end in [DONE]")
     ids = [t for o in out for c in o["choices"] for t in c.get("token_ids", [])]
     return status, out, ids, ttft
+
+
+#: a system message of about 1,100 bytes (one token a byte) two chats share
+SYSTEM_MESSAGE = ("You are a careful assistant for a team that runs language models on "
+                  "GPUs. Answer in plain words, name every number's source, and say so "
+                  "when you do not know. ") * 7
+SYSTEM_QUESTIONS = ("Which kernel reads the cached pages?", "How large is one page?")
 
 
 def serve_variants(mode) -> list[str]:
@@ -935,8 +1279,17 @@ def phase_serve(card: str, mode) -> dict:
             (chat, {"model": "llama3-1b", "max_tokens": 32, "ext": ext, **stream,
                     "messages": [{"role": "user", "content": "a long prompt: " + "abcdefgh " * 135}]}),
         ]
+        # the greedy pair's prompt is under one page: the prefix cache can
+        # give its second request no hit, and so no other shapes
         greedy = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
                          "messages": [{"role": "user", "content": "greedy twice"}]})
+        # two chats that share a system message of about 1,100 bytes, one
+        # after the other: the second is served from the prefix cache
+        system = {"role": "system", "content": SYSTEM_MESSAGE}
+        shared = [(chat, {"model": "llama3-1b", "max_tokens": 8, "ext": ext, **stream,
+                          "messages": [system, {"role": "user", "content": q}]})
+                  for q in SYSTEM_QUESTIONS]
+        first_wave = len(jobs)
         if mode is None:
             jobs += [
                 (chat, {"model": "llama3-1b", "max_tokens": 64, "ext": ext,
@@ -948,10 +1301,13 @@ def phase_serve(card: str, mode) -> dict:
             seeded = (chat, {"model": "llama3-1b", "max_tokens": 40, "ext": ext, **stream,
                              "seed": 7, "temperature": 0.8, "top_p": 0.95,
                              "messages": [{"role": "user", "content": "sampled twice"}]})
+            first_wave = len(jobs)
+            jobs += shared
             first = len(jobs)
             jobs += [greedy, seeded, greedy, seeded]
             pairs = ((first, first + 2), (first + 1, first + 3))
         else:
+            jobs += shared
             first = len(jobs)
             jobs += [greedy, greedy]
             pairs = ((first, first + 1),)
@@ -965,10 +1321,11 @@ def phase_serve(card: str, mode) -> dict:
 
         ops.reset_counts()
         t0 = time.perf_counter()
-        # the first wave together; then each pair's requests one at a time:
-        # alone, both of a pair run the same shapes, so they must agree to
-        # the bit (other batch sizes round bf16 GEMMs differently)
-        for wave in [range(first)] + [[i] for i in range(first, len(jobs))]:
+        # the first wave together; then the shared-system pair and each
+        # pair's requests one at a time: alone, both of a pair run the same
+        # shapes, so they must agree to the bit (other batch sizes round
+        # bf16 GEMMs differently)
+        for wave in [range(first_wave)] + [[i] for i in range(first_wave, len(jobs))]:
             threads = [threading.Thread(target=run, args=(i,)) for i in wave]
             for t in threads:
                 t.start()
@@ -1013,6 +1370,17 @@ def phase_serve(card: str, mode) -> dict:
     for a, b in pairs:  # the greedy pair (and the seeded pair)
         if results[a][2] != results[b][2]:
             raise AssertionError(f"{label}: requests {a} and {b} should be identical")
+    # the shared-system pair: the second's cached tokens are the whole pages
+    # of the two prompts' common prefix, all but the last page at most
+    tok = ByteTokenizer()
+    a, b = (tok.encode(tok.apply_chat_template(body["messages"])) for _, body in shared)
+    common = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    want_cached = min(common // S, (len(b) - 1) // S) * S
+    usages = [results[i][1][-1]["usage"] for i in (first - 2, first - 1)]
+    if "prompt_tokens_details" in usages[0] or usages[1].get("prompt_tokens_details") != {
+            "cached_tokens": want_cached} or want_cached < 1024:
+        raise AssertionError(f"{label}: the shared-system pair's usage {usages}, want "
+                             f"{want_cached} cached tokens on the second only")
     if prompt_tokens[3] <= 1200 or chunk != 512:
         raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
                              f"tokens, served at a chunk of {chunk}")
@@ -1034,6 +1402,7 @@ def phase_serve(card: str, mode) -> dict:
     result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16",
               "kv_quantize": mode, "card": card, "prefill_chunk": chunk,
               "requests": len(jobs), "prompt_tokens": prompt_tokens,
+              "shared_system_cached_tokens": want_cached,
               "output_tokens": out_tokens, "wall_s": wall,
               "tok_s": out_tokens / wall, "ttft_p50_s": statistics.median(ttft),
               "ttft_s": ttft,
@@ -1071,6 +1440,7 @@ def main() -> int:
     cases = phase_kernels(dev, peaks)
     phase_model(dev)
     phase_graphs(dev)
+    phase_prefix(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     for mode in MODES:  # flash_prefill_attention counts from the bf16 server

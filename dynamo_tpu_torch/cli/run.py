@@ -9,7 +9,8 @@ CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
 tokens (512 by default, as the JAX CLI's). `--kv-quantize int8|fp8`
 stores the KV pages quantized, as the JAX CLI's flag does. Decode runs
 the overlapped loop unless `--no-overlap-decode` is given, as in the JAX
-CLI. It runs on the GPU unless `--device cpu` is given.
+CLI. Prefix caching is on, as in the JAX CLI, which has no flag for it
+either. It runs on the GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.

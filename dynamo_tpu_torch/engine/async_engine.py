@@ -27,11 +27,15 @@ logger = logging.getLogger(__name__)
 
 
 def output_to_dict(out: StepOutput) -> dict:
-    """The one wire shape for engine stream items."""
-    return {
+    """The one wire shape for engine stream items ({token_ids,
+    finish_reason}, and cached_tokens on a first output)."""
+    d = {
         "token_ids": list(out.new_token_ids),
         "finish_reason": out.finish_reason.value if out.finish_reason else None,
     }
+    if out.cached_tokens is not None:
+        d["cached_tokens"] = out.cached_tokens
+    return d
 
 
 def sampling_from(req: PreprocessedRequest) -> SamplingParams:

@@ -2,9 +2,10 @@
 
 Counterpart of dynamo_tpu/engine/config.py. EngineConfig takes the JAX
 package's knob names. The knobs this package honours are its fields, with
-the JAX package's defaults. Every other knob of the JAX config (UNPORTED)
-is accepted only at a value that leaves its feature off; any other value
-raises NotImplementedError with the knob's name.
+the JAX package's defaults (prefix caching and overlapped decode on).
+Every other knob of the JAX config (UNPORTED) is accepted only at a value
+that leaves its feature off; any other value raises NotImplementedError
+with the knob's name.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from typing import Optional
 UNPORTED = {
     "decode_kstep": (1,),
     "mixed_steps": (False,),
-    "enable_prefix_caching": (False,),
     "spec_ngram": (0,),
     "spec_ngram_match": (2,),
     "spec_draft_model": (None,),
@@ -82,6 +82,11 @@ class _PortedKnobs:
     #: (tokens fed back on the device) before the pending step's ids reach
     #: the host, and roll it back when the batch changes
     overlap_decode: bool = True
+    #: content-addressed prefix caching: full pages are registered under
+    #: their chained block hash and a new prompt reuses the longest cached
+    #: prefix (at most all but its last page), with KV events for each
+    #: page stored and evicted
+    enable_prefix_caching: bool = True
     #: admission watermark: keep this fraction of pages free when admitting
     admission_watermark: float = 0.02
     #: eos token ids (from the model card/tokenizer)

@@ -23,6 +23,16 @@ the dispatch. The device computes N+1 while the host scans N. The next
 each advanced by N's tokens; otherwise the speculation is rolled back
 (its ids are overshoot, dropped like fused steps past a stop).
 
+Prefix caching (config.enable_prefix_caching, on by default as in the
+JAX engine): the scheduler admits a prompt onto the longest cached chain
+of its full pages, so its first piece is a chunk with history that starts
+at the first uncached page and runs through paged_prefill_attention. The
+engine registers each page once every token of it has its KV (after a
+prefill piece, before its first token is accepted; after a decode
+dispatch's tokens are accepted), emitting a `stored` KV event to
+`on_kv_event`. Every write lands at or past num_computed_tokens, so a
+registered page is never written again while it is cached.
+
 Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
 up to the chunk; B: powers of two for prefill, `decode_buckets` for
 decode), so both engines see the same padded batches.
@@ -35,13 +45,13 @@ import logging
 import time
 import zlib
 from dataclasses import asdict, dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.page_table import PageAllocator
+from dynamo_tpu_torch.engine.page_table import KvEvent, PageAllocator
 from dynamo_tpu_torch.engine.request import (
     FinishReason,
     Request,
@@ -101,6 +111,9 @@ class EngineMetrics:
     overlap_dispatches: int = 0
     overlap_hits: int = 0
     overlap_rollbacks: int = 0
+    #: prompt tokens the prefix cache served over those it was asked for
+    #: (PrefixCacheStats.hit_rate), refreshed every step
+    prefix_hit_rate: float = 0.0
 
     def to_dict(self) -> dict:
         return asdict(self)
@@ -125,10 +138,12 @@ class _InflightDecode:
 
 class TorchEngine:
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
-                 device=None, *, cuda_graphs: bool = True):
+                 device=None, *, cuda_graphs: bool = True,
+                 on_kv_event: Optional[Callable[[KvEvent], None]] = None):
         """`cuda_graphs=False` runs every dispatch eagerly on the card, as
         the JAX engine runs under jax.disable_jit(); on the CPU dispatches
-        are always eager."""
+        are always eager. `on_kv_event` receives the prefix cache's
+        `stored` and `removed` events, in order, on the engine's thread."""
         self.config = config
         self.device = resolve_device(device)
         self._graphs = cuda_graphs and self.device.type == "cuda"
@@ -144,7 +159,7 @@ class TorchEngine:
         #: speculated ones (with graphs, each is one replay)
         self.dispatches = 0
         self.adapter = get_model(config.model, dtype=config.dtype)
-        self.allocator = PageAllocator(config.num_pages, config.page_size)
+        self.allocator = PageAllocator(config.num_pages, config.page_size, on_event=on_kv_event)
         self.scheduler = Scheduler(config, self.allocator)
         self.metrics = EngineMetrics()
         if params is None:
@@ -206,6 +221,7 @@ class TorchEngine:
         graphs = [(k[0], g.replays) for k, g in self._step_fns.items() if isinstance(g, StepGraph)]
         self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_KINDS)
         self.metrics.prefill_replays = sum(n for kind, n in graphs if kind not in DECODE_KINDS)
+        self.metrics.prefix_hit_rate = self.allocator.stats.hit_rate
         return outputs
 
     def run_to_completion(self) -> dict[str, list[int]]:
@@ -333,11 +349,12 @@ class TorchEngine:
                 req = piece.request
                 req.num_computed_tokens += piece.length
                 self.metrics.prefill_tokens += piece.length
+                self._register_pages(req)
                 if piece.start + piece.length >= len(req.prompt_tokens):
                     tok = int(ids[i])
                     req.state = RequestState.DECODE
                     outputs.extend(self._accept_tokens(
-                        req, [tok], self._finish_reason_for(req, tok, 1)))
+                        req, [tok], self._finish_reason_for(req, tok, 1), first=True))
         return outputs
 
     def _prefill_body(self, first_chunk: bool, sampled: bool,
@@ -457,6 +474,9 @@ class TorchEngine:
                     break  # overshoot past a stop is dropped
             req.num_computed_tokens += len(accepted)
             outputs.extend(self._accept_tokens(req, accepted, finish))
+            # a request that finished here has no chain left: its last
+            # pages are not registered (as in the JAX engine)
+            self._register_pages(req)
         return outputs
 
     def _decode_body(self, k_steps: int, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -653,10 +673,28 @@ class TorchEngine:
         return None
 
     def _accept_tokens(self, req: Request, tokens: Sequence[int],
-                       finish: Optional[FinishReason]) -> list[StepOutput]:
+                       finish: Optional[FinishReason], first: bool = False
+                       ) -> list[StepOutput]:
         req.output_tokens.extend(tokens)
+        chain = self.scheduler.chains.get(req.request_id)
+        if chain is not None:
+            chain.extend(tokens)
         self.metrics.generated_tokens += len(tokens)
         if finish is not None:
             self.scheduler.finish(req)
             req.finish_reason = finish
-        return [StepOutput(req.request_id, tuple(tokens), finish)]
+        # the prefix cache's share of the prompt rides the first output
+        cached = req.num_cached_prompt_tokens if first else None
+        return [StepOutput(req.request_id, tuple(tokens), finish, cached_tokens=cached)]
+
+    def _register_pages(self, req: Request) -> None:
+        """Content-address each page of the request whose every token has
+        its KV (below num_computed_tokens): a `stored` event for each page
+        not registered yet."""
+        chain = self.scheduler.chains.get(req.request_id)
+        if chain is None:  # caching off, or the request has finished
+            return
+        full = min(req.num_computed_tokens, len(chain)) // self.config.page_size
+        for page, block in zip(req.pages[:full], chain.blocks):
+            self.allocator.register(page, block.sequence_hash, block.parent_sequence_hash,
+                                    block.tokens)

@@ -1,7 +1,8 @@
 """Engine-facing request/response types.
 
 Counterpart of dynamo_tpu/engine/request.py, trimmed to what this package
-serves: tokens in, tokens out, with the sampling knobs it implements.
+serves: tokens in, tokens out, with the sampling knobs it implements, and
+the prompt tokens the prefix cache served.
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ class Request:
     state: RequestState = RequestState.WAITING
     output_tokens: list[int] = field(default_factory=list)
     pages: list[int] = field(default_factory=list)
-    #: tokens whose KV is already in pages
+    #: tokens whose KV is already in pages (prefix-cache hits and prefilled)
     num_computed_tokens: int = 0
+    #: prompt tokens served from the prefix cache at admission
+    num_cached_prompt_tokens: int = 0
     #: tokens emitted before a preemption folded them into the prompt
     #: (keeps the max_tokens budget and the sampling counter right)
     num_emitted: int = 0
@@ -71,3 +74,6 @@ class StepOutput:
     request_id: str
     new_token_ids: tuple[int, ...]
     finish_reason: Optional[FinishReason] = None
+    #: prompt tokens served from the prefix cache, on the first output only
+    #: (OpenAI usage.prompt_tokens_details.cached_tokens)
+    cached_tokens: Optional[int] = None

@@ -1,9 +1,14 @@
 """Continuous-batching scheduler.
 
-Counterpart of dynamo_tpu/engine/scheduler.py without prefix-cache
-hashing and without mixed steps. One `schedule()` call is one engine step:
+Counterpart of dynamo_tpu/engine/scheduler.py without mixed steps. One
+`schedule()` call is one engine step:
 
-1. Admit waiting requests while pages and decode slots allow.
+1. Admit waiting requests while pages and decode slots allow. With prefix
+   caching on, a request's prompt is cut into content-addressed blocks
+   (`chains`) at admission, its need is the pages the cache cannot
+   serve, and it reuses the longest cached prefix (all but the prompt's
+   last page at most, so there are logits to sample); its prefill
+   starts at the first uncached page.
 2. If any running request still needs prefill, schedule a prefill step:
    pieces of at most `prefill_chunk` tokens from the running prompts, in
    order, up to the step's token budget. A piece that does not end its
@@ -24,6 +29,7 @@ from typing import Literal, Optional
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.page_table import PageAllocator
 from dynamo_tpu_torch.engine.request import FinishReason, Request, RequestState
+from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger(__name__)
 
@@ -50,6 +56,9 @@ class Scheduler:
         self.allocator = allocator
         self.waiting: list[Request] = []
         self.running: list[Request] = []
+        #: content chains of the live requests (prefix caching on): the
+        #: engine appends each accepted token and registers full pages
+        self.chains: dict[str, TokenBlockSequence] = {}
         #: requests that can never make progress (the engine finishes them
         #: with the given reason) instead of a silent busy-spin
         self.doomed: list[tuple[Request, str, FinishReason]] = []
@@ -76,6 +85,7 @@ class Scheduler:
                 if r.request_id == request_id:
                     q.remove(r)
                     self._release(r)
+                    self.chains.pop(request_id, None)
                     return r
         return None
 
@@ -87,7 +97,9 @@ class Scheduler:
         return len(self.waiting)
 
     def can_admit_head(self) -> bool:
-        """Whether the waiting-queue head could be admitted right now."""
+        """Whether the waiting-queue head could be admitted right now (a
+        page count that leaves cached blocks out, as in the JAX
+        scheduler: decode_batch_stable rests on it)."""
         if not self.waiting or len(self.running) >= self.config.max_seqs:
             return False
         need = self._pages_for(self.waiting[0])
@@ -121,23 +133,45 @@ class Scheduler:
         return int(self.allocator.num_pages * self.config.admission_watermark)
 
     def _admit(self) -> None:
+        ps = self.config.page_size
+        caching = self.config.enable_prefix_caching
         while self.waiting and len(self.running) < self.config.max_seqs:
             req = self.waiting[0]
-            need = self._pages_for(req)
+            total = self._pages_for(req)
             # a prompt that can never fit the pool would block the queue
             # head forever: doom it instead
-            if need > (self.allocator.num_pages - 1) - self._watermark_pages():
+            if total > (self.allocator.num_pages - 1) - self._watermark_pages():
                 self.waiting.pop(0)
                 self.doomed.append(
-                    (req, f"prompt needs {need} pages; pool has "
+                    (req, f"prompt needs {total} pages; pool has "
                           f"{self.allocator.num_pages - 1}",
                      FinishReason.LENGTH)
                 )
                 continue
+            hashes: list[int] = []
+            if caching:
+                chain = self.chains.get(req.request_id)
+                if chain is None:
+                    chain = TokenBlockSequence(req.prompt_tokens, block_size=ps,
+                                               salt=self.config.model)
+                    self.chains[req.request_id] = chain
+                hashes = chain.sequence_hashes()
+            # the true need leaves out the pages the cache serves
+            need = total - self.allocator.match_length(hashes)
             if self.allocator.num_free - need < self._watermark_pages():
                 break  # head-of-line blocking by design (FIFO fairness)
-            req.pages = self.allocator.allocate(need)
-            req.num_computed_tokens = 0
+            cached = self.allocator.lookup(hashes) if caching else []
+            # a prompt cached whole still recomputes its last page, so there
+            # are logits to sample: cap the reuse
+            while len(cached) > (len(req.prompt_tokens) - 1) // ps:
+                self.allocator.free([cached.pop()])
+            fresh = self.allocator.allocate(total - len(cached))
+            if fresh is None:
+                self.allocator.free(cached)
+                break
+            req.pages = cached + fresh
+            req.num_cached_prompt_tokens = len(cached) * ps
+            req.num_computed_tokens = req.num_cached_prompt_tokens
             req.state = RequestState.PREFILL
             self.waiting.pop(0)
             self.running.append(req)
@@ -200,6 +234,7 @@ class Scheduler:
                             # future step can free pages
                             self.running.remove(req)
                             self._release(req)
+                            self.chains.pop(req.request_id, None)
                             self.doomed.append(
                                 (req, "kv pool exhausted with no preemption victim",
                                  FinishReason.LENGTH)
@@ -234,8 +269,11 @@ class Scheduler:
         victim.prompt_tokens = victim.all_tokens
         victim.output_tokens = []
         victim.num_computed_tokens = 0
+        victim.num_cached_prompt_tokens = 0
         self.running.remove(victim)
         self.waiting.insert(0, victim)
+        # its registered pages stay cached: the recompute may hit them
+        self.chains.pop(victim.request_id, None)
         return True
 
     # -- completion --------------------------------------------------------
@@ -245,6 +283,7 @@ class Scheduler:
         if request in self.running:
             self.running.remove(request)
         self._release(request)
+        self.chains.pop(request.request_id, None)
 
     def _release(self, request: Request) -> None:
         if request.pages:

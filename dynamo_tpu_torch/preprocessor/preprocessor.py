@@ -103,7 +103,9 @@ class OpenAIPreprocessor:
         preprocessed: PreprocessedRequest,
         include_usage: bool = False,
     ) -> Iterator[ChatCompletionChunk]:
-        """Engine events {token_ids, finish_reason} -> OpenAI chunks.
+        """Engine events {token_ids, finish_reason, cached_tokens on the
+        first} -> OpenAI chunks; the usage chunk's prompt_tokens_details
+        carries the cached tokens when the prompt hit the prefix cache.
 
         With `return_token_ids` each engine event that carries tokens gives
         one chunk holding their ids and whatever text they rendered, so the
@@ -114,6 +116,7 @@ class OpenAIPreprocessor:
         stop = StopChecker(preprocessed.stop_strings)
         created = now()
         completion_tokens = 0
+        cached_tokens = 0
         first = True
         finish: Optional[str] = None
 
@@ -132,6 +135,8 @@ class OpenAIPreprocessor:
         stop_ids = set(preprocessed.stop_token_ids)
         with_ids = preprocessed.return_token_ids
         for event in engine_stream:
+            if event.get("cached_tokens"):
+                cached_tokens = int(event["cached_tokens"])
             ids: list[int] = []
             texts: list[str] = []
             for tok in event.get("token_ids", ()):
@@ -175,5 +180,7 @@ class OpenAIPreprocessor:
                     prompt_tokens=n_prompt,
                     completion_tokens=completion_tokens,
                     total_tokens=n_prompt + completion_tokens,
+                    prompt_tokens_details=(
+                        {"cached_tokens": cached_tokens} if cached_tokens else None),
                 ),
             )

@@ -222,6 +222,9 @@ class Usage:
     prompt_tokens: int = 0
     completion_tokens: int = 0
     total_tokens: int = 0
+    #: OpenAI's detail block: {"cached_tokens": n} when the prompt hit the
+    #: prefix cache, else absent
+    prompt_tokens_details: Optional[dict[str, int]] = None
 
 
 @dataclass

@@ -6,13 +6,16 @@ the overlapped decode loop.
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
---kv-quantize, a quantized one. Three engines share the weights: `eager`
+--kv-quantize, a quantized one. Four engines share the weights: `eager`
 (cuda_graphs=False, overlap_decode=False), `graphs` (prefill and decode
-graphs, overlap_decode=False) and `overlap` (graphs and overlapped decode,
-the defaults). A wave is B greedy requests of PROMPT random tokens each and
+graphs, overlap_decode=False), `overlap` (graphs and overlapped decode,
+the defaults) and `uncached` (`overlap` with prefix caching off). The
+first three cache prefixes, as the defaults do; the waves' random prompts
+share no page, so caching costs them its host work (hashing, registering
+pages) and saves nothing. A wave is B greedy requests of PROMPT random tokens each and
 MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
-  - `wave`, for B in BATCHES, six waves in the order eager, graphs,
-    overlap, overlap, graphs, eager, after one untimed wave on each engine
+  - `wave`, for B in BATCHES, eight waves in the order eager, graphs,
+    overlap, uncached, uncached, overlap, graphs, eager, after one untimed wave on each engine
     (kernel builds, cuBLAS, the graph captures), and before any
     torch.profiler session in the process: output tok/s over the wave and
     over its decode steps, host ms per decode dispatch (wall ms of a decode
@@ -30,7 +33,8 @@ MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
     kernels it launches (torch.profiler);
   - `chunked`, for the `eager` and `graphs` engines: one greedy request
     whose LONG_PROMPT tokens prefill in chunks of PREFILL_CHUNK (the CLI's
-    default), after one warm-up request (builds and captures): its time to
+    default), after one warm-up request (builds and captures), each run
+    after clear_cache() so that none hits the last one's pages: its time to
     first token (host clock from adding it to its first token, no other
     sync), then the same request with a sync after every step (each chunk
     step's wall ms), then under torch.profiler with no sync but the first
@@ -143,7 +147,9 @@ def main(argv=None) -> int:
     engines = {"eager": eager,
                "graphs": TorchEngine(replace(cfg, overlap_decode=False), params=eager.params,
                                      device=dev),
-               "overlap": TorchEngine(cfg, params=eager.params, device=dev)}
+               "overlap": TorchEngine(cfg, params=eager.params, device=dev),
+               "uncached": TorchEngine(replace(cfg, enable_prefix_caching=False),
+                                       params=eager.params, device=dev)}
     gen = torch.Generator().manual_seed(0)
     head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
             "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS}
@@ -153,7 +159,9 @@ def main(argv=None) -> int:
         for b in BATCHES:
             timed_wave(eng, f"warm{b}", b, gen)
     for b in BATCHES:
-        for i, name in enumerate(("eager", "graphs", "overlap", "overlap", "graphs", "eager")):
+        order = ("eager", "graphs", "overlap", "uncached", "uncached", "overlap", "graphs",
+                 "eager")
+        for i, name in enumerate(order):
             emit({"phase": "wave", **head, "batch": b, "engine": name, "order": i,
                   **timed_wave(engines[name], f"{name}{b}-{i}", b, gen)})
 
@@ -200,7 +208,8 @@ def main(argv=None) -> int:
 
     def long_request(eng: TorchEngine, rid: str, sync: bool):
         """(ms to the first token, each step's wall ms): a sync after every
-        step only when `sync`."""
+        step only when `sync`. Cold: the cache is cleared first."""
+        eng.allocator.clear_cache()
         eng.add_request(rid, long_prompt.tolist(), SamplingParams(max_tokens=1, ignore_eos=True))
         steps_ms, ttft_ms = [], None
         t_all = time.perf_counter()

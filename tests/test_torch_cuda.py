@@ -24,7 +24,10 @@ launches, and keep the decode workspace they were captured over; its
 prefill graphs (first chunks, chunks with history, chunks that sample
 nothing) do the same, and under overlapped decode a key replayed twice in
 a row, and a prefill replayed between a speculated dispatch and its
-readback, leave every id the eager loop's. Flash prefill and paged prefill (bf16 output) hold each
+readback, leave every id the eager loop's. With prefix caching on, graphs
+and overlap, a wave that hits a warm request's pages leaves their bytes
+(K, V, scale planes) unchanged, repeats bit for bit after
+clear_cache() and gives its eager twin's streams, in each pool mode. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -795,10 +798,11 @@ def llama_params():
 def _engines(params, mode, overlap=(False, False), **knobs):
     """(eager, graphs): two llama3-1b engines over one set of weights and
     pools of `mode`, buckets 1-8 and up to 8 fused steps, with overlapped
-    decode as `overlap` says for each."""
+    decode as `overlap` says for each, and prefix caching off unless
+    `knobs` turn it on (a wave run again would hit its own pages)."""
     cfg = dict(model="llama3-1b", num_pages=96, page_size=64, max_pages_per_seq=8,
                decode_buckets=(1, 2, 4, 8), max_seqs=8, decode_steps=8, kv_quantize=mode,
-               eos_token_ids=(0,))
+               eos_token_ids=(0,), enable_prefix_caching=False)
     cfg.update(knobs)
     return [TorchEngine(EngineConfig(**cfg, overlap_decode=o), params=params, device="cuda",
                         cuda_graphs=g) for g, o in zip((False, True), overlap)]
@@ -977,3 +981,54 @@ def test_a_prefill_replay_before_a_readback_changes_no_id(llama_params):
     for row, (rid, n) in enumerate(at.items()):
         assert got[rid] == want[rid][:n] and ids[0, row] == want[rid][n], rid
     graphs.run_to_completion()
+
+
+#: a shared prefix of 300 tokens (4 whole pages), then prompts that hit it:
+#: tails of 1, 63 and 200 tokens, the prefix's 4 pages exactly (cached
+#: whole: its last page recomputed) and a prompt that shares no page
+PREFIX_TAILS = (1, 63, 200)
+
+
+def _prefix_waves():
+    gen = torch.Generator().manual_seed(21)
+    draw = lambda n: torch.randint(1, 128_000, (n,), generator=gen).tolist()  # noqa: E731
+    prefix = draw(300)
+    warm = [("w", prefix + draw(20))]
+    wave = [(f"t{n}", prefix + draw(n)) for n in PREFIX_TAILS]
+    wave += [("whole", prefix[:256]), ("cold", draw(90))]
+    return warm, wave
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_prefix_hits_with_graphs_and_overlap(llama_params, mode):
+    """One engine with graphs, overlapped decode and prefix caching: a warm
+    request registers the shared prefix's pages; a wave that hits them
+    (three tails, a prompt cached whole, a cold prompt) leaves every
+    registered page's bytes as they were, K, V and the scale planes; after
+    clear_cache(), which returns every cached page, the warm request and
+    the wave again give the same streams bit for bit; and its eager twin
+    (caching and overlap on, no graphs) gives the same streams and
+    cached_tokens, so a replayed chunk key with history is held against
+    the eager loop."""
+    eager, eng = _engines(llama_params, mode, overlap=(True, True),
+                          enable_prefix_caching=True, max_pages_per_seq=16)
+    warm, wave = (dict(w) for w in _prefix_waves())
+    runs = []
+    for _ in range(2):
+        first = chip_smoke.serve_requests(eng, warm, 12)
+        pages = list(eng.allocator._page_meta)
+        before = chip_smoke.page_bytes(eng, pages)
+        runs.append((first, chip_smoke.serve_requests(eng, wave, 12)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(before, chip_smoke.page_bytes(eng, pages)))
+        cached = len(eng.allocator._page_meta)
+        assert eng.allocator.clear_cache() == cached > len(pages)
+        assert eng.allocator.num_free == eng.config.num_pages - 1
+    assert runs[0] == runs[1]
+    assert runs[0][1][1] == {"t1": 256, "t63": 256, "t200": 256, "whole": 192, "cold": 0}
+    m = eng.metrics
+    assert m.overlap_hits > 0 and m.compiles == len(eng.step_keys)
+    assert m.prefill_replays + m.decode_replays == eng.dispatches
+    assert any(k[0].startswith("prefill") and not k[-1] for k in eng.step_keys)
+    assert (chip_smoke.serve_requests(eager, warm, 12),
+            chip_smoke.serve_requests(eager, wave, 12)) == runs[0]

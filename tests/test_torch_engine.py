@@ -4,7 +4,8 @@ Both engines run the tiny config in float32 with the same weights (the JAX
 engine's, carried over with params_from_jax). The JAX engine runs
 attention_impl="pallas" (its kernels in interpret mode on the CPU) with
 prefix caching, overlap and mixed steps off; the port runs its kernels'
-plain versions on CPU tensors. Prompts up to prefill_chunk=16 tokens are
+plain versions on CPU tensors, with prefix caching as the JAX engine has
+it (off unless a test asks; tests/test_torch_prefix_cache.py serves hits). Prompts up to prefill_chunk=16 tokens are
 one first chunk; longer ones, and recomputes after a preemption, prefill
 in page-aligned chunks. Greedy token streams must be identical.
 """
@@ -32,17 +33,23 @@ MAX_TOKENS = {"a": 9, "b": 6, "c": 12, "d": 3, "e": 7}
 
 
 def _jax_engine(**overrides):
-    return JaxEngine(JaxEngineConfig.for_tests(
-        attention_impl="pallas", enable_prefix_caching=False, overlap_decode=False,
-        mixed_steps=False, **overrides,
-    ))
+    return JaxEngine(JaxEngineConfig.for_tests(**{
+        "attention_impl": "pallas", "enable_prefix_caching": False, "overlap_decode": False,
+        "mixed_steps": False, **overrides,
+    }))
 
 
 def _torch_engine(jax_engine=None, **overrides):
+    """The port's engine on the JAX engine's weights and with its prefix
+    caching knob, or on random weights with caching off (as _jax_engine
+    has it) unless `overrides` say otherwise."""
     params = None
+    caching = False
     if jax_engine is not None:
         np_params = jax.tree.map(np.asarray, jax_engine.params)
         params = params_from_jax(np_params, LlamaConfig.tiny(), device="cpu")
+        caching = jax_engine.config.enable_prefix_caching
+    overrides = {"enable_prefix_caching": caching, **overrides}
     return TorchEngine(EngineConfig.for_tests(**overrides), params=params, device="cpu")
 
 
@@ -170,12 +177,13 @@ def test_prompt_longer_than_one_chunk_is_refused():
     ],
 )
 def test_unported_knob_is_refused_by_name(knob):
-    """(overlap_decode=True keeps its case from when the port refused it;
-    the case now checks that the knob is served.)"""
+    """(overlap_decode=True and enable_prefix_caching=True keep their cases
+    from when the port refused them; each case now checks that the knob is
+    served.)"""
     (name,) = knob
-    if name == "overlap_decode":
-        assert EngineConfig.for_tests(**knob).overlap_decode is True
-        assert EngineConfig.for_tests(overlap_decode=False).overlap_decode is False
+    if name in ("overlap_decode", "enable_prefix_caching"):
+        assert getattr(EngineConfig.for_tests(**knob), name) is True
+        assert getattr(EngineConfig.for_tests(**{name: False}), name) is False
         return
     with pytest.raises(NotImplementedError, match=name):
         EngineConfig.for_tests(**knob)
@@ -193,8 +201,8 @@ def test_every_knob_of_the_jax_config_is_ported_or_refused():
     ported = {f.name for f in dataclasses.fields(EngineConfig)}
     assert jax_knobs == ported | UNPORTED.keys()
     assert not ported & UNPORTED.keys()
-    off = dict(enable_prefix_caching=False, mixed_steps=False,
-               fleet_telemetry=False, flight_recorder=False, stall_watchdog=False)
+    off = dict(mixed_steps=False, fleet_telemetry=False, flight_recorder=False,
+               stall_watchdog=False)
     cfg = EngineConfig(**dataclasses.asdict(JaxEngineConfig.for_tests(**off)))
     assert cfg == EngineConfig.for_tests()
     assert dataclasses.replace(cfg, decode_steps=2).decode_steps == 2
@@ -302,15 +310,22 @@ def test_no_card_without_asking_for_the_cpu_raises():
         TorchEngine(EngineConfig.for_tests())
 
 
-@pytest.mark.parametrize("num_pages,seed", [(40, 0), (9, 1), (9, 2)])
-def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
-    """The same request stream through both schedulers (prefix caching
-    and mixed steps off), with a stand-in token per sampled row: the same
-    batches, pieces, page counts, preemptions and finishes, step by step.
-    Prompts run up to 24 tokens, so some prefill in chunks of at most 16;
-    each stream runs under the default budget, and under a budget of 8
-    tokens with the fixed and with the adaptive policy. 9 pages force
-    preemption, and recomputes past one chunk."""
+@pytest.mark.parametrize("num_pages,seed,caching", [
+    pytest.param(40, 0, False, id="40-0"), pytest.param(9, 1, False, id="9-1"),
+    pytest.param(9, 2, False, id="9-2"), pytest.param(40, 0, True, id="40-0-caching"),
+    pytest.param(9, 1, True, id="9-1-caching"),
+])
+def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed, caching):
+    """The same request stream through both schedulers (mixed steps off,
+    prefix caching as `caching` says), with a stand-in token per sampled
+    row: the same batches, pieces, page counts, preemptions and finishes,
+    step by step. Prompts run up to 24 tokens, so some prefill in chunks
+    of at most 16; each stream runs under the default budget, and under a
+    budget of 8 tokens with the fixed and with the adaptive policy. 9
+    pages force preemption, and recomputes past one chunk. With caching,
+    odd requests share a prefix of 1 to 4 pages, one prompt is cached
+    whole, full pages are registered as the engine registers them, and
+    the KV events and cache stats must be equal too."""
     from dynamo_tpu.engine.page_table import PageAllocator as JaxAllocator
     from dynamo_tpu.engine.request import Request as JaxRequest
     from dynamo_tpu.engine.scheduler import Scheduler as JaxScheduler
@@ -321,6 +336,20 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
     rng = np.random.default_rng(seed)
     work = [(f"r{i}", rng.integers(1, 200, rng.integers(1, 25)).tolist(), int(rng.integers(1, 9)))
             for i in range(10)]
+    if caching:
+        shared = rng.integers(1, 200, 16).tolist()
+        work = [(rid, shared[: 4 + 3 * (i // 2)] + p[:6] if i % 2 else p, n)
+                for i, (rid, p, n) in enumerate(work)]
+        work[8] = ("r8", shared[:12], work[8][2])  # cached whole once r5 registered it
+
+    def register(sched, r):
+        """The engine's _register_pages: full pages below num_computed."""
+        chain = sched.chains.get(r.request_id)
+        if caching and chain is not None:
+            full = min(r.num_computed_tokens, len(chain)) // 4
+            for page, b in zip(r.pages[:full], chain.blocks):
+                sched.allocator.register(page, b.sequence_hash, b.parent_sequence_hash,
+                                         b.tokens)
 
     def drive(sched, make):
         reqs = [make(rid, prompt, n) for rid, prompt, n in work]
@@ -335,8 +364,11 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
                 trace.append(("idle", done))
                 continue
             rows = list(batch.decode)
+            for r in rows:
+                r.num_computed_tokens += 1
             for p in batch.prefill:
                 p.request.num_computed_tokens += p.length
+                register(sched, p.request)
                 if p.request.num_computed_tokens >= len(p.request.prompt_tokens):
                     p.request.state = type(p.request.state)("decode")
                     rows.append(p.request)
@@ -346,24 +378,33 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed):
                           sched.preemptions))
             for r in rows:
                 r.output_tokens.append(7)
+                if r.request_id in sched.chains:
+                    sched.chains[r.request_id].append(7)
                 if len(r.output_tokens) + r.num_emitted >= r.sampling.max_tokens:
                     sched.finish(r)
-        return trace
+                register(sched, r)
+        stats = sched.allocator.stats
+        return trace, (stats.queries, stats.hit_tokens, stats.stored_blocks, stats.evicted_blocks)
 
     for budget in ({}, dict(prefill_token_budget=8),
                    dict(prefill_token_budget=8, prefill_budget_policy="adaptive")):
-        kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0, **budget)
-        want = drive(
-            JaxScheduler(JaxEngineConfig.for_tests(enable_prefix_caching=False,
-                                                   mixed_steps=False, **kw),
-                         JaxAllocator(num_pages, 4)),
+        kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0,
+                  enable_prefix_caching=caching, **budget)
+        jax_ev, torch_ev = [], []
+        want, want_stats = drive(
+            JaxScheduler(JaxEngineConfig.for_tests(mixed_steps=False, **kw),
+                         JaxAllocator(num_pages, 4, on_event=jax_ev.append)),
             lambda rid, p, n: JaxRequest(rid, p, JaxSampling(max_tokens=n)),
         )
-        got = drive(Scheduler(EngineConfig.for_tests(**kw), PageAllocator(num_pages, 4)),
-                    lambda rid, p, n: Request(rid, p, SamplingParams(max_tokens=n)))
+        got, got_stats = drive(
+            Scheduler(EngineConfig.for_tests(**kw), PageAllocator(num_pages, 4, torch_ev.append)),
+            lambda rid, p, n: Request(rid, p, SamplingParams(max_tokens=n)))
         assert got == want
         assert len(want) < 400
-        # some prompt ran as more than one piece, and some piece had history
+        assert got_stats == want_stats
+        assert [(e.kind, e.block_hashes, e.parent_hash, e.token_blocks) for e in torch_ev] == [
+            (e.kind, e.block_hashes, e.parent_hash, e.token_blocks) for e in jax_ev]
+        assert (want_stats[1] > 0) == caching  # the cache served some prompt
         assert any(start > 0 for step in want if step[0] != "idle" for _, start, _ in step[1])
         if num_pages == 9:  # the small pool did preempt
             assert max(step[-1] for step in want if step[0] != "idle") > 0

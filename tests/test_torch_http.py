@@ -249,3 +249,30 @@ def test_kv_quantize_flag_reaches_the_engine_config(flag, mode):
             _parse(argv)
     else:
         assert engine_config(_parse(argv), ()).kv_quantize == mode
+
+
+def test_a_shared_system_message_is_served_from_the_prefix_cache(server):
+    """Two chats that share a system message, one after the other, the first
+    streamed and the second unary (the CLI serves with prefix caching on,
+    and has no switch for it): the first has no prompt_tokens_details; the
+    second's cached_tokens are the whole pages (4 tokens each) of the
+    prompts' common prefix, at most all but the last page of its prompt.
+    (No other test of this server sends a system message, whose first
+    bytes every such prompt shares.)"""
+    system = {"role": "system", "content": "answer briefly, politely and in plain words."}
+    pair = [[system, {"role": "user", "content": q}] for q in ("first?", "and a second?")]
+    body = {"model": "tiny", "messages": pair[0], "max_tokens": 3, "stream": True,
+            "stream_options": {"include_usage": True}, "ext": {"ignore_eos": True}}
+    events, done = _stream(server.url + "/v1/chat/completions", body)
+    assert done
+    first = events[-1]["usage"]
+    with _post(server.url + "/v1/chat/completions",
+               {**body, "messages": pair[1], "stream": False}) as r:
+        second = json.load(r)["usage"]
+    tok = ByteTokenizer()
+    a, b = (tok.encode(tok.apply_chat_template(m)) for m in pair)
+    common = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    want = min(common // 4, (len(b) - 1) // 4) * 4
+    assert "prompt_tokens_details" not in first
+    assert second["prompt_tokens_details"] == {"cached_tokens": want}
+    assert want >= 48 and second["prompt_tokens"] == len(b)

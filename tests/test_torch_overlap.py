@@ -7,7 +7,8 @@ workload is the JAX package's rollback-heavy one
 (tests/test_engine_overlap.py::_mixed_workload, rebuilt here from its
 seed): greedy and seeded sampled rows, stop tokens, staggered max_tokens,
 with requests admitted mid-wave and a pool small enough to preempt.
-Both engines run the tiny config in float32 on the JAX engine's weights.
+Both engines run the tiny config in float32 on the JAX engine's weights,
+with the same prefix caching knob (the port takes the JAX engine's).
 """
 
 import numpy as np
@@ -103,9 +104,8 @@ def test_streams_with_overlap_equal_streams_without(jax_greedy, decode_steps):
 def test_overlap_counters_equal_the_jax_engines(decode_steps):
     """On the all-greedy workload the port speculates, consumes and rolls
     back where JaxEngine does, at the configuration bench.py times (mixed
-    steps off, decode_kstep 1) with prefix caching off too: a preempted
-    request's cached pages would shorten its recompute in the JAX engine
-    alone, and so change its batches."""
+    steps off, decode_kstep 1) with prefix caching off in both (the port
+    takes the JAX engine's knob)."""
     jax_eng = _jax_engine(decode_steps=decode_steps, mixed_steps=False, decode_kstep=1,
                           enable_prefix_caching=False)
     port = _port(jax_eng, decode_steps=decode_steps)
