@@ -36,14 +36,17 @@ Phases, each fatal on failure:
      that samples) and of 700 beside 100, then seeded sampled waves, one
      with a 600-token prompt, and four requests joined by a fifth after
      their fourth step (prefix caching off: the 700- and 600-token prompts
-     repeat the 1,100-token one's first tokens and would hit its pages).
+     repeat the 1,100-token one's first tokens and would hit its pages;
+     mixed steps off, the XOR policy of --no-mixed-steps: phase "mixed"
+     holds mixed steps against the eager loop).
      Every stream must be identical in all three; each graph engine must capture each key it dispatched once
      (`compiles`), replay every prefill and decode dispatch (the replays
      sum to the engine's step-function calls; the long prompt alone:
      prefill_replays == prefill_dispatches == 3), and only the overlap
      engine may speculate, with overlap_hits > 0, overlap_rollbacks > 0
      (the fifth request's prefill) and decode replays that count its
-     rollbacks; its run (counts set to 0 just before it) must
+     rollbacks (`replays_match`, the identities every phase below keeps
+     too, with mixed replays); its run (counts set to 0 just before it) must
      launch every kernel variant of its pool, counted through replays,
      and no plain version;
   4c. prefix: one llama3-1b engine a pool mode (bf16, int8, fp8), built
@@ -58,8 +61,9 @@ Phases, each fatal on failure:
      the prompt cached whole (its last page recomputed) and 0 for the
      unrelated one; the copied pages' bytes must be unchanged; only the
      uncached tokens prefill, and paged prefill launches once a layer for
-     each replay of a chunk key with history; no page is evicted; the
-     dispatch counts keep phase 4b's identities. clear_cache() must
+     each replay of a chunk key with history, prefill or mixed (the
+     700-token tail's second piece runs beside the decoding rows); no
+     page is evicted; the dispatch counts keep phase 4b's identities. clear_cache() must
      return every cached page, and the warm request and the wave again
      must give the same streams bit for bit. An eager twin (the same
      config, cuda_graphs=False, caching on) must serve the warm request
@@ -73,6 +77,28 @@ Phases, each fatal on failure:
      of hashing the 1,140-token prompt's chain and a decode wave's
      appends, and the synced engine TTFT of a 1,300-token prompt with
      1,088 tokens cached against the same prompt cold;
+  4d. mixed: one llama3-1b engine a pool mode built as the CLI builds it
+     with no flags but the model, the pool and --max-seqs 64 (mixed
+     steps, graphs, overlap and caching on, context 4,096, chunk 512,
+     page 64, 8 fused steps), against the same engine with
+     --no-mixed-steps. A greedy wave of 32 rows (128-token prompts, 160
+     tokens each), then prompts of 3,000, 700 and 700 tokens arriving
+     together once every row has 24 tokens (`run_burst`); each engine
+     runs it once untimed (every key captured), then mixed, XOR, XOR,
+     mixed. The mixed engine must run mixed steps, fused ones replayed as
+     mixed graphs (the wave's second prefill step, of first chunks, and a
+     chunk of the long prompt with history once the 700-token prompts
+     have joined the rows); every engine keeps the dispatch identities
+     and captures no key in a timed run; the mixed graphs launch every
+     kernel variant of the pool, no plain version runs; an eager twin
+     (cuda_graphs=False, the same config) gives the mixed engine's
+     streams bit for bit; and the model gate holds on one mixed step's
+     inputs, the prefill half's logits (the long prompt's third chunk)
+     and the decode half's (32 rows), kernel path against plain path.
+     Printed beside the card's name and power limit, each run: the wave
+     rows' largest host gap between token deliveries over the burst and
+     the p95 of the delivering steps' gaps (each step once), the burst
+     prompts' synced TTFT and the wave's tok/s;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -90,9 +116,11 @@ Phases, each fatal on failure:
      identical, every kernel variant of the server's pool must launch
      while serving, no other pool variant may, and no plain version may
      run; the server runs as the CLI does with no flags, with overlapped
-     decode, and every prefill and decode dispatch must replay a captured
-     graph; the server's captures (`compiles`, `compile_ms`), replays and
-     overlap counts print with its line. TTFT is taken at the client, from sending a streaming request to
+     decode and mixed steps (mixed_dispatches > 0: the long prompt's
+     later chunks run beside the decoding chats), and every prefill,
+     decode and mixed dispatch must replay a captured graph (phase 4b's
+     identities); the server's captures (`compiles`, `compile_ms`),
+     replays and mixed and overlap counts print with its line. TTFT is taken at the client, from sending a streaming request to
      its first chunk that carries a token;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
@@ -737,6 +765,20 @@ def phase_model(dev) -> list[dict]:
     return results
 
 
+def replays_match(m, dispatches: int) -> bool:
+    """The dispatch identities of an engine whose every dispatch replays a
+    captured graph (its EngineMetrics and step-function calls): the
+    replays of the three kinds sum to the calls; a prefill step replays
+    at least one graph; and each decode or mixed step replays one graph
+    but for a step whose decode half was a consumed speculation (replayed
+    as a decode graph when it was speculated), while each rolled-back
+    speculation replayed one more."""
+    return (m.prefill_replays + m.decode_replays + m.mixed_replays == dispatches
+            and m.prefill_replays >= m.prefill_dispatches
+            and m.decode_replays + m.mixed_replays
+            == m.decode_dispatches + m.mixed_dispatches + m.overlap_rollbacks)
+
+
 # -- phase 4b: step graphs and overlapped decode against the eager loop ----------
 
 #: the served context (--max-context), whose page tables phase 4b's engines share
@@ -821,11 +863,16 @@ def phase_graphs(dev) -> list[dict]:
             # S) and chunk: the split plans and the workspace the serve's
             # graphs run with; prefix caching off, as the 700- and 600-token
             # prompts repeat the 1,100-token one's first tokens and a hit
-            # would change their chunks (phase "prefix" serves the hits)
+            # would change their chunks (phase "prefix" serves the hits);
+            # mixed steps off: with them an overlapped engine's decode
+            # halves run the speculation's K where the synchronous engines
+            # run K=1 in the mixed step, so rows meet other decode buckets
+            # and bf16 rounding may part the streams (phase "mixed" holds
+            # mixed graphs against their eager twin)
             cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
                                max_pages_per_seq=SERVE_CONTEXT // S, kv_quantize=mode,
                                eos_token_ids=(0,), overlap_decode=overlap,
-                               enable_prefix_caching=False)
+                               enable_prefix_caching=False, mixed_steps=False)
             eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=graphs)
             ops.reset_counts()
             t0 = time.perf_counter()
@@ -859,19 +906,19 @@ def phase_graphs(dev) -> list[dict]:
             kinds = {(k[0], k[-1]) for k in prefill}
             # every step-function call replayed a graph; with one T bucket a
             # step (the long prompt alone), one replay a prefill dispatch
-            ok = (m.compiles == len(eng.step_keys)
-                  and m.prefill_replays + m.decode_replays == eng.dispatches
-                  and m.prefill_replays >= m.prefill_dispatches > 0
+            ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+                  and m.prefill_dispatches > 0 and m.decode_replays > 0
+                  and m.mixed_dispatches == 0
                   and run["alone"][0] == run["alone"][1] == 3
-                  and m.decode_replays == m.decode_dispatches + m.overlap_rollbacks > 0
                   and len(kinds) == 4 and (m.overlap_hits > 0) == (name == "overlap")
                   and (m.overlap_rollbacks > 0) == (name == "overlap"))
             lines[name] = {
                 "keys": len(eng.step_keys), "prefill_keys": [list(k) for k in prefill],
                 **{k: getattr(m, k) for k in (
                     "compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
-                    "decode_dispatches", "decode_replays", "overlap_dispatches",
-                    "overlap_hits", "overlap_rollbacks")},
+                    "decode_dispatches", "decode_replays", "mixed_dispatches",
+                    "mixed_replays", "overlap_dispatches", "overlap_hits",
+                    "overlap_rollbacks")},
                 "dispatches": eng.dispatches, "long_prompt_alone": list(run["alone"]),
                 "run_s": run["s"]}
             if not ok:
@@ -1114,22 +1161,22 @@ def phase_prefix(dev, card: str) -> list[dict]:
                                      f"tokens, {uncached} uncached")
             # the hits' pieces all have history: paged prefill launches one
             # per layer for each replay (and capture warm-up) of a chunk
-            # key with history, through the graphs
+            # key with history, prefill or mixed, through the graphs
             paged = kv_quant.variant("paged_prefill_attention", mode)
             with_history = sum(
                 (g.replays - replays.get(k, 0) + (k not in replays))
                 * g.launches.get(paged, (0, 0))[0]
                 for k, g in eng._step_fns.items()
-                if isinstance(g, StepGraph) and k[0].startswith("prefill") and not k[-1])
+                if isinstance(g, StepGraph) and (
+                    (k[0].startswith("prefill") and not k[-1])
+                    or (k[0] == "mixed" and not k[5])))
             if not launches.get(paged, 0) == with_history > 0:
                 raise AssertionError(f"{label}: {paged} launched {launches.get(paged, 0)} times "
                                      f"in the wave, {with_history} by the chunk keys")
             if any(e.kind == "removed" for e in events[n_events:]):
                 raise AssertionError(f"{label}: the pool evicted a cached page")
-            ok = (m.compiles == len(eng.step_keys)
-                  and m.prefill_replays + m.decode_replays == eng.dispatches
-                  and m.prefill_replays >= m.prefill_dispatches > 0
-                  and m.decode_replays == m.decode_dispatches + m.overlap_rollbacks > 0
+            ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+                  and m.prefill_dispatches > 0 and m.decode_replays > 0
                   and m.overlap_dispatches == m.overlap_hits + m.overlap_rollbacks
                   and m.overlap_hits > 0)
             if not ok:
@@ -1184,8 +1231,8 @@ def phase_prefix(dev, card: str) -> list[dict]:
                   **first_wave, "prefix_hit_rate": m.prefix_hit_rate,
                   **{k: getattr(m, k) for k in (
                       "compiles", "prefill_dispatches", "prefill_replays", "decode_dispatches",
-                      "decode_replays", "overlap_dispatches", "overlap_hits",
-                      "overlap_rollbacks")},
+                      "decode_replays", "mixed_dispatches", "mixed_replays",
+                      "overlap_dispatches", "overlap_hits", "overlap_rollbacks")},
                   "dispatches": dispatches, "gate": gate,
                   "ttft_hit_ms": hit_ms, "ttft_cold_ms": cold_ms,
                   "ttft": f"synced engine time from arrival to the first token on the host, "
@@ -1195,6 +1242,287 @@ def phase_prefix(dev, card: str) -> list[dict]:
         emit(result)
         results.append(result)
         del events
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase "mixed": mixed prefill+decode steps at the CLI's defaults ---------------
+
+#: the decode wave: rows, prompt tokens and greedy output tokens each
+MIXED_ROWS, MIXED_PROMPT, MIXED_TOKENS = 32, 128, 160
+#: the burst: prompts of BURST tokens arrive together once every row has
+#: BURST_AT tokens, BURST_TOKENS greedy tokens each. The wave's own
+#: prompts take two steps of the prefill budget (2,048 tokens), so its
+#: second is a fused mixed step of first chunks; in the burst, after the
+#: 700-token prompts join the rows, the decode bucket is 64, one piece
+#: fits beside it, and with no speculation matching the changed rows the
+#: long prompt's next chunk runs fused, with history
+BURST, BURST_AT, BURST_TOKENS = (3000, 700, 700), 24, 8
+#: the argv the phase's engines are built from: the CLI's defaults (context
+#: 4096, chunk 512, page 64, 8 fused steps, graphs, overlap, caching and
+#: mixed steps) but for room for the burst beside the wave's 32 rows
+MIXED_ARGV = ["run", "--model", "llama3-1b", "--max-seqs", "64"]
+
+
+def run_burst(eng, tag: str) -> dict:
+    """The decode wave and the burst on an idle engine (its prefix cache
+    cleared first, so every run schedules alike), one step at a time as
+    the engine thread drives it. Returns the streams and, by the host's
+    clock: the gaps between one wave row's token deliveries that overlap
+    the burst (from its arrival to the last burst prompt's first token),
+    the burst prompts' TTFT from a synced device at their arrival to their
+    first token on the host, the wave's output tok/s over the whole run,
+    and the engine's counters over the run."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    cuda = eng.device.type == "cuda"
+    vocab = eng.adapter.vocab_size
+    gen = torch.Generator().manual_seed(23)
+    wave = {f"{tag}w{i}": torch.randint(1, vocab, (MIXED_PROMPT,), generator=gen).tolist()
+            for i in range(MIXED_ROWS)}
+    burst = [(f"{tag}b{i}", torch.randint(1, vocab, (n,), generator=gen).tolist())
+             for i, n in enumerate(BURST)]
+    eng.allocator.clear_cache()
+    before = eng.metrics.to_dict()
+    dispatches = eng.dispatches
+    for rid, prompt in wave.items():
+        eng.add_request(rid, prompt, SamplingParams(max_tokens=MIXED_TOKENS, ignore_eos=True))
+    streams: dict[str, list[int]] = {}
+    delivered: dict[str, list[float]] = {rid: [] for rid in wave}
+    first: dict[str, float] = {}
+    arrival = None
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work or arrival is None:
+        if arrival is None and min(len(streams.get(r, ())) for r in wave) >= BURST_AT:
+            if cuda:
+                torch.cuda.synchronize()  # the long prompt's TTFT is synced
+            arrival = time.perf_counter()
+            for rid, prompt in burst:
+                eng.add_request(rid, prompt, SamplingParams(max_tokens=BURST_TOKENS,
+                                                            ignore_eos=True))
+        outs = eng.step()
+        t = time.perf_counter()
+        for o in outs:
+            if not o.new_token_ids:
+                continue
+            streams.setdefault(o.request_id, []).extend(o.new_token_ids)
+            if o.request_id in delivered:
+                delivered[o.request_id].append(t)
+            else:
+                first.setdefault(o.request_id, t)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    start, end = arrival, max(first.values())
+
+    def gaps(times):
+        return [(b - a) * 1e3 for a, b in zip(times, times[1:]) if b > start and a < end]
+
+    # the rows share their delivery steps, so the p95 is taken over the
+    # steps' gaps, each once (linear between ranks); the largest over every
+    # row's own gaps, so that a row left out of a step shows
+    steps = sorted(gaps(sorted({t for times in delivered.values() for t in times})))
+    rank = 0.95 * (len(steps) - 1)
+    lo = int(rank)
+    p95 = steps[lo] + (rank - lo) * (steps[min(lo + 1, len(steps) - 1)] - steps[lo])
+    m = {k: v - before[k] for k, v in eng.metrics.to_dict().items()
+         if isinstance(v, (int, float)) and k in before}
+    return {"streams": streams,
+            "gap_max_ms": max(g for times in delivered.values() for g in gaps(times)),
+            "gap_p95_ms": p95, "gaps": len(steps), "burst_ms": (end - start) * 1e3,
+            "ttft_ms": (first[burst[0][0]] - start) * 1e3,
+            "ttft_700_ms": [(first[rid] - start) * 1e3 for rid, _ in burst[1:]],
+            "wave_tok_s": MIXED_ROWS * MIXED_TOKENS / wall, "wall_s": wall,
+            "dispatches": eng.dispatches - dispatches,
+            **{k: m[k] for k in ("mixed_dispatches", "prefill_dispatches", "decode_dispatches",
+                                 "mixed_replays", "prefill_replays", "decode_replays",
+                                 "overlap_dispatches", "overlap_hits", "overlap_rollbacks",
+                                 "compiles")}}
+
+
+def mixed_gate(dev, adapter, params, mode) -> dict:
+    """The model gate on one mixed step's inputs, kernel path against plain
+    path: each path writes the histories into a pool of its own (the
+    wave's MIXED_ROWS prompts as one batch of first chunks, the long
+    prompt's first two chunks of 512), then runs the step in the engine's
+    order: the prefill half (the long prompt's third chunk, with 1,024
+    tokens of history), then the decode half (one token a row after its
+    prompt). The prefill half's logits at every token and the decode
+    half's at every row must agree (max |delta logit| < 0.25, argmax
+    >= 90 %)."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    gen = torch.Generator().manual_seed(29)
+    rows = [torch.randint(1, adapter.vocab_size, (MIXED_PROMPT + 1,), generator=gen)
+            for _ in range(MIXED_ROWS)]
+    long = torch.randint(1, adapter.vocab_size, (1536,), generator=gen)
+    per_row = -(-(MIXED_PROMPT + 1) // S)
+    long_pt = torch.arange(1, 1 + 1536 // S, dtype=torch.int32, device=dev)[None]
+    dec_pt = (1 + long_pt.shape[1] + torch.arange(MIXED_ROWS * per_row, dtype=torch.int32,
+                                                  device=dev)).reshape(MIXED_ROWS, per_row)
+    pages = 1 + long_pt.shape[1] + MIXED_ROWS * per_row
+
+    def chunk(tokens, start, t):
+        n = tokens.shape[1]
+        tok = torch.zeros((tokens.shape[0], t), dtype=torch.long, device=dev)
+        tok[:, :n] = tokens.to(dev)
+        pos = (start + torch.arange(t, dtype=torch.int32, device=dev))[None].expand(
+            tokens.shape[0], t).contiguous()
+        val = (torch.arange(t, device=dev) < n)[None].expand(tokens.shape[0], t).contiguous()
+        return tok, pos, val
+
+    out = {}
+    with torch.no_grad():
+        for name, path_ops in (("kernel", ops.KERNELS), ("plain", ops.PLAIN)):
+            pool = adapter.init_kv(pages, S, dev, kv_quantize=mode)
+            hist = torch.stack([r[:MIXED_PROMPT] for r in rows])
+            _, pool = llama.forward(params, cfg, *chunk(hist, 0, MIXED_PROMPT), pool, dec_pt,
+                                    first_chunk=True, ops=path_ops)
+            for start in (0, 512):
+                _, pool = llama.forward(params, cfg, *chunk(long[None, start:start + 512],
+                                                            start, 512),
+                                        pool, long_pt, first_chunk=start == 0, ops=path_ops)
+            pre, pool = llama.forward(params, cfg, *chunk(long[None, 1024:], 1024, 512), pool,
+                                      long_pt, ops=path_ops)
+            last = torch.stack([r[MIXED_PROMPT:] for r in rows])
+            dec, pool = llama.forward(params, cfg, *chunk(last, MIXED_PROMPT, 1), pool, dec_pt,
+                                      ops=path_ops)
+            out[name] = (pre[0], dec[:, 0])
+            del pool
+    result = {}
+    for half, a, b in (("prefill", out["kernel"][0], out["plain"][0]),
+                       ("decode", out["kernel"][1], out["plain"][1])):
+        worst, agree, n = logit_gap(a, b)
+        result[half] = {"max_abs_dlogit": worst, "argmax_agreement": agree / n, "rows": n}
+        if not (worst < GATE_MAX_DLOGIT and agree / n >= GATE_ARGMAX):
+            raise AssertionError(f"mixed gate, {mode or 'bf16'} pool, {half} half: max "
+                                 f"|dlogit| {worst}, argmax agreement {agree / n}")
+    return result
+
+
+def phase_mixed(dev, card: str) -> list[dict]:
+    """Mixed steps on one TorchEngine per pool mode built from MIXED_ARGV
+    (mixed steps, graphs, overlap and caching on), against the same engine
+    built with --no-mixed-steps (the XOR policy), over the wave and the
+    burst (run_burst): each engine runs it once untimed (every key
+    captured), then on, off, off, on. Checks: the mixed engine ran mixed
+    steps, fused ones replayed as mixed graphs; every run keeps the
+    dispatch identities; the mixed graphs launch every kernel variant of
+    the pool, and nothing runs a plain version; an eager twin of the mixed
+    engine (cuda_graphs=False) gives its streams bit for bit; the model
+    gate on one mixed step's halves. Printed beside the card: each run's
+    largest gap between a wave row's token deliveries during the burst,
+    the p95 of the delivering steps' gaps, the burst prompts' synced TTFT
+    and the wave's tok/s."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.step_graph import StepGraph
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    adapter = get_model("llama3-1b", dtype="bfloat16")
+    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
+    eos = ModelDeploymentCard(name="llama3-1b").eos_token_ids
+    results = []
+    for mode in MODES:
+        label = f"mixed, {mode or 'bf16'} pool"
+        t_mode = time.perf_counter()
+        pool = ["--kv-quantize", mode] if mode else []
+        engines = {}
+        for arm, flags in (("mixed", []), ("xor", ["--no-mixed-steps"])):
+            cfg = cli_run.engine_config(cli_run._parse(MIXED_ARGV + pool + flags), eos)
+            engines[arm] = TorchEngine(cfg, params=params, device=dev)
+        cfg = engines["mixed"].config
+        if not (cfg.mixed_steps and cfg.overlap_decode and cfg.enable_prefix_caching
+                and engines["mixed"]._graphs and cfg.prefill_chunk == 512
+                and cfg.page_size == S and cfg.decode_steps == 8
+                and not engines["xor"].config.mixed_steps):
+            raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
+        warm = {arm: run_burst(eng, f"{arm}-warm") for arm, eng in engines.items()}
+        ops.reset_counts()
+        runs = {"mixed": [], "xor": []}
+        for arm in ("mixed", "xor", "xor", "mixed"):
+            runs[arm].append(run_burst(engines[arm], f"{arm}{len(runs[arm])}"))
+        counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+        eng = engines["mixed"]
+        for arm, e in engines.items():
+            m = e.metrics
+            if not (m.compiles == len(e.step_keys) and replays_match(m, e.dispatches)
+                    and m.overlap_dispatches == m.overlap_hits + m.overlap_rollbacks):
+                raise AssertionError(f"{label}: {arm}: captures or replays wrong: "
+                                     f"{m.to_dict()}")
+            if any(r["compiles"] for r in runs[arm]):
+                raise AssertionError(f"{label}: {arm}: a timed run captured a key")
+        for r in runs["mixed"] + [warm["mixed"]]:
+            if not (r["mixed_dispatches"] > 0 and r["mixed_replays"] > 0):
+                raise AssertionError(f"{label}: the mixed arm ran no fused mixed step: {r}")
+        if any(r["mixed_dispatches"] for r in runs["xor"]):
+            raise AssertionError(f"{label}: --no-mixed-steps ran mixed steps")
+        # every run of an arm schedules alike (greedy, cache cleared): the
+        # same streams, request ids aside
+        for arm, rs in runs.items():
+            base = [{k[len(f"{arm}{i}"):]: v for k, v in r["streams"].items()}
+                    for i, r in enumerate(rs)]
+            if base[0] != base[1]:
+                raise AssertionError(f"{label}: {arm}: two runs gave different streams")
+        # the fused mixed graphs launch every kernel variant of the pool
+        want = serve_variants(mode)
+        mixed_launches = {}
+        for k, g in eng._step_fns.items():
+            if k[0] == "mixed" and isinstance(g, StepGraph) and g.replays:
+                for name, (n, _) in g.launches.items():
+                    mixed_launches[name] = mixed_launches.get(name, 0) + n * g.replays
+        if sorted(mixed_launches) != sorted(want):
+            raise AssertionError(f"{label}: the mixed graphs launched {mixed_launches}, want "
+                                 f"every variant of {want}")
+        for name, (launches, plain) in counts.items():
+            if plain != 0 or (launches == 0) == (name in want):
+                raise AssertionError(f"{label}: {name} launched {launches} times, plain ran "
+                                     f"{plain} (the pool's variants: {want})")
+        keys = sorted([list(k) for k in eng.step_keys if k[0] == "mixed"])
+        stats = {arm: {k: [r[k] for r in rs] for k in (
+            "gap_max_ms", "gap_p95_ms", "ttft_ms", "ttft_700_ms", "wave_tok_s", "burst_ms",
+            "wall_s", "gaps", "dispatches", "mixed_dispatches", "mixed_replays",
+            "prefill_dispatches", "decode_dispatches", "overlap_hits", "overlap_rollbacks")}
+            for arm, rs in runs.items()}
+        m = eng.metrics
+        compile_ms = {arm: e.metrics.compile_ms for arm, e in engines.items()}
+        del engines, eng
+        torch.cuda.empty_cache()
+        eager = TorchEngine(cfg, params=params, device=dev, cuda_graphs=False)
+        twin = run_burst(eager, "mixed0")
+        del eager
+        torch.cuda.empty_cache()
+        if twin["streams"] != runs["mixed"][0]["streams"]:
+            bad = sorted(r for r, v in twin["streams"].items()
+                         if v != runs["mixed"][0]["streams"].get(r))
+            raise AssertionError(f"{label}: the eager twin's streams differ in {bad}")
+        gate = mixed_gate(dev, adapter, params, mode)
+        result = {"phase": "mixed", "model": "llama3-1b", "dtype": "bfloat16",
+                  "kv_quantize": mode, "card": card, "argv": MIXED_ARGV + pool,
+                  "wave": {"rows": MIXED_ROWS, "prompt": MIXED_PROMPT, "tokens": MIXED_TOKENS},
+                  "burst": {"prompts": list(BURST), "at_tokens": BURST_AT,
+                            "tokens": BURST_TOKENS},
+                  "order": "each arm once untimed, then mixed, xor, xor, mixed",
+                  "arms": stats, "mixed_keys": keys,
+                  "mixed_graph_launches": mixed_launches, "gate": gate,
+                  "compiles": m.compiles, "compile_ms": compile_ms,
+                  "identical": "the eager twin's streams, to the id, equal the mixed "
+                               "graphs'; each arm's two timed runs give the same streams",
+                  "gaps": "host ms between deliveries of wave rows' tokens that overlap the "
+                          "burst (the long prompt's arrival to the last burst prompt's first "
+                          "token): the largest of any row's, the p95 over the steps that "
+                          "delivered (each gap once; `gaps` counts them)",
+                  "ttft": "host ms from a synced device at the long prompt's arrival to its "
+                          "first token on the host",
+                  "run_s": time.perf_counter() - t_mode}
+        emit(result)
+        results.append(result)
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -1341,10 +1669,12 @@ def phase_serve(card: str, mode) -> dict:
                 "pool_dtype": str(engine.kv.k.dtype)}
         graphs = {k: getattr(engine.metrics, k) for k in
                   ("compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
-                   "decode_dispatches", "decode_replays", "overlap_dispatches",
-                   "overlap_hits", "overlap_rollbacks")}
+                   "decode_dispatches", "decode_replays", "mixed_dispatches", "mixed_replays",
+                   "overlap_dispatches", "overlap_hits", "overlap_rollbacks")}
         graphs["dispatches"] = engine.dispatches
         graphs["overlap_decode"] = engine.config.overlap_decode
+        graphs["mixed_steps"] = engine.config.mixed_steps
+        replayed = replays_match(engine.metrics, engine.dispatches)
     finally:
         server.stop()
         del server
@@ -1384,13 +1714,11 @@ def phase_serve(card: str, mode) -> dict:
     if prompt_tokens[3] <= 1200 or chunk != 512:
         raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
                              f"tokens, served at a chunk of {chunk}")
-    # served as the CLI serves with no flags: overlapped decode, every
-    # prefill and decode dispatch a replay
-    if not (graphs["overlap_decode"] and graphs["compiles"]
-            and graphs["prefill_replays"] + graphs["decode_replays"] == graphs["dispatches"]
-            and graphs["prefill_replays"] >= graphs["prefill_dispatches"] > 0
-            and graphs["decode_replays"] == graphs["decode_dispatches"]
-            + graphs["overlap_rollbacks"] > 0
+    # served as the CLI serves with no flags: overlapped decode and mixed
+    # steps, every prefill, decode and mixed dispatch a replay
+    if not (graphs["overlap_decode"] and graphs["mixed_steps"] and graphs["compiles"]
+            and replayed and graphs["prefill_dispatches"] > 0 and graphs["decode_replays"] > 0
+            and graphs["mixed_dispatches"] > 0
             and graphs["overlap_dispatches"] == graphs["overlap_hits"]
             + graphs["overlap_rollbacks"]):
         raise AssertionError(f"{label}: dispatches did not all replay graphs: {graphs}")
@@ -1441,6 +1769,7 @@ def main() -> int:
     phase_model(dev)
     phase_graphs(dev)
     phase_prefix(dev, card)
+    phase_mixed(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     for mode in MODES:  # flash_prefill_attention counts from the bf16 server

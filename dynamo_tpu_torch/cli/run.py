@@ -9,7 +9,9 @@ CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
 tokens (512 by default, as the JAX CLI's). `--kv-quantize int8|fp8`
 stores the KV pages quantized, as the JAX CLI's flag does. Decode runs
 the overlapped loop unless `--no-overlap-decode` is given, as in the JAX
-CLI. Prefix caching is on, as in the JAX CLI, which has no flag for it
+CLI. While prompts prefill beside running decodes, each step carries both
+(mixed steps) unless `--no-mixed-steps` is given, as in the JAX CLI.
+Prefix caching is on, as in the JAX CLI, which has no flag for it
 either. It runs on the GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
@@ -58,6 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="disable the overlapped decode loop (speculative next-step dispatch with "
              "one-step-lagged host readback; on by default)",
     )
+    runp.add_argument(
+        "--no-mixed-steps", action="store_false", dest="mixed_steps", default=True,
+        help="disable mixed prefill+decode steps (one dispatch carrying a bounded prefill "
+             "chunk plus the decode batch, so decodes emit a token every step while a "
+             "prompt burst drains; on by default)",
+    )
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     runp.add_argument(
@@ -93,6 +101,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         max_seqs=args.max_seqs,
         decode_steps=args.decode_steps,
         overlap_decode=args.overlap_decode,
+        mixed_steps=args.mixed_steps,
         dtype=args.dtype,
         kv_quantize=args.kv_quantize,
         eos_token_ids=eos_token_ids,

@@ -2,7 +2,8 @@
 
 Counterpart of dynamo_tpu/engine/config.py. EngineConfig takes the JAX
 package's knob names. The knobs this package honours are its fields, with
-the JAX package's defaults (prefix caching and overlapped decode on).
+the JAX package's defaults (prefix caching, overlapped decode and mixed
+steps on).
 Every other knob of the JAX config (UNPORTED) is accepted only at a value
 that leaves its feature off; any other value raises NotImplementedError
 with the knob's name.
@@ -18,7 +19,6 @@ from typing import Optional
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
     "decode_kstep": (1,),
-    "mixed_steps": (False,),
     "spec_ngram": (0,),
     "spec_ngram_match": (2,),
     "spec_draft_model": (None,),
@@ -87,6 +87,13 @@ class _PortedKnobs:
     #: prefix (at most all but its last page), with KV events for each
     #: page stored and evicted
     enable_prefix_caching: bool = True
+    #: mixed prefill+decode steps: while prefill work and running decodes
+    #: coexist, the scheduler emits one `mixed` step carrying a bounded
+    #: prefill chunk plus the decode batch, and the engine dispatches both
+    #: as one step function, so decode rows emit a token every step while
+    #: a prompt burst drains. Greedy streams equal the XOR (prefill first)
+    #: policy's
+    mixed_steps: bool = True
     #: admission watermark: keep this fraction of pages free when admitting
     admission_watermark: float = 0.02
     #: eos token ids (from the model card/tokenizer)

@@ -23,6 +23,16 @@ the dispatch. The device computes N+1 while the host scans N. The next
 each advanced by N's tokens; otherwise the speculation is rolled back
 (its ids are overshoot, dropped like fused steps past a stop).
 
+Mixed steps (config.mixed_steps, on by default as in the JAX engine):
+while prefill work and running decodes coexist, the scheduler emits one
+`mixed` batch, and `_run_mixed` dispatches its largest-T group of pieces
+and the decode batch (one step, K=1) as one step function, the prefill
+half first, through the same forward paths as the pure steps; so decode
+rows emit a token every step while a prompt burst drains. Mixed steps
+count as decode steps for the overlapped loop: a speculation that matches
+the decode rows is consumed as the decode half, and the pieces dispatch
+beside it as a prefill step.
+
 Prefix caching (config.enable_prefix_caching, on by default as in the
 JAX engine): the scheduler admits a prompt onto the longest cached chain
 of its full pages, so its first piece is a chunk with history that starts
@@ -75,6 +85,9 @@ logger = logging.getLogger(__name__)
 
 #: the step kinds of a decode dispatch (one step, fused steps)
 DECODE_KINDS = ("decode", "decode_multi")
+#: the step kinds whose body runs paged decode attention: decode
+#: dispatches and mixed steps, whose decode half is a K=1 decode step
+PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed")
 
 
 @dataclass
@@ -88,8 +101,15 @@ class EngineMetrics:
     #: fused decode steps of the dispatches whose ids were accepted (a
     #: dispatch runs 1..decode_steps of them; rolled-back ones not counted)
     decode_steps_run: int = 0
+    #: steps that carried both prefill pieces and the decode batch
+    #: (config.mixed_steps; counted before the step runs), and their wall
+    #: time. A mixed step is one dispatch of a "mixed" step function,
+    #: unless a matching speculation is its decode half: then its pieces
+    #: dispatch beside it, counted in prefill_dispatches too
+    mixed_dispatches: int = 0
     time_prefill_ms: float = 0.0
     time_decode_ms: float = 0.0
+    time_mixed_ms: float = 0.0
     #: time spent waiting for decode ids to reach the host (includes the
     #: device time of the steps not yet finished when the wait starts)
     time_decode_sync_ms: float = 0.0
@@ -102,10 +122,11 @@ class EngineMetrics:
     #: JAX engine's compiles) and the wall ms of their warm-ups and captures
     compiles: int = 0
     compile_ms: float = 0.0
-    #: replays of the captured decode and prefill graphs (StepGraph.replays
-    #: summed over the keys of each kind)
+    #: replays of the captured decode, prefill and mixed graphs
+    #: (StepGraph.replays summed over the keys of each kind)
     decode_replays: int = 0
     prefill_replays: int = 0
+    mixed_replays: int = 0
     #: overlapped decode: speculated next-step dispatches issued, consumed
     #: as the real step, and rolled back (the batch changed under them)
     overlap_dispatches: int = 0
@@ -200,8 +221,9 @@ class TorchEngine:
     def step(self) -> list[StepOutput]:
         batch = self.scheduler.schedule()
         outputs = self._drain_doomed()
-        if batch is None or batch.kind != "decode":
-            # a speculated decode step can only be the next decode step
+        if batch is None or batch.kind not in ("decode", "mixed"):
+            # a speculated decode step can only be the next decode step or
+            # the decode half of a mixed step
             self._discard_inflight("no batch" if batch is None else "prefill scheduled")
         if batch is not None:
             t0 = time.perf_counter()
@@ -209,6 +231,10 @@ class TorchEngine:
                 self.metrics.prefill_dispatches += 1
                 outputs += self._run_prefill(batch)
                 self.metrics.time_prefill_ms += (time.perf_counter() - t0) * 1e3
+            elif batch.kind == "mixed":
+                self.metrics.mixed_dispatches += 1
+                outputs += self._run_mixed(batch)
+                self.metrics.time_mixed_ms += (time.perf_counter() - t0) * 1e3
             else:
                 self.metrics.decode_dispatches += 1
                 outputs += self._run_decode(batch)
@@ -220,7 +246,8 @@ class TorchEngine:
         # counted where the graphs replay, so a dispatch that did not replay shows
         graphs = [(k[0], g.replays) for k, g in self._step_fns.items() if isinstance(g, StepGraph)]
         self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_KINDS)
-        self.metrics.prefill_replays = sum(n for kind, n in graphs if kind not in DECODE_KINDS)
+        self.metrics.mixed_replays = sum(n for kind, n in graphs if kind == "mixed")
+        self.metrics.prefill_replays = sum(n for kind, n in graphs if kind.startswith("prefill"))
         self.metrics.prefix_hit_rate = self.allocator.stats.hit_rate
         return outputs
 
@@ -273,13 +300,19 @@ class TorchEngine:
 
     def _sampling_arrays(self, reqs: list[Request], pad_to: int, steps: int, ahead: int = 0
                          ) -> Optional[dict[str, np.ndarray]]:
-        """The sampler's rows for this dispatch, padded to pad_to: temps,
-        top_ps, top_ks and every fused step's noise [steps, pad_to,
-        DEFAULT_K_CAP]; None when every request is greedy (the argmax-only
-        variant). `ahead` advances each draw counter past the tokens of a
-        dispatch not yet read (a speculated one's predecessor)."""
+        """The sampler's rows for this dispatch (_sampler_rows), or None
+        when every request is greedy (the argmax-only variant)."""
         if all(r.sampling.temperature <= 0.0 for r in reqs):
             return None
+        return self._sampler_rows(reqs, pad_to, steps, ahead)
+
+    def _sampler_rows(self, reqs: list[Request], pad_to: int, steps: int, ahead: int = 0
+                      ) -> dict[str, np.ndarray]:
+        """The sampler's rows, padded to pad_to: temps (0 for a greedy
+        row, which takes the argmax), top_ps, top_ks and every fused
+        step's noise [steps, pad_to, DEFAULT_K_CAP]. `ahead` advances each
+        draw counter past the tokens of a dispatch not yet read (a
+        speculated one's predecessor)."""
         temps = np.zeros(pad_to, np.float32)
         top_ps = np.ones(pad_to, np.float32)
         top_ks = np.zeros(pad_to, np.int64)
@@ -314,28 +347,13 @@ class TorchEngine:
         its last token and keeps the ids of those pieces; a group with none
         runs the forward alone (no logits, no sampler noise). Every group
         is dispatched before any ids are read."""
-        groups: dict[int, list] = {}
-        for piece in batch.prefill:
-            groups.setdefault(self._bucket_t(piece.length), []).append(piece)
-        mp = self.config.max_pages_per_seq
         dispatched = []
-        for t_bucket, pieces in sorted(groups.items()):
+        for t_bucket, pieces in sorted(self._group_pieces(batch.prefill).items()):
             b_bucket = self._bucket_b(len(pieces))
-            tokens = np.zeros((b_bucket, t_bucket), np.int64)
-            positions = np.zeros((b_bucket, t_bucket), np.int32)
-            valid = np.zeros((b_bucket, t_bucket), bool)
-            pt = np.zeros((b_bucket, mp), np.int32)
-            last = np.zeros(b_bucket, np.int64)
-            for i, piece in enumerate(pieces):
-                req = piece.request
-                tokens[i, : piece.length] = req.all_tokens[piece.start : piece.start + piece.length]
-                positions[i] = np.arange(t_bucket, dtype=np.int32) + piece.start
-                valid[i, : piece.length] = True
-                pt[i, : len(req.pages)] = req.pages
-                last[i] = piece.length - 1
-            arrays = {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt}
+            arrays = self._prefill_arrays(pieces, b_bucket, t_bucket)
+            last = arrays.pop("last")
             first_chunk = all(p.start == 0 for p in pieces)
-            if any(p.start + p.length >= len(p.request.prompt_tokens) for p in pieces):
+            if any(self._completes(p) for p in pieces):
                 samp = self._sampling_arrays([p.request for p in pieces], b_bucket, 1)
                 arrays.update(last=last, **(samp or {}))
                 key = ("prefill", b_bucket, t_bucket, samp is None, first_chunk)
@@ -344,17 +362,55 @@ class TorchEngine:
             dispatched.append((pieces, self._dispatch(key, arrays)))
         outputs: list[StepOutput] = []
         for pieces, readback in dispatched:
-            ids = None if readback is None else readback.numpy()
-            for i, piece in enumerate(pieces):
-                req = piece.request
-                req.num_computed_tokens += piece.length
-                self.metrics.prefill_tokens += piece.length
-                self._register_pages(req)
-                if piece.start + piece.length >= len(req.prompt_tokens):
-                    tok = int(ids[i])
-                    req.state = RequestState.DECODE
-                    outputs.extend(self._accept_tokens(
-                        req, [tok], self._finish_reason_for(req, tok, 1), first=True))
+            outputs += self._prefill_postprocess(pieces, None if readback is None
+                                                 else readback.numpy())
+        return outputs
+
+    def _group_pieces(self, pieces) -> dict[int, list]:
+        """Pieces by T bucket, each group in the batch's order."""
+        groups: dict[int, list] = {}
+        for piece in pieces:
+            groups.setdefault(self._bucket_t(piece.length), []).append(piece)
+        return groups
+
+    @staticmethod
+    def _completes(piece) -> bool:
+        """Whether the piece ends its prompt (its last token is sampled)."""
+        return piece.start + piece.length >= len(piece.request.prompt_tokens)
+
+    def _prefill_arrays(self, pieces, b_bucket: int, t_bucket: int) -> dict[str, np.ndarray]:
+        """Tokens, positions, valid and page tables of a [b_bucket,
+        t_bucket] chunk step over the pieces, and each row's `last` token."""
+        tokens = np.zeros((b_bucket, t_bucket), np.int64)
+        positions = np.zeros((b_bucket, t_bucket), np.int32)
+        valid = np.zeros((b_bucket, t_bucket), bool)
+        pt = np.zeros((b_bucket, self.config.max_pages_per_seq), np.int32)
+        last = np.zeros(b_bucket, np.int64)
+        for i, piece in enumerate(pieces):
+            req = piece.request
+            tokens[i, : piece.length] = req.all_tokens[piece.start : piece.start + piece.length]
+            positions[i] = np.arange(t_bucket, dtype=np.int32) + piece.start
+            valid[i, : piece.length] = True
+            pt[i, : len(req.pages)] = req.pages
+            last[i] = piece.length - 1
+        return {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt,
+                "last": last}
+
+    def _prefill_postprocess(self, pieces, ids: Optional[np.ndarray]) -> list[StepOutput]:
+        """Advance each piece's request past its tokens and register its
+        full pages; a piece that ends its prompt joins decode with its
+        row's id (ids [rows], the pieces' rows in order)."""
+        outputs: list[StepOutput] = []
+        for i, piece in enumerate(pieces):
+            req = piece.request
+            req.num_computed_tokens += piece.length
+            self.metrics.prefill_tokens += piece.length
+            self._register_pages(req)
+            if self._completes(piece):
+                tok = int(ids[i])
+                req.state = RequestState.DECODE
+                outputs.extend(self._accept_tokens(
+                    req, [tok], self._finish_reason_for(req, tok, 1), first=True))
         return outputs
 
     def _prefill_body(self, first_chunk: bool, sampled: bool,
@@ -495,6 +551,103 @@ class TorchEngine:
             pos = pos + 1
         return torch.stack(step_ids)
 
+    # -- mixed prefill+decode steps (JaxEngine._run_mixed) -----------------
+
+    def _run_mixed(self, batch: ScheduledBatch) -> list[StepOutput]:
+        """One step that carries prefill pieces and the decode batch. The
+        decode rows run the [B, 1] path of a K=1 decode step and the
+        pieces the [B, T] path of a prefill step; pages are the requests'
+        own, so the halves read none of each other's writes, and greedy
+        streams equal the XOR policy's.
+
+        A speculation in flight that matches the decode rows is this
+        step's decode half: the pieces dispatch beside it as a prefill
+        step (the port has no multimodal pieces and no K-step windows, the
+        JAX engine's other cases for two dispatches). Otherwise the pieces
+        are grouped by T bucket, as a prefill step groups them, so each
+        runs under the key the XOR policy would give it: the largest-T
+        group is fused with the decode batch into one "mixed" step
+        function, and the other groups dispatch beside it as a prefill
+        step."""
+        reqs_d = list(batch.decode)
+        inflight = self._inflight
+        if inflight is not None and self._inflight_matches(inflight, reqs_d):
+            # the pieces' replays come before the next speculation reads
+            # this one's ids on the device, and may overwrite them
+            inflight.ids.keep()
+            self.metrics.prefill_dispatches += 1
+            outputs = self._run_prefill(ScheduledBatch(kind="prefill", prefill=batch.prefill))
+            # consumes the speculation and speculates again if the rows hold
+            return outputs + self._run_decode(ScheduledBatch(kind="decode", decode=batch.decode))
+        self._discard_inflight("mixed composition changed")
+        groups = self._group_pieces(batch.prefill)
+        t_bucket = max(groups)
+        pieces = groups.pop(t_bucket)
+        outputs: list[StepOutput] = []
+        rest = tuple(p for g in groups.values() for p in g)
+        if rest:
+            self.metrics.prefill_dispatches += 1
+            outputs = self._run_prefill(ScheduledBatch(kind="prefill", prefill=rest))
+        b_dec = self.config.decode_bucket_for(len(reqs_d))
+        b_pre = self._bucket_b(len(pieces))
+        tokens = np.zeros((b_dec, 1), np.int64)
+        for i, req in enumerate(reqs_d):
+            tokens[i, 0] = req.all_tokens[-1]
+        # the decode half's arrays are a K=1 decode step's
+        arrays = {"tokens": tokens, **self._decode_arrays(reqs_d, b_dec, 0)}
+        arrays.update({f"p_{n}": a for n, a in self._prefill_arrays(pieces, b_pre, t_bucket)
+                       .items()})
+        psamp = any(self._completes(p) for p in pieces)
+        first_chunk = all(p.start == 0 for p in pieces)
+        # the sampled rows: decode rows [0, b_dec), then, when a piece ends
+        # its prompt, prefill rows [b_dec, b_dec + b_pre); each row's noise
+        # comes from its own seed and counter, as in a pure step
+        pre_reqs = [p.request for p in pieces] if psamp else []
+        greedy_d = all(r.sampling.temperature <= 0.0 for r in reqs_d)
+        greedy = greedy_d and all(r.sampling.temperature <= 0.0 for r in pre_reqs)
+        if not psamp:
+            del arrays["p_last"]
+        if not greedy:
+            halves = [self._sampler_rows(reqs_d, b_dec, 1)]
+            if psamp:
+                halves.append(self._sampler_rows(pre_reqs, b_pre, 1))
+            arrays.update({n: np.concatenate([h[n] for h in halves], axis=int(n == "noise"))
+                           for n in halves[0]})
+        ids = self._dispatch(("mixed", b_dec, t_bucket, b_pre, greedy, first_chunk, psamp),
+                             arrays)
+        if not psamp:
+            # no piece joins decode, so the rows hold: the speculation
+            # lands as the next mixed or decode step's decode half
+            self._maybe_speculate(reqs_d, b_dec, 1, greedy_d, ids)
+        outputs += self._decode_postprocess(reqs_d, 1, ids)
+        return outputs + self._prefill_postprocess(
+            pieces, ids.numpy()[0, b_dec:] if psamp else None)
+
+    def _mixed_body(self, first_chunk: bool, psamp: bool,
+                    bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+        """One mixed step over device inputs (the keys of _run_mixed's
+        arrays): the prefill half's chunk step, then the decode half's
+        step; returns the ids [1, rows] drawn for the decode rows and, with
+        psamp, at each prefill row's `p_last` token after them. Each half's
+        logits come from a product over its own rows, as in its pure step
+        (the JAX engine takes one product over both): a bf16 GEMM rounds
+        differently at another row count, and so a row's logits would
+        depend on the other half's bucket."""
+        hidden_p, self.kv = self.adapter.forward_hidden(
+            self.params, bufs["p_tokens"], bufs["p_positions"], bufs["p_valid"], self.kv,
+            bufs["p_page_tables"], first_chunk=first_chunk,
+        )
+        hidden_d, self.kv = self.adapter.forward_hidden(
+            self.params, bufs["tokens"], bufs["positions"], bufs["valid"], self.kv,
+            bufs["page_tables"],
+        )
+        logits = self.adapter.compute_logits(self.params, hidden_d[:, -1])
+        if psamp:
+            rows = torch.arange(hidden_p.shape[0], device=hidden_p.device)
+            logits = torch.cat([logits, self.adapter.compute_logits(
+                self.params, hidden_p[rows, bufs["p_last"]])])
+        return self._sample(logits, bufs if "temps" in bufs else None, 0)[None]
+
     # -- overlapped decode (JaxEngine: _maybe_speculate .. drain_overlap) ---
 
     def _maybe_speculate(self, reqs: list[Request], b_bucket: int, k_prev: int,
@@ -504,8 +657,14 @@ class TorchEngine:
         pending step's last ids, copied on the device. Only when the
         scheduler keeps the batch (no admissible waiting request, nothing
         mid-prefill), every request surely outlives the pending step's
-        k_prev tokens, and the pages can pre-grow to cover the window."""
-        if not self.config.overlap_decode or not self.scheduler.decode_batch_stable():
+        k_prev tokens, and the pages can pre-grow to cover the window.
+        With mixed steps, pending prefill work does not stop it when the
+        decode rows hold (decode_rows_stable): the speculation lands as
+        the decode half of the next mixed step."""
+        if not self.config.overlap_decode:
+            return
+        if not self.scheduler.decode_batch_stable() and not (
+                self.scheduler.mixed_enabled and self.scheduler.decode_rows_stable(reqs)):
             return
         k_next = k_prev
         for req in reqs:
@@ -518,7 +677,10 @@ class TorchEngine:
         k_next = self._pow2_floor(k_next)  # reuse the key family
         if not self._grow_pages_for(reqs, k_prev + k_next - 1):
             return
-        arrays = {"tokens": prev.device[-1][:, None], **self._decode_arrays(reqs, b_bucket, k_prev)}
+        # the pending step's last ids over the decode rows (a mixed step's
+        # ids [1, rows] hold the decode rows first)
+        arrays = {"tokens": prev.device[-1][:b_bucket, None],
+                  **self._decode_arrays(reqs, b_bucket, k_prev)}
         # the pending step advances every draw counter by its k
         samp = self._sampling_arrays(reqs, b_bucket, k_next, ahead=k_prev)
         arrays.update(samp or {})
@@ -577,10 +739,13 @@ class TorchEngine:
         return self._get_step_fn(key)(arrays)
 
     def _body(self, key: tuple):
-        """The body of a step key: K fused decode steps, or one prefill
-        chunk step that samples or not, over the dispatch's device inputs."""
+        """The body of a step key: K fused decode steps, one mixed step, or
+        one prefill chunk step that samples or not, over the dispatch's
+        device inputs."""
         if key[0] in DECODE_KINDS:
             return functools.partial(self._decode_body, key[2])
+        if key[0] == "mixed":
+            return functools.partial(self._mixed_body, key[5], key[6])
         return functools.partial(self._prefill_body, key[-1], key[0] == "prefill")
 
     def _get_step_fn(self, key: tuple):
@@ -588,7 +753,9 @@ class TorchEngine:
         by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
         (kind, batch bucket, steps, all-greedy), for prefill ("prefill", B
         bucket, T bucket, all-greedy, first chunk) and ("prefill_nosample",
-        B bucket, T bucket, first chunk). An input is a host array or a
+        B bucket, T bucket, first chunk), for mixed steps ("mixed", decode
+        bucket, T bucket, piece bucket, all-greedy, first chunk, prefill
+        rows sampled). An input is a host array or a
         device tensor. On the card it is a CUDA graph captured at the
         key's first dispatch (_cache_graph); on the CPU, or with
         cuda_graphs=False, the eager body."""
@@ -616,7 +783,7 @@ class TorchEngine:
         specs = {n: (tuple(a.shape), a.dtype if isinstance(a, torch.Tensor)
                      else torch.from_numpy(a).dtype) for n, a in arrays.items()}
         graph = StepGraph(specs, self.device)
-        if key[0] in DECODE_KINDS:
+        if key[0] in PAGED_DECODE_KINDS:
             with torch.cuda.stream(self._graph_stream):
                 # the workspace this capture reads, at its full size (grown
                 # here, outside the capture, should another user of a stream
@@ -634,12 +801,14 @@ class TorchEngine:
         """Before the first capture: the capture stream, the pool every
         step graph shares (per decode bucket up to 4 values of K x 2
         sampler kinds; per prefill B and T bucket, 2 sampler kinds x 2
-        chunk kinds and 2 non-sampling ones; see StepGraph.capture) and the
-        size of paged decode's workspace for the largest bucket's split
-        plan, which each decode capture makes sure of on the capture
-        stream, outside the capture (_cache_graph). The decode graphs read
-        one set of ticket counters and partials; replays run one at a time
-        on the engine's stream, so no two of them use it at once."""
+        chunk kinds and 2 non-sampling ones; per decode bucket, T bucket
+        and piece bucket, 2 sampler kinds x 2 chunk kinds x prefill rows
+        sampled or not, mixed ones; see StepGraph.capture) and the size of
+        paged decode's workspace for the largest bucket's split plan,
+        which each decode and mixed capture makes sure of on the capture
+        stream, outside the capture (_cache_graph). Those graphs read one
+        set of ticket counters and partials; replays run one at a time on
+        the engine's stream, so no two of them use it at once."""
         # the decode wrapper keys its workspace by an indexed device
         dev = self.device
         if dev.index is None:

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler.
 
-Counterpart of dynamo_tpu/engine/scheduler.py without mixed steps. One
-`schedule()` call is one engine step:
+Counterpart of dynamo_tpu/engine/scheduler.py. One `schedule()` call is
+one engine step:
 
 1. Admit waiting requests while pages and decode slots allow. With prefix
    caching on, a request's prompt is cut into content-addressed blocks
@@ -9,15 +9,23 @@ Counterpart of dynamo_tpu/engine/scheduler.py without mixed steps. One
    serve, and it reuses the longest cached prefix (all but the prompt's
    last page at most, so there are logits to sample); its prefill
    starts at the first uncached page.
-2. If any running request still needs prefill, schedule a prefill step:
+2. If any running request still needs prefill, schedule prefill work:
    pieces of at most `prefill_chunk` tokens from the running prompts, in
    order, up to the step's token budget. A piece that does not end its
    prompt ends on a page boundary, so every chunk starts page-aligned.
    A request stays in PREFILL until its last piece has run.
-3. Otherwise schedule a decode batch over the running sequences, growing
+3. With mixed steps on (config.mixed_steps, the default) and running
+   decodes beside that prefill work, the decode batch rides the same
+   step: one `mixed` batch, so decode rows emit a token every step while
+   a prompt backlog drains. The pieces are then capped so that the
+   step's two halves, each padded to its bucket, fit the largest decode
+   bucket (`_mixed_max_pieces`). With mixed steps off, prefill work
+   stalls decoding until it has drained (the XOR policy).
+4. Otherwise schedule a decode batch over the running sequences, growing
    page tables by one page where the next token would overflow and
    preempting the youngest sequences (recompute through chunked prefill)
-   when pages run out.
+   when pages run out. A mixed step's decode half is scheduled the same
+   way, with the same side effects.
 """
 
 from __future__ import annotations
@@ -45,7 +53,11 @@ class PrefillPiece:
 
 @dataclass(frozen=True)
 class ScheduledBatch:
-    kind: Literal["prefill", "decode"]
+    """`mixed` carries both prefill pieces and the decode batch: one
+    engine step in which every decode row emits a token while the prefill
+    backlog drains (EngineConfig.mixed_steps)."""
+
+    kind: Literal["prefill", "decode", "mixed"]
     prefill: tuple[PrefillPiece, ...] = ()
     decode: tuple[Request, ...] = ()
 
@@ -54,6 +66,8 @@ class Scheduler:
     def __init__(self, config: EngineConfig, allocator: PageAllocator):
         self.config = config
         self.allocator = allocator
+        #: emit `mixed` steps when prefill work and running decodes coexist
+        self.mixed_enabled = config.mixed_steps
         self.waiting: list[Request] = []
         self.running: list[Request] = []
         #: content chains of the live requests (prefix caching on): the
@@ -116,11 +130,31 @@ class Scheduler:
             return False
         return not (self.waiting and self.can_admit_head())
 
+    def decode_rows_stable(self, reqs) -> bool:
+        """The overlap contract with mixed steps, which count as decode
+        steps for the overlapped loop: a speculated decode dispatch can
+        land as the decode half of the next mixed step iff no waiting
+        request is admissible now and the DECODE-state requests are
+        exactly `reqs`, in order (a piece that completes its prompt joins
+        decode and changes the rows)."""
+        if self.waiting and self.can_admit_head():
+            return False
+        decodable = [r for r in self.running if r.state == RequestState.DECODE]
+        return len(decodable) == len(reqs) and all(a is b for a, b in zip(decodable, reqs))
+
     # -- the step ----------------------------------------------------------
 
     def schedule(self) -> Optional[ScheduledBatch]:
         self._admit()
         prefill = self._schedule_prefill()
+        if prefill is not None and self.mixed_enabled:
+            # the decode batch rides the prefill step; _schedule_decode's
+            # side effects (page growth, preempting the youngest DECODE
+            # victim) apply as on the decode step the XOR policy runs later
+            decode = self._schedule_decode()
+            if decode is not None:
+                return ScheduledBatch(kind="mixed", prefill=prefill.prefill,
+                                      decode=decode.decode)
         if prefill is not None:
             return prefill
         return self._schedule_decode()
@@ -176,10 +210,32 @@ class Scheduler:
             self.waiting.pop(0)
             self.running.append(req)
 
+    def _mixed_max_pieces(self) -> Optional[int]:
+        """Piece cap of a step that carries the decode batch: the engine
+        samples a mixed step over one row space of the two halves, each
+        padded to its bucket, so the cap is the largest power-of-two piece
+        bucket that fits beside the decode bucket inside the largest
+        decode bucket (a cap on raw counts would let the piece bucket round
+        up past it). At least 1, so a full decode bucket never starves
+        prefill. None: mixed steps off, or no running decodes."""
+        if not self.mixed_enabled:
+            return None
+        n_dec = sum(1 for r in self.running if r.state == RequestState.DECODE)
+        if not n_dec:
+            return None
+        cap = self.config.decode_buckets[-1]
+        b_dec = self.config.decode_bucket_for(n_dec)
+        b_pre = 1
+        while b_pre * 2 + b_dec <= cap:
+            b_pre *= 2
+        return b_pre
+
     def _prefill_step_budget(self) -> int:
         """Token budget for this prefill step. The adaptive policy grows it
         toward the whole un-prefilled backlog (capped), so a burst drains
-        in a few large steps."""
+        in a few large steps; beside running decodes the grown budget is
+        clamped to what the mixed piece cap can pack (the base budget
+        stays)."""
         base = self.config.effective_prefill_budget
         if self.config.prefill_budget_policy != "adaptive":
             return base
@@ -187,17 +243,25 @@ class Scheduler:
             len(r.prompt_tokens) - r.num_computed_tokens
             for r in self.running if r.state == RequestState.PREFILL
         )
-        return max(base, min(pending, self.config.effective_prefill_budget_max))
+        budget = max(base, min(pending, self.config.effective_prefill_budget_max))
+        max_pieces = self._mixed_max_pieces()
+        if max_pieces is not None:
+            budget = min(budget, max(base, max_pieces * self.config.prefill_chunk))
+        return budget
 
     def _schedule_prefill(self) -> Optional[ScheduledBatch]:
         # Each piece is capped at prefill_chunk tokens; the step budget
-        # spans sequences (mixed steps are not ported, so no piece-count cap)
+        # spans sequences, and beside running decodes the piece count is
+        # capped too (_mixed_max_pieces)
         budget = self._prefill_step_budget()
         ps = self.config.page_size
+        max_pieces = self._mixed_max_pieces()
         pieces: list[PrefillPiece] = []
         for req in self.running:
             if req.state != RequestState.PREFILL or budget <= 0:
                 continue
+            if max_pieces is not None and len(pieces) >= max_pieces:
+                break
             remaining = len(req.prompt_tokens) - req.num_computed_tokens
             take = min(remaining, self.config.prefill_chunk, budget)
             if take < remaining:

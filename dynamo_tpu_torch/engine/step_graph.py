@@ -52,6 +52,13 @@ class Readback:
             self._ready = torch.cuda.Event()
             self._ready.record()
 
+    def keep(self) -> None:
+        """Copy the output on the device into memory of its own (enqueued
+        on the current stream), for a reader on the device that comes after
+        another replay: graphs that share a pool may overwrite each other's
+        outputs (StepGraph.capture)."""
+        self.device = self.device.clone()
+
     def numpy(self) -> np.ndarray:
         if self._ready is not None:
             self._ready.synchronize()
@@ -136,7 +143,9 @@ class StepGraph:
         of any earlier replay. That is safe because every read of an
         output is enqueued on the engine's stream before the next replay:
         its copy to the host (Readback, started at the dispatch) and its
-        copy into the next dispatch's inputs (StaticInputs.fill). Replays
+        copy into the next dispatch's inputs (StaticInputs.fill), or, where
+        another replay comes between (a mixed step's pieces beside a
+        consumed speculation), a copy of its own (Readback.keep). Replays
         run one at a time on that stream."""
         dev_stream = torch.cuda.current_stream(stream.device)
         stream.wait_stream(dev_stream)

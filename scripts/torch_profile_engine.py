@@ -2,27 +2,41 @@
 run by the eager loop, replayed as captured CUDA graphs, and replayed with
 the overlapped decode loop.
 
-    python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8]
+    python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8] [--no-mixed-steps]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
---kv-quantize, a quantized one. Four engines share the weights: `eager`
+--kv-quantize, a quantized one. Five engines share the weights: `eager`
 (cuda_graphs=False, overlap_decode=False), `graphs` (prefill and decode
 graphs, overlap_decode=False), `overlap` (graphs and overlapped decode,
-the defaults) and `uncached` (`overlap` with prefix caching off). The
-first three cache prefixes, as the defaults do; the waves' random prompts
+the defaults, mixed steps among them), `xor` (`overlap` with mixed
+steps off, --no-mixed-steps) and `uncached` (`overlap` with prefix
+caching off). All but `uncached` cache prefixes, as the defaults do; the waves' random prompts
 share no page, so caching costs them its host work (hashing, registering
 pages) and saves nothing. A wave is B greedy requests of PROMPT random tokens each and
 MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
-  - `wave`, for B in BATCHES, eight waves in the order eager, graphs,
-    overlap, uncached, uncached, overlap, graphs, eager, after one untimed wave on each engine
+  - `wave`, for B in BATCHES, ten waves in the order eager, graphs,
+    overlap, xor, uncached, uncached, xor, overlap, graphs, eager, after
+    one untimed wave on each engine
     (kernel builds, cuBLAS, the graph captures), and before any
-    torch.profiler session in the process: output tok/s over the wave and
+    torch.profiler session in the process (a wave of 64 prefills in four
+    steps of the 2,048-token budget under --no-mixed-steps; with mixed
+    steps the rows that have finished theirs decode beside the rest, and
+    once 33 rows decode, in the largest bucket, one prompt a step fits
+    beside them): output tok/s over the wave and
     over its decode steps, host ms per decode dispatch (wall ms of a decode
     step less its wait for the ids, the engine's time_decode_ms and
     time_decode_sync_ms; under overlap it holds the speculated dispatch's
     host work), wall ms per decode step (host clock around
-    `engine.step()`), and the engine's metrics;
+    `engine.step()`) and each decode step's, and the engine's metrics;
+  - `burst`, mixed steps on (`overlap`) against off (`xor`): chip_smoke's
+    run_burst, a greedy wave of 32 rows joined by prompts of 3,000, 700
+    and 700 tokens once every row has 24 tokens, once untimed on each
+    engine, then in the order mixed, xor, xor, mixed, also before any
+    profiler session: the wave rows' largest host gap between token
+    deliveries over the burst and the p95 of the delivering steps' gaps,
+    the burst prompts' synced TTFT, the wave's tok/s and the dispatch
+    counts;
   - `dispatch`, per engine and B: torch.profiler over two steady decode
     steps, from a synced device (a speculated dispatch made before ends
     before the window) to a sync after them: device busy ms per step (sum
@@ -40,7 +54,10 @@ MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
     step's wall ms), then under torch.profiler with no sync but the first
     token's: device busy ms against the time to that token, the idle
     share, and the ten kernels with the most device time.
-Then the card's name and power limit. With no card it raises.
+With --no-mixed-steps every engine runs the XOR policy (the engines and
+lines of the tree before mixed steps were ported): no `xor` engine and
+no `burst` lines. Then the card's name and power limit. With no card it
+raises.
 """
 
 from __future__ import annotations
@@ -56,6 +73,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import chip_smoke  # noqa: E402
 from dynamo_tpu_torch import platform  # noqa: E402
 from dynamo_tpu_torch.engine.config import EngineConfig  # noqa: E402
 from dynamo_tpu_torch.engine.engine import TorchEngine  # noqa: E402
@@ -84,10 +102,14 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> 
     before = eng.metrics.to_dict()
     add_wave(eng, tag, batch, gen)
     decode_ms, tokens, decode_tokens = [], 0, 0
+    # the engine's decode step time and its wait for ids, over the decode
+    # steps alone (a mixed step's decode half waits for ids too)
+    step_ms = sync_ms = 0.0
     t_all = time.perf_counter()
     while eng.has_work:
         decode = not eng.scheduler.waiting and all(
             r.state.value != "prefill" for r in eng.scheduler.running)
+        m0 = (eng.metrics.time_decode_ms, eng.metrics.time_decode_sync_ms)
         t0 = time.perf_counter()
         outs = eng.step()
         n = sum(len(o.new_token_ids) for o in outs)
@@ -95,17 +117,21 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> 
         if decode:
             decode_ms.append((time.perf_counter() - t0) * 1e3)
             decode_tokens += n
+            step_ms += eng.metrics.time_decode_ms - m0[0]
+            sync_ms += eng.metrics.time_decode_sync_ms - m0[1]
     wall = time.perf_counter() - t_all
     m = {k: v - before[k] for k, v in eng.metrics.to_dict().items()}
     n = m["decode_dispatches"]
     return {"output_tokens": tokens, "wall_s": wall, "tok_s": tokens / wall,
             "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
             "decode_dispatches": n, "decode_steps_run": m["decode_steps_run"],
-            "host_ms_per_dispatch": (m["time_decode_ms"] - m["time_decode_sync_ms"]) / n,
+            "host_ms_per_dispatch": (step_ms - sync_ms) / n,
             "wall_ms_per_dispatch": sum(decode_ms) / len(decode_ms),
-            "sync_ms_per_dispatch": m["time_decode_sync_ms"] / n,
+            "decode_step_ms": decode_ms,
+            "sync_ms_per_dispatch": sync_ms / n,
             **{k: m[k] for k in ("compiles", "decode_replays", "prefill_replays",
-                                 "overlap_dispatches", "overlap_hits", "overlap_rollbacks")}}
+                                 "mixed_dispatches", "mixed_replays", "overlap_dispatches",
+                                 "overlap_hits", "overlap_rollbacks")}}
 
 
 def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> dict:
@@ -136,34 +162,52 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
                     help="quantize the KV pages (the CLI's flag)")
+    ap.add_argument("--no-mixed-steps", action="store_false", dest="mixed_steps",
+                    help="mixed steps off in every engine (the CLI's flag): no `xor` engine "
+                         "and no `burst` lines")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
     # the largest wave holds 64 x (PROMPT + MAX_TOKENS) tokens: 256 pages
     cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
                        prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
-                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+                       kv_quantize=args.kv_quantize, mixed_steps=args.mixed_steps,
+                       eos_token_ids=(0,))
     eager = TorchEngine(replace(cfg, overlap_decode=False), device=dev, cuda_graphs=False)
     engines = {"eager": eager,
                "graphs": TorchEngine(replace(cfg, overlap_decode=False), params=eager.params,
                                      device=dev),
                "overlap": TorchEngine(cfg, params=eager.params, device=dev),
+               "xor": TorchEngine(replace(cfg, mixed_steps=False), params=eager.params,
+                                  device=dev),
                "uncached": TorchEngine(replace(cfg, enable_prefix_caching=False),
                                        params=eager.params, device=dev)}
+    if not args.mixed_steps:
+        del engines["xor"]
     gen = torch.Generator().manual_seed(0)
-    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
-            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS}
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize,
+            "mixed_steps": args.mixed_steps, "prompt": PROMPT, "max_tokens": MAX_TOKENS,
+            "decode_steps": DECODE_STEPS}
 
     # untimed waves: builds, cuBLAS, every key's capture
     for name, eng in engines.items():
         for b in BATCHES:
             timed_wave(eng, f"warm{b}", b, gen)
     for b in BATCHES:
-        order = ("eager", "graphs", "overlap", "uncached", "uncached", "overlap", "graphs",
-                 "eager")
-        for i, name in enumerate(order):
+        order = ("eager", "graphs", "overlap", "xor", "uncached", "uncached", "xor", "overlap",
+                 "graphs", "eager")
+        for i, name in enumerate(n for n in order if n in engines):
             emit({"phase": "wave", **head, "batch": b, "engine": name, "order": i,
                   **timed_wave(engines[name], f"{name}{b}-{i}", b, gen)})
+
+    # the burst, mixed steps on against off
+    arms = {"mixed": engines["overlap"], "xor": engines["xor"]} if args.mixed_steps else {}
+    for name, eng in arms.items():
+        chip_smoke.run_burst(eng, f"burst-warm-{name}")
+    for i, name in enumerate(("mixed", "xor", "xor", "mixed") if arms else ()):
+        r = chip_smoke.run_burst(arms[name], f"burst-{name}-{i}")
+        r.pop("streams")
+        emit({"phase": "burst", **head, "engine": name, "order": i, **r})
 
     # profiler sessions only from here on
     for b in BATCHES:

@@ -27,7 +27,12 @@ a row, and a prefill replayed between a speculated dispatch and its
 readback, leave every id the eager loop's. With prefix caching on, graphs
 and overlap, a wave that hits a warm request's pages leaves their bytes
 (K, V, scale planes) unchanged, repeats bit for bit after
-clear_cache() and gives its eager twin's streams, in each pool mode. Flash prefill and paged prefill (bf16 output) hold each
+clear_cache() and gives its eager twin's streams, in each pool mode. Mixed
+prefill+decode steps replayed as graphs give the eager loop's streams in
+each pool mode, without and with overlapped decode, their graphs launch
+every kernel variant of the pool and keep the decode workspace they
+read, and a consumed speculation's ids reach the next speculation
+intact across the pieces' replays. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -40,7 +45,7 @@ import torch
 import chip_smoke
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import DECODE_KINDS, TorchEngine
+from dynamo_tpu_torch.engine.engine import DECODE_KINDS, PAGED_DECODE_KINDS, TorchEngine
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.engine.step_graph import StepGraph
 from dynamo_tpu_torch.models.registry import get_model
@@ -798,11 +803,12 @@ def llama_params():
 def _engines(params, mode, overlap=(False, False), **knobs):
     """(eager, graphs): two llama3-1b engines over one set of weights and
     pools of `mode`, buckets 1-8 and up to 8 fused steps, with overlapped
-    decode as `overlap` says for each, and prefix caching off unless
-    `knobs` turn it on (a wave run again would hit its own pages)."""
+    decode as `overlap` says for each, and prefix caching and mixed steps
+    off unless `knobs` turn them on (a wave run again would hit its own
+    pages; the mixed tests below turn mixed steps on)."""
     cfg = dict(model="llama3-1b", num_pages=96, page_size=64, max_pages_per_seq=8,
                decode_buckets=(1, 2, 4, 8), max_seqs=8, decode_steps=8, kv_quantize=mode,
-               eos_token_ids=(0,), enable_prefix_caching=False)
+               eos_token_ids=(0,), enable_prefix_caching=False, mixed_steps=False)
     cfg.update(knobs)
     return [TorchEngine(EngineConfig(**cfg, overlap_decode=o), params=params, device="cuda",
                         cuda_graphs=g) for g, o in zip((False, True), overlap)]
@@ -1032,3 +1038,102 @@ def test_prefix_hits_with_graphs_and_overlap(llama_params, mode):
     assert any(k[0].startswith("prefill") and not k[-1] for k in eng.step_keys)
     assert (chip_smoke.serve_requests(eager, warm, 12),
             chip_smoke.serve_requests(eager, wave, 12)) == runs[0]
+
+
+def _run_late(eng, tag="", arrivals=((3, (300, 200)),), max_tokens=24, late_tokens=6):
+    """A request of 40 random tokens decoding `max_tokens`, joined after
+    each arrival's count of steps by prompts of its lengths (at a chunk of
+    128, 3 and 2 chunks for 300 and 200) decoding `late_tokens`; returns
+    request id -> generated ids. Without overlap each step with prefill work is one fused mixed
+    step; the first is all first chunks, the later ones chunks with
+    history, and the 200-token prompt's last piece is sampled beside the
+    decode rows."""
+    gen = torch.Generator().manual_seed(6)
+    draw = lambda n: torch.randint(1, 128_000, (n,), generator=gen).tolist()  # noqa: E731
+    eng.add_request(f"{tag}w", draw(40), SamplingParams(max_tokens=max_tokens, ignore_eos=True))
+    out: dict[str, list[int]] = {}
+    steps = 0
+    for a, (at, lengths) in enumerate(arrivals):
+        while steps < at:
+            for o in eng.step():
+                out.setdefault(o.request_id, []).extend(o.new_token_ids)
+            steps += 1
+        for i, n in enumerate(lengths):
+            eng.add_request(f"{tag}l{a}-{i}", draw(n),
+                            SamplingParams(max_tokens=late_tokens, ignore_eos=True))
+    for rid, ids in eng.run_to_completion().items():
+        out.setdefault(rid, []).extend(ids)
+    return out
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_mixed_graphs_give_the_eager_streams(llama_params, mode):
+    """Mixed steps replayed as graphs give the eager loop's streams bit for
+    bit, without overlapped decode (every mixed step one fused dispatch,
+    which replays its key's graph) and with it in both engines (decode
+    halves that are consumed speculations); the fused mixed graphs launch
+    every kernel variant of the pool (first chunks, chunks with history,
+    the writes, paged decode), and nothing runs a plain version."""
+    for overlap in (False, True):
+        eager, graphs = _engines(llama_params, mode, overlap=(overlap, overlap),
+                                 mixed_steps=True, prefill_chunk=128)
+        ops.reset_counts()
+        want = _run_late(eager)
+        assert _run_late(graphs) == want
+        assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+        m = graphs.metrics
+        assert m.mixed_dispatches == eager.metrics.mixed_dispatches > 1
+        assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+        assert m.decode_replays + m.mixed_replays == (m.decode_dispatches + m.mixed_dispatches
+                                                      + m.overlap_rollbacks)
+        if overlap:
+            assert m.overlap_hits > 0
+            continue
+        assert m.mixed_replays == m.mixed_dispatches
+        assert {k[5] for k in graphs.step_keys if k[0] == "mixed"} == {True, False}
+        launched = {name for k, g in graphs._step_fns.items() if k[0] == "mixed"
+                    for name, (n, plain) in g.launches.items() if n and not plain}
+        assert launched == set(chip_smoke.serve_variants(mode))
+
+
+def test_mixed_graphs_hold_their_workspace(llama_params):
+    """A mixed graph runs paged decode for its decode half, so it keeps
+    the workspace it was captured over, as a decode graph does: after the
+    capture stream's entry is replaced and the old memory filled with
+    garbage, the replays still give the eager loop's streams."""
+    eager, graphs = _engines(llama_params, None, mixed_steps=True, prefill_chunk=128)
+    want = _run_late(eager)
+    assert _run_late(graphs) == want
+    assert all(g.keep for k, g in graphs._step_fns.items() if k[0] in PAGED_DECODE_KINDS)
+    assert any(k[0] == "mixed" for k in graphs.step_keys)
+    dev, counters, partials = graphs._workspace_size
+    with torch.cuda.stream(graphs._graph_stream):
+        old = paged_attention.workspace(dev, 0, 0)
+        paged_attention.workspace(dev, counters + 1, partials + 1)
+    shapes = [(t.numel(), t.dtype) for t in old]
+    del old
+    junk = [torch.full((n,), 3, dtype=dtype, device=dev) for n, dtype in shapes]
+    compiles = graphs.metrics.compiles
+    got = _run_late(graphs, tag="again")
+    assert {k[len("again"):]: v for k, v in got.items()} == want
+    assert graphs.metrics.compiles == compiles  # every key replayed, none captured
+    del junk
+
+
+def test_a_split_mixed_step_feeds_its_speculation_the_right_ids(llama_params):
+    """With overlap, a mixed step whose decode half is a consumed
+    speculation replays the pieces' prefill graph before the next
+    speculation copies the consumed one's ids on the device. A second
+    arrival replays a prefill key captured before the decode key that
+    speculates, so that replay may overwrite the decode graph's output
+    (graphs share a pool): the ids the next speculation is fed must be
+    the consumed ones all the same, and the streams the eager twin's. (The
+    first arrival's prompts decode 40 tokens, so the second finds three
+    rows speculating under a decode key captured after that prefill key.)"""
+    eager, graphs = _engines(llama_params, None, overlap=(True, True), mixed_steps=True,
+                             prefill_chunk=128)
+    kw = dict(arrivals=((3, (300, 200)), (9, (300, 200))), max_tokens=120, late_tokens=40)
+    want = _run_late(eager, **kw)
+    assert _run_late(graphs, **kw) == want
+    m = graphs.metrics
+    assert m.overlap_hits > 0 and m.mixed_dispatches > m.mixed_replays

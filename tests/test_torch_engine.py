@@ -4,9 +4,10 @@ Both engines run the tiny config in float32 with the same weights (the JAX
 engine's, carried over with params_from_jax). The JAX engine runs
 attention_impl="pallas" (its kernels in interpret mode on the CPU) with
 prefix caching, overlap and mixed steps off; the port runs its kernels'
-plain versions on CPU tensors, with prefix caching as the JAX engine has
-it (off unless a test asks; tests/test_torch_prefix_cache.py serves hits). Prompts up to prefill_chunk=16 tokens are
-one first chunk; longer ones, and recomputes after a preemption, prefill
+plain versions on CPU tensors, with prefix caching and mixed steps as the
+JAX engine has them (off unless a test asks; tests/test_torch_prefix_cache.py
+serves hits, tests/test_torch_mixed.py mixed steps). Prompts up to
+prefill_chunk=16 tokens are one first chunk; longer ones, and recomputes after a preemption, prefill
 in page-aligned chunks. Greedy token streams must be identical.
 """
 
@@ -41,15 +42,16 @@ def _jax_engine(**overrides):
 
 def _torch_engine(jax_engine=None, **overrides):
     """The port's engine on the JAX engine's weights and with its prefix
-    caching knob, or on random weights with caching off (as _jax_engine
-    has it) unless `overrides` say otherwise."""
+    caching and mixed steps knobs, or on random weights with both off (as
+    _jax_engine has them) unless `overrides` say otherwise."""
     params = None
-    caching = False
+    caching = mixed = False
     if jax_engine is not None:
         np_params = jax.tree.map(np.asarray, jax_engine.params)
         params = params_from_jax(np_params, LlamaConfig.tiny(), device="cpu")
         caching = jax_engine.config.enable_prefix_caching
-    overrides = {"enable_prefix_caching": caching, **overrides}
+        mixed = jax_engine.config.mixed_steps
+    overrides = {"enable_prefix_caching": caching, "mixed_steps": mixed, **overrides}
     return TorchEngine(EngineConfig.for_tests(**overrides), params=params, device="cpu")
 
 
@@ -177,11 +179,11 @@ def test_prompt_longer_than_one_chunk_is_refused():
     ],
 )
 def test_unported_knob_is_refused_by_name(knob):
-    """(overlap_decode=True and enable_prefix_caching=True keep their cases
-    from when the port refused them; each case now checks that the knob is
-    served.)"""
+    """(overlap_decode=True, enable_prefix_caching=True and mixed_steps=True
+    keep their cases from when the port refused them; each case now checks
+    that the knob is served.)"""
     (name,) = knob
-    if name in ("overlap_decode", "enable_prefix_caching"):
+    if name in ("overlap_decode", "enable_prefix_caching", "mixed_steps"):
         assert getattr(EngineConfig.for_tests(**knob), name) is True
         assert getattr(EngineConfig.for_tests(**{name: False}), name) is False
         return
@@ -201,8 +203,7 @@ def test_every_knob_of_the_jax_config_is_ported_or_refused():
     ported = {f.name for f in dataclasses.fields(EngineConfig)}
     assert jax_knobs == ported | UNPORTED.keys()
     assert not ported & UNPORTED.keys()
-    off = dict(mixed_steps=False, fleet_telemetry=False, flight_recorder=False,
-               stall_watchdog=False)
+    off = dict(fleet_telemetry=False, flight_recorder=False, stall_watchdog=False)
     cfg = EngineConfig(**dataclasses.asdict(JaxEngineConfig.for_tests(**off)))
     assert cfg == EngineConfig.for_tests()
     assert dataclasses.replace(cfg, decode_steps=2).decode_steps == 2
@@ -310,22 +311,29 @@ def test_no_card_without_asking_for_the_cpu_raises():
         TorchEngine(EngineConfig.for_tests())
 
 
-@pytest.mark.parametrize("num_pages,seed,caching", [
-    pytest.param(40, 0, False, id="40-0"), pytest.param(9, 1, False, id="9-1"),
-    pytest.param(9, 2, False, id="9-2"), pytest.param(40, 0, True, id="40-0-caching"),
-    pytest.param(9, 1, True, id="9-1-caching"),
+@pytest.mark.parametrize("num_pages,seed,caching,mixed", [
+    pytest.param(40, 0, False, False, id="40-0"), pytest.param(9, 1, False, False, id="9-1"),
+    pytest.param(9, 2, False, False, id="9-2"),
+    pytest.param(40, 0, True, False, id="40-0-caching"),
+    pytest.param(9, 1, True, False, id="9-1-caching"),
+    pytest.param(40, 0, False, True, id="40-0-mixed"),
+    pytest.param(9, 1, False, True, id="9-1-mixed"), pytest.param(9, 2, False, True, id="9-2-mixed"),
+    pytest.param(9, 1, True, True, id="9-1-caching-mixed"),
 ])
-def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed, caching):
-    """The same request stream through both schedulers (mixed steps off,
-    prefix caching as `caching` says), with a stand-in token per sampled
-    row: the same batches, pieces, page counts, preemptions and finishes,
-    step by step. Prompts run up to 24 tokens, so some prefill in chunks
-    of at most 16; each stream runs under the default budget, and under a
-    budget of 8 tokens with the fixed and with the adaptive policy. 9
-    pages force preemption, and recomputes past one chunk. With caching,
-    odd requests share a prefix of 1 to 4 pages, one prompt is cached
-    whole, full pages are registered as the engine registers them, and
-    the KV events and cache stats must be equal too."""
+def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed, caching, mixed):
+    """The same request stream through both schedulers (mixed steps and
+    prefix caching as `mixed` and `caching` say), with a stand-in token
+    per sampled row: the same batches, pieces, page counts, preemptions
+    and finishes, step by step. Prompts run up to 24 tokens, so some
+    prefill in chunks of at most 16; each stream runs under the default
+    budget, and under a budget of 8 tokens with the fixed and with the
+    adaptive policy; with mixed steps also under an adaptive budget of 4
+    tokens growing to 96 beside decode buckets up to 4, where the mixed
+    piece cap and its clamp of the grown budget bind. 9 pages force
+    preemption, and recomputes past one chunk. With caching, odd requests
+    share a prefix of 1 to 4 pages, one prompt is cached whole, full pages
+    are registered as the engine registers them, and the KV events and
+    cache stats must be equal too."""
     from dynamo_tpu.engine.page_table import PageAllocator as JaxAllocator
     from dynamo_tpu.engine.request import Request as JaxRequest
     from dynamo_tpu.engine.scheduler import Scheduler as JaxScheduler
@@ -386,13 +394,17 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed, cachi
         stats = sched.allocator.stats
         return trace, (stats.queries, stats.hit_tokens, stats.stored_blocks, stats.evicted_blocks)
 
-    for budget in ({}, dict(prefill_token_budget=8),
-                   dict(prefill_token_budget=8, prefill_budget_policy="adaptive")):
+    budgets = [{}, dict(prefill_token_budget=8),
+               dict(prefill_token_budget=8, prefill_budget_policy="adaptive")]
+    if mixed:
+        budgets.append(dict(prefill_token_budget=4, prefill_budget_policy="adaptive",
+                            prefill_budget_max=96, decode_buckets=(1, 2, 4)))
+    for budget in budgets:
         kw = dict(num_pages=num_pages, max_seqs=4, admission_watermark=0.0,
-                  enable_prefix_caching=caching, **budget)
+                  enable_prefix_caching=caching, mixed_steps=mixed, **budget)
         jax_ev, torch_ev = [], []
         want, want_stats = drive(
-            JaxScheduler(JaxEngineConfig.for_tests(mixed_steps=False, **kw),
+            JaxScheduler(JaxEngineConfig.for_tests(**kw),
                          JaxAllocator(num_pages, 4, on_event=jax_ev.append)),
             lambda rid, p, n: JaxRequest(rid, p, JaxSampling(max_tokens=n)),
         )
@@ -408,3 +420,4 @@ def test_scheduler_matches_the_jax_scheduler_step_by_step(num_pages, seed, cachi
         assert any(start > 0 for step in want if step[0] != "idle" for _, start, _ in step[1])
         if num_pages == 9:  # the small pool did preempt
             assert max(step[-1] for step in want if step[0] != "idle") > 0
+        assert any(step[0] == "mixed" for step in want) == mixed

@@ -415,7 +415,8 @@ def _engines(mode, decode_steps):
     params = tllama.params_from_jax(
         jax.tree.map(np.asarray, jax_eng.params), tllama.LlamaConfig.tiny(), device="cpu")
     cfg = EngineConfig.for_tests(kv_quantize=mode, decode_steps=decode_steps,
-                                 max_pages_per_seq=16, enable_prefix_caching=False)
+                                 max_pages_per_seq=16, enable_prefix_caching=False,
+                                 mixed_steps=False)
     return jax_eng, lambda: TorchEngine(cfg, params=params, device="cpu")
 
 

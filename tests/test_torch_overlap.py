@@ -83,10 +83,13 @@ def test_streams_with_overlap_equal_streams_without(jax_greedy, decode_steps):
     """Every stream, greedy and seeded sampled, is the same with overlap on
     and off, to the token; the workload rolls speculations back and
     preempts. The greedy streams equal JaxEngine's (overlap on), which do
-    not depend on the fused steps a dispatch runs."""
+    not depend on the fused steps a dispatch runs. The port runs the XOR
+    policy here (mixed steps off), under which each arrival rolls the
+    speculation back; tests/test_torch_mixed.py runs this workload with
+    mixed steps, whose decode halves consume the speculations instead."""
     jax_eng, ref = jax_greedy
-    off = _port(jax_eng, decode_steps=decode_steps, overlap_decode=False)
-    on = _port(jax_eng, decode_steps=decode_steps)
+    off = _port(jax_eng, decode_steps=decode_steps, overlap_decode=False, mixed_steps=False)
+    on = _port(jax_eng, decode_steps=decode_steps, mixed_steps=False)
     want, got = _drive(off, SamplingParams), _drive(on, SamplingParams)
     assert got == want
     assert off.metrics.overlap_dispatches == 0

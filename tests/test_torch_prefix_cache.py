@@ -193,11 +193,12 @@ PREEMPT_WAVES = [[("long", list(range(1, 15)), 12), ("short", list(range(1, 7)),
 
 def _engines(**knobs):
     """(JaxEngine, TorchEngine, their KV events): caching on in both, one
-    set of weights."""
-    kw = dict(enable_prefix_caching=True, max_pages_per_seq=16, admission_watermark=0.0, **knobs)
+    set of weights, mixed steps off in both unless `knobs` turn them on."""
+    kw = dict(dict(enable_prefix_caching=True, max_pages_per_seq=16, admission_watermark=0.0,
+                   mixed_steps=False), **knobs)
     jax_ev, torch_ev = [], []
-    jax_eng = JaxEngine(JaxEngineConfig.for_tests(attention_impl="pallas", mixed_steps=False,
-                                                  **kw), on_kv_event=jax_ev.append)
+    jax_eng = JaxEngine(JaxEngineConfig.for_tests(attention_impl="pallas", **kw),
+                        on_kv_event=jax_ev.append)
     params = params_from_jax(jax.tree.map(np.asarray, jax_eng.params), LlamaConfig.tiny(),
                              device="cpu")
     torch_eng = TorchEngine(EngineConfig.for_tests(**kw), params=params, device="cpu",
@@ -225,7 +226,9 @@ def _jax_keys(eng) -> set:
     """JaxEngine's step keys projected onto the port's key fields."""
     out = set()
     for k in eng._jit_cache:
-        if k[0] == "prefill":
+        if k[0] == "mixed":
+            out.add((k[0], k[1], k[2], k[9], k[3], k[5], k[10]))
+        elif k[0] == "prefill":
             out.add((k[0], k[1], k[2], k[3], k[5]))
         elif k[0] == "prefill_nosample":
             out.add((k[0], k[1], k[2], k[5]))
@@ -278,15 +281,21 @@ def _snapshot(eng, pages) -> list[torch.Tensor]:
     return [x[:, idx].clone() for x in eng.kv if x is not None]
 
 
-@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
-def test_a_wave_that_hits_writes_no_registered_page(mode):
+@pytest.mark.parametrize("mode,mixed", [
+    pytest.param(None, False, id="None"), pytest.param("int8", False, id="int8"),
+    pytest.param("fp8", False, id="fp8"), pytest.param(None, True, id="None-mixed"),
+    pytest.param("int8", True, id="int8-mixed"), pytest.param("fp8", True, id="fp8-mixed"),
+])
+def test_a_wave_that_hits_writes_no_registered_page(mode, mixed):
     """Every page registered by the warm request keeps its bytes (K, V and
     the scale planes) through a wave of hits at 8 fused steps with overlap
-    on: every write lands at or past num_computed_tokens."""
+    on: every write lands at or past num_computed_tokens. With mixed steps
+    on, the long hit's last piece runs in a mixed step beside the rows
+    that finished their prefill, whose decode writes land there too."""
     events: list[KvEvent] = []
     eng = TorchEngine(EngineConfig.for_tests(max_pages_per_seq=32, decode_steps=8,
-                                             kv_quantize=mode), device="cpu",
-                      on_kv_event=events.append)
+                                             kv_quantize=mode, mixed_steps=mixed),
+                      device="cpu", on_kv_event=events.append)
     # 20 tokens a request: dispatches of 8 fused steps that speculate
     waves = [[(rid, prompt, 20) for rid, prompt, _ in wave] for wave in HIT_WAVES]
     _serve(eng, waves[:1], SamplingParams)
@@ -296,6 +305,7 @@ def test_a_wave_that_hits_writes_no_registered_page(mode):
     _, firsts = _serve(eng, waves[1:], SamplingParams)
     assert firsts["long"] == [28] and firsts["again"] == [28]
     assert eng.metrics.overlap_hits > 0
+    assert (eng.metrics.mixed_dispatches > 0) == mixed
     assert not any(e.kind == "removed" for e in events)
     for a, b in zip(before, _snapshot(eng, pages)):
         assert torch.equal(a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a,
