@@ -99,6 +99,26 @@ Phases, each fatal on failure:
      rows' largest host gap between token deliveries over the burst and
      the p95 of the delivering steps' gaps (each step once), the burst
      prompts' synced TTFT and the wave's tok/s;
+  4e. sampling: one llama3-1b engine built as the CLI builds it with no
+     flags but the model and --max-seqs 64 (graphs, overlap, mixed steps,
+     prefix caching, bf16 pool) serves, wave after wave: 8 greedy rows of
+     128 + 64 tokens with logprobs 20; the same with frequency 1.0,
+     presence 0.5 and repetition 1.3 penalties; a row with +100 on one id,
+     which must be that id throughout, beside a row with min_tokens 5 and
+     +100 on eos, which must be exactly 6 tokens ending on eos with
+     `stop`; a 1,300-token prompt with logprobs 5, whose last chunk
+     samples with history under an lp key. An eager twin (cuda_graphs=False,
+     the same config) must give the same ids, logprobs and alternatives
+     bit for bit; every key with an lp, pen or bias field must be captured
+     once and replayed, and those graphs must launch all four kernel
+     variants of the pool, no plain version; each greedy row's token must
+     be its own top-1 alternative with the same logprob; and the logprob
+     gate: the logprob rows' prompts and tokens through the plain path
+     (teacher forcing), whose log_softmax must lie within 0.5 (twice the
+     model gate's logit bound) of every chosen logprob, with the top-1 ids
+     agreeing at >= 90 % of positions. Printed beside the card's name and
+     power limit: the engine ms per decode dispatch of waves of 8 and 64
+     rows under the plain, lp=20, pen and bias keys;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -121,7 +141,17 @@ Phases, each fatal on failure:
      decode and mixed dispatch must replay a captured graph (phase 4b's
      identities); the server's captures (`compiles`, `compile_ms`),
      replays and mixed and overlap counts print with its line. TTFT is taken at the client, from sending a streaming request to
-     its first chunk that carries a token;
+     its first chunk that carries a token. After the mix's counts are
+     read, the bf16 server answers, one at a time, a streamed chat with
+     logprobs and top_logprobs 5, a completion with logprobs 3 (the legacy
+     arrays), n = 3 with a seed, whose choices must equal three lone
+     requests with seeds s, s + 1 and s + 2, unary and streamed, and a
+     penalized chat; then, twice, on the short prompt and on fresh
+     prompts of 1,116 tokens, n = 3 streamed, three lone requests sent
+     together and one lone request, whose first-token seconds print per
+     choice (`n3_schedules`). These requests' launches
+     print apart, in the line's `sampling`, and must run no plain version
+     and replay graphs only;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
      the device time of the CUDA kernels one call launches (each kernel's
@@ -849,7 +879,7 @@ def phase_graphs(dev) -> list[dict]:
     """Prefill and decode graphs, without and with overlapped decode, held
     against the eager loop, in every pool mode."""
     from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.engine import TorchEngine, key_field
     from dynamo_tpu_torch.models.registry import get_model
 
     params = get_model("llama3-1b", dtype="bfloat16").init_params(
@@ -903,7 +933,7 @@ def phase_graphs(dev) -> list[dict]:
             eng, run = runs[name]["eng"], runs[name]
             m = eng.metrics
             prefill = [k for k in eng.step_keys if k[0].startswith("prefill")]
-            kinds = {(k[0], k[-1]) for k in prefill}
+            kinds = {(k[0], key_field(k, "first_chunk")) for k in prefill}
             # every step-function call replayed a graph; with one T bucket a
             # step (the long prompt alone), one replay a prefill dispatch
             ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
@@ -1113,7 +1143,7 @@ def phase_prefix(dev, card: str) -> list[dict]:
     hash's host ms and a hit's synced engine TTFT against the same prompt
     served cold."""
     from dynamo_tpu_torch.cli import run as cli_run
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.engine import TorchEngine, key_field
     from dynamo_tpu_torch.engine.step_graph import StepGraph
     from dynamo_tpu_torch.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.models.registry import get_model
@@ -1167,9 +1197,8 @@ def phase_prefix(dev, card: str) -> list[dict]:
                 (g.replays - replays.get(k, 0) + (k not in replays))
                 * g.launches.get(paged, (0, 0))[0]
                 for k, g in eng._step_fns.items()
-                if isinstance(g, StepGraph) and (
-                    (k[0].startswith("prefill") and not k[-1])
-                    or (k[0] == "mixed" and not k[5])))
+                if isinstance(g, StepGraph) and k[0] not in ("decode", "decode_multi")
+                and not key_field(k, "first_chunk"))
             if not launches.get(paged, 0) == with_history > 0:
                 raise AssertionError(f"{label}: {paged} launched {launches.get(paged, 0)} times "
                                      f"in the wave, {with_history} by the chunk keys")
@@ -1529,15 +1558,259 @@ def phase_mixed(dev, card: str) -> list[dict]:
     return results
 
 
+# -- phase "sampling": the sampling surface at the CLI's defaults -------------------
+
+#: the phase's waves: rows, prompt tokens and output tokens each
+SAMPLING_ROWS, SAMPLING_PROMPT, SAMPLING_TOKENS = 8, 128, 64
+#: the prompt whose later chunks run paged prefill, its last one under an lp key
+SAMPLING_LONG = 1300
+#: the penalized wave's knobs
+PENALTIES = dict(frequency_penalty=1.0, presence_penalty=0.5, repetition_penalty=1.3)
+#: the id a +100 bias forces at every position
+FORCED_ID = 4242
+#: the logprob gate: each chosen logprob within twice the model gate's
+#: logit bound of the plain path's log_softmax, top-1 agreement
+GATE_LOGPROB = 2 * GATE_MAX_DLOGIT
+#: the timed keys: the knobs of each wave's rows, at each batch
+SAMPLING_KEYS = {"plain": {}, "lp20": dict(logprobs=20), "pen": PENALTIES,
+                 "bias": dict(logit_bias=((FORCED_ID, 5.0), (77, -3.0)))}
+SAMPLING_BATCHES = (8, 64)
+#: the argv the phase's engines are built from: the CLI's defaults (graphs,
+#: overlap, mixed steps, prefix caching, context 4096, chunk 512, page 64,
+#: 8 fused steps) but for room for 64 rows
+SAMPLING_ARGV = ["run", "--model", "llama3-1b", "--max-seqs", "64"]
+
+
+def sampling_requests(vocab: int, eos: int) -> list[list[tuple]]:
+    """The phase's waves of (request id, prompt, SamplingParams knobs),
+    random prompts from a fixed seed: 8 greedy rows with logprobs 20; 8
+    penalized rows; a row with +100 on FORCED_ID; min_tokens 5 with +100
+    on eos; a 1,300-token prompt with logprobs 5."""
+    gen = torch.Generator().manual_seed(31)
+    draw = lambda n: torch.randint(1, vocab, (n,), generator=gen).tolist()  # noqa: E731
+    rows = dict(max_tokens=SAMPLING_TOKENS, ignore_eos=True)
+    return [
+        [(f"lp{i}", draw(SAMPLING_PROMPT), dict(logprobs=20, **rows))
+         for i in range(SAMPLING_ROWS)],
+        [(f"pen{i}", draw(SAMPLING_PROMPT), dict(**PENALTIES, **rows))
+         for i in range(SAMPLING_ROWS)],
+        [("forced", draw(SAMPLING_PROMPT), dict(max_tokens=16, ignore_eos=True,
+                                                logit_bias=((FORCED_ID, 100.0),))),
+         ("min", draw(SAMPLING_PROMPT), dict(max_tokens=16, min_tokens=5,
+                                             logit_bias=((eos, 100.0),)))],
+        [("long", draw(SAMPLING_LONG), dict(max_tokens=8, logprobs=5, ignore_eos=True))],
+    ]
+
+
+def run_sampling(eng, waves) -> dict[str, dict]:
+    """Each wave to completion, one after the other: request id ->
+    {prompt, tokens, lps, tops, finish}."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    out: dict[str, dict] = {}
+    for wave in waves:
+        for rid, prompt, kw in wave:
+            eng.add_request(rid, prompt, SamplingParams(**kw))
+            out[rid] = {"prompt": prompt, "tokens": [], "lps": [], "tops": [], "finish": None}
+        while eng.has_work:
+            for o in eng.step():
+                d = out[o.request_id]
+                d["tokens"] += o.new_token_ids
+                d["lps"] += o.logprobs or ()
+                d["tops"] += o.top_logprobs or ()
+                if o.finish_reason is not None:
+                    d["finish"] = o.finish_reason.value
+    return out
+
+
+def logprob_gate(dev, adapter, params, rows: list[dict]) -> dict:
+    """Teacher forcing: each row's prompt and emitted tokens through the
+    plain path, in one first chunk; the engine's (kernel path's) chosen
+    logprobs must lie within GATE_LOGPROB of the plain log_softmax at the
+    same positions, and its top-1 ids agree with the plain argmax at
+    GATE_ARGMAX of them."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    seqs = torch.tensor([r["prompt"] + r["tokens"] for r in rows], device=dev)
+    b, t = seqs.shape
+    per_row = -(-t // S)
+    pt = (1 + torch.arange(b * per_row, dtype=torch.int32, device=dev)).reshape(b, per_row)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t).contiguous()
+    valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        pool = adapter.init_kv(1 + b * per_row, S, dev)
+        logits, _ = llama.forward(params, cfg, seqs, pos, valid, pool, pt, first_chunk=True,
+                                  ops=ops.PLAIN)
+        del pool
+    n_prompt = len(rows[0]["prompt"])
+    plain = torch.log_softmax(logits[:, n_prompt - 1:t - 1].float(), dim=-1)
+    chosen = torch.tensor([r["tokens"] for r in rows], device=dev)
+    want = plain.gather(2, chosen[..., None])[..., 0]
+    got = torch.tensor([r["lps"] for r in rows], device=dev)
+    top1 = torch.tensor([[alts[0][0] for alts in r["tops"]] for r in rows], device=dev)
+    worst = float((got - want).abs().max())
+    agree = float((plain.argmax(-1) == top1).float().mean())
+    result = {"max_abs_dlogprob": worst, "top1_agreement": agree, "positions": got.numel()}
+    if not (worst < GATE_LOGPROB and agree >= GATE_ARGMAX):
+        raise AssertionError(f"sampling: the logprob gate failed: {result}")
+    return result
+
+
+def sampling_wave(eng, tag: str, batch: int, knobs: dict) -> dict:
+    """One wave of `batch` greedy rows with `knobs` from an idle engine
+    (random prompts, SAMPLING_PROMPT + SAMPLING_TOKENS), counted on its
+    own: the engine ms per decode dispatch (time_decode_ms: host work and
+    the wait for ids), and the wait for ids per dispatch that waits for
+    them (a decode dispatch or a mixed step's decode half)."""
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    gen = torch.Generator().manual_seed(37)
+    before = eng.metrics.to_dict()
+    eng.allocator.clear_cache()  # every wave's prompts are the same: none hits
+    for i in range(batch):
+        prompt = torch.randint(1, eng.adapter.vocab_size, (SAMPLING_PROMPT,), generator=gen)
+        eng.add_request(f"{tag}{i}", prompt.tolist(),
+                        SamplingParams(max_tokens=SAMPLING_TOKENS, ignore_eos=True, **knobs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work:
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = {k: v - before[k] for k, v in eng.metrics.to_dict().items()
+         if isinstance(v, (int, float))}
+    n = m["decode_dispatches"]
+    return {"batch": batch, "decode_dispatches": n, "mixed_dispatches": m["mixed_dispatches"],
+            "decode_ms_per_dispatch": m["time_decode_ms"] / n,
+            "sync_ms_per_dispatch": m["time_decode_sync_ms"] / (n + m["mixed_dispatches"]),
+            "decode_steps_run": m["decode_steps_run"],
+            "overlap_hits": m["overlap_hits"], "compiles": m["compiles"],
+            "wave_tok_s": batch * SAMPLING_TOKENS / wall}
+
+
+def phase_sampling(dev, card: str) -> dict:
+    """The sampling surface on one TorchEngine built from SAMPLING_ARGV (the
+    CLI's defaults: graphs, overlap, mixed steps, prefix caching) over a
+    bf16 pool, running sampling_requests' waves. Checks: an eager twin
+    (cuda_graphs=False, the same config) gives the same streams and
+    logprobs bit for bit; every dispatch replayed a graph, and every key
+    with an lp, pen or bias field was captured once and replayed; those
+    graphs launched all four kernel variants of the pool and nothing ran
+    a plain version; a greedy row without penalty or bias chose its top-1
+    alternative, with its logprob; the forced row is FORCED_ID throughout;
+    the min_tokens row is exactly 6 tokens, ending on eos with `stop`; the
+    logprob gate. Printed beside the card: the wall ms per decode dispatch
+    of waves of the plain, lp=20, pen and bias keys at B=8 and B=64, each
+    key untimed once (captures) and then timed in the order plain, lp20,
+    pen, bias, bias, pen, lp20, plain."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import (DECODE_KINDS, TorchEngine, key_field,
+                                                key_has_surface)
+    from dynamo_tpu_torch.engine.step_graph import StepGraph
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    adapter = get_model("llama3-1b", dtype="bfloat16")
+    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
+    eos = ModelDeploymentCard(name="llama3-1b").eos_token_ids
+    cfg = cli_run.engine_config(cli_run._parse(SAMPLING_ARGV), eos)
+    eng = TorchEngine(cfg, params=params, device=dev)
+    if not (cfg.mixed_steps and cfg.overlap_decode and cfg.enable_prefix_caching
+            and eng._graphs and cfg.decode_steps == 8 and cfg.prefill_chunk == 512):
+        raise AssertionError(f"sampling: the CLI's defaults changed: {cfg}")
+    waves = sampling_requests(adapter.vocab_size, eos[0])
+    ops.reset_counts()
+    got = run_sampling(eng, waves)
+    counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+    m = eng.metrics
+    new = {k: g for k, g in eng._step_fns.items() if key_has_surface(k)}
+    if not (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+            and new and all(isinstance(g, StepGraph) and g.replays for g in new.values())):
+        raise AssertionError(f"sampling: captures or replays wrong: {m.to_dict()}, "
+                             f"{sorted(new)}")
+    launched = {}
+    for g in new.values():
+        for name, (n, _) in g.launches.items():
+            launched[name] = launched.get(name, 0) + n * g.replays
+    want = serve_variants(None)
+    if sorted(launched) != sorted(want) or any(p for _, p in counts.values()):
+        raise AssertionError(f"sampling: the new keys' graphs launched {launched} (want every "
+                             f"variant of {want}); plain calls {counts}")
+    if not any(k[0] == "prefill" and not key_field(k, "first_chunk") and key_field(k, "lp") >= 0
+               for k in new):
+        raise AssertionError("sampling: no chunk with history sampled under an lp key")
+    for rid, r in got.items():
+        if rid.startswith("lp") and not all(
+                alts[0] == (tok, lp) for tok, lp, alts in zip(r["tokens"], r["lps"], r["tops"])):
+            raise AssertionError(f"sampling: {rid}: a greedy token is not its top-1 entry")
+        if rid.startswith("lp") and not len(r["lps"]) == len(r["tops"]) == SAMPLING_TOKENS:
+            raise AssertionError(f"sampling: {rid}: {len(r['lps'])} logprobs")
+    if got["forced"]["tokens"] != [FORCED_ID] * 16:
+        raise AssertionError(f"sampling: the forced row gave {got['forced']['tokens']}")
+    mins = got["min"]
+    if not (len(mins["tokens"]) == 6 and mins["tokens"][-1] == eos[0]
+            and eos[0] not in mins["tokens"][:5] and mins["finish"] == "stop"):
+        raise AssertionError(f"sampling: the min_tokens row gave {mins}")
+    if len(got["long"]["lps"]) != 8:
+        raise AssertionError(f"sampling: the long prompt's logprobs {got['long']['lps']}")
+    keys = sorted([list(k) for k in new], key=str)
+    compiles, compile_ms = m.compiles, m.compile_ms
+    # the timed waves: each key once untimed, then in the order above
+    timings = {}
+    for b in SAMPLING_BATCHES:
+        for name, knobs in SAMPLING_KEYS.items():
+            sampling_wave(eng, f"warm-{name}{b}-", b, knobs)
+        order = list(SAMPLING_KEYS) + list(SAMPLING_KEYS)[::-1]
+        for i, name in enumerate(order):
+            r = sampling_wave(eng, f"{name}{b}-{i}-", b, SAMPLING_KEYS[name])
+            if r["compiles"]:
+                raise AssertionError(f"sampling: a timed wave captured a key: {r}")
+            timings.setdefault(f"{name}, B={b}", []).append(r)
+    decode_keys = sorted({tuple(key_field(k, f) for f in ("bucket", "steps", "lp"))
+                          + (key_field(k, "pen") > 0, key_field(k, "bias"))
+                          for k in eng.step_keys if k[0] in DECODE_KINDS})
+    del eng
+    torch.cuda.empty_cache()
+    eager = TorchEngine(cfg, params=params, device=dev, cuda_graphs=False)
+    twin = run_sampling(eager, waves)
+    del eager
+    torch.cuda.empty_cache()
+    for rid, r in got.items():
+        if twin[rid] != r:  # tokens, logprobs and alternatives, to the bit
+            raise AssertionError(f"sampling: the eager twin differs in {rid}")
+    gate = logprob_gate(dev, adapter, params, [got[f"lp{i}"] for i in range(SAMPLING_ROWS)])
+    del params
+    torch.cuda.empty_cache()
+    result = {"phase": "sampling", "model": "llama3-1b", "dtype": "bfloat16", "card": card,
+              "argv": SAMPLING_ARGV, "keys": keys, "compiles": compiles,
+              "compile_ms": compile_ms, "launches": launched, "gate": gate,
+              "identical": "the eager twin's ids, logprobs and top alternatives equal the "
+                           "graphs' to the bit",
+              "decode_keys": [list(k) for k in decode_keys],
+              "timings": {k: {f: [r[f] for r in rs] for f in rs[0]}
+                          for k, rs in timings.items()},
+              "timing": "engine ms per decode dispatch (time_decode_ms over "
+                        "decode_dispatches: host work and the wait for ids) of a wave of "
+                        f"{SAMPLING_PROMPT} + {SAMPLING_TOKENS} tokens a row, two runs a key",
+              "run_s": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
 # -- phase 5: serve ---------------------------------------------------------------
 
 
-def _post(url, body) -> tuple[int, list, list[int], float | None]:
+def _post(url, body, first_by_choice: dict | None = None
+          ) -> tuple[int, list, list[int], float | None]:
     """(status, the response's objects, the token ids its choices carry,
     seconds from sending the request to the first chunk with a token).
 
     A stream's objects are its SSE events before [DONE]; a unary response
-    is one object (and no first-token time)."""
+    is one object (and no first-token time). A stream fills
+    `first_by_choice`, where given, with each choice index's first-token
+    seconds."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -1557,6 +1830,10 @@ def _post(url, body) -> tuple[int, list, list[int], float | None]:
                 event = json.loads(line[len("data: "):])
                 if ttft is None and any(c.get("token_ids") for c in event["choices"]):
                     ttft = time.perf_counter() - t0
+                if first_by_choice is not None:
+                    for c in event["choices"]:
+                        if c.get("token_ids"):
+                            first_by_choice.setdefault(c["index"], time.perf_counter() - t0)
                 out.append(event)
             else:
                 raise AssertionError(f"{url}: stream did not end in [DONE]")
@@ -1569,6 +1846,118 @@ SYSTEM_MESSAGE = ("You are a careful assistant for a team that runs language mod
                   "GPUs. Answer in plain words, name every number's source, and say so "
                   "when you do not know. ") * 7
 SYSTEM_QUESTIONS = ("Which kernel reads the cached pages?", "How large is one page?")
+
+
+#: the n = 3 request: seeded, its draws confined to three ids whose +33,
+#: +66 and +99 biases keep their order whatever a batch's rounding does
+#: (temperature 33 spaces them one apart, top_k 3 drops every other id),
+#: so each choice equals a lone request with seed s + i to the id
+N_CHOICES = dict(n=3, seed=5, temperature=33.0, top_k=3, max_tokens=6,
+                 logit_bias={"1000": 33, "2000": 66, "3000": 99})
+
+
+def _n3_prompt(tag: str) -> list[dict]:
+    """A fresh prompt of about 1,100 bytes, apart in its first page from
+    another tag's: each misses the prefix cache on its first request."""
+    return [{"role": "user", "content": f"choices {tag}: " + "a long question " * 68}]
+
+
+def serve_sampling(url: str) -> dict:
+    """The sampling surface through the bf16 server, one request at a time:
+    a streamed chat with logprobs and top_logprobs 5, a completion with
+    logprobs 3, n = 3 (N_CHOICES) against three lone requests with seeds
+    s, s + 1 and s + 2, the n = 3 request streamed (the same choices),
+    first-token seconds of n = 3 against other schedules (choices 1 and 2
+    are submitted once choice 0's first token came, so that they hit its
+    cached prompt), and a penalized chat. Each must answer 200 in the
+    reference's shapes, with usage counting every token."""
+    chat = url + "/v1/chat/completions"
+    ext = {"ignore_eos": True, "return_token_ids": True}
+    msg = [{"role": "user", "content": "sampling surface"}]
+    out = {}
+    status, events, ids, _ = _post(chat, {
+        "model": "llama3-1b", "messages": msg, "max_tokens": 16, "logprobs": True,
+        "top_logprobs": 5, "stream": True, "stream_options": {"include_usage": True},
+        "ext": ext})
+    entries = [e for ev in events for c in ev["choices"]
+               for e in (c.get("logprobs") or {}).get("content", [])]
+    if not (status == 200 and len(entries) == len(ids) == 16
+            and events[-1]["usage"]["completion_tokens"] == 16
+            and all(len(e["top_logprobs"]) == 5 and e["top_logprobs"][0]["logprob"]
+                    == e["logprob"] for e in entries)):
+        raise AssertionError(f"serve: chat logprobs: {status}, {len(entries)} entries")
+    out["chat_logprobs"] = [e["logprob"] for e in entries]
+    status, resp, ids, _ = _post(url + "/v1/completions", {
+        "model": "llama3-1b", "prompt": "Once upon a time", "max_tokens": 12, "logprobs": 3,
+        "ext": ext})
+    lp = resp[0]["choices"][0]["logprobs"]
+    if not (status == 200 and len(lp["tokens"]) == len(lp["token_logprobs"]) == len(ids) == 12
+            and set(lp) == {"tokens", "token_logprobs", "top_logprobs", "text_offset"}):
+        raise AssertionError(f"serve: completion logprobs: {status}, {lp}")
+    status, resp, _, _ = _post(chat, {"model": "llama3-1b", "messages": msg, "ext": ext,
+                                      **N_CHOICES})
+    choices = {c["index"]: c["token_ids"] for c in resp[0]["choices"]}
+    alone = [_post(chat, {"model": "llama3-1b", "messages": msg, "ext": ext,
+                          **{**N_CHOICES, "n": 1, "seed": N_CHOICES["seed"] + i}})[2]
+             for i in range(3)]
+    if not (status == 200 and sorted(choices) == [0, 1, 2]
+            and [choices[i] for i in range(3)] == alone
+            and resp[0]["usage"]["completion_tokens"] == 3 * N_CHOICES["max_tokens"]):
+        raise AssertionError(f"serve: n = 3 gave {choices}, lone requests {alone}, "
+                             f"usage {resp[0]['usage']}")
+    out["n3"] = [choices[i] for i in range(3)]
+    stream = {"stream": True, "stream_options": {"include_usage": True}}
+
+    def n3_streamed(messages) -> tuple[list, list]:
+        first: dict = {}
+        status, events, _, _ = _post(chat, {"model": "llama3-1b", "messages": messages,
+                                            "ext": ext, **stream, **N_CHOICES}, first)
+        got = [[t for ev in events for c in ev["choices"] if c["index"] == i
+                for t in c.get("token_ids", [])] for i in range(3)]
+        if not (status == 200 and sorted(first) == [0, 1, 2]
+                and events[-1]["usage"]["completion_tokens"] == 3 * N_CHOICES["max_tokens"]):
+            raise AssertionError(f"serve: n = 3 streamed: {status}, {got}, {first}")
+        return got, [first[i] for i in range(3)]
+
+    if n3_streamed(msg)[0] != out["n3"]:
+        raise AssertionError(f"serve: n = 3 streamed differs from unary {out['n3']}")
+
+    def lone(messages, seed: int) -> float:
+        return _post(chat, {"model": "llama3-1b", "messages": messages, "ext": ext, **stream,
+                            **{**N_CHOICES, "n": 1, "seed": seed}})[3]
+
+    def together(messages) -> list:
+        got: list = [None] * 3
+
+        def run(i):
+            got[i] = lone(messages, N_CHOICES["seed"] + i)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if None in got:
+            raise AssertionError(f"serve: three lone requests together: {got}")
+        return got
+
+    # first-token seconds of n = 3's choices, of three lone requests with
+    # seeds s, s + 1, s + 2 sent together (the schedule of siblings
+    # submitted at once) and of one lone request; on the short prompt
+    # (under a page: no hit) and on fresh prompts of 1,116 tokens (choices
+    # 1 and 2 hit choice 0's pages); round 0 captures the arms' keys
+    out["n3_schedules"] = [
+        {"round": r, "prompt": name, "n3_ttft_s": n3_streamed(prompt(f"n{r}"))[1],
+         "three_together_ttft_s": together(prompt(f"t{r}")),
+         "lone_ttft_s": lone(prompt(f"l{r}"), N_CHOICES["seed"])}
+        for r in range(2) for name, prompt in (("short", lambda tag: msg), ("long", _n3_prompt))]
+    status, resp, ids, _ = _post(chat, {
+        "model": "llama3-1b", "messages": msg, "max_tokens": 24, "frequency_penalty": 1.0,
+        "presence_penalty": 0.5, "repetition_penalty": 1.3, "ext": ext})
+    if not (status == 200 and len(ids) == resp[0]["usage"]["completion_tokens"] == 24):
+        raise AssertionError(f"serve: the penalized chat: {status}, {len(ids)} ids")
+    out["penalized_distinct_ids"] = len(set(ids))
+    return out
 
 
 def serve_variants(mode) -> list[str]:
@@ -1675,6 +2064,16 @@ def phase_serve(card: str, mode) -> dict:
         graphs["overlap_decode"] = engine.config.overlap_decode
         graphs["mixed_steps"] = engine.config.mixed_steps
         replayed = replays_match(engine.metrics, engine.dispatches)
+        sampled = None
+        if mode is None:
+            # after the request mix's counts are read, so that its launches
+            # stay those of the mix alone
+            ops.reset_counts()
+            sampled = serve_sampling(server.url)
+            torch.cuda.synchronize()
+            sampled["launches"] = {k: c.launches for k, c in ops.COUNTS.items()}
+            sampled["plain_calls"] = sum(c.plain_calls for c in ops.COUNTS.values())
+            sampled["replays_match"] = replays_match(engine.metrics, engine.dispatches)
     finally:
         server.stop()
         del server
@@ -1741,6 +2140,10 @@ def phase_serve(card: str, mode) -> dict:
               / pool["kv_pool_bytes"],
               "launches": {k: v[0] for k, v in counts.items() if k in want},
               "plain_calls": {k: v[1] for k, v in counts.items()}}
+    if sampled is not None:
+        if sampled["plain_calls"] or not sampled["replays_match"]:
+            raise AssertionError(f"{label}: the sampling requests: {sampled}")
+        result["sampling"] = sampled
     emit(result)
     return result
 
@@ -1770,6 +2173,7 @@ def main() -> int:
     phase_graphs(dev)
     phase_prefix(dev, card)
     phase_mixed(dev, card)
+    phase_sampling(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     for mode in MODES:  # flash_prefill_attention counts from the bf16 server

@@ -4,7 +4,10 @@ Counterpart of dynamo_tpu/engine/async_engine.py::AsyncEngineRunner. The
 engine's step loop runs on one dedicated thread, the only thread that
 touches the scheduler, allocator and KV pool. Callers on any other thread
 submit a PreprocessedRequest and iterate its stream items
-({token_ids, finish_reason}); an abandoned iteration aborts the request.
+({token_ids, finish_reason}, and logprobs and top_logprobs when asked
+for); an abandoned iteration aborts the request. A request the engine
+refuses at admission (a logit_bias over its slots or outside the
+vocabulary) gets the error on its own stream.
 There is no watchdog, fault injection or overload plane here.
 
 A step that raises fails every request in flight with that error (the
@@ -28,11 +31,16 @@ logger = logging.getLogger(__name__)
 
 def output_to_dict(out: StepOutput) -> dict:
     """The one wire shape for engine stream items ({token_ids,
-    finish_reason}, and cached_tokens on a first output)."""
+    finish_reason}, each token's logprob and top [id, logprob] pairs when
+    the request asked for them, and cached_tokens on a first output)."""
     d = {
         "token_ids": list(out.new_token_ids),
         "finish_reason": out.finish_reason.value if out.finish_reason else None,
     }
+    if out.logprobs is not None:
+        d["logprobs"] = list(out.logprobs)
+    if out.top_logprobs is not None:
+        d["top_logprobs"] = [[[tid, lp] for tid, lp in alts] for alts in out.top_logprobs]
     if out.cached_tokens is not None:
         d["cached_tokens"] = out.cached_tokens
     return d
@@ -47,6 +55,12 @@ def sampling_from(req: PreprocessedRequest) -> SamplingParams:
         stop_token_ids=tuple(req.stop_token_ids),
         ignore_eos=req.ignore_eos,
         seed=req.seed,
+        logprobs=req.logprobs,
+        frequency_penalty=req.frequency_penalty,
+        presence_penalty=req.presence_penalty,
+        repetition_penalty=req.repetition_penalty,
+        logit_bias=tuple((int(t), float(b)) for t, b in req.logit_bias),
+        min_tokens=req.min_tokens,
     )
 
 

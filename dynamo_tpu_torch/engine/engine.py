@@ -43,6 +43,16 @@ dispatch's tokens are accepted), emitting a `stored` KV event to
 `on_kv_event`. Every write lands at or past num_computed_tokens, so a
 registered page is never written again while it is cached.
 
+The sampling surface (as in the JAX engine): a step key's `lp` field
+(the largest top-N a row asks for, -1 when none asks), `pen` (the
+power-of-two bucket of the longest generated history when a row carries
+a frequency, presence or repetition penalty, else 0) and `bias` (a row
+has logit_bias or min_tokens) select a body that, in every dispatch kind,
+penalizes, then biases, then samples, and reports each sampled token's
+logprob and top-N under the raw logits (`_pick`, `_logprobs`). The
+outputs ride back with the ids (`Readback`); tokens dropped past a stop
+drop their entries too.
+
 Shapes follow the JAX engine's buckets (prefill T: powers of two from 32
 up to the chunk; B: powers of two for prefill, `decode_buckets` for
 decode), so both engines see the same padded batches.
@@ -70,10 +80,16 @@ from dynamo_tpu_torch.engine.request import (
     StepOutput,
 )
 from dynamo_tpu_torch.engine.sampling import (
+    BIAS_SLOTS,
     DEFAULT_K_CAP,
+    apply_logit_bias,
+    apply_penalties,
+    build_output_counts,
+    count_tokens,
     gumbel_noise,
     sample,
     sample_greedy,
+    token_logprobs,
 )
 from dynamo_tpu_torch.engine.scheduler import ScheduledBatch, Scheduler
 from dynamo_tpu_torch.engine.step_graph import Readback, StepGraph
@@ -88,6 +104,30 @@ DECODE_KINDS = ("decode", "decode_multi")
 #: the step kinds whose body runs paged decode attention: decode
 #: dispatches and mixed steps, whose decode half is a K=1 decode step
 PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed")
+_DECODE_FIELDS = ("kind", "bucket", "steps", "greedy", "lp", "pen", "bias")
+#: the fields of each kind of step key, in order (TorchEngine._get_step_fn)
+KEY_FIELDS = {
+    "decode": _DECODE_FIELDS,
+    "decode_multi": _DECODE_FIELDS,
+    "prefill": ("kind", "bucket", "t", "greedy", "first_chunk", "lp", "pen", "bias"),
+    "prefill_nosample": ("kind", "bucket", "t", "first_chunk"),
+    "mixed": ("kind", "bucket", "t", "pieces", "greedy", "first_chunk", "psamp",
+              "lp", "pen", "bias"),
+}
+
+
+def key_field(key: tuple, name: str, default=None):
+    """The field `name` of a step key (KEY_FIELDS), or `default` where the
+    key's kind has no such field."""
+    names = KEY_FIELDS[key[0]]
+    return key[names.index(name)] if name in names else default
+
+
+def key_has_surface(key: tuple) -> bool:
+    """Whether a step key's body reports logprobs, applies penalties or
+    applies logit-bias slots."""
+    return (key_field(key, "lp", -1) >= 0 or key_field(key, "pen", 0) > 0
+            or bool(key_field(key, "bias", False)))
 
 
 @dataclass
@@ -201,6 +241,9 @@ class TorchEngine:
 
     def add_request(self, request_id: str, prompt_tokens: Sequence[int],
                     sampling: Optional[SamplingParams] = None) -> Request:
+        # refused here, to this caller: inside step() the error would fail
+        # every request in flight
+        self._validate_bias(sampling)
         req = Request(request_id, list(prompt_tokens), sampling or SamplingParams())
         self.scheduler.add_request(req)
         self.metrics.requests_received += 1
@@ -337,6 +380,178 @@ class TorchEngine:
             return sample_greedy(logits)
         return sample(logits, samp["temps"], samp["top_ps"], samp["top_ks"], samp["noise"][step])
 
+    # -- the sampling surface (JaxEngine._batch_logprobs .. _bias_arrays) ----
+
+    @staticmethod
+    def _batch_logprobs(reqs: list[Request]) -> int:
+        """The key's `lp`: -1 when no request wants logprobs, else the
+        largest top-N asked for (the body takes one top-k, each request
+        keeps its own N of it), snapped to OpenAI's 0..20."""
+        return max([-1] + [min(r.sampling.logprobs, 20) for r in reqs])
+
+    @staticmethod
+    def _penalty_history(req: Request) -> list[int]:
+        """Every token the request has generated, the history its penalties
+        run over; a preemption folds generated tokens into the prompt, and
+        num_emitted counts them, so they stay part of it."""
+        if req.num_emitted:
+            return req.prompt_tokens[-req.num_emitted:] + req.output_tokens
+        return req.output_tokens
+
+    def _batch_penalty_bucket(self, reqs: list[Request]) -> int:
+        """The key's `pen`: 0 when no request carries a frequency, presence
+        or repetition penalty, else the power-of-two bucket O of the
+        longest generated history (the family grows log2(max_tokens) deep)."""
+        if not any(r.sampling.frequency_penalty or r.sampling.presence_penalty
+                   or r.sampling.repetition_penalty != 1.0 for r in reqs):
+            return 0
+        longest = max(len(self._penalty_history(r)) for r in reqs)
+        o = 1
+        while o < longest:
+            o *= 2
+        return o
+
+    def _penalty_arrays(self, reqs: list[Request], pad_to: int, o_bucket: int
+                        ) -> dict[str, np.ndarray]:
+        """The penalties [pad_to] (padding rows: 0, 0 and a repetition
+        penalty of 1) and each row's last o_bucket generated tokens
+        [pad_to, O] with their valid mask."""
+        freq = np.zeros(pad_to, np.float32)
+        pres = np.zeros(pad_to, np.float32)
+        rep = np.ones(pad_to, np.float32)
+        out_tokens = np.zeros((pad_to, o_bucket), np.int64)
+        out_valid = np.zeros((pad_to, o_bucket), bool)
+        for i, r in enumerate(reqs):
+            freq[i] = r.sampling.frequency_penalty
+            pres[i] = r.sampling.presence_penalty
+            rep[i] = r.sampling.repetition_penalty or 1.0
+            hist = self._penalty_history(r)
+            n = min(len(hist), o_bucket)
+            if n:
+                out_tokens[i, :n] = hist[-n:]
+                out_valid[i, :n] = True
+        return {"freq": freq, "pres": pres, "rep": rep, "out_tokens": out_tokens,
+                "out_valid": out_valid}
+
+    def _bans(self, s: SamplingParams) -> list[int]:
+        """The ids min_tokens bans: the stop ids and, unless eos is
+        ignored, the eos ids."""
+        ban = set(s.stop_token_ids)
+        if not s.ignore_eos:
+            ban |= set(self.config.eos_token_ids)
+        return sorted(ban)
+
+    def _validate_bias(self, sampling: Optional[SamplingParams]) -> None:
+        """Refuse a logit_bias over the slots or outside the vocabulary."""
+        if sampling is None or not (sampling.logit_bias or sampling.min_tokens):
+            return
+        need = len(sampling.logit_bias)
+        if sampling.min_tokens > 0:
+            need += len(self._bans(sampling))
+        if need > BIAS_SLOTS:
+            raise ValueError(f"logit_bias entries + min_tokens eos/stop bans need {need} "
+                             f"slots; at most {BIAS_SLOTS} supported")
+        v = self.adapter.vocab_size
+        for tid, _ in sampling.logit_bias:
+            if not 0 <= tid < v:
+                raise ValueError(f"logit_bias token id {tid} outside vocab [0,{v})")
+
+    @staticmethod
+    def _batch_bias(reqs: list[Request]) -> bool:
+        """The key's `bias`: a request has logit_bias or min_tokens."""
+        return any(r.sampling.logit_bias or r.sampling.min_tokens for r in reqs)
+
+    def _bias_row(self, req: Request) -> tuple:
+        """The request's slots (ids, values, gated, min_tokens): its
+        logit_bias entries, repeats of an id merged into one slot, then a
+        gated -1e30 ban on each id min_tokens bans."""
+        ids = np.zeros(BIAS_SLOTS, np.int64)
+        vals = np.zeros(BIAS_SLOTS, np.float32)
+        gated = np.zeros(BIAS_SLOTS, bool)
+        s = req.sampling
+        merged: dict[int, float] = {}
+        for tid, bv in s.logit_bias:
+            merged[tid] = merged.get(tid, 0.0) + bv
+        entries = [(tid, bv, False) for tid, bv in merged.items()]
+        if s.min_tokens > 0:
+            entries += [(tid, -1e30, True) for tid in self._bans(s)]
+        for slot, (tid, bv, g) in enumerate(entries[:BIAS_SLOTS]):  # bounded at admission
+            ids[slot], vals[slot], gated[slot] = tid, bv, g
+        return ids, vals, gated, s.min_tokens
+
+    def _bias_arrays(self, reqs: list[Request], pad_to: int, ahead: int = 0
+                     ) -> dict[str, np.ndarray]:
+        """The bias slots [pad_to, BIAS_SLOTS], min_tokens [pad_to] and each
+        row's output count [pad_to], which the min_tokens gate reads. The
+        all-greedy body has no draw counters, so the count rides here:
+        `ahead` advances it past the tokens of a dispatch not yet read (a
+        speculation's predecessor), and a fused step adds its index."""
+        ids = np.zeros((pad_to, BIAS_SLOTS), np.int64)
+        vals = np.zeros((pad_to, BIAS_SLOTS), np.float32)
+        gated = np.zeros((pad_to, BIAS_SLOTS), bool)
+        mins = np.zeros(pad_to, np.int64)
+        count = np.zeros(pad_to, np.int64)
+        for i, r in enumerate(reqs):
+            ids[i], vals[i], gated[i], mins[i] = self._bias_row(r)
+            count[i] = r.num_emitted + len(r.output_tokens) + ahead
+        return {"bias_ids": ids, "bias_vals": vals, "bias_gated": gated, "min_toks": mins,
+                "bias_count": count}
+
+    def _surface_arrays(self, reqs: list[Request], pad_to: int, pen: int, bias: bool,
+                        ahead: int = 0) -> dict[str, np.ndarray]:
+        """The penalty arrays (pen > 0) and the bias arrays (bias) of a
+        dispatch's rows, padded to pad_to."""
+        arrays = self._penalty_arrays(reqs, pad_to, pen) if pen else {}
+        if bias:
+            arrays.update(self._bias_arrays(reqs, pad_to, ahead))
+        return arrays
+
+    def _pick(self, logits: torch.Tensor, bufs: dict[str, torch.Tensor], step: int,
+              counts: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reference's pick: ids [B] from logits [B, V] penalized (with
+        counts [B, V]), then biased (with `bias_ids` among the inputs; the
+        min_tokens gate reads the row's output count at fused step
+        `step`), then sampled."""
+        if counts is not None:
+            logits = apply_penalties(logits, counts, bufs["freq"], bufs["pres"], bufs["rep"])
+        if "bias_ids" in bufs:
+            logits = apply_logit_bias(logits, bufs["bias_ids"], bufs["bias_vals"],
+                                      bufs["bias_gated"], bufs["bias_count"] + step,
+                                      bufs["min_toks"])
+        return self._sample(logits, bufs if "temps" in bufs else None, step)
+
+    def _counts(self, bufs: dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """The output-count table [B, V] of a body with penalty inputs."""
+        if "out_tokens" not in bufs:
+            return None
+        return build_output_counts(bufs["out_tokens"], bufs["out_valid"],
+                                   self.adapter.vocab_size)
+
+    @staticmethod
+    def _outputs(ids: list[torch.Tensor], lps: list[tuple]):
+        """A body's outputs over its steps: the ids [steps, B] alone, or
+        with logprobs (chosen [steps, B], top ids and top logprobs [steps,
+        B, N]) as one tuple."""
+        if not lps:
+            return torch.stack(ids)
+        return (torch.stack(ids), *(torch.stack(x) for x in zip(*lps)))
+
+    @staticmethod
+    def _row_logprobs(req: Request, lp: Optional[tuple], col: int, n: int
+                      ) -> tuple[Optional[tuple], Optional[tuple]]:
+        """(logprobs, top_logprobs) of the first n steps of column `col` of
+        a dispatch's logprob arrays [steps, rows(, N)], or (None, None)
+        when the request asked for none (or the dispatch computed none)."""
+        nk = req.sampling.logprobs
+        if lp is None or nk < 0:
+            return None, None
+        chosen, top_ids, top_lps = lp
+        lps = tuple(chosen[:n, col].tolist())
+        if nk == 0:
+            return lps, None
+        ids, vals = (a[:n, col, :nk].tolist() for a in (top_ids, top_lps))
+        return lps, tuple(tuple(zip(i, v)) for i, v in zip(ids, vals))
+
     # -- prefill -----------------------------------------------------------
 
     def _run_prefill(self, batch: ScheduledBatch) -> list[StepOutput]:
@@ -344,9 +559,11 @@ class TorchEngine:
         group whose pieces all start at 0 runs as first chunks; any other
         group attends over each row's history (0 for a row that starts at
         0). A group with a piece that ends its prompt samples every row at
-        its last token and keeps the ids of those pieces; a group with none
-        runs the forward alone (no logits, no sampler noise). Every group
-        is dispatched before any ids are read."""
+        its last token and keeps the ids of those pieces (and their
+        logprobs); a group with none runs the forward alone (no logits, no
+        sampler noise). Penalties apply at a prefill sample only once a
+        row has generated history (a preempted request's recompute), as in
+        the JAX engine. Every group is dispatched before any ids are read."""
         dispatched = []
         for t_bucket, pieces in sorted(self._group_pieces(batch.prefill).items()):
             b_bucket = self._bucket_b(len(pieces))
@@ -354,16 +571,26 @@ class TorchEngine:
             last = arrays.pop("last")
             first_chunk = all(p.start == 0 for p in pieces)
             if any(self._completes(p) for p in pieces):
-                samp = self._sampling_arrays([p.request for p in pieces], b_bucket, 1)
-                arrays.update(last=last, **(samp or {}))
-                key = ("prefill", b_bucket, t_bucket, samp is None, first_chunk)
+                reqs = [p.request for p in pieces]
+                samp = self._sampling_arrays(reqs, b_bucket, 1)
+                lp, bias = self._batch_logprobs(reqs), self._batch_bias(reqs)
+                pen = self._batch_penalty_bucket(reqs)
+                if pen and not any(self._penalty_history(r) for r in reqs):
+                    pen = 0
+                arrays.update(last=last, **(samp or {}),
+                              **self._surface_arrays(reqs, b_bucket, pen, bias))
+                key = ("prefill", b_bucket, t_bucket, samp is None, first_chunk, lp, pen, bias)
             else:
                 key = ("prefill_nosample", b_bucket, t_bucket, first_chunk)
             dispatched.append((pieces, self._dispatch(key, arrays)))
         outputs: list[StepOutput] = []
         for pieces, readback in dispatched:
-            outputs += self._prefill_postprocess(pieces, None if readback is None
-                                                 else readback.numpy())
+            if readback is None:
+                outputs += self._prefill_postprocess(pieces, None)
+                continue
+            # the logprob arrays [rows(, N)] as one step's [1, rows(, N)]
+            lp = tuple(a[None] for a in readback.extras())
+            outputs += self._prefill_postprocess(pieces, readback.numpy(), lp or None)
         return outputs
 
     def _group_pieces(self, pieces) -> dict[int, list]:
@@ -396,10 +623,12 @@ class TorchEngine:
         return {"tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt,
                 "last": last}
 
-    def _prefill_postprocess(self, pieces, ids: Optional[np.ndarray]) -> list[StepOutput]:
+    def _prefill_postprocess(self, pieces, ids: Optional[np.ndarray],
+                             lp: Optional[tuple] = None) -> list[StepOutput]:
         """Advance each piece's request past its tokens and register its
         full pages; a piece that ends its prompt joins decode with its
-        row's id (ids [rows], the pieces' rows in order)."""
+        row's id (ids [rows], the pieces' rows in order) and logprobs (lp:
+        chosen [1, rows], top ids and logprobs [1, rows, N], or None)."""
         outputs: list[StepOutput] = []
         for i, piece in enumerate(pieces):
             req = piece.request
@@ -409,15 +638,19 @@ class TorchEngine:
             if self._completes(piece):
                 tok = int(ids[i])
                 req.state = RequestState.DECODE
+                lps, tops = self._row_logprobs(req, lp, i, 1)
                 outputs.extend(self._accept_tokens(
-                    req, [tok], self._finish_reason_for(req, tok, 1), first=True))
+                    req, [tok], self._finish_reason_for(req, tok, 1), first=True, lps=lps,
+                    tops=tops))
         return outputs
 
-    def _prefill_body(self, first_chunk: bool, sampled: bool,
-                      bufs: dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    def _prefill_body(self, first_chunk: bool, sampled: bool, lp: int,
+                      bufs: dict[str, torch.Tensor]):
         """One prefill chunk step over device inputs (the keys of
         _run_prefill's arrays); returns the ids [B] drawn at each row's
-        `last` token, or None for a step that samples nothing."""
+        `last` token (with lp >= 0, and their logprobs: chosen [B], top ids
+        and logprobs [B, max(lp, 1)]), or None for a step that samples
+        nothing."""
         hidden, self.kv = self.adapter.forward_hidden(
             self.params, bufs["tokens"], bufs["positions"], bufs["valid"], self.kv,
             bufs["page_tables"], first_chunk=first_chunk,
@@ -426,7 +659,10 @@ class TorchEngine:
             return None
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         logits = self.adapter.compute_logits(self.params, hidden[rows, bufs["last"]])
-        return self._sample(logits, bufs if "temps" in bufs else None, 0)
+        ids = self._pick(logits, bufs, 0, self._counts(bufs))
+        if lp < 0:
+            return ids
+        return (ids, *token_logprobs(logits, ids, lp))
 
     # -- decode ------------------------------------------------------------
 
@@ -501,10 +737,12 @@ class TorchEngine:
             tokens[i, 0] = req.all_tokens[-1]
         arrays = {"tokens": tokens, **self._decode_arrays(reqs, b_bucket, 0)}
         samp = self._sampling_arrays(reqs, b_bucket, k_steps)
-        arrays.update(samp or {})
+        lp, pen, bias = (self._batch_logprobs(reqs), self._batch_penalty_bucket(reqs),
+                         self._batch_bias(reqs))
+        arrays.update(**(samp or {}), **self._surface_arrays(reqs, b_bucket, pen, bias))
         # the JAX engine's kinds: one step is "decode", fused steps "decode_multi"
         kind = DECODE_KINDS[k_steps > 1]
-        ids = self._dispatch((kind, b_bucket, k_steps, samp is None), arrays)
+        ids = self._dispatch((kind, b_bucket, k_steps, samp is None, lp, pen, bias), arrays)
         # keep the device busy past this step before waiting for its ids
         self._maybe_speculate(reqs, b_bucket, k_steps, samp is None, ids)
         return self._decode_postprocess(reqs, k_steps, ids)
@@ -513,9 +751,10 @@ class TorchEngine:
                             ids: Readback) -> list[StepOutput]:
         """Wait for a decode dispatch's ids [K, B] (copied to the host since
         it was dispatched), then scan them for finishes, dropping tokens
-        past a stop, and accept the rest."""
+        past a stop and their logprobs, and accept the rest."""
         t1 = time.perf_counter()
         host = ids.numpy()
+        lp = ids.extras() or None
         self.metrics.time_decode_sync_ms += (time.perf_counter() - t1) * 1e3
         self.metrics.decode_steps_run += k_steps
         outputs: list[StepOutput] = []
@@ -529,27 +768,37 @@ class TorchEngine:
                 if finish is not None:
                     break  # overshoot past a stop is dropped
             req.num_computed_tokens += len(accepted)
-            outputs.extend(self._accept_tokens(req, accepted, finish))
+            lps, tops = self._row_logprobs(req, lp, i, len(accepted))
+            outputs.extend(self._accept_tokens(req, accepted, finish, lps=lps, tops=tops))
             # a request that finished here has no chain left: its last
             # pages are not registered (as in the JAX engine)
             self._register_pages(req)
         return outputs
 
-    def _decode_body(self, k_steps: int, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+    def _decode_body(self, k_steps: int, lp: int, bufs: dict[str, torch.Tensor]):
         """K fused decode steps over device inputs (the keys of
-        _run_decode's arrays); returns the sampled ids [K, B]."""
-        samp = bufs if "temps" in bufs else None
+        _run_decode's arrays); returns the sampled ids [K, B] (with lp >= 0,
+        and their logprobs: chosen [K, B], top ids and logprobs [K, B,
+        max(lp, 1)]). Each step's sampled ids extend the output counts the
+        next step penalizes, and the min_tokens gate reads the step's own
+        output count."""
         tokens, pos = bufs["tokens"], bufs["positions"]
-        step_ids = []
+        counts = self._counts(bufs)
+        step_ids, step_lps = [], []
         for s in range(k_steps):
             hidden, self.kv = self.adapter.forward_hidden(
                 self.params, tokens, pos, bufs["valid"], self.kv, bufs["page_tables"]
             )
-            ids = self._sample(self.adapter.compute_logits(self.params, hidden[:, -1]), samp, s)
+            logits = self.adapter.compute_logits(self.params, hidden[:, -1])
+            ids = self._pick(logits, bufs, s, counts)
+            if counts is not None:
+                counts = count_tokens(counts, ids)
+            if lp >= 0:
+                step_lps.append(token_logprobs(logits, ids, lp))
             step_ids.append(ids)
             tokens = ids[:, None]  # fed back on the device
             pos = pos + 1
-        return torch.stack(step_ids)
+        return self._outputs(step_ids, step_lps)
 
     # -- mixed prefill+decode steps (JaxEngine._run_mixed) -----------------
 
@@ -613,22 +862,37 @@ class TorchEngine:
                 halves.append(self._sampler_rows(pre_reqs, b_pre, 1))
             arrays.update({n: np.concatenate([h[n] for h in halves], axis=int(n == "noise"))
                            for n in halves[0]})
-        ids = self._dispatch(("mixed", b_dec, t_bucket, b_pre, greedy, first_chunk, psamp),
-                             arrays)
+        # penalties and bias over the sampled rows of both halves, as the
+        # JAX engine keys them over its row space
+        row_reqs = reqs_d + pre_reqs
+        lp, pen, bias = (self._batch_logprobs(row_reqs), self._batch_penalty_bucket(row_reqs),
+                         self._batch_bias(row_reqs))
+        if pen or bias:
+            halves = [self._surface_arrays(reqs_d, b_dec, pen, bias)]
+            if psamp:
+                halves.append(self._surface_arrays(pre_reqs, b_pre, pen, bias))
+            arrays.update({n: np.concatenate([h[n] for h in halves]) for n in halves[0]})
+        ids = self._dispatch(("mixed", b_dec, t_bucket, b_pre, greedy, first_chunk, psamp, lp,
+                              pen, bias), arrays)
         if not psamp:
             # no piece joins decode, so the rows hold: the speculation
             # lands as the next mixed or decode step's decode half
             self._maybe_speculate(reqs_d, b_dec, 1, greedy_d, ids)
         outputs += self._decode_postprocess(reqs_d, 1, ids)
-        return outputs + self._prefill_postprocess(
-            pieces, ids.numpy()[0, b_dec:] if psamp else None)
+        if not psamp:
+            return outputs + self._prefill_postprocess(pieces, None)
+        lp_pre = tuple(a[:, b_dec:] for a in ids.extras())
+        return outputs + self._prefill_postprocess(pieces, ids.numpy()[0, b_dec:],
+                                                   lp_pre or None)
 
-    def _mixed_body(self, first_chunk: bool, psamp: bool,
-                    bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+    def _mixed_body(self, first_chunk: bool, psamp: bool, lp: int,
+                    bufs: dict[str, torch.Tensor]):
         """One mixed step over device inputs (the keys of _run_mixed's
         arrays): the prefill half's chunk step, then the decode half's
         step; returns the ids [1, rows] drawn for the decode rows and, with
-        psamp, at each prefill row's `p_last` token after them. Each half's
+        psamp, at each prefill row's `p_last` token after them (with lp >=
+        0, and their logprobs [1, rows(, N)]); penalties and bias apply to
+        the rows of both halves together. Each half's
         logits come from a product over its own rows, as in its pure step
         (the JAX engine takes one product over both): a bf16 GEMM rounds
         differently at another row count, and so a row's logits would
@@ -646,7 +910,8 @@ class TorchEngine:
             rows = torch.arange(hidden_p.shape[0], device=hidden_p.device)
             logits = torch.cat([logits, self.adapter.compute_logits(
                 self.params, hidden_p[rows, bufs["p_last"]])])
-        return self._sample(logits, bufs if "temps" in bufs else None, 0)[None]
+        ids = self._pick(logits, bufs, 0, self._counts(bufs))
+        return self._outputs([ids], [token_logprobs(logits, ids, lp)] if lp >= 0 else [])
 
     # -- overlapped decode (JaxEngine: _maybe_speculate .. drain_overlap) ---
 
@@ -660,8 +925,11 @@ class TorchEngine:
         k_prev tokens, and the pages can pre-grow to cover the window.
         With mixed steps, pending prefill work does not stop it when the
         decode rows hold (decode_rows_stable): the speculation lands as
-        the decode half of the next mixed step."""
-        if not self.config.overlap_decode:
+        the decode half of the next mixed step. Never when a row carries a
+        penalty: its history needs the pending step's tokens on the host
+        (logprob and bias batches speculate; a bias row's output count
+        is advanced by k_prev)."""
+        if not self.config.overlap_decode or self._batch_penalty_bucket(reqs):
             return
         if not self.scheduler.decode_batch_stable() and not (
                 self.scheduler.mixed_enabled and self.scheduler.decode_rows_stable(reqs)):
@@ -681,10 +949,13 @@ class TorchEngine:
         # ids [1, rows] hold the decode rows first)
         arrays = {"tokens": prev.device[-1][:b_bucket, None],
                   **self._decode_arrays(reqs, b_bucket, k_prev)}
-        # the pending step advances every draw counter by its k
+        # the pending step advances every draw counter and output count by its k
         samp = self._sampling_arrays(reqs, b_bucket, k_next, ahead=k_prev)
-        arrays.update(samp or {})
-        ids = self._dispatch((DECODE_KINDS[k_next > 1], b_bucket, k_next, greedy), arrays)
+        lp, bias = self._batch_logprobs(reqs), self._batch_bias(reqs)
+        arrays.update(**(samp or {}), **self._surface_arrays(reqs, b_bucket, 0, bias,
+                                                             ahead=k_prev))
+        ids = self._dispatch((DECODE_KINDS[k_next > 1], b_bucket, k_next, greedy, lp, 0, bias),
+                             arrays)
         self.metrics.overlap_dispatches += 1
         self._inflight = _InflightDecode(
             reqs=tuple(reqs), b_bucket=b_bucket, k_steps=k_next, greedy=greedy, ids=ids,
@@ -734,7 +1005,8 @@ class TorchEngine:
 
     def _dispatch(self, key: tuple, arrays: dict) -> Optional[Readback]:
         """Run one dispatch through its key's step function; returns the
-        Readback of its ids (None for a prefill step that samples nothing)."""
+        Readback of its ids and logprobs (None for a prefill step that
+        samples nothing)."""
         self.dispatches += 1
         return self._get_step_fn(key)(arrays)
 
@@ -742,20 +1014,26 @@ class TorchEngine:
         """The body of a step key: K fused decode steps, one mixed step, or
         one prefill chunk step that samples or not, over the dispatch's
         device inputs."""
+        field = functools.partial(key_field, key)
         if key[0] in DECODE_KINDS:
-            return functools.partial(self._decode_body, key[2])
+            return functools.partial(self._decode_body, field("steps"), field("lp"))
         if key[0] == "mixed":
-            return functools.partial(self._mixed_body, key[5], key[6])
-        return functools.partial(self._prefill_body, key[-1], key[0] == "prefill")
+            return functools.partial(self._mixed_body, field("first_chunk"), field("psamp"),
+                                     field("lp"))
+        return functools.partial(self._prefill_body, field("first_chunk"), key[0] == "prefill",
+                                 field("lp", -1))
 
     def _get_step_fn(self, key: tuple):
         """The step function of a dispatch, fn(inputs) -> Readback, cached
         by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
-        (kind, batch bucket, steps, all-greedy), for prefill ("prefill", B
-        bucket, T bucket, all-greedy, first chunk) and ("prefill_nosample",
-        B bucket, T bucket, first chunk), for mixed steps ("mixed", decode
-        bucket, T bucket, piece bucket, all-greedy, first chunk, prefill
-        rows sampled). An input is a host array or a
+        (kind, batch bucket, steps, all-greedy, lp, pen, bias), for prefill
+        ("prefill", B bucket, T bucket, all-greedy, first chunk, lp, pen,
+        bias) and ("prefill_nosample", B bucket, T bucket, first chunk),
+        for mixed steps ("mixed", decode bucket, T bucket, piece bucket,
+        all-greedy, first chunk, prefill rows sampled, lp, pen, bias). The
+        sampling surface's fields: lp the top-N the body reports (-1: no
+        logprobs), pen the generated-history bucket (0: no penalties),
+        bias whether the body applies logit-bias slots. An input is a host array or a
         device tensor. On the card it is a CUDA graph captured at the
         key's first dispatch (_cache_graph); on the CPU, or with
         cuda_graphs=False, the eager body."""
@@ -803,7 +1081,10 @@ class TorchEngine:
         sampler kinds; per prefill B and T bucket, 2 sampler kinds x 2
         chunk kinds and 2 non-sampling ones; per decode bucket, T bucket
         and piece bucket, 2 sampler kinds x 2 chunk kinds x prefill rows
-        sampled or not, mixed ones; see StepGraph.capture) and the size of
+        sampled or not, mixed ones; each sampling one again for each lp
+        (-1..20), pen bucket (0 or a power of two up to max_tokens) and
+        bias a dispatch asks for, as in the JAX engine's key family; see
+        StepGraph.capture) and the size of
         paged decode's workspace for the largest bucket's split plan,
         which each decode and mixed capture makes sure of on the capture
         stream, outside the capture (_cache_graph). Those graphs read one
@@ -842,7 +1123,8 @@ class TorchEngine:
         return None
 
     def _accept_tokens(self, req: Request, tokens: Sequence[int],
-                       finish: Optional[FinishReason], first: bool = False
+                       finish: Optional[FinishReason], first: bool = False,
+                       lps: Optional[tuple] = None, tops: Optional[tuple] = None
                        ) -> list[StepOutput]:
         req.output_tokens.extend(tokens)
         chain = self.scheduler.chains.get(req.request_id)
@@ -854,7 +1136,8 @@ class TorchEngine:
             req.finish_reason = finish
         # the prefix cache's share of the prompt rides the first output
         cached = req.num_cached_prompt_tokens if first else None
-        return [StepOutput(req.request_id, tuple(tokens), finish, cached_tokens=cached)]
+        return [StepOutput(req.request_id, tuple(tokens), finish, logprobs=lps,
+                           top_logprobs=tops, cached_tokens=cached)]
 
     def _register_pages(self, req: Request) -> None:
         """Content-address each page of the request whose every token has

@@ -1,8 +1,9 @@
 """Engine-facing request/response types.
 
 Counterpart of dynamo_tpu/engine/request.py, trimmed to what this package
-serves: tokens in, tokens out, with the sampling knobs it implements, and
-the prompt tokens the prefix cache served.
+serves: tokens in, tokens out, with the sampling knobs it implements
+(logprobs, penalties, logit_bias and min_tokens among them), and the
+prompt tokens the prefix cache served.
 """
 
 from __future__ import annotations
@@ -21,6 +22,22 @@ class SamplingParams:
     stop_token_ids: tuple[int, ...] = ()
     ignore_eos: bool = False
     seed: Optional[int] = None
+    #: -1 = off; 0 = the chosen token's logprob only; N > 0 = chosen + the
+    #: top-N alternatives per emitted token (OpenAI logprobs/top_logprobs)
+    logprobs: int = -1
+    #: OpenAI penalties over the output-token history (0 = off)
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    #: multiplicative repetition penalty over GENERATED tokens only; prompt
+    #: tokens are not penalized (1 = off; nvext repetition_penalty)
+    repetition_penalty: float = 1.0
+    #: OpenAI logit_bias: (token id, additive bias) pairs applied in the
+    #: sampler before temperature, at most sampling.BIAS_SLOTS less the
+    #: min_tokens ban slots
+    logit_bias: tuple[tuple[int, float], ...] = ()
+    #: eos/stop tokens are banned in the sampler until this many output
+    #: tokens exist
+    min_tokens: int = 0
 
 
 class FinishReason(str, enum.Enum):
@@ -74,6 +91,10 @@ class StepOutput:
     request_id: str
     new_token_ids: tuple[int, ...]
     finish_reason: Optional[FinishReason] = None
+    #: each new token's logprob (when sampling.logprobs >= 0)
+    logprobs: Optional[tuple[float, ...]] = None
+    #: each new token's top-N alternatives ((token id, logprob), ...)
+    top_logprobs: Optional[tuple[tuple[tuple[int, float], ...], ...]] = None
     #: prompt tokens served from the prefix cache, on the first output only
     #: (OpenAI usage.prompt_tokens_details.cached_tokens)
     cached_tokens: Optional[int] = None

@@ -1,6 +1,11 @@
-"""Batched sampling: temperature / top-k / top-p / greedy.
+"""Batched sampling: temperature / top-k / top-p / greedy, penalties,
+logit bias and logprobs.
 
-Counterpart of dynamo_tpu/engine/sampling.py::sample and sample_greedy.
+Counterpart of dynamo_tpu/engine/sampling.py: sample, sample_greedy,
+build_output_counts, apply_penalties, apply_logit_bias and token_logprobs,
+in plain PyTorch on tensors of any device (the reference computes the
+penalties, the bias and the logprobs in XLA ops around its sampler, outside
+any Pallas kernel).
 One call handles a heterogeneous batch (per-row parameters): greedy rows
 take the argmax, sampling rows take a Gumbel draw over the top-k/top-p
 masked, temperature-scaled distribution, truncated (as in the JAX
@@ -27,6 +32,11 @@ _NEG_INF = -1e30
 
 #: static candidate-set bound; per-request top_k is clamped to this
 DEFAULT_K_CAP = 64
+
+#: static per-row sparse logit-bias slots (OpenAI logit_bias entries and
+#: min_tokens' eos/stop bans share them); requests needing more are refused
+#: at admission
+BIAS_SLOTS = 16
 
 
 def _draw_seed(seed: int, counter: int) -> int:
@@ -84,3 +94,90 @@ def sample(
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax-only path for batches where every request is greedy."""
     return torch.argmax(logits, dim=-1)
+
+
+def build_output_counts(out_tokens: torch.Tensor,  # [B, O] i64 output history (padded)
+                        out_valid: torch.Tensor,  # [B, O] bool
+                        vocab: int) -> torch.Tensor:  # [B, V] f32
+    """Scatter the output-token history into a per-vocab count table, the
+    state the OpenAI frequency/presence penalties are defined over. The
+    scatter adds exact small integers, so the order of its adds cannot
+    change the result."""
+    counts = torch.zeros((out_tokens.shape[0], vocab), dtype=torch.float32,
+                         device=out_tokens.device)
+    return counts.scatter_add_(1, out_tokens, out_valid.to(torch.float32))
+
+
+def count_tokens(counts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """counts [B, V] with each row's sampled id [B] counted once more (a
+    fused step extends the history the next step penalizes); exact, as in
+    build_output_counts."""
+    return counts.scatter_add(1, ids[:, None], torch.ones_like(ids[:, None],
+                                                               dtype=torch.float32))
+
+
+def apply_penalties(logits: torch.Tensor,  # [B, V] f32
+                    counts: torch.Tensor,  # [B, V] f32 output-token frequency
+                    freq_pen: torch.Tensor,  # [B] f32
+                    pres_pen: torch.Tensor,  # [B] f32
+                    rep_pen: torch.Tensor | None = None,  # [B] f32 (1 = off)
+                    ) -> torch.Tensor:
+    """The OpenAI rule, logit -= freq * count + pres * (count > 0), on the
+    raw logits before temperature; `rep_pen` first divides a seen token's
+    positive logit by r and multiplies a negative one by r. "Seen" means
+    generated: prompt tokens are not penalized."""
+    seen = counts > 0
+    if rep_pen is not None:
+        r = rep_pen[:, None]
+        logits = torch.where(seen, torch.where(logits > 0, logits / r, logits * r), logits)
+    return logits - freq_pen[:, None] * counts - pres_pen[:, None] * seen.to(logits.dtype)
+
+
+def apply_logit_bias(logits: torch.Tensor,  # [B, V] f32
+                     bias_ids: torch.Tensor,  # [B, K] i64 token ids (0-padded)
+                     bias_vals: torch.Tensor,  # [B, K] f32 additive biases (0 = no-op)
+                     bias_gated: torch.Tensor,  # [B, K] bool: active only before min_tokens
+                     counters: torch.Tensor,  # [B] i64 output-token counter
+                     min_toks: torch.Tensor,  # [B] i64 min_tokens per request
+                     ) -> torch.Tensor:
+    """Sparse additive logit bias (OpenAI `logit_bias`) whose gated slots
+    (min_tokens' -1e30 bans on the eos/stop ids) act only while a row's
+    counter is below its minimum. Padding and lifted slots add 0. A row's
+    slots name each id with at most one user value (TorchEngine._bias_row
+    merges repeats) beside at most one ban, which absorbs whatever is added
+    before or after it, so the order of the scatter's adds cannot change
+    the result."""
+    active = ~bias_gated | (counters < min_toks)[:, None]
+    vals = torch.where(active, bias_vals, torch.zeros_like(bias_vals))
+    return logits.scatter_add(1, bias_ids, vals)
+
+
+def token_logprobs(logits: torch.Tensor,  # [B, V] f32 raw logits
+                   ids: torch.Tensor,  # [B] chosen token per row
+                   k: int,  # top-k alternatives to report (0 => chosen only)
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Log-probabilities under the unscaled, unpenalized, unbiased
+    distribution (OpenAI semantics: logprobs describe the model, not the
+    sampler). Returns (chosen [B] f32, top ids [B, max(k, 1)] i64, top
+    logprobs [B, max(k, 1)] f32); with k == 0 the top arrays hold one
+    candidate, which the caller ignores.
+
+    Equal logits are frequent in a bf16 product, and torch.topk leaves
+    both their order and which of them it keeps unspecified. So, as XLA's
+    top_k does, equal candidates list in id order (sorted by id, then
+    stably by value), and the first is the argmax, the first id of the
+    largest logit, as the greedy sampler picks it (topk may have left it
+    out of a tie); the rest follow without it."""
+    kk = max(k, 1)
+    lse = torch.logsumexp(logits, dim=-1)
+    chosen = torch.gather(logits, 1, ids[:, None])[:, 0]
+    top_vals, top_idx = torch.topk(logits, kk, dim=-1)
+    top_idx, by_id = torch.sort(top_idx, dim=-1)
+    top_vals, by_value = torch.sort(torch.gather(top_vals, 1, by_id), dim=-1, descending=True,
+                                    stable=True)
+    top_idx = torch.gather(top_idx, 1, by_value)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    rest = torch.sort((top_idx == first).to(torch.int8), dim=-1, stable=True).indices[:, :kk - 1]
+    top_idx = torch.cat([first, torch.gather(top_idx, 1, rest)], dim=1)
+    top_vals = torch.cat([top_vals[:, :1], torch.gather(top_vals, 1, rest)], dim=1)
+    return chosen - lse, top_idx, top_vals - lse[:, None]

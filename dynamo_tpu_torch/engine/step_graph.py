@@ -12,9 +12,10 @@ buffers and replayed after the dispatch's inputs are copied into them
 dispatch's array is written into and copied from asynchronously, or
 filled on the device from another dispatch's output (a speculated decode
 dispatch's tokens). `StepGraph` warms its body up, captures it, and
-replays it. `Readback` starts a dispatch's output on its way to pinned
-host memory as soon as it is enqueued, so later replays may run before
-the host reads it (the overlapped decode loop).
+replays it. `Readback` starts a dispatch's outputs (the ids, and with
+logprobs the chosen logprobs, top ids and top logprobs) on their way to
+pinned host memory as soon as they are enqueued, so later replays may run
+before the host reads them (the overlapped decode loop).
 
 Kernel launches inside a graph are counted through replays: a capture
 runs nothing, so the launches its wrappers counted are taken back and
@@ -32,37 +33,54 @@ from dynamo_tpu_torch.ops import COUNTS
 
 
 class Readback:
-    """A dispatch's output on the device and its copy to the host. On the
-    card the copy goes into a pinned tensor of its own, enqueued on the
-    current stream right after the dispatch, with an event after it: no
-    later replay can overwrite the output before the copy has read it,
-    and `numpy()` waits for the copy alone. On the CPU the output is
-    already on the host."""
+    """A dispatch's outputs on the device and their copies to the host: the
+    ids first, then any others (a logprob body's chosen logprobs, top ids
+    and top logprobs). On the card each copy goes into a pinned tensor of
+    its own, enqueued on the current stream right after the dispatch, with
+    one event after them all: no later replay can overwrite an output
+    before its copy has read it, and `numpy()` waits for the copies alone.
+    On the CPU the outputs are already on the host."""
 
-    def __init__(self, out: torch.Tensor):
-        #: the output on the device, valid until the next dispatch (a
-        #: graph's static output is rewritten by later replays)
-        self.device = out
+    def __init__(self, out: torch.Tensor | tuple[torch.Tensor, ...]):
+        outs = out if isinstance(out, tuple) else (out,)
+        #: the outputs on the device, valid until the next dispatch (a
+        #: graph's static outputs are rewritten by later replays)
+        self.outputs = outs
         self._ready = None
-        self._host = out
-        if out.is_cuda:
-            # PyTorch's pinned allocator keeps this block until the copy ran
-            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            self._host.copy_(out, non_blocking=True)
+        self._host = outs
+        if outs[0].is_cuda:
+            # PyTorch's pinned allocator keeps these blocks until the copies ran
+            self._host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                               for o in outs)
+            for h, o in zip(self._host, outs):
+                h.copy_(o, non_blocking=True)
             self._ready = torch.cuda.Event()
             self._ready.record()
 
+    @property
+    def device(self) -> torch.Tensor:
+        """The ids on the device (a speculated dispatch's tokens)."""
+        return self.outputs[0]
+
     def keep(self) -> None:
-        """Copy the output on the device into memory of its own (enqueued
-        on the current stream), for a reader on the device that comes after
-        another replay: graphs that share a pool may overwrite each other's
-        outputs (StepGraph.capture)."""
-        self.device = self.device.clone()
+        """Copy the outputs on the device into memory of their own
+        (enqueued on the current stream), for a reader on the device that
+        comes after another replay: graphs that share a pool may overwrite
+        each other's outputs (StepGraph.capture)."""
+        self.outputs = tuple(o.clone() for o in self.outputs)
 
     def numpy(self) -> np.ndarray:
+        """The ids on the host."""
+        return self._all()[0]
+
+    def extras(self) -> tuple[np.ndarray, ...]:
+        """The outputs after the ids on the host (empty without any)."""
+        return self._all()[1:]
+
+    def _all(self) -> tuple[np.ndarray, ...]:
         if self._ready is not None:
             self._ready.synchronize()
-        return self._host.numpy()
+        return tuple(h.numpy() for h in self._host)
 
 
 class StaticInputs:
@@ -116,13 +134,14 @@ class StaticInputs:
 class StepGraph:
     """One step key's body, captured over its own StaticInputs. Calling it
     fills the buffers, replays, and returns a Readback of the static
-    output (None for a body without one)."""
+    outputs (None for a body without any)."""
 
     def __init__(self, specs: dict[str, tuple[tuple[int, ...], torch.dtype]],
                  device: torch.device):
         self.inputs = StaticInputs(specs, device)
         self.graph = torch.cuda.CUDAGraph()
-        self.out: Optional[torch.Tensor] = None
+        #: the body's output: a tensor or a tuple of them
+        self.out: Optional[torch.Tensor | tuple[torch.Tensor, ...]] = None
         #: kernel variant -> launches (and plain calls) one replay makes
         self.launches: dict[str, tuple[int, int]] = {}
         self.replays = 0

@@ -27,6 +27,7 @@ from dynamo_tpu_torch.protocols.openai import (
     SSE_DONE,
     ChatCompletionRequest,
     CompletionChoice,
+    CompletionLogprobs,
     CompletionRequest,
     CompletionResponse,
     ModelInfo,
@@ -40,8 +41,11 @@ from dynamo_tpu_torch.protocols.openai import (
 logger = logging.getLogger(__name__)
 
 
-def _legacy_completion_chunk(chunk) -> dict:
-    """/v1/completions streams text_completion objects, not chat chunks."""
+def _legacy_completion_chunk(chunk, text_offsets: dict[int, int]) -> dict:
+    """/v1/completions streams text_completion objects, not chat chunks:
+    choices carry `text` and the legacy parallel-array logprobs, whose
+    offsets count from the start of the choice's text (text_offsets keeps
+    each choice's emitted length across the stream)."""
     out = {
         "id": chunk.id,
         "object": "text_completion",
@@ -50,7 +54,12 @@ def _legacy_completion_chunk(chunk) -> dict:
         "choices": [],
     }
     for c in chunk.choices:
-        choice = {"index": c.index, "text": c.delta.content or "", "finish_reason": c.finish_reason}
+        text = c.delta.content or ""
+        choice = {"index": c.index, "text": text, "finish_reason": c.finish_reason}
+        if c.logprobs is not None:
+            choice["logprobs"] = dump(CompletionLogprobs.from_entries(
+                c.logprobs.content, text_offsets.get(c.index, 0)))
+        text_offsets[c.index] = text_offsets.get(c.index, 0) + len(text)
         if c.token_ids is not None:
             choice["token_ids"] = c.token_ids
         out["choices"].append(choice)
@@ -176,6 +185,8 @@ def _handler_for(service: HttpService):
                     choices=[
                         CompletionChoice(
                             index=c.index, text=c.message.content or "",
+                            logprobs=None if c.logprobs is None
+                            else CompletionLogprobs.from_entries(c.logprobs.content),
                             finish_reason=c.finish_reason, token_ids=c.token_ids,
                         )
                         for c in resp.choices
@@ -190,11 +201,12 @@ def _handler_for(service: HttpService):
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Connection", "close")
             self.end_headers()
+            text_offsets: dict[int, int] = {}  # per choice, for legacy logprobs
             try:
                 for chunk in ([first] if first is not None else []):
-                    self._event(kind, chunk)
+                    self._event(kind, chunk, text_offsets)
                 for chunk in chunks:
-                    self._event(kind, chunk)
+                    self._event(kind, chunk, text_offsets)
             except (BrokenPipeError, ConnectionResetError):
                 raise
             except Exception as e:  # headers are out: the error rides the SSE
@@ -203,8 +215,8 @@ def _handler_for(service: HttpService):
             self.wfile.write(SSE_DONE)
             self.wfile.flush()
 
-        def _event(self, kind: str, chunk) -> None:
-            payload = chunk if kind == "chat" else _legacy_completion_chunk(chunk)
+        def _event(self, kind: str, chunk, text_offsets: dict[int, int]) -> None:
+            payload = chunk if kind == "chat" else _legacy_completion_chunk(chunk, text_offsets)
             self.wfile.write(sse_event(payload))
             self.wfile.flush()
 

@@ -19,6 +19,12 @@ class Tokenizer(Protocol):
 
     def decode(self, ids: Sequence[int]) -> str: ...
 
+    def token_bytes(self, tok: int) -> bytes:
+        """The exact bytes one token adds to the output (the OpenAI
+        logprobs `bytes` field): a partial UTF-8 sequence comes back as
+        it is, not as a replacement character."""
+        ...
+
     def apply_chat_template(
         self, messages: list[dict], tools: Optional[list[dict]] = None
     ) -> str: ...
@@ -58,6 +64,9 @@ class ByteTokenizer:
 
     def decode(self, ids: Sequence[int]) -> str:
         return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", errors="replace")
+
+    def token_bytes(self, tok: int) -> bytes:
+        return bytes([tok]) if 0 <= tok < 256 else b""
 
     def apply_chat_template(
         self, messages: list[dict], tools: Optional[list[dict]] = None

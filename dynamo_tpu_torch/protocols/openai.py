@@ -4,9 +4,14 @@ Counterpart of dynamo_tpu/protocols/openai.py as standard-library
 dataclasses: each request type validates its JSON body explicitly in
 `from_json` (a ValueError is a 400 at the frontend), and every type dumps
 with None fields left out, as the JAX package's pydantic models do.
-Request fields this package does not serve yet (logprobs, penalties,
-logit_bias, tools, n > 1) are refused, not ignored; unknown fields are
-ignored, as OpenAI clients send extra ones.
+The sampling surface is served: logprobs and top_logprobs, the frequency,
+presence and repetition penalties, logit_bias, n > 1 and the ext/nvext
+min_tokens, repetition_penalty and greed_sampling; their ranges are
+checked by the preprocessor, and a logit_bias over the engine's slots or
+outside its vocabulary by the engine at admission (each a 400). Request
+fields this package does not serve (tools, which need chat templates, and
+echo) are refused, not ignored; unknown fields are ignored, as OpenAI
+clients send extra ones.
 """
 
 from __future__ import annotations
@@ -21,15 +26,11 @@ _ROLES = ("system", "user", "assistant", "tool")
 #: fields of the OpenAI API this package refuses until it serves them ->
 #: the values that ask for nothing
 _UNSERVED = {
-    "logprobs": (None, False),
-    "top_logprobs": (None,),
-    "logit_bias": (None, {}),
-    "frequency_penalty": (None, 0),
-    "presence_penalty": (None, 0),
-    "repetition_penalty": (None, 1),
     "tools": (None, []),
     "echo": (None, False),
 }
+#: OpenAI's largest `n`
+MAX_CHOICES = 128
 
 
 def _drop_none(x):
@@ -62,8 +63,12 @@ def _common(body: dict) -> dict:
         if body.get(name) not in noop:
             raise ValueError(f"field {name!r} is not supported by dynamo_tpu_torch yet")
     n = _get(body, "n", int, 1)
-    if n != 1:
-        raise ValueError("n != 1 is not supported by dynamo_tpu_torch yet")
+    if not 1 <= n <= MAX_CHOICES:
+        raise ValueError(f"n must be between 1 and {MAX_CHOICES}; got {n}")
+    bias = body.get("logit_bias")
+    if bias is not None and not (isinstance(bias, dict) and all(
+            isinstance(v, (int, float)) and not isinstance(v, bool) for v in bias.values())):
+        raise ValueError("field 'logit_bias' must map token ids to numbers")
     model = _get(body, "model", str)
     if not model:
         raise ValueError("field 'model' is required")
@@ -87,6 +92,8 @@ def _common(body: dict) -> dict:
     top_k = _get(body, "top_k", int)
     if top_k is not None and top_k < 0:
         raise ValueError("top_k must be >= 0")
+    penalties = {name: _get(body, name, (int, float))
+                 for name in ("frequency_penalty", "presence_penalty", "repetition_penalty")}
     return dict(
         model=model,
         temperature=None if temperature is None else float(temperature),
@@ -98,9 +105,15 @@ def _common(body: dict) -> dict:
         ) if so is not None else None,
         stop=stop,
         seed=_get(body, "seed", int),
+        n=n,
+        logit_bias=bias,
+        **penalties,
         ext=Ext(
             ignore_eos=_get(ext, "ignore_eos", bool),
             return_token_ids=_get(ext, "return_token_ids", bool),
+            min_tokens=_get(ext, "min_tokens", int),
+            repetition_penalty=_get(ext, "repetition_penalty", (int, float)),
+            greed_sampling=_get(ext, "greed_sampling", bool),
         ) if ext else None,
     )
 
@@ -114,6 +127,13 @@ class Ext:
     #: vLLM's `return_token_ids`): a stream sends one chunk per engine
     #: event, so a client sees every token as it is made
     return_token_ids: Optional[bool] = None
+    #: eos/stop-token finishes are suppressed until this many output tokens
+    min_tokens: Optional[int] = None
+    #: multiplicative repetition penalty over generated tokens, in (0, 2.0]
+    #: here (the top-level field accepts any value > 0)
+    repetition_penalty: Optional[float] = None
+    #: argmax decoding whatever the temperature
+    greed_sampling: Optional[bool] = None
 
 
 @dataclass
@@ -141,6 +161,15 @@ class ChatCompletionRequest:
     stream_options: Optional[StreamOptions] = None
     stop: Union[str, list[str], None] = None
     seed: Optional[int] = None
+    n: int = 1
+    frequency_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    #: the chosen tokens' logprobs, with top_logprobs (0-20) alternatives
+    logprobs: Optional[bool] = None
+    top_logprobs: Optional[int] = None
+    #: token id (a JSON string or an int) -> bias in [-100, 100]
+    logit_bias: Optional[dict[Union[int, str], float]] = None
     ext: Optional[Ext] = None
 
     @property
@@ -175,7 +204,9 @@ class ChatCompletionRequest:
                 raise ValueError("max_tokens must be >= 1")
         return ChatCompletionRequest(
             messages=messages, max_tokens=max_tokens,
-            max_completion_tokens=max_completion, **common,
+            max_completion_tokens=max_completion,
+            logprobs=_get(body, "logprobs", bool),
+            top_logprobs=_get(body, "top_logprobs", int), **common,
         )
 
 
@@ -191,6 +222,13 @@ class CompletionRequest:
     stream_options: Optional[StreamOptions] = None
     stop: Union[str, list[str], None] = None
     seed: Optional[int] = None
+    n: int = 1
+    frequency_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    #: legacy: N => the chosen token's logprob and the top N (0-5)
+    logprobs: Optional[int] = None
+    logit_bias: Optional[dict[Union[int, str], float]] = None
     ext: Optional[Ext] = None
 
     @property
@@ -214,7 +252,8 @@ class CompletionRequest:
         max_tokens = _get(body, "max_tokens", int, 16)
         if max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
-        return CompletionRequest(prompt=prompt, max_tokens=max_tokens, **common)
+        return CompletionRequest(prompt=prompt, max_tokens=max_tokens,
+                                 logprobs=_get(body, "logprobs", int), **common)
 
 
 @dataclass
@@ -227,6 +266,68 @@ class Usage:
     prompt_tokens_details: Optional[dict[str, int]] = None
 
 
+def combine_usages(usages: list[Usage]) -> Optional[Usage]:
+    """Fold the usage blocks of `n` choices into one: the shared prompt
+    counts once, completion tokens sum, and the cached tokens are the
+    largest any choice had (so the fold does not depend on which sibling
+    prefilled first)."""
+    if not usages:
+        return None
+    details = max((u.prompt_tokens_details for u in usages if u.prompt_tokens_details),
+                  key=lambda d: d.get("cached_tokens", 0), default=None)
+    completion = sum(u.completion_tokens for u in usages)
+    return Usage(prompt_tokens=usages[0].prompt_tokens, completion_tokens=completion,
+                 total_tokens=usages[0].prompt_tokens + completion,
+                 prompt_tokens_details=details)
+
+
+@dataclass
+class TopLogprob:
+    token: str = ""
+    logprob: float = 0.0
+    bytes: Optional[list[int]] = None
+
+
+@dataclass
+class TokenLogprob:
+    token: str = ""
+    logprob: float = 0.0
+    bytes: Optional[list[int]] = None
+    top_logprobs: list[TopLogprob] = field(default_factory=list)
+
+
+@dataclass
+class ChoiceLogprobs:
+    """The chat API's logprobs block: one entry per emitted token."""
+
+    content: list[TokenLogprob] = field(default_factory=list)
+
+
+@dataclass
+class CompletionLogprobs:
+    """The legacy completions API's logprobs block (parallel arrays)."""
+
+    tokens: list[str] = field(default_factory=list)
+    token_logprobs: list[float] = field(default_factory=list)
+    top_logprobs: list[dict[str, float]] = field(default_factory=list)
+    text_offset: list[int] = field(default_factory=list)
+
+    @staticmethod
+    def from_entries(entries: list[TokenLogprob], offset: int = 0) -> "CompletionLogprobs":
+        """The legacy block of chat entries whose text starts at `offset`
+        characters into the choice's text."""
+        offsets = []
+        for e in entries:
+            offsets.append(offset)
+            offset += len(e.token)
+        return CompletionLogprobs(
+            tokens=[e.token for e in entries],
+            token_logprobs=[e.logprob for e in entries],
+            top_logprobs=[{t.token: t.logprob for t in e.top_logprobs} for e in entries],
+            text_offset=offsets,
+        )
+
+
 @dataclass
 class ChatChoiceDelta:
     role: Optional[str] = None
@@ -237,6 +338,7 @@ class ChatChoiceDelta:
 class ChatStreamChoice:
     index: int = 0
     delta: ChatChoiceDelta = field(default_factory=ChatChoiceDelta)
+    logprobs: Optional[ChoiceLogprobs] = None
     finish_reason: Optional[str] = None
     token_ids: Optional[list[int]] = None
 
@@ -255,6 +357,7 @@ class ChatCompletionChunk:
 class ChatChoice:
     index: int = 0
     message: ChatMessage = field(default_factory=lambda: ChatMessage(role="assistant", content=""))
+    logprobs: Optional[ChoiceLogprobs] = None
     finish_reason: Optional[str] = None
     token_ids: Optional[list[int]] = None
 
@@ -273,6 +376,7 @@ class ChatCompletionResponse:
 class CompletionChoice:
     index: int = 0
     text: str = ""
+    logprobs: Optional[CompletionLogprobs] = None
     finish_reason: Optional[str] = None
     token_ids: Optional[list[int]] = None
 
@@ -321,29 +425,38 @@ SSE_DONE = b"data: [DONE]\n\n"
 
 def aggregate_chat_stream(chunks: list[ChatCompletionChunk], model: str,
                           request_id: str) -> ChatCompletionResponse:
-    """Fold a one-choice chunk stream into a non-streaming response."""
-    text: list[str] = []
-    token_ids: Optional[list[int]] = None
-    finish: Optional[str] = None
-    usage: Optional[Usage] = None
+    """Fold a chunk stream into a non-streaming response. Chunks may
+    interleave several choice indices (`n` > 1): each folds into its own
+    choice, and the usage blocks fold into one (combine_usages)."""
+    text: dict[int, list[str]] = {}
+    token_ids: dict[int, list[int]] = {}
+    finish: dict[int, str] = {}
+    entries: dict[int, list[TokenLogprob]] = {}
+    usages: list[Usage] = []
     for ch in chunks:
         for choice in ch.choices:
+            i = choice.index
+            text.setdefault(i, [])
             if choice.delta.content:
-                text.append(choice.delta.content)
+                text[i].append(choice.delta.content)
             if choice.token_ids is not None:
-                token_ids = (token_ids or []) + choice.token_ids
+                token_ids.setdefault(i, []).extend(choice.token_ids)
+            if choice.logprobs is not None:
+                entries.setdefault(i, []).extend(choice.logprobs.content)
             if choice.finish_reason:
-                finish = choice.finish_reason
+                finish[i] = choice.finish_reason
         if ch.usage is not None:
-            usage = ch.usage
+            usages.append(ch.usage)
     return ChatCompletionResponse(
         id=request_id,
         created=now(),
         model=model,
         choices=[ChatChoice(
-            message=ChatMessage(role="assistant", content="".join(text)),
-            finish_reason=finish,
-            token_ids=token_ids,
-        )],
-        usage=usage,
+            index=i,
+            message=ChatMessage(role="assistant", content="".join(text.get(i, []))),
+            logprobs=ChoiceLogprobs(content=entries[i]) if i in entries else None,
+            finish_reason=finish.get(i),
+            token_ids=token_ids.get(i),
+        ) for i in sorted(text) or [0]],
+        usage=combine_usages(usages),
     )

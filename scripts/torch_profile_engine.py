@@ -3,6 +3,7 @@ run by the eager loop, replayed as captured CUDA graphs, and replayed with
 the overlapped decode loop.
 
     python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8] [--no-mixed-steps]
+    python3 scripts/torch_profile_engine.py --sampling [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
@@ -56,8 +57,21 @@ MAX_TOKENS output tokens, `decode_steps` DECODE_STEPS. Prints JSON lines:
     share, and the ten kernels with the most device time.
 With --no-mixed-steps every engine runs the XOR policy (the engines and
 lines of the tree before mixed steps were ported): no `xor` engine and
-no `burst` lines. Then the card's name and power limit. With no card it
-raises.
+no `burst` lines.
+
+With --sampling only the sampling surface's case runs, on one engine at
+the defaults (`overlap`): waves whose rows all ask for one of
+chip_smoke.SAMPLING_KEYS (plain; logprobs 20; frequency, presence and
+repetition penalties; logit_bias), at each B in BATCHES, each key once
+untimed (its captures), then `sampling` lines in the order plain, lp20,
+pen, bias, bias, pen, lp20, plain: host, sync and wall ms per decode
+dispatch and per fused step (every dispatch here runs DECODE_STEPS
+steps; a penalized wave does not speculate, so its wall holds its
+device time); then `sampling_dispatch` lines, torch.profiler over two
+steady decode dispatches of each key: device busy ms per dispatch and per
+step, the idle share and the ten kernels with the most device time.
+
+Then the card's name and power limit. With no card it raises.
 """
 
 from __future__ import annotations
@@ -90,17 +104,21 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def add_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> None:
+def add_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
+             knobs: dict | None = None) -> None:
+    """`batch` greedy requests of random prompts, each with the sampling
+    `knobs`."""
     for i in range(batch):
         prompt = torch.randint(1, eng.adapter.vocab_size, (PROMPT,), generator=gen)
         eng.add_request(f"{tag}{i}", prompt.tolist(),
-                        SamplingParams(max_tokens=MAX_TOKENS, ignore_eos=True))
+                        SamplingParams(max_tokens=MAX_TOKENS, ignore_eos=True, **(knobs or {})))
 
 
-def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> dict:
+def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
+               knobs: dict | None = None) -> dict:
     """One wave from an idle engine, counted on its own."""
     before = eng.metrics.to_dict()
-    add_wave(eng, tag, batch, gen)
+    add_wave(eng, tag, batch, gen, knobs)
     decode_ms, tokens, decode_tokens = [], 0, 0
     # the engine's decode step time and its wait for ids, over the decode
     # steps alone (a mixed step's decode half waits for ids too)
@@ -134,9 +152,10 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator) -> 
                                  "overlap_hits", "overlap_rollbacks")}}
 
 
-def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> dict:
+def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator,
+                       knobs: dict | None = None) -> dict:
     """Two steady decode dispatches of a wave under torch.profiler."""
-    add_wave(eng, "p", batch, gen)
+    add_wave(eng, "p", batch, gen, knobs)
     while eng.scheduler.waiting or any(r.state.value == "prefill" for r in eng.scheduler.running):
         eng.step()
     eng.step()  # one decode dispatch outside the window
@@ -155,7 +174,35 @@ def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator) -> di
     eng.run_to_completion()
     out = device_time(prof, window_ms)
     return {**out, "device_ms_per_dispatch": out["device_busy_ms"] / 2, "forwards": forwards,
+            "device_ms_per_step": out["device_busy_ms"] / forwards,
             "cuda_kernels_per_forward": kernels / forwards}
+
+
+def sampling_case(dev, card: str, args) -> None:
+    """The sampling surface's keys on one engine at the defaults: timed
+    waves, then profiled dispatches (the module's --sampling)."""
+    cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
+                       prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
+                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+    eng = TorchEngine(cfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    keys = chip_smoke.SAMPLING_KEYS
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS}
+    for b in BATCHES:
+        for name, knobs in keys.items():
+            timed_wave(eng, f"warm-{name}{b}-", b, gen, knobs)
+        for i, name in enumerate(list(keys) + list(keys)[::-1]):
+            r = timed_wave(eng, f"{name}{b}-{i}-", b, gen, keys[name])
+            per_step = {f"{k[:-len('_per_dispatch')]}_per_step": r[k] / DECODE_STEPS
+                        for k in ("host_ms_per_dispatch", "sync_ms_per_dispatch",
+                                  "wall_ms_per_dispatch")}
+            emit({"phase": "sampling", **head, "batch": b, "key": name, "knobs": repr(keys[name]),
+                  "order": i, **r, **per_step})
+    for b in BATCHES:
+        for name, knobs in keys.items():
+            emit({"phase": "sampling_dispatch", **head, "batch": b, "key": name,
+                  **profile_dispatches(eng, b, gen, knobs)})
 
 
 def main(argv=None) -> int:
@@ -165,9 +212,15 @@ def main(argv=None) -> int:
     ap.add_argument("--no-mixed-steps", action="store_false", dest="mixed_steps",
                     help="mixed steps off in every engine (the CLI's flag): no `xor` engine "
                          "and no `burst` lines")
+    ap.add_argument("--sampling", action="store_true",
+                    help="only the sampling surface's case: plain, lp20, pen and bias keys")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
+    if args.sampling:
+        sampling_case(dev, card, args)
+        print(card, flush=True)
+        return 0
     # the largest wave holds 64 x (PROMPT + MAX_TOKENS) tokens: 256 pages
     cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
                        prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,

@@ -32,7 +32,11 @@ prefill+decode steps replayed as graphs give the eager loop's streams in
 each pool mode, without and with overlapped decode, their graphs launch
 every kernel variant of the pool and keep the decode workspace they
 read, and a consumed speculation's ids reach the next speculation
-intact across the pieces' replays. Flash prefill and paged prefill (bf16 output) hold each
+intact across the pieces' replays. The sampling surface's keys (logprobs,
+penalties, logit_bias with min_tokens) replayed as graphs give the eager
+loop's ids, logprobs and alternatives bit for bit in each pool mode, with
+and without overlapped decode, and a penalty key's graph replays right
+on new histories and penalties. Flash prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -45,7 +49,13 @@ import torch
 import chip_smoke
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import DECODE_KINDS, PAGED_DECODE_KINDS, TorchEngine
+from dynamo_tpu_torch.engine.engine import (
+    DECODE_KINDS,
+    PAGED_DECODE_KINDS,
+    TorchEngine,
+    key_field,
+    key_has_surface,
+)
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.engine.step_graph import StepGraph
 from dynamo_tpu_torch.models.registry import get_model
@@ -930,7 +940,7 @@ def test_prefill_graphs_give_the_eager_streams(llama_params, mode):
     assert graphs.streams == eager.streams
     keys = set(graphs.step_keys)
     assert keys == set(eager.step_keys)
-    prefill = {(k[0], k[-1]) for k in keys if k[0] not in DECODE_KINDS}
+    prefill = {(k[0], key_field(k, "first_chunk")) for k in keys if k[0] not in DECODE_KINDS}
     assert prefill == {(kind, first) for kind in ("prefill", "prefill_nosample")
                        for first in (True, False)}
     m = graphs.metrics
@@ -1035,7 +1045,8 @@ def test_prefix_hits_with_graphs_and_overlap(llama_params, mode):
     m = eng.metrics
     assert m.overlap_hits > 0 and m.compiles == len(eng.step_keys)
     assert m.prefill_replays + m.decode_replays == eng.dispatches
-    assert any(k[0].startswith("prefill") and not k[-1] for k in eng.step_keys)
+    assert any(k[0].startswith("prefill") and not key_field(k, "first_chunk")
+               for k in eng.step_keys)
     assert (chip_smoke.serve_requests(eager, warm, 12),
             chip_smoke.serve_requests(eager, wave, 12)) == runs[0]
 
@@ -1090,7 +1101,8 @@ def test_mixed_graphs_give_the_eager_streams(llama_params, mode):
             assert m.overlap_hits > 0
             continue
         assert m.mixed_replays == m.mixed_dispatches
-        assert {k[5] for k in graphs.step_keys if k[0] == "mixed"} == {True, False}
+        assert {key_field(k, "first_chunk") for k in graphs.step_keys
+                if k[0] == "mixed"} == {True, False}
         launched = {name for k, g in graphs._step_fns.items() if k[0] == "mixed"
                     for name, (n, plain) in g.launches.items() if n and not plain}
         assert launched == set(chip_smoke.serve_variants(mode))
@@ -1137,3 +1149,78 @@ def test_a_split_mixed_step_feeds_its_speculation_the_right_ids(llama_params):
     assert _run_late(graphs, **kw) == want
     m = graphs.metrics
     assert m.overlap_hits > 0 and m.mixed_dispatches > m.mixed_replays
+
+
+#: waves of (requests, max_tokens, sampling knobs) over the sampling
+#: surface's keys: logprobs 5, the three penalties, and logit_bias beside
+#: min_tokens with +100 on eos (so those rows end on their sixth token)
+SURFACE_WAVES = [
+    (3, 17, dict(logprobs=5)),
+    (2, 9, dict(frequency_penalty=1.0, presence_penalty=0.5, repetition_penalty=1.3,
+                logprobs=0)),
+    (2, 9, dict(logit_bias=((4242, 5.0), (0, 100.0)), min_tokens=5, ignore_eos=False)),
+]
+
+
+def _run_surface(eng, waves, tag="", seed=8):
+    """Each wave's requests together (prompts of 20-80 random tokens from
+    `seed`): request id -> (ids, logprobs, top alternatives, finish)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for w, (n, max_tokens, knobs) in enumerate(waves):
+        for i in range(n):
+            prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+            eng.add_request(f"{tag}{w}-{i}", prompt, SamplingParams(
+                max_tokens=max_tokens, **{"ignore_eos": True, **knobs}))
+        while eng.has_work:
+            for o in eng.step():
+                ids, lps, tops, _ = out.get(o.request_id, ((), (), (), None))
+                out[o.request_id] = (ids + o.new_token_ids, lps + (o.logprobs or ()),
+                                     tops + (o.top_logprobs or ()), o.finish_reason)
+    return out
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_sampling_surface_graphs_give_the_eager_outputs(llama_params, mode):
+    """Logprob, penalty and bias keys replayed as graphs give the eager
+    loop's ids, logprobs and top alternatives bit for bit, without and with
+    overlapped decode (bias and logprob rows speculate, penalized ones do
+    not; the logprob rows outlive a dispatch of 8, so one speculates); each
+    such key is captured once and replayed, and nothing runs a plain
+    version. The min_tokens rows end on eos at their sixth token."""
+    for overlap in (False, True):
+        eager, graphs = _engines(llama_params, mode, overlap=(overlap, overlap))
+        ops.reset_counts()
+        want = _run_surface(eager, SURFACE_WAVES)
+        got = _run_surface(graphs, SURFACE_WAVES)
+        assert got == want
+        assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+        for rid in ("2-0", "2-1"):
+            assert len(got[rid][0]) == 6 and got[rid][0][-1] == 0
+        keys = [k for k in graphs.step_keys if key_has_surface(k)]
+        assert {k[0] for k in keys} >= {"prefill", "decode_multi"}
+        assert all(isinstance(graphs._step_fns[k], StepGraph) and graphs._step_fns[k].replays
+                   for k in keys)
+        m = graphs.metrics
+        assert m.compiles == len(graphs.step_keys)
+        assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+        if overlap:
+            assert m.overlap_hits > 0
+
+
+def test_a_penalty_graph_replays_on_new_histories(llama_params):
+    """A penalty key's graph, captured over one wave, replays a second wave
+    of other prompts and other penalties under the same keys (no capture)
+    to the eager loop's ids; the penalties change the greedy stream."""
+    eager, graphs = _engines(llama_params, None)
+    first = [(2, 17, dict(frequency_penalty=1.0))]
+    second = [(2, 17, dict(presence_penalty=2.0, repetition_penalty=1.8))]
+    for eng in (eager, graphs):
+        _run_surface(eng, first, tag="a")
+    compiles = graphs.metrics.compiles
+    want = _run_surface(eager, second, tag="b", seed=9)
+    assert _run_surface(graphs, second, tag="b", seed=9) == want
+    assert graphs.metrics.compiles == compiles
+    assert any(key_field(k, "pen") > 1 for k in graphs.step_keys if k[0] in DECODE_KINDS)
+    plain = _run_surface(eager, [(2, 17, {})], tag="b", seed=9)
+    assert plain != want

@@ -5,6 +5,9 @@ command line runs (engine thread + standard-library HTTP server) on an
 ephemeral port, here with --device cpu and the tiny model (the kernels'
 plain versions serve on CPU tensors). Streaming and unary chat and
 completions, /v1/models and /health; usage counts must match the tokens.
+The sampling surface: logprobs in the chat and the legacy shapes, n > 1
+choices, penalties, logit_bias and the ext knobs, and the 400s the JAX
+package answers for their bad values.
 """
 
 import json
@@ -16,6 +19,9 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.cli.run import start_server
+from dynamo_tpu_torch.frontend.service import ModelPipeline
+from dynamo_tpu_torch.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
 from dynamo_tpu_torch.preprocessor.tokenizer import ByteTokenizer
 
 ARGS = [
@@ -159,7 +165,8 @@ def test_token_ids_cover_the_usage(server):
 @pytest.mark.parametrize("path,body,status", [
     ("/v1/chat/completions", {"model": "tiny"}, 400),
     ("/v1/chat/completions", {"model": "nope", "messages": MESSAGES}, 404),
-    ("/v1/chat/completions", {"model": "tiny", "messages": MESSAGES, "logprobs": True}, 400),
+    ("/v1/chat/completions", {"model": "tiny", "messages": MESSAGES,
+                              "tools": [{"type": "function"}]}, 400),
     ("/v1/chat/completions",
      {"model": "tiny", "messages": MESSAGES, "ext": {"return_token_ids": "yes"}}, 400),
 ])
@@ -276,3 +283,188 @@ def test_a_shared_system_message_is_served_from_the_prefix_cache(server):
     assert "prompt_tokens_details" not in first
     assert second["prompt_tokens_details"] == {"cached_tokens": want}
     assert want >= 48 and second["prompt_tokens"] == len(b)
+
+
+CHAT = "/v1/chat/completions"
+
+
+def _entries(events):
+    """The logprob entries of a chat stream's chunks, in order."""
+    return [e for ev in events for c in ev["choices"]
+            for e in (c.get("logprobs") or {}).get("content", [])]
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_chat_logprobs_are_served(server, stream):
+    """logprobs + top_logprobs 3: one entry per generated token with its
+    exact bytes and 3 alternatives, sorted, the greedy token the first of
+    them with the same logprob; unary and streamed give the same entries."""
+    body = {"model": "tiny", "messages": MESSAGES, "max_tokens": 6, "logprobs": True,
+            "top_logprobs": 3, "ext": {"ignore_eos": True}}
+    with _post(server.url + CHAT, body) as r:
+        resp = json.load(r)
+    entries = resp["choices"][0]["logprobs"]["content"]
+    if stream:
+        events, done = _stream(server.url + CHAT, {**body, "stream": True})
+        assert done
+        assert _entries(events) == entries  # greedy: the same tokens
+    assert len(entries) == resp["usage"]["completion_tokens"] == 6
+    for e in entries:
+        assert e["logprob"] <= 1e-6 and len(e["top_logprobs"]) == 3
+        assert bytes(e["bytes"]).decode("utf-8", errors="replace") == e["token"]
+        alts = [a["logprob"] for a in e["top_logprobs"]]
+        assert alts == sorted(alts, reverse=True)
+        assert e["top_logprobs"][0]["bytes"] == e["bytes"]
+        assert e["top_logprobs"][0]["logprob"] == e["logprob"]
+
+
+def test_a_partial_utf8_token_keeps_its_bytes_and_its_entry(server):
+    """A +100 bias on 0xF0 (a lone UTF-8 lead byte) makes every token one:
+    its text never renders, and each entry still comes, with its exact
+    byte, on the finish chunk."""
+    events, done = _stream(server.url + CHAT, {
+        "model": "tiny", "messages": MESSAGES, "max_tokens": 3, "stream": True,
+        "logprobs": True, "logit_bias": {"240": 100}, "ext": {"ignore_eos": True}})
+    assert done
+    entries = _entries(events)
+    assert [e["bytes"] for e in entries] == [[0xF0]] * 3
+    assert all(e["top_logprobs"] == [] for e in entries)
+    assert events[-1]["choices"][0]["finish_reason"] == "length"
+    assert events[-1]["choices"][0]["logprobs"]["content"] == entries
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_completions_logprobs_take_the_legacy_shape(server, stream):
+    """/v1/completions logprobs=2: parallel arrays (tokens, token_logprobs,
+    top_logprobs as {token: logprob}, text_offset), one item a token."""
+    body = {"model": "tiny", "prompt": "abc", "max_tokens": 4, "logprobs": 2,
+            "ext": {"ignore_eos": True}}
+    if stream:
+        events, done = _stream(server.url + "/v1/completions", {**body, "stream": True})
+        assert done and all(e["object"] == "text_completion" for e in events)
+        blocks = [c["logprobs"] for e in events for c in e["choices"] if c.get("logprobs")]
+        assert not any("delta" in c for e in events for c in e["choices"])
+    else:
+        with _post(server.url + "/v1/completions", body) as r:
+            blocks = [json.load(r)["choices"][0]["logprobs"]]
+    assert sum(len(b["tokens"]) for b in blocks) == 4
+    offsets = [o for b in blocks for o in b["text_offset"]]
+    assert offsets == sorted(offsets) and offsets[0] == 0
+    for b in blocks:
+        assert set(b) == {"tokens", "token_logprobs", "top_logprobs", "text_offset"}
+        assert len(b["tokens"]) == len(b["token_logprobs"]) == len(b["top_logprobs"])
+        assert all(1 <= len(d) <= 2 for d in b["top_logprobs"])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_n_choices_are_sibling_requests(server, stream):
+    """n=3 with a seed: three choices, indices 0-2 under one id, each the
+    stream of a lone request with seed s + i, one folded usage (the
+    prompt once, completion tokens summed, the siblings' prompt served
+    from the prefix cache)."""
+    body = {"model": "tiny", "messages": [{"role": "user", "content": "three choices"}],
+            "max_tokens": 5, "n": 3, "seed": 11, "temperature": 0.9,
+            "ext": {"ignore_eos": True, "return_token_ids": True}}
+    if stream:
+        events, done = _stream(server.url + CHAT, {
+            **body, "stream": True, "stream_options": {"include_usage": True}})
+        assert done and len({e["id"] for e in events}) == 1
+        ids = {i: [t for e in events for c in e["choices"] if c["index"] == i
+                   for t in c.get("token_ids", [])] for i in range(3)}
+        usage = events[-1]["usage"]
+        assert sum(e["usage"] is not None for e in events if "usage" in e) == 1
+    else:
+        with _post(server.url + CHAT, body) as r:
+            resp = json.load(r)
+        assert [c["index"] for c in resp["choices"]] == [0, 1, 2]
+        ids = {c["index"]: c["token_ids"] for c in resp["choices"]}
+        usage = resp["usage"]
+    n_prompt = _prompt_tokens(body["messages"])
+    assert usage["prompt_tokens"] == n_prompt and usage["completion_tokens"] == 15
+    assert usage["prompt_tokens_details"]["cached_tokens"] >= (n_prompt - 1) // 4 * 4 - 4
+    for i in range(3):
+        with _post(server.url + CHAT, {**body, "n": 1, "seed": 11 + i}) as r:
+            assert json.load(r)["choices"][0]["token_ids"] == ids[i], i
+
+
+def test_n_siblings_are_submitted_together_and_stream_as_made():
+    """n = 3 over a scripted engine: choices 1 and 2 are submitted together
+    once choice 0's first event came (each waits, before its first event,
+    until both were submitted), and chunks come as each choice makes them
+    (the siblings emit only after the caller has read choice 0's last
+    token), with indices 0-2 and one folded usage."""
+    submitted, both, release = [], threading.Barrier(2, timeout=10), threading.Event()
+
+    def engine_fn(pre):
+        submitted.append(pre.request_id)
+        if pre.request_id.endswith("-0"):
+            yield {"token_ids": [65], "finish_reason": None}
+            yield {"token_ids": [66], "finish_reason": "length"}
+            return
+        both.wait()
+        assert release.wait(10)
+        yield {"token_ids": [67], "finish_reason": "length"}
+
+    pipe = ModelPipeline(ModelDeploymentCard(name="tiny"), engine_fn)
+    req = ChatCompletionRequest.from_json({
+        "model": "tiny", "messages": [{"role": "user", "content": "hi"}], "n": 3,
+        "max_tokens": 2, "stream": True, "stream_options": {"include_usage": True},
+        "ext": {"return_token_ids": True}})
+    got = []
+    for chunk in pipe.chat_stream(req):
+        got += [(c.index, t) for c in chunk.choices for t in c.token_ids or ()]
+        if (0, 66) in got:
+            release.set()
+    parent = submitted[0].removesuffix("-0")
+    assert sorted(submitted[1:]) == [f"{parent}-1", f"{parent}-2"]
+    assert got[:2] == [(0, 65), (0, 66)] and sorted(got[2:]) == [(1, 67), (2, 67)]
+    assert chunk.usage.completion_tokens == 4 and not chunk.choices
+
+
+def test_penalties_bias_and_ext_knobs_are_served(server):
+    """A penalized request, a +100 logit_bias that forces its token, and
+    min_tokens with a +100 bias on eos (token 0): exactly min_tokens + 1
+    tokens, finishing `stop`; nvext greed_sampling ignores the
+    temperature."""
+    chat = server.url + CHAT
+    with _post(chat, {"model": "tiny", "messages": MESSAGES, "max_tokens": 8,
+                      "frequency_penalty": 1.0, "presence_penalty": 0.5,
+                      "nvext": {"repetition_penalty": 1.3, "ignore_eos": True}}) as r:
+        assert json.load(r)["usage"]["completion_tokens"] == 8
+    with _post(chat, {"model": "tiny", "messages": MESSAGES, "max_tokens": 4,
+                      "logit_bias": {"90": 100}, "ext": {"ignore_eos": True}}) as r:
+        assert json.load(r)["choices"][0]["message"]["content"] == "ZZZZ"
+    with _post(chat, {"model": "tiny", "messages": MESSAGES, "max_tokens": 9,
+                      "logit_bias": {"0": 100}, "ext": {"min_tokens": 4}}) as r:
+        resp = json.load(r)
+    assert resp["usage"]["completion_tokens"] == 5
+    assert resp["choices"][0]["finish_reason"] == "stop"
+    greedy = {"model": "tiny", "messages": MESSAGES, "max_tokens": 5,
+              "ext": {"ignore_eos": True, "return_token_ids": True}}
+    with _post(chat, greedy) as r:
+        want = json.load(r)["choices"][0]["token_ids"]
+    for seed in (1, 2):
+        with _post(chat, {**greedy, "temperature": 1.5, "seed": seed,
+                          "ext": {**greedy["ext"], "greed_sampling": True}}) as r:
+            assert json.load(r)["choices"][0]["token_ids"] == want
+
+
+@pytest.mark.parametrize("path,extra", [
+    (CHAT, {"logprobs": True, "top_logprobs": 21}),
+    ("/v1/completions", {"logprobs": 6}),
+    (CHAT, {"top_logprobs": 3}),
+    (CHAT, {"logit_bias": {str(i): 1 for i in range(17)}}),
+    (CHAT, {"logit_bias": {"99999": 1}}),
+    (CHAT, {"nvext": {"repetition_penalty": 2.5}}),
+    (CHAT, {"ext": {"min_tokens": -1}}),
+])
+def test_sampling_refusals_are_400s(server, path, extra):
+    """The JAX package's 400s: top_logprobs over 20, legacy logprobs over
+    5, top_logprobs without logprobs, 17 bias slots, a bias id outside the
+    vocabulary (refused by the engine at admission), an nvext repetition
+    penalty over 2.0 and a negative min_tokens."""
+    body = ({"prompt": "x"} if path == "/v1/completions" else {"messages": MESSAGES})
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server.url + path, {"model": "tiny", "max_tokens": 2, **body, **extra})
+    assert e.value.code == 400
+    assert "error" in json.load(e.value)

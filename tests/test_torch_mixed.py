@@ -71,18 +71,19 @@ WAVE = [("a", [1, 2, 3], dict(max_tokens=20, ignore_eos=True)),
 
 def _project(jax_eng) -> set:
     """JaxEngine._jit_cache's step keys projected onto the port's fields:
-    mixed (kind, b, t, b_pre, greedy, first_chunk, psamp) from JAX fields
-    0, 1, 2, 9, 3, 5, 10; prefill and decode as the port keys them."""
+    mixed (kind, b, t, b_pre, greedy, first_chunk, psamp, lp, pen, bias)
+    from JAX fields 0, 1, 2, 9, 3, 5, 10, 6, 7, 8; prefill and decode as
+    the port keys them (tests/test_torch_step_graph.py)."""
     out = set()
     for k in jax_eng._jit_cache:
         if k[0] == "mixed":
-            out.add((k[0], k[1], k[2], k[9], k[3], k[5], k[10]))
+            out.add((k[0], k[1], k[2], k[9], k[3], k[5], k[10], k[6], k[7], k[8]))
         elif k[0] == "prefill":
-            out.add((k[0], k[1], k[2], k[3], k[5]))
+            out.add((k[0], k[1], k[2], k[3], k[5], k[6], k[7], k[8]))
         elif k[0] == "prefill_nosample":
             out.add((k[0], k[1], k[2], k[5]))
         elif k[0] in DECODE_KINDS:
-            out.add(k[:4])
+            out.add((*k[:4], k[6], k[7], k[8]))
     return out
 
 
@@ -140,7 +141,7 @@ def test_mixed_step_keys_stay_finite():
     cfg = port.config
     mixed = [k for k in keys[0] if k[0] == "mixed"]
     assert mixed and port.metrics.mixed_dispatches == jax_eng.metrics.mixed_dispatches
-    for _, b_dec, t, b_pre, _, _, _ in mixed:
+    for _, b_dec, t, b_pre, *_ in mixed:
         assert b_dec in cfg.decode_buckets
         assert t in (32, 64, 128, 256, 512) and t <= max(cfg.prefill_chunk, 32)
         assert b_pre in (1, 2, 4, 8) and b_pre + b_dec <= cfg.decode_buckets[-1]

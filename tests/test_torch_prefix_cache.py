@@ -227,13 +227,13 @@ def _jax_keys(eng) -> set:
     out = set()
     for k in eng._jit_cache:
         if k[0] == "mixed":
-            out.add((k[0], k[1], k[2], k[9], k[3], k[5], k[10]))
+            out.add((k[0], k[1], k[2], k[9], k[3], k[5], k[10], k[6], k[7], k[8]))
         elif k[0] == "prefill":
-            out.add((k[0], k[1], k[2], k[3], k[5]))
+            out.add((k[0], k[1], k[2], k[3], k[5], k[6], k[7], k[8]))
         elif k[0] == "prefill_nosample":
             out.add((k[0], k[1], k[2], k[5]))
         elif k[0] in DECODE_KINDS:
-            out.add(k[:4])
+            out.add((*k[:4], k[6], k[7], k[8]))
     return out
 
 

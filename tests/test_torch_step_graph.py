@@ -21,7 +21,13 @@ from dynamo_tpu.engine.engine import JaxEngine
 from dynamo_tpu.engine.request import SamplingParams as JaxSampling
 from dynamo_tpu_torch.cli import run as cli_run
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import DECODE_KINDS, EngineMetrics, TorchEngine
+from dynamo_tpu_torch.engine.engine import (
+    DECODE_KINDS,
+    KEY_FIELDS,
+    EngineMetrics,
+    TorchEngine,
+    key_field,
+)
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.engine.step_graph import Readback, StaticInputs, StepGraph
 from tests.test_torch_engine import MAX_TOKENS, PROMPTS, _jax_engine, _torch_engine
@@ -94,7 +100,7 @@ def test_step_keys_are_the_jax_engines_decode_keys(decode_steps):
                                                           ignore_eos=True))
     jax_eng.run_to_completion()
     torch_eng.run_to_completion()
-    want = {k[:4] for k in jax_eng._jit_cache if k[0] in DECODE_KINDS}
+    want = {(*k[:4], k[6], k[7], k[8]) for k in jax_eng._jit_cache if k[0] in DECODE_KINDS}
     assert {k for k in torch_eng.step_keys if k[0] in DECODE_KINDS} == want
     assert {k[3] for k in want} == {True, False}  # both sampler variants ran
 
@@ -119,6 +125,50 @@ def test_readback_of_a_cpu_tensor_is_the_tensor():
     ids = torch.tensor([[3, 4], [5, 6]])
     got = Readback(ids)
     assert got.device is ids and np.array_equal(got.numpy(), ids.numpy())
+    assert got.extras() == ()
+
+
+def test_readback_carries_a_logprob_bodys_outputs():
+    """A logprob body's outputs: the ids first (what a speculation reads on
+    the device), then chosen logprobs, top ids and top logprobs; keep()
+    copies them all."""
+    outs = (torch.tensor([[3, 4]]), torch.tensor([[-0.5, -1.0]]),
+            torch.tensor([[[3, 1], [4, 2]]]), torch.tensor([[[-0.5, -2.0], [-1.0, -1.5]]]))
+    got = Readback(outs)
+    assert got.device is outs[0] and np.array_equal(got.numpy(), outs[0].numpy())
+    assert [a.tolist() for a in got.extras()] == [o.tolist() for o in outs[1:]]
+    got.keep()
+    assert all(a is not b and torch.equal(a, b) for a, b in zip(got.outputs, outs))
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+def test_sampling_surface_key_fields_are_the_jax_engines(decode_steps):
+    """Requests that each ask for one part of the sampling surface, one at
+    a time (logprobs 3, then 20; a penalty; logit_bias with min_tokens),
+    then together: the prefill and decode keys' lp, pen and bias fields are
+    JaxEngine._get_step_fn's (fields 6, 7 and 8 of its key). (The keys do
+    not depend on the JAX engine's attention: it runs its XLA one.)"""
+    knobs = dict(decode_steps=decode_steps, overlap_decode=False)
+    jax_eng = _jax_engine(attention_impl="xla", **knobs)
+    torch_eng = _torch_engine(jax_eng, **knobs)
+    alone = [dict(logprobs=3), dict(logprobs=20), dict(repetition_penalty=1.2),
+             dict(logit_bias=((7, 2.0),), min_tokens=3, stop_token_ids=(9,))]
+    for eng, sampling in ((jax_eng, JaxSampling), (torch_eng, SamplingParams)):
+        for i, kw in enumerate(alone):
+            eng.add_request(f"r{i}", PROMPTS["a"], sampling(max_tokens=7, ignore_eos=True, **kw))
+            eng.run_to_completion()
+        for i, kw in enumerate(alone):
+            eng.add_request(f"t{i}", PROMPTS["d"], sampling(max_tokens=5, ignore_eos=True, **kw))
+        eng.run_to_completion()
+    want = {(*k[:4], k[6], k[7], k[8]) if k[0] in DECODE_KINDS
+            else (k[0], k[1], k[2], k[3], k[5], k[6], k[7], k[8])
+            for k in jax_eng._jit_cache if k[0] in DECODE_KINDS or k[0] == "prefill"}
+    assert set(torch_eng.step_keys) == want
+    assert all(len(k) == len(KEY_FIELDS[k[0]]) for k in want)
+    decode = [k for k in want if k[0] in DECODE_KINDS]
+    assert {key_field(k, "lp") for k in decode} == {-1, 3, 20}
+    assert {key_field(k, "pen") for k in decode} >= {0, 1}
+    assert {key_field(k, "bias") for k in decode} == {True, False}
 
 
 #: a prompt of three chunks of 16 (two that sample nothing), one of two,
@@ -150,13 +200,16 @@ def test_prefill_step_keys_are_the_jax_engines_prefill_keys(decode_steps):
                                                       seed=i, ignore_eos=True))
             eng.run_to_completion()
     jax_eng, torch_eng = engines
-    want = {(k[0], k[1], k[2], k[3], k[5]) if k[0] == "prefill" else (k[0], k[1], k[2], k[5])
-            for k in jax_eng._jit_cache if k[0].startswith("prefill")}
+    want = {(k[0], k[1], k[2], k[3], k[5], k[6], k[7], k[8]) if k[0] == "prefill"
+            else (k[0], k[1], k[2], k[5]) for k in jax_eng._jit_cache if k[0].startswith("prefill")}
     got = {k for k in torch_eng.step_keys if k[0] not in DECODE_KINDS}
     assert got == want
     sampled = {k for k in got if k[0] == "prefill"}
-    assert {k[3] for k in sampled} == {k[4] for k in sampled} == {True, False}
-    assert {k[3] for k in got if k[0] == "prefill_nosample"} == {True, False}
+    assert {key_field(k, "greedy") for k in sampled} == {True, False}
+    assert {key_field(k, "first_chunk") for k in sampled} == {True, False}
+    nosample = {k for k in got if k[0] == "prefill_nosample"}
+    assert {key_field(k, "first_chunk") for k in nosample} == {True, False}
+    assert all(len(k) == len(KEY_FIELDS[k[0]]) for k in got)
 
 
 def test_a_cpu_engine_captures_nothing():
