@@ -18,13 +18,21 @@ Phases, each fatal on failure:
      the plain version's, one library call's where one computes the same
      function (each by CUDA events around 20 back-to-back calls, so the
      host's work between launches is in it), and the card's least time for
-     the work (bound, from bytes or operations over the H100's peaks);
+     the work (bound, from bytes or operations over the H100's peaks); and
+     the int8 weight product (`--quantize int8`) against its plain version
+     at llama3-1b's and llama3-8b's dense widths (INT8_CASES: a decode row,
+     bucket 64 and a 2,048-token chunk), each row within 2^-6 of its
+     largest value, beside torch.matmul on a bf16 weight of the same shape;
   4. model: random-init llama3-1b in bf16, the kernel path against the
      plain path, teacher-forced over a 256-token prompt and 32 decode steps,
      and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
      and 32 decode steps, over a bf16 pool, an int8 pool and an fp8 pool:
      per-step max |delta logit| < 0.25 and argmax agreement >= 90 %; the
      quantized kernel path is also held against the bf16 kernel path, and
+     reported without a gate; then with int8 weights (the same weights,
+     quantize_params_int8) over a 768-token prompt in chunks of 512 and 256
+     and 16 decode steps, over a bf16 pool and an int8 pool, with the same
+     gate, and the int8-weight kernel path against the bf16-weight one
      reported without a gate;
   4b. graphs: three llama3-1b engines on one set of random weights, over
      a bf16, an int8 and an fp8 pool: the eager loop (cuda_graphs=False,
@@ -49,6 +57,12 @@ Phases, each fatal on failure:
      too, with mixed replays); its run (counts set to 0 just before it) must
      launch every kernel variant of its pool, counted through replays,
      and no plain version;
+  4b'. int8_graphs: two llama3-1b engines with quantize="int8" and no
+     params (int8 weights drawn from seed 0), overlapped decode and mixed
+     steps on: the eager loop and step graphs, over greedy waves, the
+     1,100-token prompt and 700 beside 100 (a mixed step with a chunk with
+     history) and the late arrival: every stream identical, every key
+     captured once and replayed, int8_matmul launched, no plain version;
   4c. prefix: one llama3-1b engine a pool mode (bf16, int8, fp8), built
      as the CLI builds it with no flags but the model, the pool and the
      serve's context: prefix caching, graphs and overlapped decode on,
@@ -151,7 +165,11 @@ Phases, each fatal on failure:
      together and one lone request, whose first-token seconds print per
      choice (`n3_schedules`). These requests' launches
      print apart, in the line's `sampling`, and must run no plain version
-     and replay graphs only;
+     and replay graphs only; last, a server with --quantize int8 (bf16
+     pool) answers the long prompt and a streaming chat together, then the
+     greedy pair one at a time, launching int8_matmul beside the bf16 pool's
+     variants; every server prints its params' bytes on the device beside
+     the same model's in bf16;
   6. device times: each phase-3 case's kernel and library call again, 20
      calls under torch.profiler: `device_ms` and `library_device_ms` are
      the device time of the CUDA kernels one call launches (each kernel's
@@ -178,7 +196,14 @@ import torch
 
 from dynamo_tpu_torch import ops, platform
 from dynamo_tpu_torch.preprocessor.tokenizer import ByteTokenizer
-from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
+from dynamo_tpu_torch.ops import (
+    _build,
+    flash_prefill,
+    int8_matmul,
+    kv_quant,
+    kv_update,
+    paged_attention,
+)
 
 #: llama3-1b attention widths (LlamaConfig.llama3_1b), page size 64
 L, HQ, HKV, D, S = 16, 32, 8, 64, 64
@@ -192,6 +217,11 @@ SOURCE = {
         "dynamo_tpu_torch/csrc/paged_attention.cu", "dynamo_tpu/ops/paged_attention.py:369"),
     "paged_prefill_attention": (
         "dynamo_tpu_torch/csrc/paged_prefill.cu", "dynamo_tpu/ops/flash_prefill.py:389"),
+    # no pallas_call: the reference's `_mm` leaves the int8 convert and the
+    # scale to XLA, which fuses them into the dot's operand read
+    "int8_matmul": ("dynamo_tpu_torch/csrc/int8_matmul.cu",
+                    "dynamo_tpu/models/llama.py:1043 (_mm, int8 weights; XLA-fused, no "
+                    "pallas_call)"),
 }
 #: the `quantized` branch of each Pallas kernel that has one
 QUANT_BRANCH = {
@@ -203,6 +233,17 @@ QUANT_BRANCH = {
 #: plain version, as a share of the row's largest |value|; 2^-6 is 2-4 bf16
 #: ulps there, so a dropped key tile or a wrong mask fails on long rows too
 PREFILL_ROW_RTOL = 2.0**-6
+#: the int8 weight product (bf16 output): each row's max |diff| against the
+#: plain version as a share of the row's largest |value|; the plain version
+#: rounds the product and the scaled product to bf16 apart, the kernel once
+INT8_ROW_RTOL = 2.0**-6
+#: (M, K, N) of the int8 product: llama3-1b's up/gate projection at a
+#: decode row, a 2,048-token chunk and bucket 64, its down and k/v
+#: projections at bucket 64, llama3-8b's up and down projections at bucket
+#: 64; the last, llama3-1b's up projection at bucket 64, is the kernels
+#: line's
+INT8_CASES = ((1, 2048, 8192), (2048, 2048, 8192), (64, 8192, 2048), (64, 2048, 512),
+              (64, 4096, 14336), (64, 14336, 4096), (64, 2048, 8192))
 #: paged decode (f32 output): max |acc/l diff| and |m diff|
 DECODE_ATOL = 1e-4
 #: the model gate (the reference's bf16 gate)
@@ -662,9 +703,45 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode, d: int = D)
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
+def check_int8_matmul(dev, peaks, gen, m: int, k: int, n: int) -> dict:
+    """The int8 weight product against its plain version, a weight of
+    N(0, 1/K) draws quantized per output channel; the library yardstick is
+    torch.matmul on a bf16 weight of the same shape (no PyTorch call
+    computes the int8 product without writing the weight out in bf16 first,
+    and the unquantized product is what the int8 model has to beat)."""
+    from dynamo_tpu_torch.models.llama import quantize_channelwise_int8
+
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w, scale = quantize_channelwise_int8(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+    got = int8_matmul.int8_matmul(x, w, scale)
+    ref = int8_matmul.int8_matmul_plain(x, w, scale)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs().amax(dim=-1)
+    rel = (diff / ref.float().abs().amax(dim=-1)).max().item()
+    if not (rel <= INT8_ROW_RTOL) or not torch.isfinite(got).all():
+        raise AssertionError(f"int8_matmul M={m} K={k} N={n}: a row's max |diff| is {rel} of "
+                             f"its largest value (limit {INT8_ROW_RTOL})")
+    w_bf16 = (w.float() * scale).to(torch.bfloat16)
+    times = timings(lambda: int8_matmul.int8_matmul(x, w, scale),
+                    lambda: int8_matmul.int8_matmul_plain(x, w, scale),
+                    lambda: torch.matmul(x, w_bf16))
+    b_ms, by = bound(int8_matmul.bytes_moved(m, k, n), int8_matmul.flops(m, k, n), peaks)
+    mi, splits, per = int8_matmul.split_plan(
+        m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return {"kernel": "int8_matmul", "M": m, "K": k, "N": n, "mi": mi, "splits": splits,
+            "tolerance": f"bf16, each row: max |diff| <= {INT8_ROW_RTOL} x the row's largest "
+                         f"|value| (the plain version rounds twice, the kernel once)",
+            "max_abs_err": diff.max().item(), "max_row_rel_err": rel, **times,
+            "library": "torch.matmul(x, w_bf16): the same product on a bf16 weight",
+            "bound_ms": b_ms, "bound_by": by}
+
+
 def phase_kernels(dev, peaks) -> dict:
     gen = torch.Generator(device=dev)
     cases = [
+        check_int8_matmul(dev, peaks, gen.manual_seed(20 + i), *shape)
+        for i, shape in enumerate(INT8_CASES)
+    ] + [
         # every row valid: SDPA computes no more than the kernel needs; at
         # the main path's widths, at llama3-8b's head dim and at a long T
         check_flash_prefill(dev, peaks, gen.manual_seed(6), 8, 512, ragged=False),
@@ -713,39 +790,50 @@ def logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int, int]:
 def phase_model(dev) -> list[dict]:
     """The model gate over a prompt in one first chunk, and over a longer
     prompt in chunks whose later ones attend over their history, over a
-    bf16 pool and over an int8 and an fp8 pool. Every path takes the plain
-    path's greedy token (teacher forcing)."""
+    bf16 pool and over an int8 and an fp8 pool; then with int8 weights
+    (quantize_params_int8 of the same weights) over a bf16 and an int8
+    pool. Every path takes the plain path's greedy token (teacher
+    forcing)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.registry import get_model
 
     adapter = get_model("llama3-1b", dtype="bfloat16")
     cfg = adapter.config
-    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
-    gates = [(None, (256,), 32), (None, (512, 512, 256), 32),
-             ("int8", (512, 512, 256), 32), ("fp8", (512, 512, 256), 32)]
+    weights = {None: adapter.init_params(torch.Generator(device=dev).manual_seed(0))}
+    weights["int8"] = llama.quantize_params_int8(weights[None])
+    # (weights, pool mode, chunks, decode steps)
+    gates = [(None, None, (256,), 32), (None, None, (512, 512, 256), 32),
+             (None, "int8", (512, 512, 256), 32), (None, "fp8", (512, 512, 256), 32),
+             ("int8", None, (512, 256), 16), ("int8", "int8", (512, 256), 16)]
     results = []
     with torch.no_grad():
-        for mode, chunks, steps in gates:
-            # path name -> (ops, pool mode); "bf16" is the unquantized kernel path
-            paths = {"kernel": (ops.KERNELS, mode), "plain": (ops.PLAIN, mode)}
+        for quantize, mode, chunks, steps in gates:
+            params = weights[quantize]
+            # path name -> (ops, params, pool mode): "bf16" is the kernel path
+            # over a bf16 pool, "bf16_weights" over the unquantized weights
+            paths = {"kernel": (ops.KERNELS, params, mode), "plain": (ops.PLAIN, params, mode)}
             if mode is not None:
-                paths["bf16"] = (ops.KERNELS, None)
+                paths["bf16"] = (ops.KERNELS, params, None)
+            if quantize is not None:
+                paths["bf16_weights"] = (ops.KERNELS, weights[None], mode)
             prompt_len = sum(chunks)
             num_pages = 2 + (prompt_len + steps) // S
             pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
             pools = {name: adapter.init_kv(num_pages, S, dev, kv_quantize=m)
-                     for name, (_, m) in paths.items()}
+                     for name, (_, _, m) in paths.items()}
             gen = torch.Generator(device=dev).manual_seed(1)
             tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
-            stats = {pair: [0.0, 0, 0] for pair in (("kernel", "plain"), ("kernel", "bf16"))}
-            label = f"model gate, {mode or 'bf16'} pool, chunks {chunks}"
+            stats = {pair: [0.0, 0, 0] for pair in (("kernel", "plain"), ("kernel", "bf16"),
+                                                    ("kernel", "bf16_weights"))}
+            label = (f"model gate, {quantize or 'bf16'} weights, {mode or 'bf16'} pool, "
+                     f"chunks {chunks}")
 
             def run_all(tok, pos, first_chunk):
                 out = {}
                 val = torch.ones(tok.shape, dtype=torch.bool, device=dev)
-                for name, (path_ops, _) in paths.items():
-                    out[name], _ = llama.forward(params, cfg, tok, pos, val, pools[name], pt,
-                                                 first_chunk=first_chunk, ops=path_ops)
+                for name, (path_ops, path_params, _) in paths.items():
+                    out[name], _ = llama.forward(path_params, cfg, tok, pos, val, pools[name],
+                                                 pt, first_chunk=first_chunk, ops=path_ops)
                 return {k: v[0] for k, v in out.items()}  # [T, V] each
 
             def gate(out, step):
@@ -775,8 +863,9 @@ def phase_model(dev) -> list[dict]:
             worst, agree, rows = stats[("kernel", "plain")]
             rate = agree / rows
             result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16",
-                      "kv_quantize": mode, "prompt": prompt_len, "chunks": list(chunks),
-                      "decode_steps": steps, "max_abs_dlogit": worst, "argmax_agreement": rate,
+                      "quantize": quantize, "kv_quantize": mode, "prompt": prompt_len,
+                      "chunks": list(chunks), "decode_steps": steps,
+                      "max_abs_dlogit": worst, "argmax_agreement": rate,
                       "gate": f"kernel path against plain path: max |dlogit| < "
                               f"{GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}"}
             if mode is not None:
@@ -785,12 +874,19 @@ def phase_model(dev) -> list[dict]:
                                "vs_bf16_pool_argmax_agreement": qa / qr,
                                "vs_bf16_pool": "the quantized kernel path against the bf16 "
                                                "kernel path, reported without a gate"})
+            if quantize is not None:
+                qw, qa, qr = stats[("kernel", "bf16_weights")]
+                result.update({"vs_bf16_weights_max_abs_dlogit": qw,
+                               "vs_bf16_weights_argmax_agreement": qa / qr,
+                               "vs_bf16_weights": "the int8-weight kernel path against the "
+                                                  "bf16-weight kernel path over the same "
+                                                  "pool mode, reported without a gate"})
             emit(result)
             if rate < GATE_ARGMAX:
                 raise AssertionError(f"{label}: argmax agreement {rate} < {GATE_ARGMAX}")
             results.append(result)
             del pools
-    del params
+    del weights, params
     torch.cuda.empty_cache()
     return results
 
@@ -984,6 +1080,66 @@ def phase_graphs(dev) -> list[dict]:
     del params
     torch.cuda.empty_cache()
     return results
+
+
+def phase_int8_graphs(dev) -> dict:
+    """Two llama3-1b engines with quantize="int8" and no params (each draws
+    its int8 weights from seed 0: init_params_int8), overlapped decode and
+    mixed steps on: the eager loop (cuda_graphs=False) and step graphs.
+    Greedy waves, the 1,100-token prompt (a first chunk and chunks with
+    history) and a late arrival, whose prefill joins the decoding rows in
+    mixed steps: every stream identical; decode, chunk and mixed keys
+    captured once and replayed (phase 4b's identities); int8_matmul
+    launched through the replays, no plain version."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import DECODE_KINDS, TorchEngine, key_field
+
+    label = "graphs, int8 weights"
+    runs = {}
+    for name, graphs in (("eager", False), ("graphs", True)):
+        cfg = EngineConfig(model="llama3-1b", num_pages=256, page_size=S,
+                           max_pages_per_seq=SERVE_CONTEXT // S, quantize="int8",
+                           eos_token_ids=(0,), enable_prefix_caching=False)
+        eng = TorchEngine(cfg, device=dev, cuda_graphs=graphs)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        streams = run_waves(eng, GRAPH_WAVES[:4] + LONG_WAVES, "g")
+        streams.update(run_late_arrival(eng, "late"))
+        torch.cuda.synchronize()
+        runs[name] = dict(eng=eng, streams=streams, s=time.perf_counter() - t0,
+                          counts={k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
+    want, got = runs["eager"]["streams"], runs["graphs"]["streams"]
+    if got != want:
+        bad = sorted(r for r in want if want[r] != got.get(r))
+        raise AssertionError(f"{label}: streams with graphs differ from the eager loop's in {bad}")
+    eng = runs["graphs"]["eng"]
+    m = eng.metrics
+    kinds = {(k[0], key_field(k, "first_chunk")) for k in eng.step_keys
+             if k[0] not in DECODE_KINDS}
+    counts = runs["graphs"]["counts"]
+    line = {k: getattr(m, k) for k in (
+        "compiles", "prefill_dispatches", "prefill_replays", "decode_dispatches",
+        "decode_replays", "mixed_dispatches", "mixed_replays", "overlap_dispatches",
+        "overlap_hits", "overlap_rollbacks")}
+    ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+          and m.mixed_replays > 0 and m.decode_replays > 0 and m.overlap_hits > 0
+          and any(kind.startswith("prefill") and first is False for kind, first in kinds)
+          and eng.params["layers"]["wq"].dtype == torch.int8
+          and counts["int8_matmul"][0] > 0
+          and all(plain == 0 for _, plain in counts.values()))
+    result = {"phase": "int8_graphs", "model": "llama3-1b", "dtype": "bfloat16",
+              "quantize": "int8", **line, "dispatches": eng.dispatches,
+              "keys": sorted({k[0] for k in eng.step_keys}), "streams": len(want),
+              "identical": "every greedy stream, to the id, in the eager loop and with graphs, "
+                           "both with overlapped decode and mixed steps",
+              "launches": {k: v[0] for k, v in counts.items() if v[0]},
+              "eager_run_s": runs["eager"]["s"], "run_s": runs["graphs"]["s"]}
+    emit(result)
+    if not ok:
+        raise AssertionError(f"{label}: captures, replays, launches or counts wrong: {result}")
+    del runs, eng
+    torch.cuda.empty_cache()
+    return result
 
 
 # -- phase "prefix": prefix caching at the CLI's defaults -------------------------
@@ -1960,17 +2116,30 @@ def serve_sampling(url: str) -> dict:
     return out
 
 
-def serve_variants(mode) -> list[str]:
-    """The kernel variants a server over a `mode` pool must launch."""
+def serve_variants(mode, quantize=None) -> list[str]:
+    """The kernel variants a server over a `mode` pool (and, with quantize
+    "int8", int8 weights) must launch."""
     return ["flash_prefill_attention"] + [
         kv_quant.variant(n, mode)
-        for n in ("paged_write", "paged_decode_attention", "paged_prefill_attention")]
+        for n in ("paged_write", "paged_decode_attention", "paged_prefill_attention")
+    ] + (["int8_matmul"] if quantize else [])
 
 
-def phase_serve(card: str, mode) -> dict:
-    """Serve over a bf16 pool (mode None: the full request mix) or a
+def param_bytes(params: dict) -> tuple[int, int]:
+    """(bytes the params hold on the device, bytes of the same model in
+    bf16): every leaf but the int8 weights' scales at 2 bytes a value."""
+    leaves = [(k, v) for k, v in params.items() if k != "layers"]
+    leaves += list(params["layers"].items())
+    held = sum(v.numel() * v.element_size() for _, v in leaves)
+    return held, sum(2 * v.numel() for k, v in leaves if not k.endswith("_scale"))
+
+
+def phase_serve(card: str, mode, quantize=None) -> dict:
+    """Serve over a bf16 pool (mode None: the full request mix), a
     quantized one (the long prompt and three streaming chats together,
-    then the greedy pair one at a time)."""
+    then the shared-system pair and the greedy pair one at a time), or,
+    with quantize "int8", int8 weights over a bf16 pool (the long prompt
+    and a streaming chat together, then the greedy pair one at a time)."""
     from dynamo_tpu_torch.cli.run import start_server
 
     # no --prefill-chunk: the CLI's default chunk (512) is what is served
@@ -1978,6 +2147,8 @@ def phase_serve(card: str, mode) -> dict:
             "--dtype", "bfloat16", "--max-context", str(SERVE_CONTEXT)]
     if mode is not None:
         argv += ["--kv-quantize", mode]
+    if quantize is not None:
+        argv += ["--quantize", quantize]
     server = start_server(argv)
     try:
         chat = server.url + "/v1/chat/completions"
@@ -2007,7 +2178,12 @@ def phase_serve(card: str, mode) -> dict:
                           "messages": [system, {"role": "user", "content": q}]})
                   for q in SYSTEM_QUESTIONS]
         first_wave = len(jobs)
-        if mode is None:
+        if quantize is not None:
+            jobs = jobs[2:]  # a streaming chat and the long prompt
+            first_wave = first = len(jobs)
+            jobs += [greedy, greedy]
+            pairs = ((first, first + 1),)
+        elif mode is None:
             jobs += [
                 (chat, {"model": "llama3-1b", "max_tokens": 64, "ext": ext,
                         "messages": [{"role": "user", "content": "a unary chat"}]}),
@@ -2053,7 +2229,9 @@ def phase_serve(card: str, mode) -> dict:
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
         engine = server.runner.engine
         chunk = engine.config.prefill_chunk
-        pool = {"kv_pool_bytes": engine.metrics.kv_pool_bytes,
+        held, bf16_bytes = param_bytes(engine.params)
+        pool = {"param_bytes": held, "param_bytes_bf16": bf16_bytes,
+                "kv_pool_bytes": engine.metrics.kv_pool_bytes,
                 "kv_pool_bytes_dense_equiv": engine.metrics.kv_pool_bytes_dense_equiv,
                 "pool_dtype": str(engine.kv.k.dtype)}
         graphs = {k: getattr(engine.metrics, k) for k in
@@ -2065,7 +2243,7 @@ def phase_serve(card: str, mode) -> dict:
         graphs["mixed_steps"] = engine.config.mixed_steps
         replayed = replays_match(engine.metrics, engine.dispatches)
         sampled = None
-        if mode is None:
+        if mode is None and quantize is None:
             # after the request mix's counts are read, so that its launches
             # stay those of the mix alone
             ops.reset_counts()
@@ -2079,7 +2257,7 @@ def phase_serve(card: str, mode) -> dict:
         del server
         torch.cuda.empty_cache()
 
-    label = f"serve, {mode or 'bf16'} pool"
+    label = f"serve, {quantize or 'bf16'} weights, {mode or 'bf16'} pool"
     out_tokens = 0
     ttft = []
     prompt_tokens = []
@@ -2101,17 +2279,20 @@ def phase_serve(card: str, mode) -> dict:
             raise AssertionError(f"{label}: requests {a} and {b} should be identical")
     # the shared-system pair: the second's cached tokens are the whole pages
     # of the two prompts' common prefix, all but the last page at most
-    tok = ByteTokenizer()
-    a, b = (tok.encode(tok.apply_chat_template(body["messages"])) for _, body in shared)
-    common = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-    want_cached = min(common // S, (len(b) - 1) // S) * S
-    usages = [results[i][1][-1]["usage"] for i in (first - 2, first - 1)]
-    if "prompt_tokens_details" in usages[0] or usages[1].get("prompt_tokens_details") != {
-            "cached_tokens": want_cached} or want_cached < 1024:
-        raise AssertionError(f"{label}: the shared-system pair's usage {usages}, want "
-                             f"{want_cached} cached tokens on the second only")
-    if prompt_tokens[3] <= 1200 or chunk != 512:
-        raise AssertionError(f"{label}: the long request's prompt is {prompt_tokens[3]} "
+    want_cached = None
+    if quantize is None:
+        tok = ByteTokenizer()
+        a, b = (tok.encode(tok.apply_chat_template(body["messages"])) for _, body in shared)
+        common = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        want_cached = min(common // S, (len(b) - 1) // S) * S
+        usages = [results[i][1][-1]["usage"] for i in (first - 2, first - 1)]
+        if "prompt_tokens_details" in usages[0] or usages[1].get("prompt_tokens_details") != {
+                "cached_tokens": want_cached} or want_cached < 1024:
+            raise AssertionError(f"{label}: the shared-system pair's usage {usages}, want "
+                                 f"{want_cached} cached tokens on the second only")
+    long_prompt = prompt_tokens[1 if quantize else 3]
+    if long_prompt <= 1200 or chunk != 512:
+        raise AssertionError(f"{label}: the long request's prompt is {long_prompt} "
                              f"tokens, served at a chunk of {chunk}")
     # served as the CLI serves with no flags: overlapped decode and mixed
     # steps, every prefill, decode and mixed dispatch a replay
@@ -2121,13 +2302,13 @@ def phase_serve(card: str, mode) -> dict:
             and graphs["overlap_dispatches"] == graphs["overlap_hits"]
             + graphs["overlap_rollbacks"]):
         raise AssertionError(f"{label}: dispatches did not all replay graphs: {graphs}")
-    want = serve_variants(mode)
+    want = serve_variants(mode, quantize)
     for name, (launches, plain) in counts.items():
         if plain != 0 or (launches == 0) == (name in want):
             raise AssertionError(f"{label}: {name} launched {launches} times, plain ran "
                                  f"{plain} (the pool's variants: {want})")
     result = {"phase": "serve", "model": "llama3-1b", "dtype": "bfloat16",
-              "kv_quantize": mode, "card": card, "prefill_chunk": chunk,
+              "quantize": quantize, "kv_quantize": mode, "card": card, "prefill_chunk": chunk,
               "requests": len(jobs), "prompt_tokens": prompt_tokens,
               "shared_system_cached_tokens": want_cached,
               "output_tokens": out_tokens, "wall_s": wall,
@@ -2171,13 +2352,16 @@ def main() -> int:
     cases = phase_kernels(dev, peaks)
     phase_model(dev)
     phase_graphs(dev)
+    phase_int8_graphs(dev)
     phase_prefix(dev, card)
     phase_mixed(dev, card)
     phase_sampling(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
-    for mode in MODES:  # flash_prefill_attention counts from the bf16 server
-        for name, n in phase_serve(card, mode)["launches"].items():
+    # flash_prefill_attention counts from the bf16 server, int8_matmul from
+    # the int8-weight one
+    for mode, quantize in [(m, None) for m in MODES] + [(None, "int8")]:
+        for name, n in phase_serve(card, mode, quantize)["launches"].items():
             launches.setdefault(name, n)
     phase_device_times(cases)
     for c in cases:

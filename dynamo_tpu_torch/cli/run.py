@@ -6,8 +6,10 @@ Counterpart of dynamo_tpu/cli/run.py for the `in=http out=<engine>` shape,
 with the TorchEngine as the engine. With no checkpoint the model is
 random-init from a fixed seed and serves the byte tokenizer, as the JAX
 CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
-tokens (512 by default, as the JAX CLI's). `--kv-quantize int8|fp8`
-stores the KV pages quantized, as the JAX CLI's flag does. Decode runs
+tokens (512 by default, as the JAX CLI's). `--quantize int8` stores the
+layers' dense weights as int8 with per-output-channel scales, and
+`--kv-quantize int8|fp8` the KV pages quantized, as the JAX CLI's flags
+do; the two combine. Decode runs
 the overlapped loop unless `--no-overlap-decode` is given, as in the JAX
 CLI. While prompts prefill beside running decodes, each step carries both
 (mixed steps) unless `--no-mixed-steps` is given, as in the JAX CLI.
@@ -69,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     runp.add_argument(
+        "--quantize", default=None, choices=("int8",),
+        help="weight-only quantization (per-output-channel int8 scales)",
+    )
+    runp.add_argument(
         "--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
         help="KV-cache page quantization: pages store int8 (or fp8) rows with "
              "per-token f32 scales, about twice the tokens in the same memory",
@@ -103,6 +109,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         overlap_decode=args.overlap_decode,
         mixed_steps=args.mixed_steps,
         dtype=args.dtype,
+        quantize=args.quantize,
         kv_quantize=args.kv_quantize,
         eos_token_ids=eos_token_ids,
     )

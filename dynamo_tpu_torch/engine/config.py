@@ -27,7 +27,6 @@ UNPORTED = {
     "spec_min_accept_rate": (0.2,),
     "spec_cooldown_steps": (16,),
     "max_waiting": (None,),
-    "quantize": (None,),
     "attention_impl": ("auto", "pallas"),
     "dp": (1,),
     "tp": (1,),
@@ -100,6 +99,10 @@ class _PortedKnobs:
     eos_token_ids: tuple[int, ...] = ()
     #: dtype name for params/KV ("bfloat16" | "float32")
     dtype: str = "bfloat16"
+    #: weight-only quantization: None | "int8" (per-output-channel scales):
+    #: the seven dense weights of every layer are int8, about halving the
+    #: weight bytes a decode step reads
+    quantize: Optional[str] = None
     #: KV-cache page quantization: None | "int8" | "fp8". Pages store the
     #: narrow dtype with per-(page, slot, kv-head) f32 scale planes, about
     #: halving the bytes per cached token; the page write quantizes and
@@ -137,6 +140,8 @@ class _PortedKnobs:
             )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {self.dtype!r}")
+        if self.quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize={self.quantize!r}; use int8")
         if self.kv_quantize not in (None, "int8", "fp8"):
             raise ValueError(
                 f"kv_quantize must be None, 'int8' or 'fp8', got {self.kv_quantize!r}"

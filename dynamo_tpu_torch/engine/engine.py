@@ -223,10 +223,20 @@ class TorchEngine:
         self.allocator = PageAllocator(config.num_pages, config.page_size, on_event=on_kv_event)
         self.scheduler = Scheduler(config, self.allocator)
         self.metrics = EngineMetrics()
+        # the reference's order: random params straight in the int8 layout,
+        # or given params quantized (already-int8 params raise)
+        pre_quantized = False
         if params is None:
-            logger.info("initializing random params for %s", config.model)
             gen = torch.Generator(device=self.device).manual_seed(0)
-            params = self.adapter.init_params(gen)
+            if config.quantize == "int8":
+                logger.info("initializing random int8 params for %s", config.model)
+                params = self.adapter.init_params_quantized(gen)
+                pre_quantized = True
+            else:
+                logger.info("initializing random params for %s", config.model)
+                params = self.adapter.init_params(gen)
+        if config.quantize and not pre_quantized:
+            params = self.adapter.quantize_params(params)
         self.params = params
         self.kv = self.adapter.init_kv(
             config.num_pages, config.page_size, self.device, kv_quantize=config.kv_quantize

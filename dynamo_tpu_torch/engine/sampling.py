@@ -162,22 +162,34 @@ def token_logprobs(logits: torch.Tensor,  # [B, V] f32 raw logits
     logprobs [B, max(k, 1)] f32); with k == 0 the top arrays hold one
     candidate, which the caller ignores.
 
-    Equal logits are frequent in a bf16 product, and torch.topk leaves
-    both their order and which of them it keeps unspecified. So, as XLA's
-    top_k does, equal candidates list in id order (sorted by id, then
-    stably by value), and the first is the argmax, the first id of the
-    largest logit, as the greedy sampler picks it (topk may have left it
-    out of a tie); the rest follow without it."""
+    The alternatives follow XLA's top_k (the reference's): ids ordered by
+    (value descending, id ascending), the first N taken. Equal logits are
+    frequent in a bf16 product, and torch.topk leaves both their order and
+    which of the ids tied at the N-th value it keeps unspecified. So the
+    set is built by that rule on the device (no host read, so a step graph
+    captures it): every logit above the N-th value is among topk's; the
+    lowest ids of those equal to it come from a second topk, over the
+    negated ids of the tied logits. The two lists, sorted by id, then
+    stably by value, give the first N. The first alternative is then the
+    argmax, the first id of the largest logit, as the greedy sampler picks
+    it."""
     kk = max(k, 1)
+    v = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
     chosen = torch.gather(logits, 1, ids[:, None])[:, 0]
     top_vals, top_idx = torch.topk(logits, kk, dim=-1)
-    top_idx, by_id = torch.sort(top_idx, dim=-1)
-    top_vals, by_value = torch.sort(torch.gather(top_vals, 1, by_id), dim=-1, descending=True,
+    nth = top_vals[:, kk - 1:]
+    neg_ids = -torch.arange(v, dtype=torch.int32, device=logits.device)
+    # the kk lowest ids equal to the N-th value, ascending (v: no more)
+    tied_idx = -torch.topk(torch.where(logits == nth, neg_ids, -v), kk, dim=-1).values
+    # id v marks a slot that holds no candidate: topk's own ties, which
+    # tied_idx lists, and tied_idx's fill; it sorts after every real id
+    cand_idx = torch.cat([torch.where(top_vals > nth, top_idx, v), tied_idx.long()], dim=1)
+    cand_vals = torch.cat([top_vals, nth.expand(-1, kk)], dim=1)
+    cand_vals = torch.where(cand_idx == v, float("-inf"), cand_vals)
+    cand_idx, by_id = torch.sort(cand_idx, dim=-1)
+    top_vals, by_value = torch.sort(torch.gather(cand_vals, 1, by_id), dim=-1, descending=True,
                                     stable=True)
-    top_idx = torch.gather(top_idx, 1, by_value)
-    first = torch.argmax(logits, dim=-1, keepdim=True)
-    rest = torch.sort((top_idx == first).to(torch.int8), dim=-1, stable=True).indices[:, :kk - 1]
-    top_idx = torch.cat([first, torch.gather(top_idx, 1, rest)], dim=1)
-    top_vals = torch.cat([top_vals[:, :1], torch.gather(top_vals, 1, rest)], dim=1)
+    top_idx = torch.gather(cand_idx, 1, by_value[:, :kk])
+    top_vals = top_vals[:, :kk]
     return chosen - lse, top_idx, top_vals - lse[:, None]

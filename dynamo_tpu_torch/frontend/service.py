@@ -35,8 +35,14 @@ class ModelPipeline:
         card: ModelDeploymentCard,
         engine_fn: Callable[[PreprocessedRequest], Iterator[dict]],
         close_fn: Optional[Callable[[], None]] = None,
+        *,
+        prefix_caching: bool,
     ):
+        """`prefix_caching`: whether the engine behind `engine_fn` caches
+        prompt pages (EngineConfig.enable_prefix_caching), so that `n` > 1
+        siblings can share choice 0's prefill."""
         self.card = card
+        self.prefix_caching = prefix_caching
         self.preprocessor = OpenAIPreprocessor(load_tokenizer(card.tokenizer), model_name=card.name)
         self.engine_fn = engine_fn
         self.close_fn = close_fn
@@ -69,20 +75,27 @@ class ModelPipeline:
         """OpenAI `n`: n sibling generations, choice i with seed + i (when
         seeded), their chunks delivered as they come with the parent's id
         and index i, and their usage blocks folded into one trailing
-        chunk. Choice 0 goes first, and the others are submitted together
-        once its first engine event has come, after its prompt prefilled
-        and its whole pages registered: they share the prompt through the
-        prefix cache. Each choice is pumped by a thread of its own, as the
-        reference pumps each in a task. An error of any choice ends the
-        stream; closing it aborts every sibling at its next event."""
+        chunk. Where the siblings can share choice 0's prefill (prefix
+        caching on, and a prompt of more than one page, so that a whole
+        page before its last can be cached), choice 0 goes first and the
+        others are submitted together once its first engine event has
+        come, after its prompt prefilled and its whole pages registered.
+        Elsewhere waiting saves no prefill, and all n are submitted
+        together, as the reference does. Each choice is pumped by a thread
+        of its own, as the reference pumps each in a task. An error of any
+        choice ends the stream; closing it aborts every sibling at its next
+        event."""
         subs = [dataclasses.replace(pre, request_id=f"{pre.request_id}-{i}",
                                     seed=None if pre.seed is None else pre.seed + i)
                 for i in range(n)]
-        events = self.engine_fn(subs[0])
-        head = next(events, None)
-        streams = [self._one_choice(subs[0], include_usage,
-                                    events=iter(()) if head is None else _prepend(head, events))]
-        streams += [self._one_choice(sub, include_usage) for sub in subs[1:]]
+        streams = []
+        if self.prefix_caching and len(pre.token_ids) > self.card.kv_page_size:
+            events = self.engine_fn(subs[0])
+            head = next(events, None)
+            streams.append(self._one_choice(
+                subs[0], include_usage, events=iter(()) if head is None else _prepend(head, events)))
+        # each is submitted at its pump thread's first read
+        streams += [self._one_choice(sub, include_usage) for sub in subs[len(streams):]]
         chunks: queue.Queue = queue.Queue()
         closed = threading.Event()
 
@@ -146,7 +159,8 @@ def _prepend(head: dict, rest: Iterator[dict]) -> Iterator[dict]:
 
 def local_pipeline(card: ModelDeploymentCard, runner) -> ModelPipeline:
     """Single-process pipeline over an in-process engine runner."""
-    return ModelPipeline(card, engine_fn=runner.generate, close_fn=runner.stop)
+    return ModelPipeline(card, engine_fn=runner.generate, close_fn=runner.stop,
+                         prefix_caching=runner.engine.config.enable_prefix_caching)
 
 
 class ModelManager:

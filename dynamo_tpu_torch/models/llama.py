@@ -20,6 +20,13 @@ rows with f32 scale planes [L, P, S, Hkv] (ops/kv_quant.py). Only the pool
 is quantized: the layers stage K/V in the model dtype and the write
 quantizes them; readers dequantize the history, while a decode step's own
 token and a chunk's own K/V enter attention exact.
+
+Weight-only int8 (`quantize_params_int8`, `init_params_int8`; the engine's
+`quantize="int8"`): the seven dense weights of every layer are int8
+[L, in, out] beside f32 scales [L, 1, out], one per output channel, the
+reference's layout; embed, lm_head and norms stay in the model dtype. Each
+dense product goes through `_mm`, which hands an int8 weight to
+`ops.int8_matmul`.
 """
 
 from __future__ import annotations
@@ -179,53 +186,121 @@ def kv_pages_from_jax(k: np.ndarray, v: np.ndarray, cfg: LlamaConfig, device=Non
 def init_params(generator: torch.Generator, cfg: LlamaConfig) -> dict:
     """Random-init params on the generator's device, layer-stacked like
     the JAX package's: N(0, 1/fan_in) weights, unit norms."""
+    return _random_params(generator, cfg, int8=False)
+
+
+def init_params_int8(generator: torch.Generator, cfg: LlamaConfig) -> dict:
+    """Random-init straight into the int8 weight-only layout (the same
+    names, dtypes and shapes as quantize_params_int8's): each dense weight
+    is drawn N(0, 1/fan_in) in f32 and quantized one layer at a time, so
+    llama3-8b never holds its 16 GB of model-dtype weights; embed, lm_head
+    and norms as init_params makes them."""
+    return _random_params(generator, cfg, int8=True)
+
+
+def _random_params(generator: torch.Generator, cfg: LlamaConfig, int8: bool) -> dict:
     dev = generator.device
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     L = cfg.num_layers
 
-    def dense(shape, fan_in):
+    def draw(shape, fan_in):
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return (w * (1.0 / math.sqrt(fan_in))).to(cfg.dtype)
+        return w * (1.0 / math.sqrt(fan_in))
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
-    params = {
-        "embed": dense((v, h), h),
-        "layers": {
-            "attn_norm": ones((L, h)),
-            "wq": dense((L, h, qd), h),
-            "wk": dense((L, h, kvd), h),
-            "wv": dense((L, h, kvd), h),
-            "wo": dense((L, qd, h), qd),
-            "mlp_norm": ones((L, h)),
-            "w_gate": dense((L, h, i), h),
-            "w_up": dense((L, h, i), h),
-            "w_down": dense((L, i, h), i),
-        },
-        "final_norm": ones((h,)),
-    }
+    embed = draw((v, h), h).to(cfg.dtype)
+    layers = {"attn_norm": ones((L, h)), "mlp_norm": ones((L, h))}
+    for name, din, dout in (("wq", h, qd), ("wk", h, kvd), ("wv", h, kvd), ("wo", qd, h),
+                            ("w_gate", h, i), ("w_up", h, i), ("w_down", i, h)):
+        if int8:
+            layers[name], layers[name + "_scale"] = _int8_stack(
+                (L, din, dout), lambda li: draw((din, dout), din), dev)
+        else:
+            layers[name] = draw((L, din, dout), din).to(cfg.dtype)
+    params = {"embed": embed, "layers": layers, "final_norm": ones((h,))}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense((h, v), h)
+        params["lm_head"] = draw((h, v), h).to(cfg.dtype)
     return params
 
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 
+#: the per-layer dense weights weight-only quantization covers
+QUANTIZED_DENSE_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_channelwise_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's int8 scheme: per-output-channel symmetric max-abs
+    scales over a [in, out] weight, max|w| / 127 floored at 1e-8, values
+    rounded half to even. Returns (int8 weight, [1, out] f32 scale).
+
+    The scale is max|w| times the f32 reciprocal of 127, as the reference
+    computes it wherever it quantizes (quantize_params_int8 and
+    init_params_int8 run it compiled, and XLA turns the division by the
+    constant into that product; dispatched op by op it divides, and a
+    scale can differ by one ulp). The values divide by the scale tensor."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=0, keepdim=True)
+    scale = torch.maximum(amax * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=w.device),
+                          torch.tensor(1e-8, dtype=torch.float32, device=w.device))
+    return torch.round(wf / scale).to(torch.int8), scale
+
+
+def _int8_stack(shape: tuple[int, int, int], layer, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 [L, in, out] and f32 scales [L, 1, out], layer li quantized from
+    layer(li) one at a time, so the f32 temporary stays one layer's size."""
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    scale = torch.empty((shape[0], 1, shape[2]), dtype=torch.float32, device=device)
+    for li in range(shape[0]):
+        q[li], scale[li] = quantize_channelwise_int8(layer(li))
+    return q, scale
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """Weight-only int8 with per-output-channel scales, applied to the
+    seven layer weights (QUANTIZED_DENSE_NAMES): each becomes int8
+    [L, in, out] beside its f32 `<name>_scale` [L, 1, out]; embed, lm_head
+    and norms stay in the model dtype. Decode reads every weight on every
+    step, and int8 halves those bytes against bf16. Refuses params that
+    are already quantized, as the reference does."""
+    layers = dict(params["layers"])
+    if any(layers[n].dtype == torch.int8 for n in QUANTIZED_DENSE_NAMES):
+        raise ValueError(
+            "params are already int8-quantized; re-quantizing would "
+            "recompute scales from quantized values and corrupt the model"
+        )
+    for name in QUANTIZED_DENSE_NAMES:
+        w = layers[name]
+        layers[name], layers[name + "_scale"] = _int8_stack(tuple(w.shape), w.__getitem__,
+                                                            w.device)
+    return {**params, "layers": layers}
+
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     """The JAX package's param tree (leaves as numpy arrays) as the port's
-    params: the same names, layouts and layer stacking, cast to cfg.dtype.
-    On `cuda` unless the caller asks for `cpu`."""
+    params: the same names, layouts and layer stacking, cast to cfg.dtype;
+    int8 weights stay int8 and their `<name>_scale` leaves f32 (the
+    reference's int8 layout). On `cuda` unless the caller asks for `cpu`."""
     device = resolve_device(device)
 
     def conv(x):
         return torch.tensor(np.asarray(x, np.float32), dtype=cfg.dtype, device=device)
 
+    layers = {}
+    for k, x in np_params["layers"].items():
+        x = np.asarray(x)
+        if x.dtype == np.int8:
+            layers[k] = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        elif k.endswith("_scale"):
+            layers[k] = torch.tensor(np.asarray(x, np.float32), device=device)
+        elif k in _LAYER_KEYS:
+            layers[k] = conv(x)
     params = {
         "embed": conv(np_params["embed"]),
-        "layers": {k: conv(np_params["layers"][k]) for k in _LAYER_KEYS},
+        "layers": layers,
         "final_norm": conv(np_params["final_norm"]),
     }
     if np_params.get("lm_head") is not None:
@@ -234,6 +309,16 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
 
 
 # -- blocks -----------------------------------------------------------------------
+
+
+def _mm(x: torch.Tensor, lp: dict, name: str, li: int, ops: Ops) -> torch.Tensor:
+    """x [..., in] @ layer li's weight `name` [in, out]: an int8 weight
+    goes to ops.int8_matmul with its [1, out] scale, any other to `@`."""
+    w = lp[name][li]
+    if w.dtype == torch.int8:
+        y = ops.int8_matmul(x.reshape(-1, x.shape[-1]), w, lp[name + "_scale"][li])
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return x @ w
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -344,20 +429,20 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
     v_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
     for li in range(cfg.num_layers):
         x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = (x @ lp["wq"][li]).reshape(b, t, cfg.num_heads, cfg.head_dim)
-        k = (x @ lp["wk"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = (x @ lp["wv"][li]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        q = _mm(x, lp, "wq", li, ops).reshape(b, t, cfg.num_heads, cfg.head_dim)
+        k = _mm(x, lp, "wk", li, ops).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = _mm(x, lp, "wv", li, ops).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         attn, (k_new, v_new) = attention_block(
             q, k, v, kv, li, page_tables, positions, valid, cfg, cos, sin,
             first_chunk, ops,
         )
         k_stage[li] = k_new
         v_stage[li] = v_new
-        h = h + attn @ lp["wo"][li]
+        h = h + _mm(attn, lp, "wo", li, ops)
         x = rms_norm(h, lp["mlp_norm"][li], cfg.rms_norm_eps)
-        gate = F.silu((x @ lp["w_gate"][li]).float())
-        up = (x @ lp["w_up"][li]).float()
-        h = h + (gate * up).to(cfg.dtype) @ lp["w_down"][li]
+        gate = F.silu(_mm(x, lp, "w_gate", li, ops).float())
+        up = _mm(x, lp, "w_up", li, ops).float()
+        h = h + _mm((gate * up).to(cfg.dtype), lp, "w_down", li, ops)
     kv = land_staged_kv(kv, (k_stage, v_stage), page_tables, positions, valid, ops)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv
 

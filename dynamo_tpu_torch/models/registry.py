@@ -36,6 +36,14 @@ class ModelAdapter:
     def init_params(self, generator: torch.Generator) -> dict:
         return llama.init_params(generator, self.config)
 
+    def quantize_params(self, params: dict) -> dict:
+        """Weight-only int8 (`quantize="int8"`) of model-dtype params."""
+        return llama.quantize_params_int8(params)
+
+    def init_params_quantized(self, generator: torch.Generator) -> dict:
+        """Random params straight in the int8 weight-only layout."""
+        return llama.init_params_int8(generator, self.config)
+
     def init_kv(self, num_pages: int, page_size: int, device,
                 kv_quantize: Optional[str] = None) -> llama.KVPages:
         return llama.init_kv_pages(self.config, num_pages, page_size, device,

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 #: one shared library per kernel source
-SOURCES = ("kv_update", "flash_prefill", "paged_attention", "paged_prefill")
+SOURCES = ("kv_update", "flash_prefill", "paged_attention", "paged_prefill", "int8_matmul")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

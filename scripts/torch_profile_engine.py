@@ -4,6 +4,7 @@ the overlapped decode loop.
 
     python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8] [--no-mixed-steps]
     python3 scripts/torch_profile_engine.py --sampling [--kv-quantize int8|fp8]
+    python3 scripts/torch_profile_engine.py --quantize int8 [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
@@ -70,6 +71,17 @@ steps; a penalized wave does not speculate, so its wall holds its
 device time); then `sampling_dispatch` lines, torch.profiler over two
 steady decode dispatches of each key: device busy ms per dispatch and per
 step, the idle share and the ten kernels with the most device time.
+
+With --quantize int8 only the weights' case runs: int8 weights (the
+CLI's --quantize int8) against bf16 weights, each on one engine at the
+defaults (`overlap`), the int8 one quantizing the bf16 one's weights.
+On llama3-1b, for B in BATCHES, one untimed wave on each, then `weights`
+lines in the order bf16, int8, int8, bf16; then on llama3-8b (bf16
+weights drawn from seed 0, then quantized), B=64 only, the same. Then
+`weights_dispatch` lines, torch.profiler over two steady decode
+dispatches of each engine and B: device ms per decode step, the idle
+share, CUDA kernels per forward and the ten kernels with the most device
+time.
 
 Then the card's name and power limit. With no card it raises.
 """
@@ -205,6 +217,34 @@ def sampling_case(dev, card: str, args) -> None:
                   **profile_dispatches(eng, b, gen, knobs)})
 
 
+def quantize_case(dev, card: str, args) -> None:
+    """int8 weights against bf16 weights (the module's --quantize)."""
+    for model, batches in ((MODEL, BATCHES), ("llama3-8b", (64,))):
+        cfg = EngineConfig(model=model, num_pages=320, page_size=64, max_pages_per_seq=64,
+                           prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
+                           kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+        bf16 = TorchEngine(cfg, device=dev)
+        engines = {"bf16": bf16, args.quantize: TorchEngine(replace(cfg, quantize=args.quantize),
+                                                            params=bf16.params, device=dev)}
+        gen = torch.Generator().manual_seed(0)
+        head = {"card": card, "model": model, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+                "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS,
+                "param_bytes": {k: chip_smoke.param_bytes(e.params)[0]
+                                for k, e in engines.items()}}
+        for b in batches:
+            for name, eng in engines.items():
+                timed_wave(eng, f"warm-{name}{b}-", b, gen)
+            for i, name in enumerate(("bf16", args.quantize, args.quantize, "bf16")):
+                emit({"phase": "weights", **head, "batch": b, "weights": name, "order": i,
+                      **timed_wave(engines[name], f"{name}{b}-{i}-", b, gen)})
+        for b in batches:
+            for name, eng in engines.items():
+                emit({"phase": "weights_dispatch", **head, "batch": b, "weights": name,
+                      **profile_dispatches(eng, b, gen)})
+        del bf16, engines
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
@@ -214,11 +254,14 @@ def main(argv=None) -> int:
                          "and no `burst` lines")
     ap.add_argument("--sampling", action="store_true",
                     help="only the sampling surface's case: plain, lp20, pen and bias keys")
+    ap.add_argument("--quantize", default=None, choices=("int8",),
+                    help="only the weights' case: int8 weights (the CLI's flag) against bf16 "
+                         "weights on llama3-1b and llama3-8b")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
-    if args.sampling:
-        sampling_case(dev, card, args)
+    if args.sampling or args.quantize:
+        (quantize_case if args.quantize else sampling_case)(dev, card, args)
         print(card, flush=True)
         return 0
     # the largest wave holds 64 x (PROMPT + MAX_TOKENS) tokens: 256 pages

@@ -46,3 +46,12 @@ def test_ptxas_registers_reads_each_entry():
         "ptxas info    : Used 99 registers",  # no entry open: not counted
     ])
     assert _build.ptxas_registers(log) == {"_Z3fooILi64EEvv": 122, "_Z3barv": 40}
+
+
+def test_sources_name_every_kernel_file():
+    """Every csrc/*.cu is built (the int8 weight product among them), and
+    a library's build key covers its source and the shared headers."""
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert "int8_matmul" in _build.SOURCES
+    path = _build.library_path("int8_matmul")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libint8_matmul-")

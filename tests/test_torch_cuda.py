@@ -40,14 +40,22 @@ on new histories and penalties. Flash prefill and paged prefill (bf16 output) ho
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
-write's narrow bytes and scales are bit-equal too.
+write's narrow bytes and scales are bit-equal too. The int8 weight product
+holds each row within 2^-6 of the row's largest |value| at decode, chunk
+and llama3-8b shapes, counts its launches, refuses what it does not serve,
+replays in a CUDA graph, and an int8-weight engine's graphs give the eager
+loop's streams. The logprob alternatives at a tie across the N-th place
+follow (value descending, id ascending), stated in numpy (the card has no
+JAX), eager and in a graph.
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from dynamo_tpu_torch import ops
+from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import (
     DECODE_KINDS,
@@ -58,8 +66,16 @@ from dynamo_tpu_torch.engine.engine import (
 )
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.engine.step_graph import StepGraph
+from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.registry import get_model
-from dynamo_tpu_torch.ops import _build, flash_prefill, kv_quant, kv_update, paged_attention
+from dynamo_tpu_torch.ops import (
+    _build,
+    flash_prefill,
+    int8_matmul,
+    kv_quant,
+    kv_update,
+    paged_attention,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1224,3 +1240,145 @@ def test_a_penalty_graph_replays_on_new_histories(llama_params):
     assert any(key_field(k, "pen") > 1 for k in graphs.step_keys if k[0] in DECODE_KINDS)
     plain = _run_surface(eager, [(2, 17, {})], tag="b", seed=9)
     assert plain != want
+
+
+# -- int8 weights (--quantize int8) ---------------------------------------------------
+
+
+def _int8_inputs(dev, m, k, n, seed):
+    """bf16 x [M, K], an int8 weight [K, N] quantized from N(0, 1/K) draws
+    with its [1, N] scale, on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=dev) / k**0.5
+    q, scale = llama.quantize_channelwise_int8(w)
+    return x, q, scale
+
+
+def _assert_int8_rows_close(got, want):
+    """Each row within 2^-6 of the row's largest |plain value|: the plain
+    version rounds the product and the scaled product to bf16 apart, the
+    kernel once."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    assert (diff <= 2.0**-6 * want.float().abs().amax(dim=-1)).all()
+
+
+#: (M, K, N): a decode row, split over K; 17 rows (a ragged 16-row tile);
+#: 64 rows over llama3-1b's widest K; a 300-token chunk (64-row tiles, one
+#: ragged); llama3-8b's down projection
+INT8_CASES = [(1, 2048, 2048), (17, 2048, 512), (64, 8192, 2048), (300, 2048, 8192),
+              (8, 14336, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_CASES)
+def test_int8_matmul_matches_plain(m, k, n):
+    dev = _card()
+    x, w, scale = _int8_inputs(dev, m, k, n, seed=m + k + n)
+    _assert_int8_rows_close(int8_matmul.int8_matmul(x, w, scale),
+                            int8_matmul.int8_matmul_plain(x, w, scale))
+
+
+def test_int8_matmul_launches_are_counted_and_bad_inputs_raise():
+    dev = _card()
+    ops.reset_counts()
+    x, w, scale = _int8_inputs(dev, 4, 256, 256, seed=1)
+    int8_matmul.int8_matmul(x, w, scale)
+    c = ops.COUNTS["int8_matmul"]
+    assert (c.launches, c.plain_calls) == (1, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8_matmul.int8_matmul(x.float(), w, scale)
+    with pytest.raises(ValueError, match="multiple of 128"):  # N = 200
+        int8_matmul.int8_matmul(x, w[:, :200].contiguous(), scale[:, :200].contiguous())
+    with pytest.raises(ValueError, match="multiple of 128"):  # K = 96
+        int8_matmul.int8_matmul(x[:, :96].contiguous(), w[:96].contiguous(), scale)
+    with pytest.raises(ValueError, match="span devices"):
+        int8_matmul.int8_matmul(x, w.cpu(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul.int8_matmul(x, w.t().contiguous().t(), scale)
+    assert (c.launches, c.plain_calls) == (1, 0)
+
+
+@pytest.mark.parametrize("m", [2, 256])
+def test_int8_matmul_replays_in_a_cuda_graph(m):
+    """A call (split over K at M=2, one pass at M=256) captured, replayed
+    after new x, weight and scale are copied into the captured buffers:
+    bit-equal to an eager call on them, twice, and within the gate of the
+    plain version."""
+    dev = _card()
+    args = _int8_inputs(dev, m, 2048, 2048, seed=50 + m)
+    new = _int8_inputs(dev, m, 2048, 2048, seed=60 + m)
+    graph, out = _capture(dev, lambda: int8_matmul.int8_matmul(*args))
+    for dst, src in zip(args, new):
+        dst.copy_(src)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = int8_matmul.int8_matmul(*new)
+    assert torch.equal(first, eager) and torch.equal(out, eager)
+    _assert_int8_rows_close(out, int8_matmul.int8_matmul_plain(*new))
+
+
+def test_int8_weight_graphs_give_the_eager_streams(llama_params):
+    """Engines with quantize="int8" (llama3-1b; each quantizes the shared
+    bf16 weights): decode, chunk and mixed graphs with overlap on give the
+    eager loop's streams bit for bit, the graphs launch int8_matmul, and
+    nothing runs a plain version."""
+    eager, graphs = _engines(llama_params, None, overlap=(True, True), mixed_steps=True,
+                             prefill_chunk=128, quantize="int8")
+    assert graphs.params["layers"]["wq"].dtype == torch.int8
+    ops.reset_counts()
+    want = _run_late(eager) | _run_waves(eager, GRAPH_WAVES[:3], tag="w")
+    got = _run_late(graphs) | _run_waves(graphs, GRAPH_WAVES[:3], tag="w")
+    assert got == want
+    assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+    assert ops.COUNTS["int8_matmul"].launches > 0
+    kinds = {k[0] for k in graphs.step_keys}
+    assert {"mixed", "prefill"} <= kinds and kinds & set(DECODE_KINDS)
+    m = graphs.metrics
+    assert m.compiles == len(graphs.step_keys) and m.overlap_hits > 0
+    assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+    assert all("int8_matmul" in g.launches for g in graphs._step_fns.values())
+
+
+# -- logprob alternatives at a tie ----------------------------------------------------
+
+
+def _top_ids_rule(logits, k):
+    """XLA's top_k rule in numpy: ids by (value descending, id ascending),
+    the first k."""
+    return np.stack([np.lexsort((np.arange(row.size), -row))[:k] for row in logits])
+
+
+@pytest.mark.parametrize("k", [1, 5, 20])
+def test_token_logprobs_ties_across_the_nth_place_follow_the_rule(k):
+    """bf16-valued logits over llama3's vocabulary with ties planted across
+    the k-th place, at the top, and a row of one value, on the card: the
+    top ids equal (value descending, id ascending) in numpy, the values
+    are the sorted logits, and the call captures and replays in a CUDA
+    graph to the same ids."""
+    dev = _card()
+    rng = np.random.default_rng(70 + k)
+    v = 128_256
+    logits = rng.standard_normal((4, v)).astype(np.float32)
+    for row, tie_at in ((0, k - 1), (1, 0), (2, max(k - 2, 0))):
+        order = np.argsort(-logits[row], kind="stable")
+        value = logits[row, order[tie_at]]
+        logits[row, order[tie_at:tie_at + 3]] = value
+        logits[row, rng.choice(v, 40, replace=False)] = value
+    logits[3] = 0.5
+    # bf16-representable values, as the model's logits are
+    logits = torch.from_numpy(logits).to(torch.bfloat16).float().numpy()
+    x = torch.from_numpy(logits).to(dev)
+    ids = x.argmax(dim=-1)
+    _, top_ids, top_lps = sampling.token_logprobs(x, ids, k)
+    want = _top_ids_rule(logits, k)
+    np.testing.assert_array_equal(top_ids.cpu().numpy(), want)
+    lse = torch.logsumexp(x, dim=-1, keepdim=True)
+    torch.testing.assert_close(top_lps, torch.gather(x, 1, top_ids) - lse)
+    graph, out = _capture(dev, lambda: sampling.token_logprobs(x, ids, k))
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    np.testing.assert_array_equal(out[1].cpu().numpy(), want)

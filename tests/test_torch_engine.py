@@ -179,13 +179,17 @@ def test_prompt_longer_than_one_chunk_is_refused():
     ],
 )
 def test_unported_knob_is_refused_by_name(knob):
-    """(overlap_decode=True, enable_prefix_caching=True and mixed_steps=True
-    keep their cases from when the port refused them; each case now checks
-    that the knob is served.)"""
+    """(overlap_decode=True, enable_prefix_caching=True, mixed_steps=True
+    and quantize="int8" keep their cases from when the port refused them;
+    each case now checks that the knob is served.)"""
     (name,) = knob
     if name in ("overlap_decode", "enable_prefix_caching", "mixed_steps"):
         assert getattr(EngineConfig.for_tests(**knob), name) is True
         assert getattr(EngineConfig.for_tests(**{name: False}), name) is False
+        return
+    if name == "quantize":
+        assert EngineConfig.for_tests(**knob).quantize == "int8"
+        assert EngineConfig.for_tests().quantize is None
         return
     with pytest.raises(NotImplementedError, match=name):
         EngineConfig.for_tests(**knob)

@@ -392,7 +392,9 @@ def test_n_siblings_are_submitted_together_and_stream_as_made():
     once choice 0's first event came (each waits, before its first event,
     until both were submitted), and chunks come as each choice makes them
     (the siblings emit only after the caller has read choice 0's last
-    token), with indices 0-2 and one folded usage."""
+    token), with indices 0-2 and one folded usage. The card's page of 4
+    tokens makes the 19-token prompt longer than a page, so that the
+    siblings can hit choice 0's pages and wait for them."""
     submitted, both, release = [], threading.Barrier(2, timeout=10), threading.Event()
 
     def engine_fn(pre):
@@ -405,7 +407,8 @@ def test_n_siblings_are_submitted_together_and_stream_as_made():
         assert release.wait(10)
         yield {"token_ids": [67], "finish_reason": "length"}
 
-    pipe = ModelPipeline(ModelDeploymentCard(name="tiny"), engine_fn)
+    pipe = ModelPipeline(ModelDeploymentCard(name="tiny", kv_page_size=4), engine_fn,
+                         prefix_caching=True)
     req = ChatCompletionRequest.from_json({
         "model": "tiny", "messages": [{"role": "user", "content": "hi"}], "n": 3,
         "max_tokens": 2, "stream": True, "stream_options": {"include_usage": True},
@@ -419,6 +422,32 @@ def test_n_siblings_are_submitted_together_and_stream_as_made():
     assert sorted(submitted[1:]) == [f"{parent}-1", f"{parent}-2"]
     assert got[:2] == [(0, 65), (0, 66)] and sorted(got[2:]) == [(1, 67), (2, 67)]
     assert chunk.usage.completion_tokens == 4 and not chunk.choices
+
+
+@pytest.mark.parametrize("page,caching", [(64, True), (4, False)])
+def test_n_siblings_are_submitted_at_once_where_waiting_saves_no_prefill(page, caching):
+    """n = 3 on a 19-token prompt under a page of 64 tokens (no whole page
+    before its last to share), and on the same prompt over a page of 4
+    with prefix caching off: all three are submitted before any of them
+    has its first event (each waits, before its first event, until all
+    three were submitted), as the reference's pumps start together."""
+    submitted, all_three = [], threading.Barrier(3, timeout=10)
+
+    def engine_fn(pre):
+        submitted.append(pre.request_id)
+        all_three.wait()
+        yield {"token_ids": [65 + int(pre.request_id[-1])], "finish_reason": "length"}
+
+    pipe = ModelPipeline(ModelDeploymentCard(name="tiny", kv_page_size=page), engine_fn,
+                         prefix_caching=caching)
+    req = ChatCompletionRequest.from_json({
+        "model": "tiny", "messages": [{"role": "user", "content": "hi"}], "n": 3,
+        "max_tokens": 1, "stream": True, "ext": {"return_token_ids": True}})
+    got = sorted((c.index, t) for chunk in pipe.chat_stream(req)
+                 for c in chunk.choices for t in c.token_ids or ())
+    assert got == [(0, 65), (1, 66), (2, 67)]
+    parent = submitted[0][:-2]
+    assert sorted(submitted) == [f"{parent}-{i}" for i in range(3)]
 
 
 def test_penalties_bias_and_ext_knobs_are_served(server):

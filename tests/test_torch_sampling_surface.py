@@ -135,6 +135,31 @@ def test_token_logprobs_lists_ties_in_id_order_with_the_argmax_first():
     assert got[3][0] == [1, 2, 4] and got[3][2] == [0, 4, 3]
 
 
+@pytest.mark.parametrize("k", [1, 3, 5, 20])
+def test_token_logprobs_keeps_the_lower_ids_of_a_tie_across_the_nth_place(k):
+    """Ties planted across the k-th place (some of the tied ids make the
+    cut, some do not), at the top, and a row of one value: the ids equal
+    jax.lax.top_k's (value descending, id ascending), the values too."""
+    rng = np.random.default_rng(40 + k)
+    v = 300
+    logits = (rng.standard_normal((4, v)) * 4).astype(np.float32)
+    for row, tie_at in ((0, k - 1), (1, 0), (2, max(k - 2, 0))):
+        order = np.argsort(-logits[row], kind="stable")
+        # the value at the tie's place, copied onto that place and five
+        # ids past it spread over the vocabulary, below and above it
+        value = logits[row, order[tie_at]]
+        logits[row, order[tie_at:tie_at + 3]] = value
+        logits[row, rng.choice(v, 3, replace=False)] = value
+    logits[3] = 1.5
+    ids = logits.argmax(axis=1)
+    want = jax_sampling.token_logprobs(jnp.asarray(logits), jnp.asarray(ids, jnp.int32), k)
+    got = sampling.token_logprobs(torch.from_numpy(logits), torch.from_numpy(ids), k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=0, atol=FN_TOL)
+    assert got[1][:, 0].tolist() == ids.tolist()
+    assert got[1][3].tolist() == list(range(k))
+
+
 # -- TorchEngine against JaxEngine -------------------------------------------------
 
 
