@@ -133,6 +133,24 @@ Phases, each fatal on failure:
      agreeing at >= 90 % of positions. Printed beside the card's name and
      power limit: the engine ms per decode dispatch of waves of 8 and 64
      rows under the plain, lp=20, pen and bias keys;
+  4f. kstep: K-step decode windows, engines built as the CLI builds them
+     with no flags but the model, the pool and --decode-kstep 16 (graphs,
+     overlap, mixed steps, prefix caching): in each pool mode phase 4b's
+     three engines (the eager loop and graphs with --no-overlap-decode,
+     graphs with overlap), and with --quantize int8 the eager loop and
+     graphs with overlap, each over one wave of six rows of 40 tokens:
+     five short prompts, of which one stops on a forced stop id at its
+     7th token, one on eos at its 10th and one at a budget of 12, all in
+     the first window, and a 700-token prompt whose second chunk rides
+     beside that window in a split mixed step. Every stream identical in
+     an arm's engines; every key captured once, phase 4b's identities, a
+     split mixed step and chained windows consumed under overlap; the
+     window graphs launch the write and paged decode of the pool (and
+     int8_matmul), the run every kernel variant, and nothing a plain
+     version. The kernels line's `kstep_launches` and `window_launches`
+     are the CLI engine's launches in this phase (counts set to 0 just
+     before) and those made by window replays; the phase prints its
+     seconds;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -929,18 +947,21 @@ GRAPH_ENGINES = (("eager", False, False), ("graphs", True, False), ("overlap", T
 
 def run_waves(eng, waves, tag: str, **sampling) -> dict[str, list[int]]:
     """Each wave's requests together, prompts of random tokens from a fixed
-    seed (a wave's lengths, or 16-280 tokens for a count); returns request
-    id -> generated ids."""
+    seed (a wave's lengths, or 16-280 tokens for a count), greedy unless
+    `sampling` says otherwise; a wave (n, max_tokens, rows) gives its i-th
+    row the SamplingParams knobs rows[i] on top. Returns request id ->
+    generated ids."""
     from dynamo_tpu_torch.engine.request import SamplingParams
 
     gen = torch.Generator().manual_seed(3)
     out = {}
-    for w, (n, max_tokens) in enumerate(waves):
+    for w, (n, max_tokens, *rows) in enumerate(waves):
         lengths = [16 + 24 * i for i in range(n)] if isinstance(n, int) else n
         for i, length in enumerate(lengths):
             prompt = torch.randint(1, eng.adapter.vocab_size, (length,), generator=gen)
-            eng.add_request(f"{tag}{w}-{i}", prompt.tolist(),
-                            SamplingParams(max_tokens=max_tokens, ignore_eos=True, **sampling))
+            knobs = {"max_tokens": max_tokens, "ignore_eos": True, **sampling,
+                     **(rows[0][i] if rows else {})}
+            eng.add_request(f"{tag}{w}-{i}", prompt.tolist(), SamplingParams(**knobs))
         out.update(eng.run_to_completion())
     return out
 
@@ -1955,6 +1976,160 @@ def phase_sampling(dev, card: str) -> dict:
     return result
 
 
+# -- phase "kstep": K-step decode windows at the CLI's defaults plus --decode-kstep --
+
+#: the argv the phase's engines are built from: the CLI's defaults (graphs,
+#: overlap, mixed steps, prefix caching; context 4096, chunk 512, page 64,
+#: 8 fused steps) plus windows of up to 16 decode iterations
+KSTEP_ARGV = ["run", "--model", "llama3-1b", "--decode-kstep", "16"]
+#: the id the stop row is forced to (logit_bias) once its min_tokens pass
+KSTEP_STOP_ID = 4242
+
+
+def kstep_waves(eos: int) -> tuple:
+    """run_waves' one wave, rows of 40 tokens: five prompts of 80-120
+    tokens (one first-chunk group, bucket 8) and one of 700, whose first
+    chunk of 512 prefills beside them; its second chunk, with history,
+    rides beside their first window of 16 in a split mixed step. In that
+    window the third row's budget of 12, the fourth row's stop id (its
+    7th token: min_tokens 6 bans it, then +100 makes it) and the fifth
+    row's eos (its 10th) end them mid-window; the next window, over the
+    two long rows and the 700-token one, chains under overlap and is
+    consumed; the last windows end on budgets (16 and 8 iterations)."""
+    stop = dict(min_tokens=6, logit_bias=((KSTEP_STOP_ID, 100.0),),
+                stop_token_ids=(KSTEP_STOP_ID,), ignore_eos=False)
+    ends = dict(min_tokens=9, logit_bias=((eos, 100.0),), ignore_eos=False)
+    return (((120, 110, 100, 90, 80, 700), 40,
+             ({}, {}, {"max_tokens": 12}, stop, ends, {})),)
+
+
+def phase_kstep(dev, card: str) -> dict:
+    """K-step windows on llama3-1b engines built from KSTEP_ARGV, in each
+    pool mode: phase 4b's three engines (the eager loop with overlap off,
+    graphs with overlap off, and graphs with overlap, the CLI's), each over
+    kstep_waves; then, with --quantize int8, the eager loop and graphs
+    with overlap over the same. Checks: every stream identical in an
+    arm's engines; the stop and eos rows end on their ids mid-window and
+    the budget row at 12 tokens; every graph engine
+    captured each key once and keeps phase 4b's identities, ran a split
+    mixed step (mixed_dispatches > 0, no fused mixed replay) and windows
+    chained under overlap (hits); the window graphs launch the pool's
+    write and paged decode (and int8_matmul), the run every kernel
+    variant of the pool, and nothing a plain version. Returns, per kernel
+    variant, its launches in the CLI engines' runs (counts set to 0 just
+    before each) and those made by window replays."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.step_graph import StepGraph
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    params = get_model("llama3-1b", dtype="bfloat16").init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    eos = ModelDeploymentCard(name="llama3-1b").eos_token_ids
+    waves = kstep_waves(eos[0])
+    launches: dict[str, int] = {}
+    window_launches: dict[str, int] = {}
+    arms = [(mode, None) for mode in MODES] + [(None, "int8")]
+    for mode, quantize in arms:
+        label = f"kstep, {mode or 'bf16'} pool" + (", int8 weights" if quantize else "")
+        t_arm = time.perf_counter()
+        flags = (["--kv-quantize", mode] if mode else []) + (
+            ["--quantize", quantize] if quantize else [])
+        engines = GRAPH_ENGINES[::2] if quantize else GRAPH_ENGINES
+        runs = {}
+        for name, graphs, overlap in engines:
+            argv = KSTEP_ARGV + flags + ([] if overlap else ["--no-overlap-decode"])
+            cfg = cli_run.engine_config(cli_run._parse(argv), eos)
+            # int8 weights: drawn in the int8 layout from seed 0, as the CLI does
+            eng = TorchEngine(cfg, params=None if quantize else params, device=dev,
+                              cuda_graphs=graphs)
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            streams = run_waves(eng, waves, "k")
+            torch.cuda.synchronize()
+            runs[name] = dict(eng=eng, streams=streams, s=time.perf_counter() - t0,
+                              counts={k: (c.launches, c.plain_calls)
+                                      for k, c in ops.COUNTS.items()})
+        cfg = runs["overlap"]["eng"].config
+        if not (cfg.decode_kstep == 16 and cfg.mixed_steps and cfg.overlap_decode
+                and cfg.enable_prefix_caching and cfg.decode_steps == 8
+                and cfg.prefill_chunk == 512 and cfg.page_size == S):
+            raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
+        want = runs["eager"]["streams"]
+        for name, run in runs.items():
+            if run["streams"] != want:
+                bad = sorted(r for r in want if want[r] != run["streams"].get(r))
+                raise AssertionError(f"{label}: {name}'s streams differ from the eager "
+                                     f"loop's in {bad}")
+        rows = {r: want[f"k0-{r}"] for r in range(6)}
+        if not (len(rows[3]) == 7 and rows[3][-1] == KSTEP_STOP_ID
+                and KSTEP_STOP_ID not in rows[3][:-1] and len(rows[4]) == 10
+                and rows[4][-1] == eos[0] and len(rows[2]) == 12
+                and len(rows[0]) == len(rows[5]) == 40):
+            raise AssertionError(f"{label}: the stop, eos or budget rows ended wrong: "
+                                 f"{ {r: len(v) for r, v in rows.items()} }")
+        want_launch = serve_variants(mode, quantize)
+        arm = {"eager_run_s": runs["eager"]["s"]}
+        for name in ("graphs", "overlap") if not quantize else ("overlap",):
+            eng, run = runs[name]["eng"], runs[name]
+            m = eng.metrics
+            windows = {k: g for k, g in eng._step_fns.items() if k[0] == "decode_kstep"}
+            in_windows = {}
+            for g in windows.values():
+                for kernel, (n, _) in g.launches.items():
+                    in_windows[kernel] = in_windows.get(kernel, 0) + n * g.replays
+            ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+                  and bool(windows) and all(isinstance(g, StepGraph) and g.replays
+                                            for g in windows.values())
+                  and m.kstep_windows > 0 and m.kstep_window_size > 0
+                  and m.mixed_dispatches > 0 and m.mixed_replays == 0
+                  and (m.overlap_hits > 0) == (name == "overlap"))
+            line = {k: getattr(m, k) for k in (
+                "compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
+                "decode_dispatches", "decode_replays", "mixed_dispatches", "mixed_replays",
+                "overlap_dispatches", "overlap_hits", "overlap_rollbacks", "kstep_windows",
+                "kstep_steps", "kstep_fallbacks", "time_kstep_ms")}
+            line.update(dispatches=eng.dispatches, run_s=run["s"],
+                        window_keys=sorted([list(k) for k in windows]),
+                        window_launches=in_windows)
+            arm[name] = line
+            if not ok:
+                raise AssertionError(f"{label}: {name}: captures, replays, windows or split "
+                                     f"mixed steps wrong: {line}")
+            want_windows = {kv_quant.variant(n, mode)
+                            for n in ("paged_write", "paged_decode_attention")}
+            if quantize:
+                want_windows.add("int8_matmul")
+            if set(in_windows) != want_windows:
+                raise AssertionError(f"{label}: {name}: the window graphs launched "
+                                     f"{in_windows}, want {sorted(want_windows)}")
+            for kernel, (n, plain) in run["counts"].items():
+                if plain != 0 or (n == 0) == (kernel in want_launch):
+                    raise AssertionError(f"{label}: {name}: {kernel} launched {n} times, "
+                                         f"plain ran {plain} (want {want_launch})")
+            if name == "overlap":
+                for kernel, (n, _) in run["counts"].items():
+                    if n:
+                        launches.setdefault(kernel, n)
+                for kernel, n in in_windows.items():
+                    window_launches.setdefault(kernel, n)
+        result = {"phase": "kstep", "model": "llama3-1b", "dtype": "bfloat16",
+                  "kv_quantize": mode, "quantize": quantize, "card": card,
+                  "argv": KSTEP_ARGV + flags, **arm, "streams": len(want),
+                  "identical": "every stream, to the id, in the eager loop, with graphs"
+                               + ("" if quantize else ", and with graphs and overlap"),
+                  "run_s": time.perf_counter() - t_arm}
+        emit(result)
+        del runs, eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "kstep_done", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "window_launches": window_launches}
+
+
 # -- phase 5: serve ---------------------------------------------------------------
 
 
@@ -2356,6 +2531,7 @@ def main() -> int:
     phase_prefix(dev, card)
     phase_mixed(dev, card)
     phase_sampling(dev, card)
+    kstep = phase_kstep(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     # flash_prefill_attention counts from the bf16 server, int8_matmul from
@@ -2381,6 +2557,10 @@ def main() -> int:
                 "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"], "library_device_ms": c["library_device_ms"],
+                # the CLI's engine with --decode-kstep 16 (phase "kstep"): all its
+                # launches, and those made by replays of its window graphs
+                "kstep_launches": kstep["launches"].get(variant, 0),
+                "window_launches": kstep["window_launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

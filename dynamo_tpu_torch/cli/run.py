@@ -58,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
     runp.add_argument("--decode-steps", type=int, default=8, dest="decode_steps",
                       help="decode steps fused per host sync")
     runp.add_argument(
+        "--decode-kstep", type=int, default=1, dest="decode_kstep",
+        help="run K decode iterations in one captured step function per dispatch, with "
+             "stop ids and budgets judged on the device (a finished row freezes "
+             "mid-window); 1 (default) = off. Rows asking for logprobs fall back",
+    )
+    runp.add_argument(
         "--no-overlap-decode", action="store_false", dest="overlap_decode", default=True,
         help="disable the overlapped decode loop (speculative next-step dispatch with "
              "one-step-lagged host readback; on by default)",
@@ -106,6 +112,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         prefill_chunk=args.prefill_chunk,
         max_seqs=args.max_seqs,
         decode_steps=args.decode_steps,
+        decode_kstep=args.decode_kstep,
         overlap_decode=args.overlap_decode,
         mixed_steps=args.mixed_steps,
         dtype=args.dtype,

@@ -18,7 +18,6 @@ from typing import Optional
 #: values that leave their feature off (tuning knobs of an unported
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
-    "decode_kstep": (1,),
     "spec_ngram": (0,),
     "spec_ngram_match": (2,),
     "spec_draft_model": (None,),
@@ -77,6 +76,17 @@ class _PortedKnobs:
     #: decode steps fused per host sync: tokens feed back on the device
     #: and up to K-1 tokens past a stop are computed and dropped
     decode_steps: int = 8
+    #: K-step decode windows: K decode iterations in one step function
+    #: whose finish conditions (stop ids, max_tokens and context budgets)
+    #: are judged on the device, so a finished row freezes mid-window and
+    #: no token is computed past its stop; the host reads [K, B] ids and
+    #: each row's emitted count once a window. Composes with the
+    #: overlapped loop (the next window chains on speculation) and mixed
+    #: steps (the window is the decode leg beside a prefill dispatch).
+    #: Rows asking for logprobs, or with more than STOP_SLOTS stop ids,
+    #: take the fused-steps path. 1 (default) = off; K may exceed
+    #: decode_steps
+    decode_kstep: int = 1
     #: overlapped decode: dispatch the next decode step on speculation
     #: (tokens fed back on the device) before the pending step's ids reach
     #: the host, and roll it back when the batch changes

@@ -33,6 +33,20 @@ count as decode steps for the overlapped loop: a speculation that matches
 the decode rows is consumed as the decode half, and the pieces dispatch
 beside it as a prefill step.
 
+K-step decode windows (config.decode_kstep, off by default as in the JAX
+engine): a decode dispatch runs K iterations in one step function, key
+kind "decode_kstep", whose stop ids and budgets are judged on the device
+(`_decode_body`): a row that emits a stop id or its last allowed token
+freezes for the rest of the window, writing no KV and advancing no
+position, draw or output count, so streams equal one step a dispatch.
+The host reads the ids [K, B] and each row's emitted count once a
+window, and raises if its own finish scan accepts another count. The
+pages the window needs are reserved before it is dispatched
+(`_pick_kstep`). A batch with a logprob row, or a stop set over
+STOP_SLOTS, takes the fused-steps path; under overlap the next window
+chains on speculation; beside prefill work the window is the decode leg
+of a split mixed step.
+
 Prefix caching (config.enable_prefix_caching, on by default as in the
 JAX engine): the scheduler admits a prompt onto the longest cached chain
 of its full pages, so its first piece is a chunk with history that starts
@@ -82,6 +96,7 @@ from dynamo_tpu_torch.engine.request import (
 from dynamo_tpu_torch.engine.sampling import (
     BIAS_SLOTS,
     DEFAULT_K_CAP,
+    STOP_SLOTS,
     apply_logit_bias,
     apply_penalties,
     build_output_counts,
@@ -89,6 +104,7 @@ from dynamo_tpu_torch.engine.sampling import (
     gumbel_noise,
     sample,
     sample_greedy,
+    stop_mask,
     token_logprobs,
 )
 from dynamo_tpu_torch.engine.scheduler import ScheduledBatch, Scheduler
@@ -99,8 +115,9 @@ from dynamo_tpu_torch.platform import resolve_device
 
 logger = logging.getLogger(__name__)
 
-#: the step kinds of a decode dispatch (one step, fused steps)
-DECODE_KINDS = ("decode", "decode_multi")
+#: the step kinds of a decode dispatch (one step, fused steps, a K-step
+#: window with on-device stop masks)
+DECODE_KINDS = ("decode", "decode_multi", "decode_kstep")
 #: the step kinds whose body runs paged decode attention: decode
 #: dispatches and mixed steps, whose decode half is a K=1 decode step
 PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed")
@@ -109,6 +126,7 @@ _DECODE_FIELDS = ("kind", "bucket", "steps", "greedy", "lp", "pen", "bias")
 KEY_FIELDS = {
     "decode": _DECODE_FIELDS,
     "decode_multi": _DECODE_FIELDS,
+    "decode_kstep": _DECODE_FIELDS,
     "prefill": ("kind", "bucket", "t", "greedy", "first_chunk", "lp", "pen", "bias"),
     "prefill_nosample": ("kind", "bucket", "t", "first_chunk"),
     "mixed": ("kind", "bucket", "t", "pieces", "greedy", "first_chunk", "psamp",
@@ -172,6 +190,18 @@ class EngineMetrics:
     overlap_dispatches: int = 0
     overlap_hits: int = 0
     overlap_rollbacks: int = 0
+    #: K-step decode windows (config.decode_kstep), as the JAX engine
+    #: counts them: windows dispatched (chained speculations included),
+    #: the decode iterations they ran, the last window's K, and decode
+    #: dispatches where a K > 1 window fell back to the fused-steps path
+    #: (a row asks for logprobs or has more than STOP_SLOTS stop ids)
+    kstep_windows: int = 0
+    kstep_steps: int = 0
+    kstep_window_size: int = 0
+    kstep_fallbacks: int = 0
+    #: wall ms of the windows dispatched outside a speculation: their host
+    #: arrays, dispatch, the wait for their ids and the host's scan
+    time_kstep_ms: float = 0.0
     #: prompt tokens the prefix cache served over those it was asked for
     #: (PrefixCacheStats.hit_rate), refreshed every step
     prefix_hit_rate: float = 0.0
@@ -195,6 +225,9 @@ class _InflightDecode:
     #: per-request state the batch must show when this step is consumed
     expected_num_tokens: tuple
     expected_out_len: tuple
+    #: a K-step window (its Readback carries the rows' emitted counts); a
+    #: speculation chained off it stays a window
+    kstep: bool = False
 
 
 class TorchEngine:
@@ -693,6 +726,18 @@ class TorchEngine:
             return 1
         if self.scheduler.num_waiting() > 0 and self.scheduler.can_admit_head():
             return 1
+        k = self._covering_steps(reqs, k)
+        if k <= 1:
+            return 1
+        if not self._grow_pages_for(reqs, k - 1):
+            return 1  # the single-step path handles pressure via preemption
+        return k
+
+    def _covering_steps(self, reqs: list[Request], k: int) -> int:
+        """k capped by each row's context room and by the longest remaining
+        completion rounded up to a power of two, snapped down to a power of
+        two (the key family stays log-sized; rows that finish early drop
+        their overshoot, or freeze in a window)."""
         for req in reqs:
             k = min(k, self.config.max_context - req.num_tokens + 1)
         rem_max = max(
@@ -701,12 +746,7 @@ class TorchEngine:
         p = 1
         while p < max(1, rem_max):
             p *= 2
-        k = self._pow2_floor(min(k, p))
-        if k <= 1:
-            return 1
-        if not self._grow_pages_for(reqs, k - 1):
-            return 1  # the single-step path handles pressure via preemption
-        return k
+        return self._pow2_floor(min(k, p))
 
     def _grow_pages_for(self, reqs: list[Request], ahead: int) -> bool:
         """Grow every page table to cover num_tokens + ahead, or nothing."""
@@ -718,6 +758,74 @@ class TorchEngine:
             if n:
                 req.pages.extend(self.allocator.allocate(n))
         return True
+
+    # -- K-step decode windows (config.decode_kstep; JaxEngine:
+    # _kstep_stop_ids .. _kstep_arrays) ------------------------------------
+
+    def _kstep_stop_ids(self, req: Request) -> Optional[tuple[int, ...]]:
+        """The request's stop ids on the device (the eos ids, then its stop
+        ids; none for an ignore_eos request, as _finish_reason_for ignores
+        both sets for it), or None when they overflow STOP_SLOTS and the
+        host must judge its stops."""
+        s = req.sampling
+        if s.ignore_eos:
+            return ()
+        ids = tuple(dict.fromkeys((*self.config.eos_token_ids, *s.stop_token_ids)))
+        return ids if len(ids) <= STOP_SLOTS else None
+
+    def _kstep_candidate(self, reqs: list[Request]) -> bool:
+        """Whether these rows may run as a window: windows on, no row asks
+        for logprobs (the window reports none), every stop set fits
+        STOP_SLOTS. A mixed step splits when it holds (_run_mixed)."""
+        if self.config.decode_kstep <= 1 or self._batch_logprobs(reqs) >= 0:
+            return False
+        return all(self._kstep_stop_ids(r) is not None for r in reqs)
+
+    def _pick_kstep(self, reqs: list[Request]) -> int:
+        """The window's K for this decode dispatch, or 1 for the
+        fused-steps path: 1 while an admissible request waits; else
+        decode_kstep as _covering_steps caps it, clamped to the pool's
+        page runway (Scheduler.clamp_kstep_window) and halved until every
+        page table grows to cover the window (the device asks the host for
+        no page mid-window). An ineligible batch counts a fallback."""
+        if self.config.decode_kstep <= 1:
+            return 1
+        if not self._kstep_candidate(reqs):
+            self.metrics.kstep_fallbacks += 1
+            return 1
+        if self.scheduler.num_waiting() > 0 and self.scheduler.can_admit_head():
+            return 1  # new arrivals do not wait K steps
+        k = self._covering_steps(reqs, self.config.decode_kstep)
+        if k <= 1:
+            return 1
+        k = self.scheduler.clamp_kstep_window(reqs, k)
+        while k > 1 and not self._grow_pages_for(reqs, k - 1):
+            k //= 2  # the pool is smaller than the clamp saw
+        return max(1, k)
+
+    def _kstep_arrays(self, reqs: list[Request], pad_to: int, emitted_ahead: int = 0
+                      ) -> dict[str, np.ndarray]:
+        """The window's finish inputs, padded to pad_to: each row's stop ids
+        [pad_to, STOP_SLOTS] (-1-padded) and budget [pad_to], the tokens
+        _finish_reason_for lets it emit (its max_tokens and context room),
+        less `emitted_ahead`, the tokens of a pending window a chained one
+        follows. Padding rows: budget 0, no stop ids (never alive)."""
+        stops = np.full((pad_to, STOP_SLOTS), -1, np.int64)
+        budgets = np.zeros(pad_to, np.int32)
+        for i, req in enumerate(reqs):
+            ids = self._kstep_stop_ids(req)  # eligible: _kstep_candidate
+            stops[i, : len(ids)] = ids
+            room = min(req.sampling.max_tokens - len(req.output_tokens) - req.num_emitted,
+                       self.config.max_context - req.num_tokens)
+            budgets[i] = max(0, room - emitted_ahead)
+        return {"stops": stops, "budgets": budgets}
+
+    def _count_window(self, k_steps: int) -> None:
+        """A window dispatched, speculated or not (the JAX engine's counts)."""
+        m = self.metrics
+        m.kstep_windows += 1
+        m.kstep_steps += k_steps
+        m.kstep_window_size = k_steps
 
     def _decode_arrays(self, reqs: list[Request], b_bucket: int, ahead: int
                        ) -> dict[str, np.ndarray]:
@@ -740,8 +848,11 @@ class TorchEngine:
                 return self._consume_inflight(inflight)
             self._inflight = inflight  # handed back for the count
             self._discard_inflight("decode batch changed")
+        t0 = time.perf_counter()
         b_bucket = self.config.decode_bucket_for(len(reqs))
-        k_steps = self._pick_decode_steps(reqs)
+        # a K-step window first; at 1 the fused-steps path, as without windows
+        k_win = self._pick_kstep(reqs)
+        k_steps = k_win if k_win > 1 else self._pick_decode_steps(reqs)
         tokens = np.zeros((b_bucket, 1), np.int64)
         for i, req in enumerate(reqs):
             tokens[i, 0] = req.all_tokens[-1]
@@ -750,22 +861,34 @@ class TorchEngine:
         lp, pen, bias = (self._batch_logprobs(reqs), self._batch_penalty_bucket(reqs),
                          self._batch_bias(reqs))
         arrays.update(**(samp or {}), **self._surface_arrays(reqs, b_bucket, pen, bias))
-        # the JAX engine's kinds: one step is "decode", fused steps "decode_multi"
-        kind = DECODE_KINDS[k_steps > 1]
+        if k_win > 1:
+            arrays.update(self._kstep_arrays(reqs, b_bucket))
+            kind = "decode_kstep"  # lp is -1: a logprob row falls back
+            self._count_window(k_steps)
+        else:
+            # the JAX engine's kinds: one step is "decode", fused steps "decode_multi"
+            kind = DECODE_KINDS[k_steps > 1]
         ids = self._dispatch((kind, b_bucket, k_steps, samp is None, lp, pen, bias), arrays)
         # keep the device busy past this step before waiting for its ids
-        self._maybe_speculate(reqs, b_bucket, k_steps, samp is None, ids)
-        return self._decode_postprocess(reqs, k_steps, ids)
+        self._maybe_speculate(reqs, b_bucket, k_steps, samp is None, ids, kstep=k_win > 1)
+        outputs = self._decode_postprocess(reqs, k_steps, ids, kstep=k_win > 1)
+        if k_win > 1:
+            self.metrics.time_kstep_ms += (time.perf_counter() - t0) * 1e3
+        return outputs
 
-    def _decode_postprocess(self, reqs: list[Request], k_steps: int,
-                            ids: Readback) -> list[StepOutput]:
+    def _decode_postprocess(self, reqs: list[Request], k_steps: int, ids: Readback,
+                            kstep: bool = False) -> list[StepOutput]:
         """Wait for a decode dispatch's ids [K, B] (copied to the host since
         it was dispatched), then scan them for finishes, dropping tokens
-        past a stop and their logprobs, and accept the rest."""
+        past a stop and their logprobs, and accept the rest. A K-step
+        window's rows froze on the device at the same finishes: the
+        tokens accepted must be the counts it emitted, or it raises."""
         t1 = time.perf_counter()
         host = ids.numpy()
         lp = ids.extras() or None
         self.metrics.time_decode_sync_ms += (time.perf_counter() - t1) * 1e3
+        if kstep:
+            (n_emit,), lp = lp, None
         self.metrics.decode_steps_run += k_steps
         outputs: list[StepOutput] = []
         for i, req in enumerate(reqs):
@@ -783,6 +906,15 @@ class TorchEngine:
             # a request that finished here has no chain left: its last
             # pages are not registered (as in the JAX engine)
             self._register_pages(req)
+        if kstep:
+            accepted = sum(len(o.new_token_ids) for o in outputs)
+            emitted = int(n_emit[: len(reqs)].sum())
+            if accepted != emitted:
+                # the same arithmetic on both sides: a fault in the window
+                # body or its inputs (the JAX engine logs it and goes on)
+                raise RuntimeError(f"K-step window disagreement: the device emitted "
+                                   f"{emitted} tokens, the host accepted {accepted} "
+                                   f"(K={k_steps}, B={len(reqs)})")
         return outputs
 
     def _decode_body(self, k_steps: int, lp: int, bufs: dict[str, torch.Tensor]):
@@ -791,23 +923,47 @@ class TorchEngine:
         and their logprobs: chosen [K, B], top ids and logprobs [K, B,
         max(lp, 1)]). Each step's sampled ids extend the output counts the
         next step penalizes, and the min_tokens gate reads the step's own
-        output count."""
-        tokens, pos = bufs["tokens"], bufs["positions"]
+        output count.
+
+        With `stops` and `budgets` among the inputs the steps are a K-step
+        window, which returns the ids [K, B] and each row's emitted count
+        [B]. A row is alive from its `valid` until it emits a stop id or
+        its budget's last token (emitted first, as the host accepts a
+        stop), then frozen: each step runs with valid & alive, so the write
+        lands nothing for it, and its position, draw and output counts
+        stop (a live row's step s draws noise s and gates min_tokens at
+        count + s). Nothing here reads a device value on the host, so the
+        window captures as one graph."""
+        tokens, pos, valid = bufs["tokens"], bufs["positions"], bufs["valid"]
         counts = self._counts(bufs)
+        window = "stops" in bufs
+        alive = valid[:, 0] if window else None  # padding rows start frozen
+        n_emit = torch.zeros_like(bufs["budgets"]) if window else None
         step_ids, step_lps = [], []
         for s in range(k_steps):
             hidden, self.kv = self.adapter.forward_hidden(
-                self.params, tokens, pos, bufs["valid"], self.kv, bufs["page_tables"]
+                self.params, tokens, pos, valid if alive is None else valid & alive[:, None],
+                self.kv, bufs["page_tables"]
             )
             logits = self.adapter.compute_logits(self.params, hidden[:, -1])
             ids = self._pick(logits, bufs, s, counts)
             if counts is not None:
-                counts = count_tokens(counts, ids)
+                counts = count_tokens(counts, ids, alive)
             if lp >= 0:
                 step_lps.append(token_logprobs(logits, ids, lp))
             step_ids.append(ids)
             tokens = ids[:, None]  # fed back on the device
-            pos = pos + 1
+            if alive is None:
+                pos = pos + 1
+                continue
+            n_emit = n_emit + alive.to(n_emit.dtype)
+            # a frozen row's history stays where it stopped: positions
+            # advance by the alive mask, so paged decode never reads past
+            # the pages of a row frozen at its context budget
+            pos = pos + alive[:, None].to(pos.dtype)
+            alive = alive & ~stop_mask(ids, bufs["stops"]) & (n_emit < bufs["budgets"])
+        if window:
+            return torch.stack(step_ids), n_emit
         return self._outputs(step_ids, step_lps)
 
     # -- mixed prefill+decode steps (JaxEngine._run_mixed) -----------------
@@ -819,24 +975,29 @@ class TorchEngine:
         own, so the halves read none of each other's writes, and greedy
         streams equal the XOR policy's.
 
-        A speculation in flight that matches the decode rows is this
-        step's decode half: the pieces dispatch beside it as a prefill
-        step (the port has no multimodal pieces and no K-step windows, the
-        JAX engine's other cases for two dispatches). Otherwise the pieces
-        are grouped by T bucket, as a prefill step groups them, so each
-        runs under the key the XOR policy would give it: the largest-T
-        group is fused with the decode batch into one "mixed" step
-        function, and the other groups dispatch beside it as a prefill
-        step."""
+        Two cases split the step into two dispatches, as in the JAX
+        engine: a speculation in flight that matches the decode rows is
+        this step's decode half, and decode rows that may run as a K-step
+        window (_kstep_candidate: the mixed step function has no window)
+        run as the decode leg through _run_decode; either way the pieces
+        dispatch first, as a prefill step (the port has no multimodal
+        pieces, the JAX engine's third case). Otherwise the pieces are
+        grouped by T bucket, as a prefill step groups them, so each runs
+        under the key the XOR policy would give it: the largest-T group is
+        fused with the decode batch into one "mixed" step function, and
+        the other groups dispatch beside it as a prefill step."""
         reqs_d = list(batch.decode)
         inflight = self._inflight
-        if inflight is not None and self._inflight_matches(inflight, reqs_d):
-            # the pieces' replays come before the next speculation reads
-            # this one's ids on the device, and may overwrite them
-            inflight.ids.keep()
+        use_inflight = inflight is not None and self._inflight_matches(inflight, reqs_d)
+        if use_inflight or self._kstep_candidate(reqs_d):
+            if use_inflight:
+                # the pieces' replays come before the next speculation
+                # reads this one's ids on the device, and may overwrite them
+                inflight.ids.keep()
             self.metrics.prefill_dispatches += 1
             outputs = self._run_prefill(ScheduledBatch(kind="prefill", prefill=batch.prefill))
-            # consumes the speculation and speculates again if the rows hold
+            # consumes the speculation (or rolls it back) and speculates
+            # again if the rows hold
             return outputs + self._run_decode(ScheduledBatch(kind="decode", decode=batch.decode))
         self._discard_inflight("mixed composition changed")
         groups = self._group_pieces(batch.prefill)
@@ -926,7 +1087,7 @@ class TorchEngine:
     # -- overlapped decode (JaxEngine: _maybe_speculate .. drain_overlap) ---
 
     def _maybe_speculate(self, reqs: list[Request], b_bucket: int, k_prev: int,
-                         greedy: bool, prev: Readback) -> None:
+                         greedy: bool, prev: Readback, kstep: bool = False) -> None:
         """Dispatch the next decode step before the pending one's ids reach
         the host: the same batch, positions advanced by k_prev, tokens the
         pending step's last ids, copied on the device. Only when the
@@ -938,7 +1099,10 @@ class TorchEngine:
         the decode half of the next mixed step. Never when a row carries a
         penalty: its history needs the pending step's tokens on the host
         (logprob and bias batches speculate; a bias row's output count
-        is advanced by k_prev)."""
+        is advanced by k_prev). After a K-step window (`kstep`) the next
+        window chains through the same kind, its budgets less k_prev; a
+        row that stops inside the pending window changes the batch, and
+        the chained window is rolled back."""
         if not self.config.overlap_decode or self._batch_penalty_bucket(reqs):
             return
         if not self.scheduler.decode_batch_stable() and not (
@@ -964,13 +1128,19 @@ class TorchEngine:
         lp, bias = self._batch_logprobs(reqs), self._batch_bias(reqs)
         arrays.update(**(samp or {}), **self._surface_arrays(reqs, b_bucket, 0, bias,
                                                              ahead=k_prev))
-        ids = self._dispatch((DECODE_KINDS[k_next > 1], b_bucket, k_next, greedy, lp, 0, bias),
-                             arrays)
+        kstep = kstep and k_next > 1
+        kind = DECODE_KINDS[k_next > 1]
+        if kstep:
+            arrays.update(self._kstep_arrays(reqs, b_bucket, emitted_ahead=k_prev))
+            kind = "decode_kstep"
+        ids = self._dispatch((kind, b_bucket, k_next, greedy, lp, 0, bias), arrays)
+        if kstep:
+            self._count_window(k_next)
         self.metrics.overlap_dispatches += 1
         self._inflight = _InflightDecode(
             reqs=tuple(reqs), b_bucket=b_bucket, k_steps=k_next, greedy=greedy, ids=ids,
             expected_num_tokens=tuple(r.num_tokens + k_prev for r in reqs),
-            expected_out_len=tuple(len(r.output_tokens) + k_prev for r in reqs),
+            expected_out_len=tuple(len(r.output_tokens) + k_prev for r in reqs), kstep=kstep,
         )
 
     @staticmethod
@@ -994,8 +1164,9 @@ class TorchEngine:
         self.metrics.overlap_hits += 1
         reqs = list(inflight.reqs)
         self._maybe_speculate(reqs, inflight.b_bucket, inflight.k_steps, inflight.greedy,
-                              inflight.ids)
-        return self._decode_postprocess(reqs, inflight.k_steps, inflight.ids)
+                              inflight.ids, kstep=inflight.kstep)
+        return self._decode_postprocess(reqs, inflight.k_steps, inflight.ids,
+                                        kstep=inflight.kstep)
 
     def _discard_inflight(self, why: str) -> None:
         """Roll back a speculated dispatch. Its ids are overshoot, dropped
@@ -1021,9 +1192,9 @@ class TorchEngine:
         return self._get_step_fn(key)(arrays)
 
     def _body(self, key: tuple):
-        """The body of a step key: K fused decode steps, one mixed step, or
-        one prefill chunk step that samples or not, over the dispatch's
-        device inputs."""
+        """The body of a step key: a K-step window, K fused decode steps,
+        one mixed step, or one prefill chunk step that samples or not,
+        over the dispatch's device inputs."""
         field = functools.partial(key_field, key)
         if key[0] in DECODE_KINDS:
             return functools.partial(self._decode_body, field("steps"), field("lp"))
@@ -1036,7 +1207,8 @@ class TorchEngine:
     def _get_step_fn(self, key: tuple):
         """The step function of a dispatch, fn(inputs) -> Readback, cached
         by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
-        (kind, batch bucket, steps, all-greedy, lp, pen, bias), for prefill
+        (kind, batch bucket, steps, all-greedy, lp, pen, bias), where a
+        K-step window's kind is "decode_kstep" and its lp -1, for prefill
         ("prefill", B bucket, T bucket, all-greedy, first chunk, lp, pen,
         bias) and ("prefill_nosample", B bucket, T bucket, first chunk),
         for mixed steps ("mixed", decode bucket, T bucket, piece bucket,
@@ -1088,7 +1260,8 @@ class TorchEngine:
     def _graph_setup(self) -> None:
         """Before the first capture: the capture stream, the pool every
         step graph shares (per decode bucket up to 4 values of K x 2
-        sampler kinds; per prefill B and T bucket, 2 sampler kinds x 2
+        sampler kinds, and with windows one more kind for each power of
+        two up to decode_kstep; per prefill B and T bucket, 2 sampler kinds x 2
         chunk kinds and 2 non-sampling ones; per decode bucket, T bucket
         and piece bucket, 2 sampler kinds x 2 chunk kinds x prefill rows
         sampled or not, mixed ones; each sampling one again for each lp

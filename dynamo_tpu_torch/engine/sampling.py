@@ -2,10 +2,10 @@
 logit bias and logprobs.
 
 Counterpart of dynamo_tpu/engine/sampling.py: sample, sample_greedy,
-build_output_counts, apply_penalties, apply_logit_bias and token_logprobs,
-in plain PyTorch on tensors of any device (the reference computes the
-penalties, the bias and the logprobs in XLA ops around its sampler, outside
-any Pallas kernel).
+build_output_counts, apply_penalties, apply_logit_bias, token_logprobs and
+stop_mask, in plain PyTorch on tensors of any device (the reference
+computes the penalties, the bias, the logprobs and the stop masks in XLA
+ops around its sampler, outside any Pallas kernel).
 One call handles a heterogeneous batch (per-row parameters): greedy rows
 take the argmax, sampling rows take a Gumbel draw over the top-k/top-p
 masked, temperature-scaled distribution, truncated (as in the JAX
@@ -32,6 +32,11 @@ _NEG_INF = -1e30
 
 #: static candidate-set bound; per-request top_k is clamped to this
 DEFAULT_K_CAP = 64
+
+#: static per-row stop-id slots of a K-step decode window
+#: (EngineConfig.decode_kstep): each row's eos and stop ids, -1-padded; a
+#: request with more takes the fused-steps path, where the host judges stops
+STOP_SLOTS = 8
 
 #: static per-row sparse logit-bias slots (OpenAI logit_bias entries and
 #: min_tokens' eos/stop bans share them); requests needing more are refused
@@ -91,6 +96,15 @@ def sample(
     return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
 
 
+def stop_mask(ids: torch.Tensor,  # [B] sampled ids
+              stops: torch.Tensor,  # [B, STOP_SLOTS] stop ids, -1-padded
+              ) -> torch.Tensor:  # [B] bool
+    """Whether each row's sampled id is one of its stop ids (a K-step
+    window freezes the row after emitting it). Padding slots are -1 and
+    never match."""
+    return ((ids[:, None] == stops) & (stops >= 0)).any(dim=1)
+
+
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax-only path for batches where every request is greedy."""
     return torch.argmax(logits, dim=-1)
@@ -108,12 +122,15 @@ def build_output_counts(out_tokens: torch.Tensor,  # [B, O] i64 output history (
     return counts.scatter_add_(1, out_tokens, out_valid.to(torch.float32))
 
 
-def count_tokens(counts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def count_tokens(counts: torch.Tensor, ids: torch.Tensor,
+                 alive: torch.Tensor | None = None) -> torch.Tensor:
     """counts [B, V] with each row's sampled id [B] counted once more (a
-    fused step extends the history the next step penalizes); exact, as in
-    build_output_counts."""
-    return counts.scatter_add(1, ids[:, None], torch.ones_like(ids[:, None],
-                                                               dtype=torch.float32))
+    fused step extends the history the next step penalizes), or only the
+    rows where `alive` [B] holds (a K-step window's frozen rows keep
+    their counts); exact, as in build_output_counts."""
+    add = (torch.ones_like(ids, dtype=torch.float32) if alive is None
+           else alive.to(torch.float32))
+    return counts.scatter_add(1, ids[:, None], add[:, None])
 
 
 def apply_penalties(logits: torch.Tensor,  # [B, V] f32

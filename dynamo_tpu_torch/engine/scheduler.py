@@ -119,6 +119,21 @@ class Scheduler:
         need = self._pages_for(self.waiting[0])
         return self.allocator.num_free - need >= self._watermark_pages()
 
+    def clamp_kstep_window(self, reqs, k: int) -> int:
+        """The page runway of a K-step decode window
+        (EngineConfig.decode_kstep): the window writes up to K tokens of KV
+        a row with no host between its steps, so every page it needs must
+        exist before it is dispatched. Halve K until the pages covering
+        num_tokens + K - 1 of every row, beyond those each holds, fit the
+        free pool (as the JAX scheduler does); returns K >= 1."""
+        ps = self.config.page_size
+        while k > 1:
+            need = sum(max(0, -(-(r.num_tokens + k - 1) // ps) - len(r.pages)) for r in reqs)
+            if need <= self.allocator.num_free:
+                return k
+            k //= 2
+        return 1
+
     def decode_batch_stable(self) -> bool:
         """The overlap contract (EngineConfig.overlap_decode): absent
         request-side events, the next `schedule()` returns the same decode

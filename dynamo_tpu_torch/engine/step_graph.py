@@ -24,6 +24,7 @@ added again on every replay (ops.COUNTS).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import numpy as np
@@ -165,15 +166,26 @@ class StepGraph:
         copy into the next dispatch's inputs (StaticInputs.fill), or, where
         another replay comes between (a mixed step's pieces beside a
         consumed speculation), a copy of its own (Readback.keep). Replays
-        run one at a time on that stream."""
+        run one at a time on that stream.
+
+        The garbage collector is off during the capture: a collection
+        there that frees another graph (one of an engine dropped in a
+        reference cycle) resets it mid-capture, which CUDA forbids, and
+        the capture fails."""
         dev_stream = torch.cuda.current_stream(stream.device)
         stream.wait_stream(dev_stream)
         with torch.cuda.stream(stream):
             body(self.inputs.device)
         dev_stream.wait_stream(stream)
         before = {k: (c.launches, c.plain_calls) for k, c in COUNTS.items()}
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.out = body(self.inputs.device)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.out = body(self.inputs.device)
+        finally:
+            if collecting:
+                gc.enable()
         for k, c in COUNTS.items():
             n = (c.launches - before[k][0], c.plain_calls - before[k][1])
             c.launches, c.plain_calls = before[k]  # the capture ran nothing

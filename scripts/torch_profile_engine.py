@@ -5,6 +5,7 @@ the overlapped decode loop.
     python3 scripts/torch_profile_engine.py [--kv-quantize int8|fp8] [--no-mixed-steps]
     python3 scripts/torch_profile_engine.py --sampling [--kv-quantize int8|fp8]
     python3 scripts/torch_profile_engine.py --quantize int8 [--kv-quantize int8|fp8]
+    python3 scripts/torch_profile_engine.py --decode-kstep K [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
@@ -83,6 +84,21 @@ dispatches of each engine and B: device ms per decode step, the idle
 share, CUDA kernels per forward and the ten kernels with the most device
 time.
 
+With --decode-kstep K only the windows' case runs: the defaults
+(`overlap`: K=8 fused steps, overlapped decode, mixed steps, prefix
+caching) against the same engine with K-step windows of up to K decode
+iterations (the CLI's --decode-kstep K), on one set of weights. For B in
+BATCHES, one untimed wave on each (its captures: `compiles` and
+`compile_ms` print in a `kstep_captures` line), then `kstep` lines in the
+order defaults, kstep, kstep, defaults (as `wave`, with the window
+counts); then `kstep_dispatch` lines, torch.profiler over two steady
+decode dispatches of each engine and B: device ms per decode iteration
+(a window's frozen steps included), the idle share, CUDA kernels per
+forward and the ten kernels with the most device time; then `noise`
+lines: host ms of the Gumbel noise a sampled dispatch makes
+(engine/sampling.py gumbel_noise, one generator seed a row and step) at
+K in (DECODE_STEPS, K) and B in BATCHES, the mean of five calls.
+
 Then the card's name and power limit. With no card it raises.
 """
 
@@ -104,6 +120,7 @@ from dynamo_tpu_torch import platform  # noqa: E402
 from dynamo_tpu_torch.engine.config import EngineConfig  # noqa: E402
 from dynamo_tpu_torch.engine.engine import TorchEngine  # noqa: E402
 from dynamo_tpu_torch.engine.request import SamplingParams  # noqa: E402
+from dynamo_tpu_torch.engine.sampling import DEFAULT_K_CAP, gumbel_noise  # noqa: E402
 
 MODEL, PROMPT, MAX_TOKENS, DECODE_STEPS = "llama3-1b", 128, 128, 8
 #: the decode batches timed: 8, and 64, the largest decode bucket
@@ -161,7 +178,8 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
             "sync_ms_per_dispatch": sync_ms / n,
             **{k: m[k] for k in ("compiles", "decode_replays", "prefill_replays",
                                  "mixed_dispatches", "mixed_replays", "overlap_dispatches",
-                                 "overlap_hits", "overlap_rollbacks")}}
+                                 "overlap_hits", "overlap_rollbacks", "kstep_windows",
+                                 "kstep_steps")}}
 
 
 def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator,
@@ -245,6 +263,43 @@ def quantize_case(dev, card: str, args) -> None:
         torch.cuda.empty_cache()
 
 
+def kstep_case(dev, card: str, args) -> None:
+    """The defaults against K-step windows (the module's --decode-kstep)."""
+    cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
+                       prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
+                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+    defaults = TorchEngine(cfg, device=dev)
+    engines = {"defaults": defaults,
+               "kstep": TorchEngine(replace(cfg, decode_kstep=args.decode_kstep),
+                                    params=defaults.params, device=dev)}
+    gen = torch.Generator().manual_seed(0)
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS,
+            "decode_kstep": args.decode_kstep}
+    for b in BATCHES:
+        for name, eng in engines.items():
+            timed_wave(eng, f"warm-{name}{b}-", b, gen)
+    emit({"phase": "kstep_captures", **head,
+          **{name: {"compiles": e.metrics.compiles, "compile_ms": e.metrics.compile_ms,
+                    "keys": sorted([list(k) for k in e.step_keys], key=str)}
+             for name, e in engines.items()}})
+    for b in BATCHES:
+        for i, name in enumerate(("defaults", "kstep", "kstep", "defaults")):
+            emit({"phase": "kstep", **head, "batch": b, "engine": name, "order": i,
+                  **timed_wave(engines[name], f"{name}{b}-{i}-", b, gen)})
+    for b in BATCHES:
+        for name, eng in engines.items():
+            emit({"phase": "kstep_dispatch", **head, "batch": b, "engine": name,
+                  **profile_dispatches(eng, b, gen)})
+    for steps in (DECODE_STEPS, args.decode_kstep):
+        for b in BATCHES:
+            t0 = time.perf_counter()
+            for i in range(5):
+                gumbel_noise(range(b), [i] * b, DEFAULT_K_CAP, steps)
+            emit({"phase": "noise", "steps": steps, "batch": b, "seeds": steps * b,
+                  "host_ms": (time.perf_counter() - t0) * 1e3 / 5})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
@@ -257,11 +312,16 @@ def main(argv=None) -> int:
     ap.add_argument("--quantize", default=None, choices=("int8",),
                     help="only the weights' case: int8 weights (the CLI's flag) against bf16 "
                          "weights on llama3-1b and llama3-8b")
+    ap.add_argument("--decode-kstep", type=int, default=1, dest="decode_kstep",
+                    help="only the windows' case: the defaults against K-step windows of up "
+                         "to K iterations (the CLI's flag)")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
-    if args.sampling or args.quantize:
-        (quantize_case if args.quantize else sampling_case)(dev, card, args)
+    case = (quantize_case if args.quantize else sampling_case if args.sampling
+            else kstep_case if args.decode_kstep > 1 else None)
+    if case is not None:
+        case(dev, card, args)
         print(card, flush=True)
         return 0
     # the largest wave holds 64 x (PROMPT + MAX_TOKENS) tokens: 256 pages

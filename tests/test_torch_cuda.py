@@ -36,7 +36,13 @@ intact across the pieces' replays. The sampling surface's keys (logprobs,
 penalties, logit_bias with min_tokens) replayed as graphs give the eager
 loop's ids, logprobs and alternatives bit for bit in each pool mode, with
 and without overlapped decode, and a penalty key's graph replays right
-on new histories and penalties. Flash prefill and paged prefill (bf16 output) hold each
+on new histories and penalties. K-step windows (decode_kstep) replayed as
+graphs give the eager loop's streams in each pool mode, with and without
+overlapped decode, with a stop id, eos and a budget landing mid-window;
+a window key replays on new prompts without a capture; and a row frozen
+mid-window leaves the slots of its page past its stop as they were
+poisoned, while the window's emitted counts equal the host's. Flash
+prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
 Each holds for bf16 pools and for quantized (int8, fp8) pools, where the
@@ -64,7 +70,7 @@ from dynamo_tpu_torch.engine.engine import (
     key_field,
     key_has_surface,
 )
-from dynamo_tpu_torch.engine.request import SamplingParams
+from dynamo_tpu_torch.engine.request import FinishReason, SamplingParams
 from dynamo_tpu_torch.engine.step_graph import StepGraph
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.registry import get_model
@@ -1240,6 +1246,134 @@ def test_a_penalty_graph_replays_on_new_histories(llama_params):
     assert any(key_field(k, "pen") > 1 for k in graphs.step_keys if k[0] in DECODE_KINDS)
     plain = _run_surface(eager, [(2, 17, {})], tag="b", seed=9)
     assert plain != want
+
+
+# -- K-step decode windows (decode_kstep) -------------------------------------------
+
+#: one batch of (max_tokens, knobs): rows that outlive a window of 8, one
+#: whose budget ends mid-window, one that emits its stop id 4242 as its
+#: fifth token (min_tokens 4 bans it, then +100 makes it), one that emits
+#: eos (0) as its seventh
+KSTEP_ROWS = (
+    (20, {}), (20, {}), (13, {}),
+    (12, dict(logit_bias=((4242, 100.0),), min_tokens=4, stop_token_ids=(4242,),
+              ignore_eos=False)),
+    (9, dict(logit_bias=((0, 100.0),), min_tokens=6, ignore_eos=False)),
+)
+#: a second batch that outlives several windows (chained under overlap)
+KSTEP_LONG = ((40, {}), (40, {}))
+
+
+def _run_kstep(eng, rows=KSTEP_ROWS, tag="", seed=11):
+    """The rows together (prompts of 20-140 random tokens from `seed`), to
+    completion: request id -> (ids, finish reason)."""
+    gen = torch.Generator().manual_seed(seed)
+    for i, (max_tokens, knobs) in enumerate(rows):
+        prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+        eng.add_request(f"{tag}{i}", prompt,
+                        SamplingParams(max_tokens=max_tokens, **{"ignore_eos": True, **knobs}))
+    out = {}
+    while eng.has_work:
+        for o in eng.step():
+            ids, _ = out.get(o.request_id, ((), None))
+            out[o.request_id] = (ids + o.new_token_ids, o.finish_reason)
+    return out
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_kstep_graphs_give_the_eager_streams(llama_params, mode):
+    """K-step windows replayed as graphs give the eager loop's streams bit
+    for bit, without and with overlapped decode in both engines (chained
+    windows consumed): a stop id and eos emitted mid-window end their rows
+    there, a budget ends another mid-window; each window key is captured
+    once and replayed, the window graphs launch the pool's write and paged
+    decode, and nothing runs a plain version."""
+    for overlap in (False, True):
+        eager, graphs = _engines(llama_params, mode, overlap=(overlap, overlap),
+                                 decode_kstep=8)
+        ops.reset_counts()
+        want = [_run_kstep(eager), _run_kstep(eager, KSTEP_LONG, "l")]
+        got = [_run_kstep(graphs), _run_kstep(graphs, KSTEP_LONG, "l")]
+        assert got == want
+        assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+        rows = got[0]
+        assert rows["3"] == (rows["3"][0][:4] + (4242,), FinishReason.STOP)
+        assert len(rows["4"][0]) == 7 and rows["4"][0][-1] == 0
+        assert len(rows["2"][0]) == 13 and len(rows["0"][0]) == 20
+        m = graphs.metrics
+        windows = [k for k in graphs.step_keys if k[0] == "decode_kstep"]
+        assert windows and all(graphs._step_fns[k].replays for k in windows)
+        assert m.compiles == len(graphs.step_keys)
+        assert m.kstep_windows == eager.metrics.kstep_windows > 0
+        assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+        assert m.decode_replays == m.decode_dispatches + m.overlap_rollbacks
+        launched = {name for k in windows for name, (n, _) in graphs._step_fns[k].launches.items()
+                    if n}
+        assert launched == {kv_quant.variant(n, mode)
+                            for n in ("paged_write", "paged_decode_attention")}
+        if overlap:
+            assert m.overlap_hits > 0 and m.kstep_windows > m.decode_dispatches - m.overlap_hits
+
+
+def test_a_window_graph_replays_on_new_inputs(llama_params):
+    """Window keys captured over one batch replay a second batch of other
+    prompts (same lengths, budgets and stops) without a capture, to the
+    eager loop's streams."""
+    eager, graphs = _engines(llama_params, None, decode_kstep=8)
+    for eng in (eager, graphs):
+        _run_kstep(eng, tag="a")
+    compiles = graphs.metrics.compiles
+    want = _run_kstep(eager, tag="b", seed=12)
+    assert _run_kstep(graphs, tag="b", seed=12) == want
+    assert graphs.metrics.compiles == compiles
+    assert any(k[0] == "decode_kstep" for k in graphs.step_keys)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_a_frozen_row_writes_no_kv_past_its_stop(llama_params, mode):
+    """A row that emits its stop id at the window's fourth step is frozen
+    for the other four: every slot of its page from its position after the
+    stop on keeps the bytes poisoned into it before the window (K, V and
+    scale planes), while the slots the live steps wrote changed; the
+    window's emitted counts equal the tokens the host accepted."""
+    eng = _engines(llama_params, mode, decode_kstep=8)[1]
+    _run_kstep(eng, ((20, {}), KSTEP_ROWS[3]), tag="warm")  # captures
+    _run_kstep(eng, ((20, {}), KSTEP_ROWS[3]), tag="w")
+    seen = []
+    post = eng._decode_postprocess
+
+    def spy(reqs, k_steps, ids, kstep=False):
+        outs = post(reqs, k_steps, ids, kstep)
+        if kstep:
+            seen.append((ids.extras()[0][: len(reqs)].tolist(),
+                         [len(o.new_token_ids) for o in outs]))
+        return outs
+
+    eng._decode_postprocess = spy
+    gen = torch.Generator().manual_seed(13)
+    for i, (max_tokens, knobs) in enumerate(((20, {}), KSTEP_ROWS[3])):
+        prompt = torch.randint(1, 128_000, (20 + 30 * i,), generator=gen).tolist()
+        eng.add_request(f"p{i}", prompt,
+                        SamplingParams(max_tokens=max_tokens, **{"ignore_eos": True, **knobs}))
+    eng.step()  # the prefill: both rows decode from here
+    req = next(r for r in eng.scheduler.running if r.request_id == "p1")
+    n, page = req.num_tokens, req.pages[0]  # 51 tokens: the window stays in page 0
+    planes = [x for x in (eng.kv.k, eng.kv.v, eng.kv.k_scale, eng.kv.v_scale) if x is not None]
+    for x in planes:
+        x[:, page, n - 1:].view(torch.uint8).fill_(0x5A)
+    poisoned = [x[:, page].clone() for x in planes]
+    outs = {o.request_id: o for o in eng.step()}
+    torch.cuda.synchronize()
+    assert outs["p1"].new_token_ids[-1] == 4242 and len(outs["p1"].new_token_ids) == 4
+    assert outs["p1"].finish_reason == FinishReason.STOP
+    # the live steps wrote positions n-1 .. n+2; the frozen ones nothing
+    for x, before in zip(planes, poisoned):
+        assert torch.equal(x[:, page, n + 3:], before[:, n + 3:])
+        for slot in range(n - 1, n + 3):
+            assert not torch.equal(x[:, page, slot], before[:, slot])
+    assert seen and seen[0][0] == seen[0][1] == [8, 4]
+    eng.run_to_completion()
+    del eng._decode_postprocess  # no reference cycle keeps the engine's graphs
 
 
 # -- int8 weights (--quantize int8) ---------------------------------------------------

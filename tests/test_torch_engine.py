@@ -179,13 +179,21 @@ def test_prompt_longer_than_one_chunk_is_refused():
     ],
 )
 def test_unported_knob_is_refused_by_name(knob):
-    """(overlap_decode=True, enable_prefix_caching=True, mixed_steps=True
-    and quantize="int8" keep their cases from when the port refused them;
-    each case now checks that the knob is served.)"""
+    """(overlap_decode=True, enable_prefix_caching=True, mixed_steps=True,
+    decode_kstep=4 and quantize="int8" keep their cases from when the port
+    refused them; each case now checks that the knob is served.)"""
     (name,) = knob
     if name in ("overlap_decode", "enable_prefix_caching", "mixed_steps"):
         assert getattr(EngineConfig.for_tests(**knob), name) is True
         assert getattr(EngineConfig.for_tests(**{name: False}), name) is False
+        return
+    if name == "decode_kstep":
+        assert EngineConfig.for_tests(**knob).decode_kstep == 4
+        assert EngineConfig.for_tests().decode_kstep == 1
+        eng = _torch_engine(**knob)
+        eng.add_request("k", [5, 17, 42], SamplingParams(max_tokens=9, ignore_eos=True))
+        assert len(eng.run_to_completion()["k"]) == 9
+        assert eng.metrics.kstep_windows > 0
         return
     if name == "quantize":
         assert EngineConfig.for_tests(**knob).quantize == "int8"
