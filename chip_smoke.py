@@ -151,6 +151,26 @@ Phases, each fatal on failure:
      are the CLI engine's launches in this phase (counts set to 0 just
      before) and those made by window replays; the phase prints its
      seconds;
+  4g. spec: prompt-lookup speculation, engines built as the CLI builds
+     them with no flags but the model, the pool and --spec-ngram 4
+     (graphs, prefix caching; overlap, mixed steps and windows off under
+     it), arm "cli", and the same with spec_min_accept_rate 0, arm
+     "always" (no cooldown: every eligible decode dispatch verifies), in
+     each pool mode: the eager loop and step graphs over eight prompts
+     that repeat a block four times, then eight that do not, then two
+     rows beside a logprobs row (an ineligible batch: plain decode
+     dispatches). Every stream identical in an arm's engines; every key
+     captured once, every verify key replayed, phase 4b's identities;
+     the verify graphs launch the pool's write and paged prefill, the run
+     every kernel variant, and nothing a plain version; and the verify
+     gate: a window of 5 tokens over histories of 63-447 tokens (ends
+     inside a page, on one, across 64 and 128) through the verify path
+     against the T=1 decode path over the same tokens, kernels on both
+     (max |delta logit| < 0.25, argmax >= 90 %). The kernels line's
+     `spec_launches` and `verify_launches` are the cli arm's launches
+     (counts set to 0 just before its graph engine's run) and those made
+     by its verify replays; the phase prints each wave's acceptance rate
+     and its seconds;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -422,16 +442,20 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
 
 
 def paged_write_inputs(dev, gen, b: int, t: int, mode, d: int = D, full: bool = False, *,
-                       layers: int = L, page_size: int = S, hkv: int = HKV, lens=None):
+                       layers: int = L, page_size: int = S, hkv: int = HKV, lens=None,
+                       starts=None):
     """A write's inputs, at llama3-1b's widths unless `d`, `layers`,
     `page_size` or `hkv` say otherwise: page tables, positions and valid
     [B, T] (decode at T=1, each sequence at its own position and the last
     row padding; else page-aligned chunks of random lengths, or every
     token valid with `full`; `lens` gives each sequence's valid tokens
-    instead, 1 or 0 at T=1), staged K/V and random pools. Returns (pools
-    and scale planes before the write, k_stage, v_stage, (pt, pos, valid),
-    the scale planes' keywords)."""
-    pages_per_seq = max(1, -(-t // page_size)) + 2
+    instead, 1 or 0 at T=1; `starts` makes each row a verify window, every
+    token valid from position starts[i] on, which may start mid-page),
+    staged K/V and random pools. Returns (pools and scale planes before
+    the write, k_stage, v_stage, (pt, pos, valid), the scale planes'
+    keywords)."""
+    span = t if starts is None else max(starts) + t
+    pages_per_seq = max(1, -(-span // page_size)) + 2
     num_pages = 1 + b * pages_per_seq
     # the page tables and lengths first: every pool mode gets the same ones
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * pages_per_seq]
@@ -441,6 +465,9 @@ def paged_write_inputs(dev, gen, b: int, t: int, mode, d: int = D, full: bool = 
                             device=dev)
         if lens is None:
             lens = [1] * (b - 1) + [0]
+    elif starts is not None:
+        pos = torch.tensor(starts, device=dev)[:, None] + torch.arange(t, device=dev)
+        lens = [t] * b
     else:
         pos = torch.arange(t, device=dev)[None, :].expand(b, t)
         if lens is None:
@@ -457,13 +484,18 @@ def paged_write_inputs(dev, gen, b: int, t: int, mode, d: int = D, full: bool = 
 
 
 def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
-                      full: bool = False) -> dict:
-    before, k_stage, v_stage, args, planes = paged_write_inputs(dev, gen, b, t, mode, d, full)
+                      full: bool = False, starts=None) -> dict:
+    """The write against its plain version, bit for bit; with `starts`, a
+    verify window a row (paged_write_inputs) landed in runs of one slot,
+    whose every slot outside the windows must keep its bytes."""
+    before, k_stage, v_stage, args, planes = paged_write_inputs(dev, gen, b, t, mode, d, full,
+                                                                starts=starts)
     valid = args[2]
+    run = None if starts is None else 1
     kern = [x.clone() for x in before]
     plain = [x.clone() for x in before]
-    kp = dict(zip(planes, kern[2:]))  # the scale planes as keywords, if any
-    pp = dict(zip(planes, plain[2:]))
+    kp = dict(zip(planes, kern[2:]), run=run)  # the scale planes as keywords, if any
+    pp = dict(zip(planes, plain[2:]), run=run)
     kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp)
     kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp)
     torch.cuda.synchronize()
@@ -473,31 +505,42 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
             n = int((as_bytes(g)[:, 1:] != as_bytes(w)[:, 1:]).sum())
             raise AssertionError(f"paged_write {mode or 'bf16'} B={b} T={t} D={d}: not "
                                  f"bit-equal ({n} elements differ)")
+    if starts is not None:
+        pt, pos = args[0].long(), args[1].long()
+        window = torch.zeros(before[0].shape[1:3], dtype=torch.bool, device=dev)
+        window[torch.gather(pt, 1, pos // S), pos % S] = True
+        window[0] = True  # the null page
+        for g, x in zip(kern, before):
+            if not torch.equal(as_bytes(g)[:, ~window], as_bytes(x)[:, ~window]):
+                raise AssertionError(f"paged_write {mode or 'bf16'} at run 1: a slot outside "
+                                     f"the windows changed")
     library_call, library = None, "none: no single PyTorch call quantizes and lands the rows"
     if mode is None:
-        library_call = index_copy_write(kern, k_stage, v_stage, *args)
+        library_call = index_copy_write(kern, k_stage, v_stage, *args, run=run)
         library = ("Tensor.index_copy_ on each pool viewed as [L, P*S, Hkv*D] over "
                    "precomputed flat slot indices (K and V, timed together)")
     times = timings(
         lambda: kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp),
         lambda: kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp),
         library_call)
-    nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode)
+    nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode, run=run)
     b_ms, by = bound(nbytes, 0.0, peaks)
     return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": L,
             "Hkv": HKV, "D": d, "S": S, "every_token_valid": full,
+            "run": run or min(t, S), "starts": starts,
             "tolerance": "bit-equal on every page but the null page 0"
                          + ("" if mode is None else ", narrow bytes and scale planes"),
             "max_abs_err": 0.0, **times,
             "library": library, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
 
 
-def index_copy_write(pools, k_stage, v_stage, pt, pos, valid):
+def index_copy_write(pools, k_stage, v_stage, pt, pos, valid, run=None):
     """The bf16 write as one index_copy_ per pool (the library yardstick),
-    checked to land what the kernel landed; returns the call to time."""
+    in runs of `run` slots (min(T, S) when None), checked to land what the
+    kernel landed; returns the call to time."""
     b, t = pos.shape
     row = k_stage.shape[3] * k_stage.shape[4]
-    run = min(t, S)
+    run = run or min(t, S)
     first_pos = pos[:, ::run].long()
     first_valid = valid[:, ::run]
     pages = torch.gather(pt.long(), 1, (first_pos // S).clamp(0, pt.shape[1] - 1))
@@ -754,6 +797,21 @@ def check_int8_matmul(dev, peaks, gen, m: int, k: int, n: int) -> dict:
             "bound_ms": b_ms, "bound_by": by}
 
 
+#: verify windows (--spec-ngram 4: T = 5 at positions num_tokens - 1 on) at
+#: decode buckets 8 and 64: histories of 63 to 2,031 tokens from a seed,
+#: none a multiple of the page (seed -> B histories)
+VERIFY_T = 5
+
+
+def verify_hist(seed: int, b: int) -> list[int]:
+    """B unaligned histories in [63, 2031] from `seed` (the first is 63)."""
+    gen = torch.Generator().manual_seed(seed)
+    hist = torch.randint(63, 2032, (b,), generator=gen)
+    hist[0] = 63
+    hist += (hist % S == 0).long()  # never on a page's first slot
+    return hist.tolist()
+
+
 def phase_kernels(dev, peaks) -> dict:
     gen = torch.Generator(device=dev)
     cases = [
@@ -778,15 +836,23 @@ def phase_kernels(dev, peaks) -> dict:
         # each shape from its own seed, so every pool mode sees the same
         # page tables, lengths and staged rows
         cases += [
-            # one long prompt's chunk (every token valid) and llama3-8b's
-            # head dim, before the main path's two shapes so the kernels
-            # line reports B=8 T=512 at D=64
+            # verify windows at buckets 8 and 64 (runs of one slot, across
+            # pages), then one long prompt's chunk (every token valid) and
+            # llama3-8b's head dim, before the main path's two shapes so the
+            # kernels line reports B=8 T=512 at D=64
+            *(check_paged_write(dev, peaks, gen.manual_seed(40 + b), b, VERIFY_T, mode,
+                                starts=verify_hist(40 + b, b)) for b in (8, 64)),
             check_paged_write(dev, peaks, gen.manual_seed(12), 1, 512, mode, full=True),
             check_paged_write(dev, peaks, gen.manual_seed(13), 8, 512, mode, d=128),
             check_paged_write(dev, peaks, gen.manual_seed(1), 32, 1, mode),
             check_paged_write(dev, peaks, gen.manual_seed(2), 8, 512, mode),
             check_paged_decode(dev, peaks, gen.manual_seed(3), 1, 2048, mode),
             check_paged_decode(dev, peaks, gen.manual_seed(4), 32, 2048, mode),
+        ] + [
+            # verify windows at buckets 8 and 64 over unaligned histories
+            check_paged_prefill(dev, peaks, gen.manual_seed(50 + b), verify_hist(50 + b, b),
+                                [VERIFY_T] * b, VERIFY_T, mode)
+            for b in (8, 64)
         ] + [
             check_paged_prefill(dev, peaks, gen.manual_seed(seed), hist, cur, t, mode)
             for hist, cur, t, seed in PAGED_PREFILL_CASES
@@ -923,6 +989,15 @@ def replays_match(m, dispatches: int) -> bool:
             == m.decode_dispatches + m.mixed_dispatches + m.overlap_rollbacks)
 
 
+def same_streams(label: str, want: dict, got: dict, what: str) -> None:
+    """The eager-twin check of every engine phase: raise unless `got`
+    (request id -> generated ids) equals the eager loop's `want`, naming
+    the requests that differ."""
+    if got != want:
+        bad = sorted(r for r in want if want[r] != got.get(r))
+        raise AssertionError(f"{label}: {what} differ from the eager loop's in {bad}")
+
+
 # -- phase 4b: step graphs and overlapped decode against the eager loop ----------
 
 #: the served context (--max-context), whose page tables phase 4b's engines share
@@ -945,12 +1020,14 @@ LATE_TOKENS = 49
 GRAPH_ENGINES = (("eager", False, False), ("graphs", True, False), ("overlap", True, True))
 
 
-def run_waves(eng, waves, tag: str, **sampling) -> dict[str, list[int]]:
+def run_waves(eng, waves, tag: str, repeat: int = 1, **sampling) -> dict[str, list[int]]:
     """Each wave's requests together, prompts of random tokens from a fixed
     seed (a wave's lengths, or 16-280 tokens for a count), greedy unless
     `sampling` says otherwise; a wave (n, max_tokens, rows) gives its i-th
-    row the SamplingParams knobs rows[i] on top. Returns request id ->
-    generated ids."""
+    row the SamplingParams knobs rows[i] on top. With `repeat` > 1 each
+    prompt is a random block of length // repeat tokens said `repeat`
+    times (what prompt lookup is for). Returns request id -> generated
+    ids."""
     from dynamo_tpu_torch.engine.request import SamplingParams
 
     gen = torch.Generator().manual_seed(3)
@@ -958,7 +1035,8 @@ def run_waves(eng, waves, tag: str, **sampling) -> dict[str, list[int]]:
     for w, (n, max_tokens, *rows) in enumerate(waves):
         lengths = [16 + 24 * i for i in range(n)] if isinstance(n, int) else n
         for i, length in enumerate(lengths):
-            prompt = torch.randint(1, eng.adapter.vocab_size, (length,), generator=gen)
+            prompt = torch.randint(1, eng.adapter.vocab_size, (length // repeat,),
+                                   generator=gen).repeat(repeat)
             knobs = {"max_tokens": max_tokens, "ignore_eos": True, **sampling,
                      **(rows[0][i] if rows else {})}
             eng.add_request(f"{tag}{w}-{i}", prompt.tolist(), SamplingParams(**knobs))
@@ -1038,10 +1116,7 @@ def phase_graphs(dev) -> list[dict]:
         want = runs["eager"]["streams"]
         for name in ("graphs", "overlap"):
             for kind, a, b in zip(("greedy", "seeded sampled"), want, runs[name]["streams"]):
-                if a != b:
-                    bad = sorted(r for r in a if a[r] != b.get(r))
-                    raise AssertionError(f"{label}: {kind} streams with {name} differ from the "
-                                         f"eager loop's in {bad}")
+                same_streams(label, a, b, f"{kind} streams with {name}")
         eager, graph = runs["eager"]["eng"], runs["graphs"]["eng"]
         if sorted(graph.step_keys) != sorted(eager.step_keys):
             raise AssertionError(f"{label}: graph keys {graph.step_keys}, eager {eager.step_keys}")
@@ -1129,10 +1204,8 @@ def phase_int8_graphs(dev) -> dict:
         torch.cuda.synchronize()
         runs[name] = dict(eng=eng, streams=streams, s=time.perf_counter() - t0,
                           counts={k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
-    want, got = runs["eager"]["streams"], runs["graphs"]["streams"]
-    if got != want:
-        bad = sorted(r for r in want if want[r] != got.get(r))
-        raise AssertionError(f"{label}: streams with graphs differ from the eager loop's in {bad}")
+    want = runs["eager"]["streams"]
+    same_streams(label, want, runs["graphs"]["streams"], "streams with graphs")
     eng = runs["graphs"]["eng"]
     m = eng.metrics
     kinds = {(k[0], key_field(k, "first_chunk")) for k in eng.step_keys
@@ -1704,10 +1777,8 @@ def phase_mixed(dev, card: str) -> list[dict]:
         twin = run_burst(eager, "mixed0")
         del eager
         torch.cuda.empty_cache()
-        if twin["streams"] != runs["mixed"][0]["streams"]:
-            bad = sorted(r for r, v in twin["streams"].items()
-                         if v != runs["mixed"][0]["streams"].get(r))
-            raise AssertionError(f"{label}: the eager twin's streams differ in {bad}")
+        same_streams(label, twin["streams"], runs["mixed"][0]["streams"],
+                     "the mixed graphs' streams")
         gate = mixed_gate(dev, adapter, params, mode)
         result = {"phase": "mixed", "model": "llama3-1b", "dtype": "bfloat16",
                   "kv_quantize": mode, "card": card, "argv": MIXED_ARGV + pool,
@@ -2059,10 +2130,7 @@ def phase_kstep(dev, card: str) -> dict:
             raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
         want = runs["eager"]["streams"]
         for name, run in runs.items():
-            if run["streams"] != want:
-                bad = sorted(r for r in want if want[r] != run["streams"].get(r))
-                raise AssertionError(f"{label}: {name}'s streams differ from the eager "
-                                     f"loop's in {bad}")
+            same_streams(label, want, run["streams"], f"{name}'s streams")
         rows = {r: want[f"k0-{r}"] for r in range(6)}
         if not (len(rows[3]) == 7 and rows[3][-1] == KSTEP_STOP_ID
                 and KSTEP_STOP_ID not in rows[3][:-1] and len(rows[4]) == 10
@@ -2128,6 +2196,192 @@ def phase_kstep(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     emit({"phase": "kstep_done", "seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "window_launches": window_launches}
+
+
+# -- phase "spec": prompt-lookup speculation at the CLI's defaults plus --spec-ngram --
+
+#: drafts a verify step proposes (the window is SPEC_NGRAM + 1 tokens)
+SPEC_NGRAM = 4
+#: the argv the phase's engines are built from: the CLI's defaults (graphs,
+#: prefix caching; context 4096, chunk 512, page 64, 8 fused steps) plus
+#: prompt lookup, which turns overlap, mixed steps and windows off
+SPEC_ARGV = ["run", "--model", "llama3-1b", "--spec-ngram", str(SPEC_NGRAM)]
+#: the phase's waves for run_waves: eight prompts of 16-184 tokens said
+#: four times over (lookup has a block to copy), then eight that do not
+#: repeat, each row 32 tokens, then two rows, one asking for logprobs,
+#: which makes their batch ineligible (plain decode dispatches)
+SPEC_WAVES = (((8, 32),), ((8, 32), (2, 24, ({}, {"logprobs": 0}))))
+#: the verify gate's histories (num_tokens - 1 of a row): ends inside a
+#: page, on one, and windows across 64 and 128 (page size 64)
+SPEC_GATE_HIST = (63, 99, 128, 190, 257, 317, 383, 447)
+
+
+def spec_gate(dev, adapter, params, mode) -> dict:
+    """The model gate on a verify window, teacher-forced: each row's
+    SPEC_GATE_HIST tokens prefilled into a pool, copied; then the same
+    window of SPEC_NGRAM + 1 tokens at position hist on, through the
+    verify path (one chunk with history, written in runs of one slot) on
+    one copy and through the T=1 decode path (a step a token) on the
+    other, kernels on both. The logits at every window position must
+    agree (max |delta logit| < 0.25, argmax >= 90 %)."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    gen = torch.Generator().manual_seed(31)
+    b, t = len(SPEC_GATE_HIST), SPEC_NGRAM + 1
+    hist = torch.tensor(SPEC_GATE_HIST, dtype=torch.int32, device=dev)
+    per_row = -(-(max(SPEC_GATE_HIST) + t) // S)
+    pt = (1 + torch.arange(b * per_row, dtype=torch.int32, device=dev)).reshape(b, per_row)
+    width = 512
+    prompt = torch.randint(1, adapter.vocab_size, (b, width), generator=gen).to(dev)
+    window = torch.randint(1, adapter.vocab_size, (b, t), generator=gen).to(dev)
+    pos = torch.arange(width, dtype=torch.int32, device=dev)[None].expand(b, width).contiguous()
+    wpos = (hist[:, None] + torch.arange(t, dtype=torch.int32, device=dev)).contiguous()
+    wval = torch.ones((b, t), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        pool = adapter.init_kv(1 + b * per_row, S, dev, kv_quantize=mode)
+        _, pool = llama.forward(params, cfg, prompt, pos, pos < hist[:, None], pool, pt,
+                                first_chunk=True)
+        twin = llama.KVPages(*(None if x is None else x.clone() for x in pool))
+        verify, _ = llama.forward(params, cfg, window, wpos, wval, pool, pt, write_run=1)
+        steps = []
+        for j in range(t):
+            step = [x[:, j:j + 1].contiguous() for x in (window, wpos, wval)]
+            logits, twin = llama.forward(params, cfg, *step, twin, pt)
+            steps.append(logits[:, 0])
+        decode = torch.stack(steps, dim=1)
+    worst, agree, n = logit_gap(verify.reshape(b * t, -1), decode.reshape(b * t, -1))
+    if not (worst < GATE_MAX_DLOGIT and agree / n >= GATE_ARGMAX):
+        raise AssertionError(f"spec gate, {mode or 'bf16'} pool: max |dlogit| {worst}, argmax "
+                             f"agreement {agree / n}")
+    return {"max_abs_dlogit": worst, "argmax_agreement": agree / n, "positions": n,
+            "hist": list(SPEC_GATE_HIST), "t": t}
+
+
+def spec_arm(dev, params, cfg, label: str) -> dict:
+    """One arm of phase "spec": the eager loop (cuda_graphs=False) and step
+    graphs over SPEC_WAVES (the first set of prompts said four times),
+    with counts set to 0 before each. Checks: every stream identical; the
+    graph engine turned overlap and mixed steps off, captured each key
+    once, every verify key among them, replayed every verify graph, keeps
+    phase 4b's identities and ran no overlap, mixed step or window; the
+    drafts equal the eager loop's; the
+    verify graphs launch the pool's write and paged prefill and nothing
+    else, the run every kernel variant of the pool, and nothing a plain
+    version. Returns the graph engine's line, its launches and its verify
+    graphs' launches."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.step_graph import StepGraph
+
+    mode = cfg.kv_quantize
+    runs = {}
+    for name, graphs in (("eager", False), ("graphs", True)):
+        eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=graphs)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        waves, streams = [], {}
+        for w, (repeat, wave) in enumerate(zip((4, 1), SPEC_WAVES)):
+            m0 = (eng.metrics.spec_drafted, eng.metrics.spec_accepted)
+            streams.update(run_waves(eng, wave, f"s{w}-", repeat=repeat))
+            d, a = (eng.metrics.spec_drafted - m0[0], eng.metrics.spec_accepted - m0[1])
+            waves.append({"repeat": repeat, "drafted": d, "accepted": a,
+                          "accept_rate": a / d if d else None})
+        torch.cuda.synchronize()
+        runs[name] = dict(eng=eng, streams=streams, waves=waves, s=time.perf_counter() - t0,
+                          counts={k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
+    want = runs["eager"]["streams"]
+    same_streams(label, want, runs["graphs"]["streams"], "the graphs' streams")
+    eng = runs["graphs"]["eng"]
+    m = eng.metrics
+    verifies = {k: g for k, g in eng._step_fns.items() if k[0] == "spec_verify"}
+    in_verifies: dict[str, int] = {}
+    for g in verifies.values():
+        for kernel, (n, _) in g.launches.items():
+            in_verifies[kernel] = in_verifies.get(kernel, 0) + n * g.replays
+    ok = (eng._graphs and not eng._overlap_enabled and not eng.scheduler.mixed_enabled
+          and m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+          and bool(verifies) and all(isinstance(g, StepGraph) and g.replays
+                                     for g in verifies.values())
+          and m.spec_drafted > 0 and m.spec_skipped_ineligible > 0
+          and m.overlap_dispatches == m.mixed_dispatches == m.kstep_windows == 0
+          and runs["graphs"]["waves"] == runs["eager"]["waves"])
+    line = {k: getattr(m, k) for k in (
+        "compiles", "compile_ms", "prefill_dispatches", "prefill_replays", "decode_dispatches",
+        "decode_replays", "spec_drafted", "spec_accepted", "spec_skipped_ineligible",
+        "spec_skipped_cooldown", "spec_accept_rate", "time_spec_host_ms")}
+    line.update(dispatches=eng.dispatches, run_s=runs["graphs"]["s"],
+                eager_run_s=runs["eager"]["s"], waves=runs["graphs"]["waves"],
+                streams=len(want), verify_keys=sorted([list(k) for k in verifies]),
+                verify_replays=sum(g.replays for g in verifies.values()),
+                verify_launches=in_verifies)
+    if not ok:
+        raise AssertionError(f"{label}: captures, replays or spec counts wrong: {line}")
+    want_verify = {kv_quant.variant(n, mode) for n in ("paged_write", "paged_prefill_attention")}
+    if set(in_verifies) != want_verify:
+        raise AssertionError(f"{label}: the verify graphs launched {in_verifies}, want "
+                             f"{sorted(want_verify)}")
+    want_launch = serve_variants(mode)
+    counts = runs["graphs"]["counts"]
+    for kernel, (n, plain) in counts.items():
+        if plain != 0 or (n == 0) == (kernel in want_launch):
+            raise AssertionError(f"{label}: {kernel} launched {n} times, plain ran {plain} "
+                                 f"(want {want_launch})")
+    return {"line": line, "launches": {k: n for k, (n, _) in counts.items() if n},
+            "verify_launches": in_verifies}
+
+
+def phase_spec(dev, card: str) -> dict:
+    """Prompt-lookup speculation on llama3-1b engines built from SPEC_ARGV
+    (arm "cli"), and the same with spec_min_accept_rate 0 (arm "always":
+    no cooldown, so every eligible decode dispatch verifies, in every
+    bucket the wave's rows pass through), in each pool mode: spec_arm,
+    then the verify gate (spec_gate). Also checks the CLI's defaults.
+    Prints each arm's waves'
+    drafts and acceptance rate, its captures, and the phase's seconds.
+    Returns, per kernel variant, its launches in the cli arm's graph runs
+    and those made by its verify replays."""
+    import dataclasses
+
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    adapter = get_model("llama3-1b", dtype="bfloat16")
+    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
+    eos = ModelDeploymentCard(name="llama3-1b").eos_token_ids
+    launches: dict[str, int] = {}
+    verify_launches: dict[str, int] = {}
+    for mode in MODES:
+        label = f"spec, {mode or 'bf16'} pool"
+        t_mode = time.perf_counter()
+        argv = SPEC_ARGV + (["--kv-quantize", mode] if mode else [])
+        cfg = cli_run.engine_config(cli_run._parse(argv), eos)
+        if not (cfg.spec_ngram == SPEC_NGRAM and cfg.overlap_decode and cfg.mixed_steps
+                and cfg.enable_prefix_caching and cfg.prefill_chunk == 512
+                and cfg.page_size == S):
+            raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
+        arms = {}
+        for arm, arm_cfg in (("cli", cfg),
+                             ("always", dataclasses.replace(cfg, spec_min_accept_rate=0.0))):
+            arms[arm] = spec_arm(dev, params, arm_cfg, f"{label}, {arm}")
+            torch.cuda.empty_cache()
+        for kernel, n in arms["cli"]["launches"].items():
+            launches.setdefault(kernel, n)
+        for kernel, n in arms["cli"]["verify_launches"].items():
+            verify_launches.setdefault(kernel, n)
+        gate = spec_gate(dev, adapter, params, mode)
+        emit({"phase": "spec", "model": "llama3-1b", "dtype": "bfloat16", "kv_quantize": mode,
+              "card": card, "argv": argv, **{arm: a["line"] for arm, a in arms.items()},
+              "always_launches": arms["always"]["launches"], "gate": gate,
+              "identical": "every stream, to the id, in the eager loop and with graphs, in "
+                           "each arm",
+              "run_s": time.perf_counter() - t_mode})
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "spec_done", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "verify_launches": verify_launches}
 
 
 # -- phase 5: serve ---------------------------------------------------------------
@@ -2532,6 +2786,7 @@ def main() -> int:
     phase_mixed(dev, card)
     phase_sampling(dev, card)
     kstep = phase_kstep(dev, card)
+    spec = phase_spec(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     # flash_prefill_attention counts from the bf16 server, int8_matmul from
@@ -2561,6 +2816,10 @@ def main() -> int:
                 # launches, and those made by replays of its window graphs
                 "kstep_launches": kstep["launches"].get(variant, 0),
                 "window_launches": kstep["window_launches"].get(variant, 0),
+                # the CLI's engine with --spec-ngram 4 (phase "spec"): all its
+                # launches, and those made by replays of its verify graphs
+                "spec_launches": spec["launches"].get(variant, 0),
+                "verify_launches": spec["verify_launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

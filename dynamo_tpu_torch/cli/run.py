@@ -14,7 +14,10 @@ the overlapped loop unless `--no-overlap-decode` is given, as in the JAX
 CLI. While prompts prefill beside running decodes, each step carries both
 (mixed steps) unless `--no-mixed-steps` is given, as in the JAX CLI.
 Prefix caching is on, as in the JAX CLI, which has no flag for it
-either. It runs on the GPU unless `--device cpu` is given.
+either. `--spec-ngram S` verifies S prompt-lookup drafts a greedy decode
+step in one forward, as the JAX CLI's flag does (it turns the overlapped
+loop, mixed steps and K-step windows off). It runs on the GPU unless
+`--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.
@@ -74,6 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
              "chunk plus the decode batch, so decodes emit a token every step while a "
              "prompt burst drains; on by default)",
     )
+    runp.add_argument(
+        "--spec-ngram", type=int, default=0, dest="spec_ngram",
+        help="speculative decoding: draft tokens per step proposed by prompt lookup and "
+             "verified in one forward pass (0 = off)",
+    )
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     runp.add_argument(
@@ -115,6 +123,7 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         decode_kstep=args.decode_kstep,
         overlap_decode=args.overlap_decode,
         mixed_steps=args.mixed_steps,
+        spec_ngram=args.spec_ngram,
         dtype=args.dtype,
         quantize=args.quantize,
         kv_quantize=args.kv_quantize,

@@ -18,13 +18,9 @@ from typing import Optional
 #: values that leave their feature off (tuning knobs of an unported
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
-    "spec_ngram": (0,),
-    "spec_ngram_match": (2,),
     "spec_draft_model": (None,),
     "spec_draft_tokens": (4,),
     "spec_draft_checkpoint": (None,),
-    "spec_min_accept_rate": (0.2,),
-    "spec_cooldown_steps": (16,),
     "max_waiting": (None,),
     "attention_impl": ("auto", "pallas"),
     "dp": (1,),
@@ -96,6 +92,21 @@ class _PortedKnobs:
     #: prefix (at most all but its last page), with KV events for each
     #: page stored and evicted
     enable_prefix_caching: bool = True
+    #: speculative decoding by prompt lookup: S draft tokens per decode
+    #: step, the S that followed the last earlier occurrence of a row's
+    #: trailing n-gram, verified in one forward over [last token, drafts]
+    #: (one captured graph per decode bucket); the longest matching prefix
+    #: lands, plus the model's token at the first mismatch. Greedy batches
+    #: only: a row that samples, asks for logprobs or carries a penalty,
+    #: logit_bias or min_tokens runs the batch's plain decode. Turns the
+    #: overlapped loop, mixed steps and K-step windows off. 0 (default) = off
+    spec_ngram: int = 0
+    #: the n-gram length prompt lookup matches on
+    spec_ngram_match: int = 2
+    #: below this accepted/drafted share in a verify step, speculation
+    #: backs off for spec_cooldown_steps decode dispatches (plain decode)
+    spec_min_accept_rate: float = 0.2
+    spec_cooldown_steps: int = 16
     #: mixed prefill+decode steps: while prefill work and running decodes
     #: coexist, the scheduler emits one `mixed` step carrying a bounded
     #: prefill chunk plus the decode batch, and the engine dispatches both

@@ -47,6 +47,21 @@ STOP_SLOTS, takes the fused-steps path; under overlap the next window
 chains on speculation; beside prefill work the window is the decode leg
 of a split mixed step.
 
+Prompt-lookup speculation (config.spec_ngram, off by default as in the
+JAX engine): a greedy decode batch proposes S drafts a row, the S tokens
+that followed the last earlier occurrence of its trailing n-gram
+(`_propose_drafts`), and runs [last token, drafts] through the model in
+one dispatch, key kind "spec_verify": a chunk of S + 1 tokens with
+history, through paged_prefill_attention, whose K/V land token by token
+(the window starts mid-page), with the argmax at every position
+(`_verify_body`). The host accepts each row's longest matching prefix of
+drafts and the model's token at the first mismatch (`_run_decode_spec`).
+A batch with a row that samples or reports or shapes its logits, a
+lookup that keeps missing (the cooldown), or a row near its context or a
+pool that cannot cover the window runs the plain decode dispatch. The
+overlapped loop, mixed steps and K-step windows are off under it, as in
+the JAX engine.
+
 Prefix caching (config.enable_prefix_caching, on by default as in the
 JAX engine): the scheduler admits a prompt onto the longest cached chain
 of its full pages, so its first piece is a chunk with history that starts
@@ -78,6 +93,7 @@ import functools
 import logging
 import time
 import zlib
+from collections import deque
 from dataclasses import asdict, dataclass
 from typing import Callable, Optional, Sequence
 
@@ -115,12 +131,17 @@ from dynamo_tpu_torch.platform import resolve_device
 
 logger = logging.getLogger(__name__)
 
+#: seconds of verify steps behind metrics.spec_accept_rate
+_SPEC_WINDOW_S = 60.0
 #: the step kinds of a decode dispatch (one step, fused steps, a K-step
 #: window with on-device stop masks)
 DECODE_KINDS = ("decode", "decode_multi", "decode_kstep")
 #: the step kinds whose body runs paged decode attention: decode
 #: dispatches and mixed steps, whose decode half is a K=1 decode step
 PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed")
+#: the step kinds a decode dispatch replays (metrics.decode_replays): the
+#: decode kinds and the prompt-lookup verify
+DECODE_DISPATCH_KINDS = (*DECODE_KINDS, "spec_verify")
 _DECODE_FIELDS = ("kind", "bucket", "steps", "greedy", "lp", "pen", "bias")
 #: the fields of each kind of step key, in order (TorchEngine._get_step_fn)
 KEY_FIELDS = {
@@ -131,6 +152,7 @@ KEY_FIELDS = {
     "prefill_nosample": ("kind", "bucket", "t", "first_chunk"),
     "mixed": ("kind", "bucket", "t", "pieces", "greedy", "first_chunk", "psamp",
               "lp", "pen", "bias"),
+    "spec_verify": ("kind", "bucket", "t"),
 }
 
 
@@ -157,7 +179,8 @@ class EngineMetrics:
     prefill_dispatches: int = 0
     decode_dispatches: int = 0
     #: fused decode steps of the dispatches whose ids were accepted (a
-    #: dispatch runs 1..decode_steps of them; rolled-back ones not counted)
+    #: dispatch runs 1..decode_steps of them, a verify one forward;
+    #: rolled-back ones not counted)
     decode_steps_run: int = 0
     #: steps that carried both prefill pieces and the decode batch
     #: (config.mixed_steps; counted before the step runs), and their wall
@@ -202,6 +225,22 @@ class EngineMetrics:
     #: wall ms of the windows dispatched outside a speculation: their host
     #: arrays, dispatch, the wait for their ids and the host's scan
     time_kstep_ms: float = 0.0
+    #: prompt-lookup speculation (config.spec_ngram), as the JAX engine
+    #: counts it: drafts proposed and accepted over the verify dispatches,
+    #: and decode dispatches that did not speculate because a row was
+    #: ineligible or the acceptance cooldown ran
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_skipped_ineligible: int = 0
+    spec_skipped_cooldown: int = 0
+    #: accepted / drafted over the verify steps of the last 60 s, and the
+    #: drafts in that window (its weight; 0 with speculation idle)
+    spec_accept_rate: float = 0.0
+    spec_window_drafted: int = 0
+    #: host ms of the verify dispatches' own work, on the critical path
+    #: with no overlap: the n-gram index and drafts, the input arrays, and
+    #: the accept scan after the ids arrive
+    time_spec_host_ms: float = 0.0
     #: prompt tokens the prefix cache served over those it was asked for
     #: (PrefixCacheStats.hit_rate), refreshed every step
     prefix_hit_rate: float = 0.0
@@ -256,6 +295,23 @@ class TorchEngine:
         self.allocator = PageAllocator(config.num_pages, config.page_size, on_event=on_kv_event)
         self.scheduler = Scheduler(config, self.allocator)
         self.metrics = EngineMetrics()
+        # prompt-lookup speculation owns the decode batch and needs each
+        # step's tokens on the host for its drafts: the overlapped loop,
+        # mixed steps and K-step windows are off under it (the JAX
+        # engine's policy)
+        spec = config.spec_ngram > 0
+        self._overlap_enabled = config.overlap_decode and not spec
+        self.scheduler.mixed_enabled = config.mixed_steps and not spec
+        self._kstep_enabled = config.decode_kstep > 1 and not spec
+        if config.decode_kstep > 1 and not self._kstep_enabled:
+            logger.info("decode_kstep=%d auto-disabled: speculative decoding already batches "
+                        "steps per dispatch", config.decode_kstep)
+        #: decode dispatches left before prompt lookup is tried again
+        self._spec_cooldown = 0
+        #: (time, drafted, accepted) of the verify steps in the last
+        #: _SPEC_WINDOW_S seconds, and their sums
+        self._spec_window: deque = deque()
+        self._spec_win_drafted = self._spec_win_accepted = 0
         # the reference's order: random params straight in the int8 layout,
         # or given params quantized (already-int8 params raise)
         pre_quantized = False
@@ -331,10 +387,12 @@ class TorchEngine:
             self._discard_inflight("idle")
         # counted where the graphs replay, so a dispatch that did not replay shows
         graphs = [(k[0], g.replays) for k, g in self._step_fns.items() if isinstance(g, StepGraph)]
-        self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_KINDS)
+        self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_DISPATCH_KINDS)
         self.metrics.mixed_replays = sum(n for kind, n in graphs if kind == "mixed")
         self.metrics.prefill_replays = sum(n for kind, n in graphs if kind.startswith("prefill"))
         self.metrics.prefix_hit_rate = self.allocator.stats.hit_rate
+        if self.config.spec_ngram > 0:
+            self._refresh_spec_window()
         return outputs
 
     def run_to_completion(self) -> dict[str, list[int]]:
@@ -777,7 +835,7 @@ class TorchEngine:
         """Whether these rows may run as a window: windows on, no row asks
         for logprobs (the window reports none), every stop set fits
         STOP_SLOTS. A mixed step splits when it holds (_run_mixed)."""
-        if self.config.decode_kstep <= 1 or self._batch_logprobs(reqs) >= 0:
+        if not self._kstep_enabled or self._batch_logprobs(reqs) >= 0:
             return False
         return all(self._kstep_stop_ids(r) is not None for r in reqs)
 
@@ -788,7 +846,7 @@ class TorchEngine:
         page runway (Scheduler.clamp_kstep_window) and halved until every
         page table grows to cover the window (the device asks the host for
         no page mid-window). An ineligible batch counts a fallback."""
-        if self.config.decode_kstep <= 1:
+        if not self._kstep_enabled:
             return 1
         if not self._kstep_candidate(reqs):
             self.metrics.kstep_fallbacks += 1
@@ -841,7 +899,14 @@ class TorchEngine:
         return {"positions": positions, "valid": valid, "page_tables": pt}
 
     def _run_decode(self, batch: ScheduledBatch) -> list[StepOutput]:
+        """A decode batch: a prompt-lookup verify when speculation is on
+        for it (_spec_active), else the plain decode dispatch."""
         reqs = list(batch.decode)
+        if self._spec_active(reqs):
+            return self._run_decode_spec(reqs)
+        return self._run_decode_plain(reqs)
+
+    def _run_decode_plain(self, reqs: list[Request]) -> list[StepOutput]:
         inflight, self._inflight = self._inflight, None
         if inflight is not None:
             if self._inflight_matches(inflight, reqs):
@@ -965,6 +1030,171 @@ class TorchEngine:
         if window:
             return torch.stack(step_ids), n_emit
         return self._outputs(step_ids, step_lps)
+
+    # -- prompt-lookup speculation (config.spec_ngram; JaxEngine:
+    # _spec_eligible .. _note_spec_step) ------------------------------------
+
+    def _spec_eligible(self, reqs: list[Request]) -> bool:
+        """Whether the batch may speculate: the verify has no sampler, so
+        every row must be greedy with no logprobs, penalty, logit_bias or
+        min_tokens."""
+        if self.config.spec_ngram <= 0:
+            return False
+        for r in reqs:
+            s = r.sampling
+            if (s.temperature > 0.0 or s.logprobs >= 0 or s.frequency_penalty
+                    or s.presence_penalty or s.repetition_penalty != 1.0 or s.logit_bias
+                    or s.min_tokens):
+                return False
+        return True
+
+    def _spec_active(self, reqs: list[Request]) -> bool:
+        """Whether this decode batch runs a verify: eligible and out of
+        the acceptance cooldown, which this call counts down; a skip is
+        counted by its reason. At most once a step."""
+        if self.config.spec_ngram <= 0:
+            return False
+        if self._spec_eligible(reqs):
+            if self._spec_cooldown <= 0:
+                return True
+            self._spec_cooldown -= 1
+            self.metrics.spec_skipped_cooldown += 1
+        else:
+            self.metrics.spec_skipped_ineligible += 1
+        return False
+
+    def _propose_drafts(self, req: Request, s: int) -> list[int]:
+        """The s tokens that followed the last earlier occurrence of the
+        request's trailing n-gram (spec_ngram_match tokens), zero-padded
+        past the sequence's end; all zeros without a match (they fail the
+        verify, and the model's own token still lands). The index grows
+        with the sequence, each n-gram start indexed once; after a
+        preemption folded outputs into the prompt it is rebuilt."""
+        n = self.config.spec_ngram_match
+        if req.num_tokens <= n:
+            return [0] * s
+        if req.spec_index is not None and (
+                req.num_tokens - len(req.spec_ctx) > len(req.output_tokens)):
+            # the new tokens can no longer be read off output_tokens
+            req.spec_index = None
+        if req.spec_index is None:
+            req.spec_index = {}
+            req.spec_ctx = req.all_tokens  # one copy, then appended to
+            req.spec_indexed_upto = 0
+        elif len(req.spec_ctx) < req.num_tokens:
+            req.spec_ctx.extend(req.output_tokens[len(req.spec_ctx) - req.num_tokens:])
+        ctx = req.spec_ctx
+        # every n-gram start but the trailing one: a tail matches an
+        # earlier occurrence
+        for j in range(req.spec_indexed_upto, len(ctx) - n):
+            req.spec_index[tuple(ctx[j: j + n])] = j
+        req.spec_indexed_upto = max(req.spec_indexed_upto, len(ctx) - n)
+        j = req.spec_index.get(tuple(ctx[-n:]))
+        if j is None:
+            return [0] * s
+        cont = ctx[j + n: j + n + s]
+        return cont + [0] * (s - len(cont))
+
+    def _run_decode_spec(self, reqs: list[Request]) -> list[StepOutput]:
+        """One verify dispatch over [last token, d_0 .. d_{S-1}] a row, at
+        positions num_tokens - 1 on: a chunk with history whose K/V land
+        token by token; the ids are the argmax at every position. Each row
+        accepts its drafts while they equal the model's tokens, and the
+        model's token at the first mismatch: 1 to S + 1 tokens. The K/V of
+        rejected drafts lie past the accepted tokens, in pages not yet
+        registered, and are written again before they are read. A row
+        whose window would pass its context, or a pool that cannot cover
+        every window, runs the plain decode dispatch instead."""
+        s = self.config.spec_ngram
+        if any(r.num_tokens + s > self.config.max_context for r in reqs):
+            return self._run_decode_plain(reqs)
+        if not self._grow_pages_for(reqs, s):
+            return self._run_decode_plain(reqs)
+        t0 = time.perf_counter()
+        b_bucket = self.config.decode_bucket_for(len(reqs))
+        t = s + 1
+        tokens = np.zeros((b_bucket, t), np.int64)
+        positions = np.zeros((b_bucket, t), np.int32)
+        valid = np.zeros((b_bucket, t), bool)
+        pt = np.zeros((b_bucket, self.config.max_pages_per_seq), np.int32)
+        drafts = np.zeros((b_bucket, s), np.int64)
+        for i, req in enumerate(reqs):
+            drafts[i] = self._propose_drafts(req, s)
+            tokens[i, 0] = (req.output_tokens or req.prompt_tokens)[-1]
+            tokens[i, 1:] = drafts[i]
+            positions[i] = np.arange(t, dtype=np.int32) + req.num_tokens - 1
+            valid[i] = True
+            pt[i, : len(req.pages)] = req.pages
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ids = self._dispatch(("spec_verify", b_bucket, t), {
+            "tokens": tokens, "positions": positions, "valid": valid, "page_tables": pt})
+        t1 = time.perf_counter()
+        target = ids.numpy()  # [B, S + 1]
+        t2 = time.perf_counter()
+        self.metrics.time_decode_sync_ms += (t2 - t1) * 1e3
+        self.metrics.decode_steps_run += 1
+        outputs: list[StepOutput] = []
+        drafted = accepted_drafts = 0
+        for i, req in enumerate(reqs):
+            accepted: list[int] = []
+            finish: Optional[FinishReason] = None
+            for j in range(t):
+                tok = int(target[i, j])
+                accepted.append(tok)
+                finish = self._finish_reason_for(req, tok, len(accepted))
+                if finish is not None:
+                    break
+                if j < s and int(drafts[i, j]) != tok:
+                    break  # the draft diverged: the model's token lands
+            drafted += s
+            accepted_drafts += len(accepted) - 1
+            req.num_computed_tokens += len(accepted)
+            outputs.extend(self._accept_tokens(req, accepted, finish))
+            self._register_pages(req)
+        self._note_spec_step(drafted, accepted_drafts)
+        if drafted and accepted_drafts / drafted < self.config.spec_min_accept_rate:
+            # the lookup misses on this workload: decode plainly for a
+            # while, then try again
+            self._spec_cooldown = self.config.spec_cooldown_steps
+        self.metrics.time_spec_host_ms += host_ms + (time.perf_counter() - t2) * 1e3
+        return outputs
+
+    def _verify_body(self, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The verify over device inputs (the keys of _run_decode_spec's
+        arrays): the window through the model as a chunk with history,
+        its K/V landed in runs of one slot, since it starts mid-page; the
+        argmax ids [B, S + 1] (int32) at every position. Nothing here
+        reads a device value on the host, so it captures as one graph."""
+        hidden, self.kv = self.adapter.forward_hidden(
+            self.params, bufs["tokens"], bufs["positions"], bufs["valid"], self.kv,
+            bufs["page_tables"], write_run=1,
+        )
+        b, t, h = hidden.shape
+        logits = self.adapter.compute_logits(self.params, hidden.reshape(b * t, h))
+        return sample_greedy(logits).reshape(b, t).to(torch.int32)
+
+    def _note_spec_step(self, drafted: int, accepted: int) -> None:
+        """A verify step's drafts into the counters and the window behind
+        spec_accept_rate."""
+        self.metrics.spec_drafted += drafted
+        self.metrics.spec_accepted += accepted
+        self._spec_window.append((time.perf_counter(), drafted, accepted))
+        self._spec_win_drafted += drafted
+        self._spec_win_accepted += accepted
+
+    def _refresh_spec_window(self) -> None:
+        """Drop verify steps older than _SPEC_WINDOW_S from the window and
+        publish its acceptance rate and drafts."""
+        now = time.perf_counter()
+        w = self._spec_window
+        while w and now - w[0][0] > _SPEC_WINDOW_S:
+            _, d, a = w.popleft()
+            self._spec_win_drafted -= d
+            self._spec_win_accepted -= a
+        m = self.metrics
+        m.spec_accept_rate = (round(self._spec_win_accepted / self._spec_win_drafted, 4)
+                              if self._spec_win_drafted else 0.0)
+        m.spec_window_drafted = self._spec_win_drafted
 
     # -- mixed prefill+decode steps (JaxEngine._run_mixed) -----------------
 
@@ -1103,7 +1333,7 @@ class TorchEngine:
         window chains through the same kind, its budgets less k_prev; a
         row that stops inside the pending window changes the batch, and
         the chained window is rolled back."""
-        if not self.config.overlap_decode or self._batch_penalty_bucket(reqs):
+        if not self._overlap_enabled or self._batch_penalty_bucket(reqs):
             return
         if not self.scheduler.decode_batch_stable() and not (
                 self.scheduler.mixed_enabled and self.scheduler.decode_rows_stable(reqs)):
@@ -1193,9 +1423,11 @@ class TorchEngine:
 
     def _body(self, key: tuple):
         """The body of a step key: a K-step window, K fused decode steps,
-        one mixed step, or one prefill chunk step that samples or not,
-        over the dispatch's device inputs."""
+        a prompt-lookup verify, one mixed step, or one prefill chunk step
+        that samples or not, over the dispatch's device inputs."""
         field = functools.partial(key_field, key)
+        if key[0] == "spec_verify":
+            return self._verify_body
         if key[0] in DECODE_KINDS:
             return functools.partial(self._decode_body, field("steps"), field("lp"))
         if key[0] == "mixed":
@@ -1208,7 +1440,8 @@ class TorchEngine:
         """The step function of a dispatch, fn(inputs) -> Readback, cached
         by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
         (kind, batch bucket, steps, all-greedy, lp, pen, bias), where a
-        K-step window's kind is "decode_kstep" and its lp -1, for prefill
+        K-step window's kind is "decode_kstep" and its lp -1, for a
+        prompt-lookup verify ("spec_verify", batch bucket, S + 1), for prefill
         ("prefill", B bucket, T bucket, all-greedy, first chunk, lp, pen,
         bias) and ("prefill_nosample", B bucket, T bucket, first chunk),
         for mixed steps ("mixed", decode bucket, T bucket, piece bucket,
@@ -1264,7 +1497,8 @@ class TorchEngine:
         two up to decode_kstep; per prefill B and T bucket, 2 sampler kinds x 2
         chunk kinds and 2 non-sampling ones; per decode bucket, T bucket
         and piece bucket, 2 sampler kinds x 2 chunk kinds x prefill rows
-        sampled or not, mixed ones; each sampling one again for each lp
+        sampled or not, mixed ones; with prompt lookup, one verify key per
+        decode bucket; each sampling one again for each lp
         (-1..20), pen bucket (0 or a power of two up to max_tokens) and
         bias a dispatch asks for, as in the JAX engine's key family; see
         StepGraph.capture) and the size of

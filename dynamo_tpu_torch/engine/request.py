@@ -2,8 +2,9 @@
 
 Counterpart of dynamo_tpu/engine/request.py, trimmed to what this package
 serves: tokens in, tokens out, with the sampling knobs it implements
-(logprobs, penalties, logit_bias and min_tokens among them), and the
-prompt tokens the prefix cache served.
+(logprobs, penalties, logit_bias and min_tokens among them), the prompt
+tokens the prefix cache served, and the n-gram index of prompt-lookup
+speculation.
 """
 
 from __future__ import annotations
@@ -74,6 +75,12 @@ class Request:
     #: (keeps the max_tokens budget and the sampling counter right)
     num_emitted: int = 0
     finish_reason: Optional[FinishReason] = None
+    #: prompt-lookup speculation (engine-managed): n-gram -> its last start
+    #: position, a copy of the token sequence it indexes (all_tokens builds
+    #: a new list each call) and the next n-gram start not indexed yet
+    spec_index: Optional[dict] = None
+    spec_ctx: Optional[list] = None
+    spec_indexed_upto: int = 0
 
     @property
     def num_tokens(self) -> int:

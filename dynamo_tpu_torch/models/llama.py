@@ -410,15 +410,19 @@ def attention_block(q, k, v, kv: KVPages, layer: int, page_tables, positions, va
 
 
 def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv: KVPages,
-                   page_tables, first_chunk: bool = False, ops: Ops = KERNELS):
+                   page_tables, first_chunk: bool = False, ops: Ops = KERNELS,
+                   write_run: Optional[int] = None):
     """One model step over a token chunk; returns (hidden [B, T, H] after
     the final norm, kv). T=1 is a decode step. T>1 is a prefill chunk whose
     row b covers positions[b, 0] onwards: with first_chunk=True every row
     starts at position 0 and attends over the chunk alone; otherwise each
     row attends over its history (positions[b, 0] tokens already in its
     pages, 0 for a row that starts at 0 or is padding) and the chunk. The
-    step's K/V land in the pools in place. `ops` selects the kernels
-    (default) or the plain versions; the engine never passes it."""
+    step's K/V land in the pools in place, in runs of `write_run` slots
+    (paged_write's `run`: min(T, S) when None, for chunks that start on a
+    page; 1 for a chunk that may start mid-page, a speculative verify
+    window). `ops` selects the kernels (default) or the plain versions;
+    the engine never passes it."""
     b, t = tokens.shape
     lp = params["layers"]
     h = params["embed"][tokens].to(cfg.dtype)  # [B, T, H]
@@ -443,15 +447,18 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
         gate = F.silu(_mm(x, lp, "w_gate", li, ops).float())
         up = _mm(x, lp, "w_up", li, ops).float()
         h = h + _mm((gate * up).to(cfg.dtype), lp, "w_down", li, ops)
-    kv = land_staged_kv(kv, (k_stage, v_stage), page_tables, positions, valid, ops)
+    kv = land_staged_kv(kv, (k_stage, v_stage), page_tables, positions, valid, ops,
+                        run=write_run)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv
 
 
-def land_staged_kv(kv: KVPages, staged, page_tables, positions, valid, ops: Ops = KERNELS):
+def land_staged_kv(kv: KVPages, staged, page_tables, positions, valid, ops: Ops = KERNELS,
+                   run: Optional[int] = None):
     """Land the layer loop's staged K/V in the pools with one write (which
-    quantizes them for a quantized pool)."""
+    quantizes them for a quantized pool), in runs of `run` slots
+    (paged_write)."""
     ops.paged_write(kv.k, kv.v, staged[0], staged[1], page_tables, positions, valid,
-                    k_scale=kv.k_scale, v_scale=kv.v_scale)
+                    k_scale=kv.k_scale, v_scale=kv.v_scale, run=run)
     return kv
 
 

@@ -7,9 +7,13 @@ per step. A quantized pool (int8 or fp8 rows, with `k_scale`/`v_scale`
 planes [L, P, S, Hkv] f32) quantizes each staged row as it lands and
 lands its scale beside it (ops/kv_quant.py::quantize_kv_rows).
 
-Runs: each run is min(T, S) consecutive slots of one (sequence, page),
-placed by its first token (decode runs are one slot; prefill chunks start
-page-aligned, so a run never crosses a page). A run whose first token is
+Runs: each run is `run` consecutive slots of one (sequence, page),
+placed by its first token: min(T, S) by default (decode runs are one
+slot; prefill chunks start page-aligned, so such a run never crosses a
+page). A chunk that starts mid-page (a speculative verify window at
+position num_tokens - 1) passes run=1, which lands it token by token, as
+the reference's scatter on the CPU does (dynamo_tpu/ops/kv_update.py,
+its `use_kernel=False` branch). A run whose first token is
 padding (valid=False) belongs to no page: the Pallas kernel and the plain
 version below send it to the null page 0, slots [0, run), and the CUDA
 kernel skips it; page 0's contents are unspecified, and no page table
@@ -41,9 +45,10 @@ def _fail(what: str):
     raise ValueError(f"{_NAME}: {what}")
 
 
-def _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid):
-    """The run min(T, S); each shape is checked once, and a message is
-    formatted only when its check fails."""
+def _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid,
+                  run=None):
+    """The run (min(T, S) unless given); each shape is checked once, and a
+    message is formatted only when its check fails."""
     if k_cache.dim() != 5 or v_cache.shape != k_cache.shape:
         _fail("pools must be [L, P, S, Hkv, D] and equal in shape")
     if k_stage.dim() != 5 or v_stage.shape != k_stage.shape:
@@ -56,18 +61,21 @@ def _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, va
         _fail("positions and valid must be [B, T]")
     if page_tables.dim() != 2 or page_tables.shape[0] != b:
         _fail("page_tables must be [B, MP]")
-    run = min(t, s)
+    if run is None:
+        run = min(t, s)
+    elif not 0 < run <= s:
+        _fail(f"a run of {run} slots does not fit a page of {s}")
     if t % run:
-        _fail(f"chunk T={t} must be a multiple of the run min(T, S)={run}")
+        _fail(f"chunk T={t} must be a multiple of the run {run}")
     return run
 
 
 def paged_write_plain(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid,
-                      *, k_scale=None, v_scale=None):
+                      *, k_scale=None, v_scale=None, run=None):
     """Plain PyTorch version of `paged_write` (same contract)."""
     mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
     counts[mode].plain_calls += 1
-    run = _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid)
+    run = _check_shapes(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid, run)
     L, b, t = k_stage.shape[:3]
     s, mp = k_cache.shape[2], page_tables.shape[1]
     first_pos = positions[:, ::run].long()
@@ -94,22 +102,24 @@ def paged_write_plain(k_cache, v_cache, k_stage, v_stage, page_tables, positions
 
 
 def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid,
-                *, k_scale=None, v_scale=None):
+                *, k_scale=None, v_scale=None, run=None):
     """Write one step's staged K/V for all layers into the pools in place.
 
     k_cache, v_cache: [L, P, S, Hkv, D]; k_stage, v_stage: [L, B, T, Hkv, D]
     (the pools' dtype, or the model dtype for a quantized pool);
     page_tables [B, MP] int32; positions [B, T] int32 (absolute); valid
     [B, T] bool; k_scale, v_scale [L, P, S, Hkv] f32 with an int8 or fp8
-    pool. Returns (k_cache, v_cache), and the scale planes after them when
-    quantized.
+    pool; run: the slots each run lands, placed by its first token (a
+    divisor of T, at most S; min(T, S) when None, 1 for a chunk that
+    starts mid-page). Returns (k_cache, v_cache), and the scale planes
+    after them when quantized.
     """
     args = (k_cache, v_cache, k_stage, v_stage, page_tables, positions, valid)
     scales = tuple(x for x in (k_scale, v_scale) if x is not None)
     if not on_cuda(_NAME, *args, *scales):
-        return paged_write_plain(*args, k_scale=k_scale, v_scale=v_scale)
+        return paged_write_plain(*args, k_scale=k_scale, v_scale=v_scale, run=run)
     mode = pool_mode(_NAME, k_cache, v_cache, k_scale, v_scale)
-    run = _check_shapes(*args)
+    run = _check_shapes(*args, run)
     if mode is None:
         if k_stage.dtype != k_cache.dtype or v_stage.dtype != v_cache.dtype:
             _fail("staged K/V must have the pools' dtype")
@@ -146,12 +156,12 @@ def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, vali
     return k_cache, v_cache, k_scale, v_scale
 
 
-def bytes_moved(k_stage, valid, page_size: int, kv_quantize=None) -> int:
+def bytes_moved(k_stage, valid, page_size: int, kv_quantize=None, run=None) -> int:
     """Least bytes the write must move: each run that lands in a real page
     (its first token valid), K and V, read once and written once. A
     quantized pool writes each row's narrow values (one byte each) and its
     f32 scale."""
-    run = min(k_stage.shape[2], page_size)
+    run = run or min(k_stage.shape[2], page_size)
     rows = int(valid[:, ::run].sum()) * run * k_stage.shape[3]  # (token, kv head) rows
     d = k_stage.shape[4]
     row_in = d * k_stage.element_size()

@@ -6,6 +6,7 @@ the overlapped decode loop.
     python3 scripts/torch_profile_engine.py --sampling [--kv-quantize int8|fp8]
     python3 scripts/torch_profile_engine.py --quantize int8 [--kv-quantize int8|fp8]
     python3 scripts/torch_profile_engine.py --decode-kstep K [--kv-quantize int8|fp8]
+    python3 scripts/torch_profile_engine.py --spec-ngram S [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
@@ -99,6 +100,28 @@ lines: host ms of the Gumbel noise a sampled dispatch makes
 (engine/sampling.py gumbel_noise, one generator seed a row and step) at
 K in (DECODE_STEPS, K) and B in BATCHES, the mean of five calls.
 
+With --spec-ngram S only prompt lookup's case runs: the defaults
+(`overlap`) against the same engine with the CLI's --spec-ngram S
+(`spec`: overlapped decode and mixed steps off under it, the acceptance
+cooldown on) and that engine with spec_min_accept_rate 0 (`always`: every
+eligible decode dispatch verifies), on one set of weights, over two
+prompt sets: `repeat`, each prompt a random block of PROMPT / 4 tokens
+said four times (the case prompt lookup is for: code edits, quoting a
+document), and `plain`, random prompts that do not repeat (where the
+cooldown should engage). For B in BATCHES, one untimed wave of each set
+on each engine (its captures: `compiles`, `compile_ms` and the verify
+keys print in a `spec_captures` line, with the f32 logits bytes a verify
+key's graph holds, B x (S + 1) x vocab x 4, computed from the shapes),
+then `spec` lines for each set in the order defaults, spec, always,
+always, spec, defaults (as `wave`, with the drafts, the accepted ones,
+the acceptance rate, the cooldown and ineligible skips, and the host ms
+a verify dispatch spends on its drafts, arrays and accept scan); then
+`spec_dispatch` lines, torch.profiler over two steady decode dispatches
+of `defaults` and `always` at each B over the repeating set: device ms
+per dispatch and per forward (a verify is one forward of S + 1 tokens a
+row), the idle share, CUDA kernels per forward and the ten kernels with
+the most device time.
+
 Then the card's name and power limit. With no card it raises.
 """
 
@@ -134,20 +157,22 @@ def emit(obj) -> None:
 
 
 def add_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
-             knobs: dict | None = None) -> None:
+             knobs: dict | None = None, repeat: int = 1) -> None:
     """`batch` greedy requests of random prompts, each with the sampling
-    `knobs`."""
+    `knobs`; with `repeat` > 1 each prompt is a random block of PROMPT //
+    repeat tokens said `repeat` times."""
     for i in range(batch):
-        prompt = torch.randint(1, eng.adapter.vocab_size, (PROMPT,), generator=gen)
+        prompt = torch.randint(1, eng.adapter.vocab_size, (PROMPT // repeat,),
+                               generator=gen).repeat(repeat)
         eng.add_request(f"{tag}{i}", prompt.tolist(),
                         SamplingParams(max_tokens=MAX_TOKENS, ignore_eos=True, **(knobs or {})))
 
 
 def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
-               knobs: dict | None = None) -> dict:
+               knobs: dict | None = None, repeat: int = 1) -> dict:
     """One wave from an idle engine, counted on its own."""
     before = eng.metrics.to_dict()
-    add_wave(eng, tag, batch, gen, knobs)
+    add_wave(eng, tag, batch, gen, knobs, repeat)
     decode_ms, tokens, decode_tokens = [], 0, 0
     # the engine's decode step time and its wait for ids, over the decode
     # steps alone (a mixed step's decode half waits for ids too)
@@ -179,13 +204,15 @@ def timed_wave(eng: TorchEngine, tag: str, batch: int, gen: torch.Generator,
             **{k: m[k] for k in ("compiles", "decode_replays", "prefill_replays",
                                  "mixed_dispatches", "mixed_replays", "overlap_dispatches",
                                  "overlap_hits", "overlap_rollbacks", "kstep_windows",
-                                 "kstep_steps")}}
+                                 "kstep_steps", "spec_drafted", "spec_accepted",
+                                 "spec_skipped_cooldown", "spec_skipped_ineligible",
+                                 "time_spec_host_ms")}}
 
 
 def profile_dispatches(eng: TorchEngine, batch: int, gen: torch.Generator,
-                       knobs: dict | None = None) -> dict:
+                       knobs: dict | None = None, repeat: int = 1) -> dict:
     """Two steady decode dispatches of a wave under torch.profiler."""
-    add_wave(eng, "p", batch, gen, knobs)
+    add_wave(eng, "p", batch, gen, knobs, repeat)
     while eng.scheduler.waiting or any(r.state.value == "prefill" for r in eng.scheduler.running):
         eng.step()
     eng.step()  # one decode dispatch outside the window
@@ -300,6 +327,58 @@ def kstep_case(dev, card: str, args) -> None:
                   "host_ms": (time.perf_counter() - t0) * 1e3 / 5})
 
 
+def verify_replays(eng: TorchEngine) -> int:
+    """Replays of the engine's verify graphs so far (its verify dispatches)."""
+    return sum(g.replays for k, g in eng._step_fns.items() if k[0] == "spec_verify")
+
+
+def spec_case(dev, card: str, args) -> None:
+    """The defaults against prompt lookup (the module's --spec-ngram)."""
+    cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
+                       prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
+                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+    defaults = TorchEngine(cfg, device=dev)
+    spec = replace(cfg, spec_ngram=args.spec_ngram)
+    engines = {"defaults": defaults,
+               "spec": TorchEngine(spec, params=defaults.params, device=dev),
+               "always": TorchEngine(replace(spec, spec_min_accept_rate=0.0),
+                                     params=defaults.params, device=dev)}
+    gen = torch.Generator().manual_seed(0)
+    sets = {"repeat": 4, "plain": 1}
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS,
+            "spec_ngram": args.spec_ngram}
+    for b in BATCHES:
+        for name, eng in engines.items():
+            for prompts, repeat in sets.items():
+                timed_wave(eng, f"warm-{name}{b}-{prompts}-", b, gen, repeat=repeat)
+    vocab = defaults.adapter.vocab_size
+    emit({"phase": "spec_captures", **head,
+          **{name: {"compiles": e.metrics.compiles, "compile_ms": e.metrics.compile_ms,
+                    "verify_keys": sorted([list(k) for k in e.step_keys
+                                           if k[0] == "spec_verify"]),
+                    "verify_logits_bytes": {k[1]: k[1] * k[2] * vocab * 4
+                                            for k in e.step_keys if k[0] == "spec_verify"}}
+             for name, e in engines.items()}})
+    for b in BATCHES:
+        for prompts, repeat in sets.items():
+            order = ("defaults", "spec", "always", "always", "spec", "defaults")
+            for i, name in enumerate(order):
+                n0 = verify_replays(engines[name])
+                r = timed_wave(engines[name], f"{name}{b}-{prompts}-{i}-", b, gen, repeat=repeat)
+                verifies = verify_replays(engines[name]) - n0
+                emit({"phase": "spec", **head, "batch": b, "prompts": prompts, "engine": name,
+                      "order": i, **r, "verify_dispatches": verifies,
+                      "accept_rate": (r["spec_accepted"] / r["spec_drafted"]
+                                      if r["spec_drafted"] else None),
+                      "spec_host_ms_per_verify": (r["time_spec_host_ms"] / verifies
+                                                  if verifies else None)})
+    for b in BATCHES:
+        for name in ("defaults", "always"):
+            emit({"phase": "spec_dispatch", **head, "batch": b, "engine": name,
+                  "prompts": "repeat", **profile_dispatches(engines[name], b, gen, repeat=4)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
@@ -315,11 +394,15 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-kstep", type=int, default=1, dest="decode_kstep",
                     help="only the windows' case: the defaults against K-step windows of up "
                          "to K iterations (the CLI's flag)")
+    ap.add_argument("--spec-ngram", type=int, default=0, dest="spec_ngram",
+                    help="only prompt lookup's case: the defaults against --spec-ngram S (the "
+                         "CLI's flag), and against it with the cooldown off")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
     case = (quantize_case if args.quantize else sampling_case if args.sampling
-            else kstep_case if args.decode_kstep > 1 else None)
+            else kstep_case if args.decode_kstep > 1 else spec_case if args.spec_ngram > 0
+            else None)
     if case is not None:
         case(dev, card, args)
         print(card, flush=True)

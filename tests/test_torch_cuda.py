@@ -41,7 +41,13 @@ graphs give the eager loop's streams in each pool mode, with and without
 overlapped decode, with a stop id, eos and a budget landing mid-window;
 a window key replays on new prompts without a capture; and a row frozen
 mid-window leaves the slots of its page past its stop as they were
-poisoned, while the window's emitted counts equal the host's. Flash
+poisoned, while the window's emitted counts equal the host's.
+Prompt-lookup verify windows (spec_ngram): the write at run 1 lands
+windows of 5 tokens that start mid-page bit-equal to its plain version
+and leaves every poisoned slot outside them; paged prefill at T=5 over
+unaligned histories holds its plain version, eager and replayed in a
+CUDA graph on new inputs; the engine's verify graphs give the eager
+loop's streams in each pool mode. Flash
 prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
@@ -1516,3 +1522,100 @@ def test_token_logprobs_ties_across_the_nth_place_follow_the_rule(k):
     graph.replay()
     torch.cuda.synchronize(dev)
     np.testing.assert_array_equal(out[1].cpu().numpy(), want)
+
+
+# -- prompt-lookup verify windows (spec_ngram) ------------------------------------------
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_paged_write_at_run_1_lands_verify_windows(b, mode):
+    """Verify windows of 5 tokens from unaligned positions (63 to 2,031,
+    across pages) landed in runs of one slot: bit-equal to the plain
+    version off the null page, and every slot outside the windows, its
+    bytes and scales poisoned first, keeps them."""
+    dev = _card()
+    starts = chip_smoke.verify_hist(60 + b, b)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    pools, k_stage, v_stage, args, planes = chip_smoke.paged_write_inputs(
+        dev, gen, b, 5, mode, starts=starts)
+    for x in pools:
+        chip_smoke.as_bytes(x).view(torch.uint8).fill_(0x7F)
+    got = [x.clone() for x in pools]
+    want = [x.clone() for x in pools]
+    kv_update.paged_write(got[0], got[1], k_stage, v_stage, *args, run=1,
+                          **dict(zip(planes, got[2:])))
+    kv_update.paged_write_plain(want[0], want[1], k_stage, v_stage, *args, run=1,
+                                **dict(zip(planes, want[2:])))
+    torch.cuda.synchronize()
+    pt, pos = args[0].long(), args[1].long()
+    window = torch.zeros(pools[0].shape[1:3], dtype=torch.bool, device=dev)
+    window[torch.gather(pt, 1, pos // 64), pos % 64] = True
+    assert int(window.sum()) == 5 * b
+    for g, w, x in zip(got, want, pools):
+        g, w, x = (chip_smoke.as_bytes(y) for y in (g, w, x))
+        assert torch.equal(g[:, 1:], w[:, 1:])
+        assert torch.equal(g[:, ~window], x[:, ~window])
+        assert not torch.equal(g[:, window], x[:, window])
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_paged_prefill_at_verify_windows_eager_and_in_a_graph(b, mode):
+    """A verify window's chunk, T = 5 (20 of a CTA's 128 query rows at g=4),
+    over histories of 1,087, 2,031 and 63 tokens (ends inside a page):
+    within 2^-6 of each row's largest value against the plain version; one
+    call captured in a CUDA graph and replayed on new inputs (the
+    histories in another order, other values and page tables) gives the
+    eager call's output bit for bit."""
+    dev = _card()
+    hist = ([1087, 2031, 63] * 22)[:b]
+    shape = (32, 8, 64, 5)
+    args, planes = _prefill_inputs(dev, *shape, hist, [5] * b, 64, mode, seed=70 + b, mp=33)
+    new_hist = hist[1:] + hist[:1]
+    new_args, new_planes = _prefill_inputs(dev, *shape, new_hist, [5] * b, 64, mode,
+                                           seed=71 + b, mp=33)
+    got = flash_prefill.paged_prefill_attention(*args, **planes)
+    _assert_rows_close(got, flash_prefill.paged_prefill_attention_plain(*args, **planes),
+                       [5] * b)
+    graph, out = _capture(dev, lambda: flash_prefill.paged_prefill_attention(*args, **planes))
+    buffers = [x for x in args if torch.is_tensor(x)] + list(planes.values())
+    news = [x for x in new_args if torch.is_tensor(x)] + list(new_planes.values())
+    for dst, src in zip(buffers, news):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = flash_prefill.paged_prefill_attention(*new_args, **new_planes)
+    assert torch.equal(out, eager)
+    _assert_rows_close(out, flash_prefill.paged_prefill_attention_plain(*new_args, **new_planes),
+                       [5] * b)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_verify_graphs_give_the_eager_streams(llama_params, mode):
+    """--spec-ngram 4 with the cooldown off (spec_min_accept_rate 0), so
+    every decode dispatch of the greedy waves verifies: the verify graphs
+    give the eager loop's streams and drafts bit for bit, each verify key
+    (one a decode bucket) is captured once and replayed, its graph
+    launches the pool's write and paged prefill only, and nothing runs a
+    plain version."""
+    eager, graphs = _engines(llama_params, mode, spec_ngram=4, spec_min_accept_rate=0.0)
+    assert not graphs._overlap_enabled and not graphs.scheduler.mixed_enabled
+    ops.reset_counts()
+    waves = [(5, 24), (3, 17), (1, 9)]
+    want = _run_waves(eager, waves)
+    assert _run_waves(graphs, waves) == want
+    assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+    m = graphs.metrics
+    assert (m.spec_drafted, m.spec_accepted) == (eager.metrics.spec_drafted,
+                                                 eager.metrics.spec_accepted)
+    verifies = [k for k in graphs.step_keys if k[0] == "spec_verify"]
+    assert {key_field(k, "bucket") for k in verifies} >= {8, 4, 1}
+    assert all(graphs._step_fns[k].replays for k in verifies)
+    assert m.compiles == len(graphs.step_keys)
+    assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+    assert m.decode_replays == m.decode_dispatches
+    launched = {name for k in verifies for name, (n, _) in graphs._step_fns[k].launches.items()
+                if n}
+    assert launched == {kv_quant.variant(n, mode)
+                        for n in ("paged_write", "paged_prefill_attention")}

@@ -73,7 +73,8 @@ def _project(jax_eng) -> set:
     """JaxEngine._jit_cache's step keys projected onto the port's fields:
     mixed (kind, b, t, b_pre, greedy, first_chunk, psamp, lp, pen, bias)
     from JAX fields 0, 1, 2, 9, 3, 5, 10, 6, 7, 8; prefill and decode as
-    the port keys them (tests/test_torch_step_graph.py)."""
+    the port keys them (tests/test_torch_step_graph.py); a prompt-lookup
+    verify as (kind, b, t)."""
     out = set()
     for k in jax_eng._jit_cache:
         if k[0] == "mixed":
@@ -84,6 +85,8 @@ def _project(jax_eng) -> set:
             out.add((k[0], k[1], k[2], k[5]))
         elif k[0] in DECODE_KINDS:
             out.add((*k[:4], k[6], k[7], k[8]))
+        elif k[0] == "spec_verify":
+            out.add(k[:3])
     return out
 
 

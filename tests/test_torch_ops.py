@@ -5,7 +5,10 @@ kernels run in interpret mode on the CPU, as the JAX package's own tests
 run them, at D=128 (the Pallas kernels' lane width; one history case
 takes D=64). Float32 throughout:
 tolerance atol=rtol=2e-5 for the attention kernels (sums taken in another
-order), bit-equality for the write.
+order), bit-equality for the write. A speculative verify window, a chunk
+that starts mid-page, lands through the write at run=1, held bit-equal
+to the JAX write's token-granular scatter (its use_kernel=False branch)
+in each pool mode.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ from dynamo_tpu.ops.kv_update import paged_write as jax_paged_write
 from dynamo_tpu.ops.paged_attention import paged_decode_attention as jax_paged_decode
 from dynamo_tpu_torch import ops
 from dynamo_tpu_torch.ops import flash_prefill, kv_update, paged_attention
+from dynamo_tpu_torch.ops.kv_quant import variant
 from helpers.torch_write_cases import write_params
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -256,3 +260,108 @@ def test_wrappers_refuse_mixed_or_unsupported_devices():
         flash_prefill.flash_prefill_attention(
             q, kv.to("meta"), kv.to("meta"), torch.tensor([4], device="meta")
         )
+
+
+# -- a speculative verify window: a chunk that starts mid-page --------------------
+
+#: (S, B, window starts, T): verify windows of T = spec_ngram + 1 tokens
+#: at positions num_tokens - 1 on, starting mid-page and crossing one (or
+#: two), beside a padding row (start -1)
+VERIFY_WINDOWS = [
+    (4, 3, (2, 7, -1), 5),     # pages of 4: a window over two pages, one over three
+    (4, 2, (3, 1), 4),         # T == S, neither window page-aligned
+    (64, 2, (62, 127), 5),     # the card's page size: crossing at 64 and at 128
+]
+
+
+def _verify_write_inputs(rng, s, b, starts, t, hkv=2, d=128, layers=2):
+    """Staged rows, page tables and a window's positions and valid for
+    each start (-1: a padding row, valid False)."""
+    mp = 4
+    p = 1 + b * mp
+    k_stage = rng.standard_normal((layers, b, t, hkv, d)).astype(np.float32)
+    v_stage = (3 * rng.standard_normal((layers, b, t, hkv, d))).astype(np.float32)
+    pt = (1 + rng.permutation(p - 1)[: b * mp]).reshape(b, mp).astype(np.int32)
+    positions = np.zeros((b, t), np.int32)
+    valid = np.zeros((b, t), bool)
+    for i, start in enumerate(starts):
+        if start >= 0:
+            positions[i] = np.arange(t) + start
+            valid[i] = True
+    return (layers, p, s, hkv, d), (k_stage, v_stage, pt, positions, valid)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("s,b,starts,t", VERIFY_WINDOWS)
+def test_paged_write_run1_bit_equal_to_the_jax_scatter(s, b, starts, t, mode):
+    """paged_write and paged_write_plain at run=1 land a window that starts
+    mid-page token by token, bit-equal (narrow bytes and scale planes too)
+    to the JAX paged_write(use_kernel=False), the reference's CPU scatter,
+    on every page but the null page 0: the slots around each window keep
+    their poison."""
+    from tests.test_torch_kv_quant import _bytes, _jax_rows, _quantized_pool, _torch_rows
+
+    rng = np.random.default_rng(7 * s + b + t)
+    shape, (k_stage, v_stage, pt, positions, valid) = _verify_write_inputs(rng, s, b, starts, t)
+    if mode is None:
+        pools = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+        jax_pools, scales = [jnp.asarray(x) for x in pools], {}
+    else:
+        (k_raw, k_sc), (v_raw, v_sc) = (_quantized_pool(rng, shape, mode) for _ in range(2))
+        pools = [k_raw, v_raw, k_sc, v_sc]
+        jax_pools = [_jax_rows(k_raw, mode), _jax_rows(v_raw, mode)]
+        scales = dict(k_scale=jnp.asarray(k_sc), v_scale=jnp.asarray(v_sc))
+    want = jax_paged_write(*jax_pools, jnp.asarray(k_stage), jnp.asarray(v_stage),
+                           jnp.asarray(pt), jnp.asarray(positions), jnp.asarray(valid),
+                           use_kernel=False, **scales)
+    for write in (kv_update.paged_write, kv_update.paged_write_plain):
+        if mode is None:
+            mine = [_t(x.copy()) for x in pools]
+            planes = {}
+        else:
+            mine = [_torch_rows(pools[0].copy(), mode), _torch_rows(pools[1].copy(), mode),
+                    _t(pools[2].copy()), _t(pools[3].copy())]
+            planes = dict(k_scale=mine[2], v_scale=mine[3])
+        ops.reset_counts()
+        write(mine[0], mine[1], _t(k_stage), _t(v_stage), _t(pt), _t(positions), _t(valid),
+              run=1, **planes)
+        for g, w in zip(mine, want):
+            np.testing.assert_array_equal(_bytes(g)[:, 1:], _bytes(w)[:, 1:])
+        c = ops.COUNTS[variant("paged_write", mode)]
+        assert (c.launches, c.plain_calls) == (0, 1)
+    # the default run, min(T, S) = 4 here, places a crossing window by its
+    # first token, so its slots run past the page (the reason for run=1)
+    if s == 4 and t == 4 and mode is None:
+        mine = [_t(x.copy()) for x in pools]
+        with pytest.raises(IndexError):
+            kv_update.paged_write(mine[0], mine[1], _t(k_stage), _t(v_stage), _t(pt),
+                                  _t(positions), _t(valid))
+
+
+def test_paged_write_refuses_a_run_that_does_not_fit():
+    """A run must divide T and fit a page."""
+    pool = torch.zeros((1, 3, 4, 1, 64))
+    stage = torch.zeros((1, 1, 6, 1, 64))
+    args = (torch.ones((1, 2), dtype=torch.int32), torch.zeros((1, 6), dtype=torch.int32),
+            torch.ones((1, 6), dtype=torch.bool))
+    with pytest.raises(ValueError, match="multiple of the run 4"):
+        kv_update.paged_write(pool, pool, stage, stage, *args, run=4)
+    with pytest.raises(ValueError, match="does not fit a page"):
+        kv_update.paged_write(pool, pool, stage, stage, *args, run=6)
+    with pytest.raises(ValueError, match="does not fit a page"):
+        kv_update.paged_write(pool, pool, stage, stage, *args, run=0)
+
+
+@pytest.mark.parametrize(
+    "s,num_pages,mp,hist",
+    [
+        (4, 32, 6, (2, 7, 0, 13)),       # pages of 4: histories ending mid-page, a dead row
+        (64, 12, 3, (63, 130, 1)),       # the card's page size: 63, past two pages, one token
+    ],
+)
+def test_paged_prefill_plain_matches_jax_at_verify_windows(s, num_pages, mp, hist):
+    """A verify window's shape: T = 5 (spec_ngram 4) over histories of any
+    length, g=4 at D=64, against the Pallas kernel in interpret mode (a
+    row with no history and no tokens is padding)."""
+    cur = tuple(5 if h else 0 for h in hist)
+    _paged_prefill_case(len(hist), 5, 8, 2, 64, hist, cur, s=s, num_pages=num_pages, mp=mp)
