@@ -23,6 +23,10 @@ Phases, each fatal on failure:
      at llama3-1b's and llama3-8b's dense widths (INT8_CASES: a decode row,
      bucket 64 and a 2,048-token chunk), each row within 2^-6 of its
      largest value, beside torch.matmul on a bf16 weight of the same shape;
+     and at llama3-draft's widths (4 layers, Hq 8, Hkv 4, D 64, a bf16
+     pool) at buckets 8 and 64: paged decode at a proposal, paged prefill
+     and the write at run 1 over catch-up windows of 1 to 5 tokens from
+     unaligned positions;
   4. model: random-init llama3-1b in bf16, the kernel path against the
      plain path, teacher-forced over a 256-token prompt and 32 decode steps,
      and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
@@ -171,6 +175,36 @@ Phases, each fatal on failure:
      (counts set to 0 just before its graph engine's run) and those made
      by its verify replays; the phase prints each wave's acceptance rate
      and its seconds;
+  4h. draft: draft-model speculation, engines built as the CLI builds
+     them with no flags but the model, the pool and --spec-draft llama3-1b
+     (a self-draft: the target's own weights; graphs, overlap, mixed
+     steps, prefix caching), with spec_min_accept_rate 0 so that every
+     decode dispatch is a draft-model one: in each pool mode phase 4b's
+     three engines (the eager loop and graphs without overlap, graphs
+     with it) and a fourth, graphs with overlap and mixed steps off, all
+     decoding in one bucket of 8, over eight greedy rows of 24 tokens, a
+     seeded sampled pair and four rows joined by a fifth prompt (split
+     mixed steps where they are on). Every stream identical in the four;
+     every key captured once, every spec_fused and draft chunk key
+     replayed, phase 4b's identities, chained dispatches consumed under
+     overlap, the spec counters of the mixed engines equal the eager
+     loop's; the spec_fused graphs launch the pool's write and
+     paged prefill and the draft pool's bf16 write, paged prefill and
+     paged decode, the run every kernel variant of the pool, and nothing a
+     plain version; and the self-draft gate: the S proposals by T=1
+     greedy steps, then the window [last token, proposals] through the
+     verify path against the T=1 decode path (max |delta logit| < 0.25,
+     argmax >= 90 %), with the share of proposals accepted printed. Then
+     the llama3-draft arm (--spec-draft llama3-draft over an int8 pool,
+     the CLI's cooldown): acceptance under spec_min_accept_rate, the
+     cooldown engaged, the draft's bf16 kernels launched; the device ms of
+     a spec_fused dispatch against the defaults' fused dispatch at
+     buckets 8 and 64 (each graph replayed 10 times, CUDA events), with
+     wave tok/s and tokens a row a dispatch; and one streamed chat through
+     the CLI's server with --spec-draft llama3-draft. The kernels line's
+     `draft_launches` and `spec_fused_launches` are the bf16 overlap
+     engine's launches (counts set to 0 just before its run) and those
+     made by its spec_fused replays;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -223,6 +257,7 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -245,6 +280,8 @@ from dynamo_tpu_torch.ops import (
 
 #: llama3-1b attention widths (LlamaConfig.llama3_1b), page size 64
 L, HQ, HKV, D, S = 16, 32, 8, 64, 64
+#: llama3-draft's (LlamaConfig.llama3_draft): layers, query and KV heads
+DRAFT_L, DRAFT_HQ, DRAFT_HKV = 4, 8, 4
 #: pool modes: bf16 (None) and the two quantized ones
 MODES = kv_quant.POOL_MODES
 SOURCE = {
@@ -484,12 +521,15 @@ def paged_write_inputs(dev, gen, b: int, t: int, mode, d: int = D, full: bool = 
 
 
 def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
-                      full: bool = False, starts=None) -> dict:
+                      full: bool = False, starts=None, layers: int = L,
+                      hkv: int = HKV) -> dict:
     """The write against its plain version, bit for bit; with `starts`, a
     verify window a row (paged_write_inputs) landed in runs of one slot,
-    whose every slot outside the windows must keep its bytes."""
-    before, k_stage, v_stage, args, planes = paged_write_inputs(dev, gen, b, t, mode, d, full,
-                                                                starts=starts)
+    whose every slot outside the windows must keep its bytes. At
+    llama3-1b's layers and KV heads unless `layers` and `hkv` say
+    otherwise (the draft's)."""
+    before, k_stage, v_stage, args, planes = paged_write_inputs(
+        dev, gen, b, t, mode, d, full, starts=starts, layers=layers, hkv=hkv)
     valid = args[2]
     run = None if starts is None else 1
     kern = [x.clone() for x in before]
@@ -525,8 +565,8 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
         library_call)
     nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode, run=run)
     b_ms, by = bound(nbytes, 0.0, peaks)
-    return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": L,
-            "Hkv": HKV, "D": d, "S": S, "every_token_valid": full,
+    return {"kernel": kv_quant.variant("paged_write", mode), "B": b, "T": t, "L": layers,
+            "Hkv": hkv, "D": d, "S": S, "every_token_valid": full,
             "run": run or min(t, S), "starts": starts,
             "tolerance": "bit-equal on every page but the null page 0"
                          + ("" if mode is None else ", narrow bytes and scale planes"),
@@ -547,8 +587,9 @@ def index_copy_write(pools, k_stage, v_stage, pt, pos, valid, run=None):
     pages = torch.where(first_valid, pages, 0)
     slot0 = torch.where(first_valid, first_pos % S, 0)
     idx = ((pages * S + slot0)[:, :, None] + torch.arange(run, device=pos.device)).reshape(-1)
-    flat = [x.clone().view(L, -1, row) for x in pools[:2]]
-    src = [x.view(L, b * t, row) for x in (k_stage, v_stage)]
+    layers = k_stage.shape[0]
+    flat = [x.clone().view(layers, -1, row) for x in pools[:2]]
+    src = [x.view(layers, b * t, row) for x in (k_stage, v_stage)]
 
     def call():
         for dst, s in zip(flat, src):
@@ -605,25 +646,29 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int, ragged: bool = True,
 
 
 def paged_prefill_inputs(dev, gen, hist: list[int], cur: list[int], t: int, mode,
-                         d: int = D) -> tuple[tuple, dict]:
+                         d: int = D, heads: tuple = (HQ, HKV), layers: int = L
+                         ) -> tuple[tuple, dict]:
     """A paged prefill case's arguments (q, k_cur, v_cur, pools, layer, page
     tables, history and chunk lengths) and, for a quantized pool, its scale
-    planes as keywords; slots past each quantized history are poisoned."""
+    planes as keywords; slots past each quantized history are poisoned.
+    At llama3-1b's heads and layers unless `heads` (Hq, Hkv) and `layers`
+    say otherwise."""
+    hq, hkv = heads
     b = len(hist)
     mp = max(1, -(-max(hist) // S))
     num_pages = 1 + b * mp
     pt = 1 + torch.randperm(num_pages - 1, generator=gen, device=dev)[: b * mp]
     pt = pt.reshape(b, mp).to(torch.int32)
     bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
-    k_cur = torch.randn((b, t, HKV, d), generator=gen, **bf)
-    v_cur = torch.randn((b, t, HKV, d), generator=gen, **bf)
-    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, d), mode, gen, dev)
+    q = torch.randn((b, t, hq, d), generator=gen, **bf)
+    k_cur = torch.randn((b, t, hkv, d), generator=gen, **bf)
+    v_cur = torch.randn((b, t, hkv, d), generator=gen, **bf)
+    (k_cache, v_cache), planes = make_pools((layers, num_pages, S, hkv, d), mode, gen, dev)
     hist_lens = torch.tensor(hist, dtype=torch.int32, device=dev)
     cur_lens = torch.tensor(cur, dtype=torch.int32, device=dev)
     if mode is not None:
         poison_past_history((k_cache, v_cache), planes, pt, hist_lens)
-    return (q, k_cur, v_cur, k_cache, v_cache, L - 2, pt, hist_lens, cur_lens), planes
+    return (q, k_cur, v_cur, k_cache, v_cache, layers - 2, pt, hist_lens, cur_lens), planes
 
 
 def paged_prefill_library(args, planes):
@@ -648,8 +693,9 @@ def paged_prefill_library(args, planes):
 
 
 def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int,
-                        mode, d: int = D) -> dict:
-    args, planes = paged_prefill_inputs(dev, gen, hist, cur, t, mode, d)
+                        mode, d: int = D, heads: tuple = (HQ, HKV), layers: int = L) -> dict:
+    hq, hkv = heads
+    args, planes = paged_prefill_inputs(dev, gen, hist, cur, t, mode, d, heads, layers)
     hist_lens, cur_lens = args[-2:]
     b = len(hist)
     got = flash_prefill.paged_prefill_attention(*args, scale_dim=d, **planes)
@@ -664,11 +710,11 @@ def check_paged_prefill(dev, peaks, gen, hist: list[int], cur: list[int], t: int
         lambda: flash_prefill.paged_prefill_attention(*args, scale_dim=d, **planes),
         lambda: flash_prefill.paged_prefill_attention_plain(*args, scale_dim=d, **planes),
         paged_prefill_library(args, planes))
-    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), HQ, HKV, d, 2,
+    nbytes = flash_prefill.paged_bytes_moved(hist_lens.cpu(), cur_lens.cpu(), hq, hkv, d, 2,
                                              mode)
-    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), HQ, d)
+    flop = flash_prefill.paged_flops(hist_lens.cpu(), cur_lens.cpu(), hq, d)
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": name, "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": d,
+    return {"kernel": name, "B": b, "T": t, "Hq": hq, "Hkv": hkv, "L": layers, "D": d,
             "S": S, "hist_lens": hist, "cur_lens": cur,
             "tolerance": f"bf16, each (token, head) row below cur_lens: max |diff| <= "
                          f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)"
@@ -689,9 +735,13 @@ PAGED_PREFILL_CASES = (([2560], [440], 512, 10), ([1088], [200], 256, 14),
                        ([0, 512, 1536, 3072], [512, 512, 300, 512], 512, 5))
 
 
-def decode_inputs(dev, gen, b: int, max_hist: int, mode, d: int = D) -> tuple[tuple, dict]:
+def decode_inputs(dev, gen, b: int, max_hist: int, mode, d: int = D, heads: tuple = (HQ, HKV),
+                  layers: int = L) -> tuple[tuple, dict]:
     """A decode case's arguments (q, pools, layer, page tables, history
-    lengths) and, for a quantized pool, its scale planes as keywords."""
+    lengths) and, for a quantized pool, its scale planes as keywords; at
+    llama3-1b's heads and layers unless `heads` and `layers` say
+    otherwise."""
+    hq, hkv = heads
     mp = max_hist // S
     num_pages = 1 + b * mp
     # the page tables and lengths first: every pool mode gets the same ones
@@ -703,11 +753,11 @@ def decode_inputs(dev, gen, b: int, max_hist: int, mode, d: int = D) -> tuple[tu
         hist[1] = 0  # no history: (acc, m, l) = (0, -inf, 0)
         hist[2] = max_hist
     hist = hist.to(torch.int32)
-    q = torch.randn((b, HQ, d), generator=gen, dtype=torch.bfloat16, device=dev)
-    (k_cache, v_cache), planes = make_pools((L, num_pages, S, HKV, d), mode, gen, dev)
+    q = torch.randn((b, hq, d), generator=gen, dtype=torch.bfloat16, device=dev)
+    (k_cache, v_cache), planes = make_pools((layers, num_pages, S, hkv, d), mode, gen, dev)
     if mode is not None:
         poison_past_history((k_cache, v_cache), planes, pt, hist)
-    return (q, k_cache, v_cache, L - 3, pt, hist), planes
+    return (q, k_cache, v_cache, layers - 3, pt, hist), planes
 
 
 def decode_errors(got, ref, hist) -> tuple[float, float, bool]:
@@ -735,8 +785,10 @@ def decode_library(args, planes):
     return lambda: sdpa(q[:, :, None], dense_k, dense_v, attn_mask=live, enable_gqa=True)
 
 
-def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode, d: int = D) -> dict:
-    args, planes = decode_inputs(dev, gen, b, max_hist, mode, d)
+def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode, d: int = D,
+                       heads: tuple = (HQ, HKV), layers: int = L) -> dict:
+    hq, hkv = heads
+    args, planes = decode_inputs(dev, gen, b, max_hist, mode, d, heads, layers)
     hist = args[-1]
     kernel = lambda: paged_attention.paged_decode_attention(*args, scale_dim=d, **planes)  # noqa: E731
     plain = lambda: paged_attention.paged_decode_attention_plain(*args, scale_dim=d, **planes)  # noqa: E731
@@ -749,10 +801,10 @@ def check_paged_decode(dev, peaks, gen, b: int, max_hist: int, mode, d: int = D)
             f"{name} B={b} D={d}: max |acc/l diff| {err}, max |m diff| {m_err} "
             f"(limit {DECODE_ATOL}), empty rows right: {empty_ok}")
     times = timings(kernel, plain, decode_library(args, planes))
-    nbytes = paged_attention.bytes_moved(hist.cpu(), HQ, HKV, d, 2, mode)
-    flop = 4 * HQ * d * int(hist.long().sum())
+    nbytes = paged_attention.bytes_moved(hist.cpu(), hq, hkv, d, 2, mode)
+    flop = 4 * hq * d * int(hist.long().sum())
     b_ms, by = bound(nbytes, flop, peaks)
-    return {"kernel": name, "B": b, "Hq": HQ, "Hkv": HKV, "D": d, "S": S,
+    return {"kernel": name, "B": b, "Hq": hq, "Hkv": hkv, "L": layers, "D": d, "S": S,
             "history_tokens": int(hist.long().sum()), "max_history": int(hist.max()),
             "tolerance": f"f32, max |acc/l diff| and |m diff| <= {DECODE_ATOL}; "
                          "zero history exactly (0, -inf, 0)"
@@ -803,6 +855,16 @@ def check_int8_matmul(dev, peaks, gen, m: int, k: int, n: int) -> dict:
 VERIFY_T = 5
 
 
+def catchup_lens(seed: int, b: int) -> list[int]:
+    """B catch-up windows' lengths (a draft-model dispatch's tokens
+    accepted since the last one), 1 to VERIFY_T, from `seed` (the first
+    is VERIFY_T)."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, VERIFY_T + 1, (b,), generator=gen)
+    lens[0] = VERIFY_T
+    return lens.tolist()
+
+
 def verify_hist(seed: int, b: int) -> list[int]:
     """B unaligned histories in [63, 2031] from `seed` (the first is 63)."""
     gen = torch.Generator().manual_seed(seed)
@@ -832,6 +894,21 @@ def phase_kernels(dev, peaks) -> dict:
         check_paged_prefill(dev, peaks, gen.manual_seed(11), *PAGED_PREFILL_CASES[-1][:3],
                             None, d=128),
     ]
+    # llama3-draft's shapes in a draft-model dispatch (its pool is bf16
+    # whatever the target's is), at buckets 8 and 64, before the main
+    # path's cases so the kernels line reports those: paged decode at a
+    # proposal, and over a catch-up window (T = VERIFY_T, 1 to VERIFY_T
+    # tokens a row, from an unaligned position) paged prefill and the write
+    # at run 1
+    draft = dict(heads=(DRAFT_HQ, DRAFT_HKV), layers=DRAFT_L)
+    for b in (8, 64):
+        cases += [
+            check_paged_decode(dev, peaks, gen.manual_seed(60 + b), b, 2048, None, **draft),
+            check_paged_prefill(dev, peaks, gen.manual_seed(70 + b), verify_hist(70 + b, b),
+                                catchup_lens(70 + b, b), VERIFY_T, None, **draft),
+            check_paged_write(dev, peaks, gen.manual_seed(80 + b), b, VERIFY_T, None,
+                              starts=verify_hist(80 + b, b), layers=DRAFT_L, hkv=DRAFT_HKV),
+        ]
     for mode in MODES:
         # each shape from its own seed, so every pool mode sees the same
         # page tables, lengths and staged rows
@@ -2340,8 +2417,6 @@ def phase_spec(dev, card: str) -> dict:
     drafts and acceptance rate, its captures, and the phase's seconds.
     Returns, per kernel variant, its launches in the cli arm's graph runs
     and those made by its verify replays."""
-    import dataclasses
-
     from dynamo_tpu_torch.cli import run as cli_run
     from dynamo_tpu_torch.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.models.registry import get_model
@@ -2382,6 +2457,365 @@ def phase_spec(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     emit({"phase": "spec_done", "seconds": time.perf_counter() - t_phase})
     return {"launches": launches, "verify_launches": verify_launches}
+
+
+# -- phase "draft": draft-model speculation at the CLI's defaults plus --spec-draft --
+
+#: the argv of the phase's self-draft engines: the CLI's defaults (graphs,
+#: overlap, mixed steps, prefix caching; context 4096, chunk 512, page 64)
+#: plus a draft that is the target itself (its own weights: greedy drafts
+#: accept where the verify's bf16 argmax agrees)
+DRAFT_ARGV = ["run", "--model", "llama3-1b", "--spec-draft", "llama3-1b"]
+#: drafts a dispatch proposes: the CLI's --spec-draft-tokens default
+#: (phase_draft checks it)
+SPEC_DRAFT = 4
+#: the llama3-draft arm's argv (random draft weights: the cooldown engages),
+#: over an int8 target pool, so the bf16 variants are the draft's alone
+DRAFT_ARM_ARGV = ["run", "--model", "llama3-1b", "--spec-draft", "llama3-draft",
+                  "--kv-quantize", "int8"]
+#: the phase's engines a pool mode: (name, cuda_graphs, overlap_decode,
+#: mixed_steps)
+DRAFT_ENGINES = (("eager", False, False, True), ("graphs", True, False, True),
+                 ("overlap", True, True, True), ("unmixed", True, True, False))
+#: the phase's waves for run_waves: eight greedy rows of 24 tokens, and a
+#: seeded sampled pair (temperature 0.7, top-p 0.9)
+DRAFT_WAVE, DRAFT_SAMPLED = ((8, 24),), ((2, 16),)
+#: the dispatch timing's rows (decode buckets) and tokens a row
+DRAFT_TIMED = ((8, 64), 32)
+
+
+def draft_gate(dev, adapter, params, mode) -> dict:
+    """The self-draft gate on the verify half, teacher-forced: each row's
+    SPEC_GATE_HIST tokens prefilled into a pool, copied twice; the draft's
+    S proposals from the last prompt token by T=1 greedy steps on one copy
+    (a self-draft proposes the target's argmax); the window [last token,
+    proposals] through the verify path (a chunk with history, landed in
+    runs of one slot) on the second copy and through the T=1 decode path
+    on the third, kernels on all. The logits at every window position
+    must agree (max |delta logit| < 0.25, argmax >= 90 %); the share of
+    proposals the verify's argmax accepts is printed."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    gen = torch.Generator().manual_seed(41)
+    s = SPEC_DRAFT
+    b, t = len(SPEC_GATE_HIST), s + 1
+    hist = torch.tensor(SPEC_GATE_HIST, dtype=torch.int32, device=dev)
+    per_row = -(-(max(SPEC_GATE_HIST) + t) // S)
+    pt = (1 + torch.arange(b * per_row, dtype=torch.int32, device=dev)).reshape(b, per_row)
+    width = 512
+    prompt = torch.randint(1, adapter.vocab_size, (b, width), generator=gen).to(dev)
+    pos = torch.arange(width, dtype=torch.int32, device=dev)[None].expand(b, width).contiguous()
+    ones = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)
+    with torch.no_grad():
+        pool = adapter.init_kv(1 + b * per_row, S, dev, kv_quantize=mode)
+        _, pool = llama.forward(params, cfg, prompt, pos, pos < hist[:, None], pool, pt,
+                                first_chunk=True)
+        pools = [llama.KVPages(*(None if x is None else x.clone() for x in pool))
+                 for _ in range(2)]
+        # the last prompt token (position hist - 1) is rewritten by each
+        # path at hist - 1 on: the window starts there, as a dispatch's does
+        last = prompt[rows, hist.long() - 1]
+        tok, proposals = last, []
+        for j in range(s):
+            p = (hist - 1 + j)[:, None].contiguous()
+            logits, pools[0] = llama.forward(params, cfg, tok[:, None].contiguous(), p, ones,
+                                             pools[0], pt)
+            tok = logits[:, 0].argmax(-1)
+            proposals.append(tok)
+        window = torch.stack([last, *proposals], dim=1)
+        wpos = (hist[:, None] - 1 + torch.arange(t, dtype=torch.int32, device=dev)).contiguous()
+        wval = torch.ones((b, t), dtype=torch.bool, device=dev)
+        verify, _ = llama.forward(params, cfg, window, wpos, wval, pool, pt, write_run=1)
+        steps = []
+        for j in range(t):
+            step = [x[:, j:j + 1].contiguous() for x in (window, wpos, wval)]
+            logits, pools[1] = llama.forward(params, cfg, *step, pools[1], pt)
+            steps.append(logits[:, 0])
+        decode = torch.stack(steps, dim=1)
+    worst, agree, n = logit_gap(verify.reshape(b * t, -1), decode.reshape(b * t, -1))
+    accepted = (verify[:, :s].argmax(-1) == window[:, 1:]).float().mean().item()
+    if not (worst < GATE_MAX_DLOGIT and agree / n >= GATE_ARGMAX):
+        raise AssertionError(f"draft gate, {mode or 'bf16'} pool: max |dlogit| {worst}, argmax "
+                             f"agreement {agree / n}")
+    return {"max_abs_dlogit": worst, "argmax_agreement": agree / n, "positions": n,
+            "proposals_accepted": accepted, "hist": list(SPEC_GATE_HIST), "t": t}
+
+
+def draft_run(eng) -> dict[str, list[int]]:
+    """DRAFT_WAVE, DRAFT_SAMPLED, then run_late_arrival (a fifth prompt
+    joins four decoding rows: split mixed steps)."""
+    out = run_waves(eng, DRAFT_WAVE, "d0-")
+    out.update(run_waves(eng, DRAFT_SAMPLED, "d1-", temperature=0.7, top_p=0.9, seed=3))
+    out.update(run_late_arrival(eng, "dl"))
+    return out
+
+
+def draft_mode(dev, params, cfg, label: str) -> dict:
+    """One pool mode of phase "draft": DRAFT_ENGINES over draft_run with
+    spec_min_accept_rate 0 (no cooldown: every decode dispatch is a
+    draft-model one, so overlap and mixed steps change no stream) and one
+    decode bucket, 8 (mixed steps change which rows share a dispatch, and
+    a row's logits depend in their last bits on its dispatch's bucket: up
+    to 0.0625 between buckets 1 and 4, where random weights tie; with one
+    bucket, and prompts of one chunk, every row runs the same shapes
+    whatever the schedule), counts set to 0 before each. Checks: every
+    stream identical in the four
+    (the unmixed engine runs each prefill step apart from the decode
+    dispatches, the others split mixed steps around them); each graph
+    engine captured each key once, replayed every spec_fused and
+    spec_draft_prefill key and keeps phase 4b's identities; the graphs
+    and overlap engines ran split mixed steps with the eager loop's spec
+    counters, the unmixed one none; the overlap and unmixed engines
+    consumed chained dispatches; the spec_fused graphs launch the
+    pool's write and paged prefill and the draft pool's bf16 write, paged
+    prefill and paged decode; the overlap engine's run launches those and
+    flash prefill (the pool's paged decode only where a plain dispatch
+    runs: none here), and nothing a plain version. Returns the
+    overlap engine's line, its launches and those of its spec_fused
+    replays."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    mode = cfg.kv_quantize
+    cfg = dataclasses.replace(cfg, spec_min_accept_rate=0.0, decode_buckets=(8,), max_seqs=8)
+    runs = {}
+    for name, graphs, overlap, mixed in DRAFT_ENGINES:
+        eng = TorchEngine(dataclasses.replace(cfg, overlap_decode=overlap, mixed_steps=mixed),
+                          params=params, device=dev, cuda_graphs=graphs)
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        streams = draft_run(eng)
+        torch.cuda.synchronize()
+        runs[name] = dict(eng=eng, streams=streams, s=time.perf_counter() - t0,
+                          counts={k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()})
+    want = runs["eager"]["streams"]
+    spec = ("spec_drafted", "spec_accepted", "spec_skipped_ineligible", "mixed_dispatches")
+    lines = {}
+    for name, _, overlap, mixed in DRAFT_ENGINES[1:]:
+        same_streams(label, want, runs[name]["streams"], f"the {name} engine's streams")
+        eng = runs[name]["eng"]
+        m = eng.metrics
+        fused = {k: g for k, g in eng._step_fns.items() if k[0] == "spec_fused"}
+        covers = {k: g for k, g in eng._step_fns.items() if k[0] == "spec_draft_prefill"}
+        in_fused: dict[str, int] = {}
+        for g in fused.values():
+            for kernel, (n, _) in g.launches.items():
+                in_fused[kernel] = in_fused.get(kernel, 0) + n * g.replays
+        ok = (m.compiles == len(eng.step_keys) and replays_match(m, eng.dispatches)
+              and fused and covers and all(g.replays for g in (*fused.values(), *covers.values()))
+              and all(g.keep for g in fused.values())
+              and m.spec_drafted > 0 and m.spec_accepted > 0
+              and (m.mixed_dispatches > 0) == mixed and (m.overlap_hits > 0) == overlap
+              and (not mixed or all(getattr(m, c) == getattr(runs["eager"]["eng"].metrics, c)
+                                    for c in spec)))
+        line = {k: getattr(m, k) for k in (
+            "compiles", "compile_ms", "prefill_dispatches", "prefill_replays",
+            "decode_dispatches", "decode_replays", "mixed_dispatches", "overlap_dispatches",
+            "overlap_hits", "overlap_rollbacks", "spec_drafted", "spec_accepted",
+            "spec_accept_rate", "time_spec_host_ms", "kv_pool_bytes")}
+        line.update(dispatches=eng.dispatches, run_s=runs[name]["s"],
+                    spec_fused_keys=sorted([list(k) for k in fused]),
+                    spec_fused_replays=sum(g.replays for g in fused.values()),
+                    draft_prefill_keys=len(covers), spec_fused_launches=in_fused)
+        lines[name] = line
+        if not ok:
+            raise AssertionError(f"{label}, {name}: captures, replays or spec counts wrong: "
+                                 f"{line}")
+        want_fused = ({kv_quant.variant(n, mode) for n in ("paged_write",
+                                                            "paged_prefill_attention")}
+                      | {"paged_write", "paged_prefill_attention", "paged_decode_attention"})
+        if set(in_fused) != want_fused:
+            raise AssertionError(f"{label}, {name}: the spec_fused graphs launched {in_fused}, "
+                                 f"want {sorted(want_fused)}")
+    want_launch = want_fused | {"flash_prefill_attention"}
+    counts = runs["overlap"]["counts"]
+    for kernel, (n, plain) in counts.items():
+        if plain != 0 or (n == 0 and kernel in want_launch):
+            raise AssertionError(f"{label}: {kernel} launched {n} times, plain ran {plain} "
+                                 f"(want {sorted(want_launch)})")
+    lines["eager_run_s"] = runs["eager"]["s"]
+    return {"lines": lines, "launches": {k: n for k, (n, _) in counts.items() if n},
+            "spec_fused_launches": lines["overlap"]["spec_fused_launches"]}
+
+
+def draft_arm(dev, params, eos) -> dict:
+    """The llama3-draft arm: a graph engine built from DRAFT_ARM_ARGV
+    (random draft weights, the CLI's cooldown; an int8 target pool, so
+    the bf16 variants' launches are the draft's), over DRAFT_WAVE, counts
+    set to 0 before it. Checks: acceptance under
+    spec_min_accept_rate, the cooldown engaged, the draft's kernels (the
+    bf16 write, paged prefill, paged decode and flash prefill) launched
+    and nothing ran a plain version."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = cli_run.engine_config(cli_run._parse(DRAFT_ARM_ARGV), eos)
+    eng = TorchEngine(cfg, params=params, device=dev)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    run_waves(eng, DRAFT_WAVE, "a-")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    m = eng.metrics
+    launches = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+    draft_kernels = ("paged_write", "paged_prefill_attention", "paged_decode_attention",
+                     "flash_prefill_attention")
+    line = {k: getattr(m, k) for k in ("spec_drafted", "spec_accepted", "spec_accept_rate",
+                                       "spec_skipped_cooldown", "decode_dispatches",
+                                       "kv_pool_bytes", "compiles", "compile_ms")}
+    line.update(run_s=run_s, draft=cfg.spec_draft_model,
+                draft_heads=[eng.draft_adapter.config.num_heads,
+                             eng.draft_adapter.config.num_kv_heads],
+                launches={k: n for k, (n, _) in launches.items() if n})
+    if not (m.spec_drafted > 0 and m.spec_accepted < cfg.spec_min_accept_rate * m.spec_drafted
+            and m.spec_skipped_cooldown > 0
+            and all(launches[k][0] > 0 for k in draft_kernels)
+            and all(p == 0 for _, p in launches.values())):
+        raise AssertionError(f"draft arm: acceptance, cooldown or launches wrong: {line}")
+    return line
+
+
+def draft_dispatch_times(dev, params, eos) -> list[dict]:
+    """Device ms of a spec_fused dispatch against a fused step, at buckets
+    DRAFT_TIMED: a graph engine from DRAFT_ARGV with no cooldown and one at
+    the CLI's defaults each run a wave of B rows (128-token prompts,
+    DRAFT_TIMED tokens a row) twice, the second timed (wave tok/s); then
+    the bucket's spec_fused graph and the defaults' 8-step graph replay
+    10 times each, by CUDA events (their buffers hold the last dispatch's
+    inputs, whose pages are free by then)."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine, key_field
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    buckets, tokens = DRAFT_TIMED
+    out = []
+    for b in buckets:
+        row = {"B": b, "tokens_a_row": tokens}
+        for arm, argv, knobs in (("spec_fused", DRAFT_ARGV, dict(spec_min_accept_rate=0.0)),
+                                 ("defaults", ["run", "--model", "llama3-1b"], {})):
+            cfg = dataclasses.replace(cli_run.engine_config(cli_run._parse(argv), eos),
+                                      max_seqs=64, enable_prefix_caching=False, **knobs)
+            eng = TorchEngine(cfg, params=params, device=dev)
+            for rep in range(2):
+                gen = torch.Generator().manual_seed(43)
+                for i in range(b):
+                    prompt = torch.randint(1, eng.adapter.vocab_size, (128,), generator=gen)
+                    eng.add_request(f"t{rep}-{i}", prompt.tolist(),
+                                    SamplingParams(max_tokens=tokens, ignore_eos=True))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                before = (eng.metrics.decode_dispatches, eng.metrics.spec_drafted,
+                          eng.metrics.spec_accepted)
+                eng.run_to_completion()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            m = eng.metrics
+            # the bucket's key of the arm's kind with the most steps
+            kinds = ("spec_fused",) if arm == "spec_fused" else ("decode", "decode_multi")
+            key = max((k for k in eng.step_keys
+                       if k[0] in kinds and key_field(k, "bucket") == b),
+                      key=lambda k: key_field(k, "steps", 1))
+            if arm == "spec_fused":
+                drafted, accepted = m.spec_drafted - before[1], m.spec_accepted - before[2]
+                row.update(spec_accept_rate=accepted / drafted,
+                           tokens_a_row_a_dispatch=1 + accepted * SPEC_DRAFT / drafted)
+            graph = eng._step_fns[key]
+            ms = cuda_ms(graph.graph.replay, iters=10, warmup=2)
+            row[arm] = {"device_ms_a_dispatch": ms, "wave_tok_s": b * tokens / wall,
+                        "decode_dispatches": m.decode_dispatches - before[0],
+                        "compiles": m.compiles, "compile_ms": m.compile_ms, "key": list(key)}
+            if arm == "defaults":
+                row[arm]["device_ms_a_step"] = ms / key_field(key, "steps")
+            del eng, graph
+            torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def serve_draft(card: str) -> dict:
+    """One streamed chat through the CLI's server with --spec-draft
+    llama3-draft: it must answer 200 with usage counting the ids served,
+    and its engine must have run draft-model dispatches."""
+    from dynamo_tpu_torch.cli.run import start_server
+
+    server = start_server(["run", "in=http", "out=torch", "--model", "llama3-1b", "--port", "0",
+                           "--dtype", "bfloat16", "--max-context", str(SERVE_CONTEXT),
+                           "--spec-draft", "llama3-draft"])
+    try:
+        body = {"model": "llama3-1b", "max_tokens": 48, "stream": True,
+                "stream_options": {"include_usage": True},
+                "ext": {"ignore_eos": True, "return_token_ids": True},
+                "messages": [{"role": "user", "content": "draft for me: " + "tell me " * 20}]}
+        status, out, ids, ttft = _post(server.url + "/v1/chat/completions", body)
+        m = server.runner.engine.metrics
+        use = out[-1].get("usage") or {}
+        line = {"status": status, "tokens": len(ids), "usage": use, "ttft_s": ttft,
+                "spec_drafted": m.spec_drafted, "spec_accepted": m.spec_accepted,
+                "spec_skipped_cooldown": m.spec_skipped_cooldown}
+        if not (status == 200 and len(ids) == 48 == use.get("completion_tokens")
+                and m.spec_drafted > 0):
+            raise AssertionError(f"draft serve: {line}")
+        return line
+    finally:
+        server.stop()
+
+
+def phase_draft(dev, card: str) -> dict:
+    """Draft-model speculation on llama3-1b engines built from DRAFT_ARGV
+    (a self-draft), in each pool mode: draft_mode and the self-draft gate
+    (draft_gate); then the llama3-draft arm (draft_arm), the device ms of
+    a spec_fused dispatch against a fused step (draft_dispatch_times) and
+    one request through the CLI's server with --spec-draft llama3-draft
+    (serve_draft). Also checks the CLI's defaults under --spec-draft.
+    Prints each pool mode's line, the arm's, the times' and the serve's,
+    and the phase's seconds. Returns, per kernel variant, the bf16 overlap
+    engine's launches and those of its spec_fused replays."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    adapter = get_model("llama3-1b", dtype="bfloat16")
+    params = adapter.init_params(torch.Generator(device=dev).manual_seed(0))
+    eos = ModelDeploymentCard(name="llama3-1b").eos_token_ids
+    result = {}
+    for mode in MODES:
+        label = f"draft, {mode or 'bf16'} pool"
+        t_mode = time.perf_counter()
+        argv = DRAFT_ARGV + (["--kv-quantize", mode] if mode else [])
+        cfg = cli_run.engine_config(cli_run._parse(argv), eos)
+        if not (cfg.spec_draft_model == "llama3-1b" and cfg.spec_draft_tokens == SPEC_DRAFT
+                and cfg.overlap_decode and cfg.mixed_steps and cfg.enable_prefix_caching
+                and cfg.decode_kstep == 1 and cfg.page_size == S):
+            raise AssertionError(f"{label}: the CLI's defaults changed: {cfg}")
+        r = draft_mode(dev, params, cfg, label)
+        if mode is None:
+            result = {"launches": r["launches"], "spec_fused_launches": r["spec_fused_launches"]}
+        gate = draft_gate(dev, adapter, params, mode)
+        emit({"phase": "draft", "model": "llama3-1b", "dtype": "bfloat16", "kv_quantize": mode,
+              "card": card, "argv": argv, "spec_min_accept_rate": 0.0,
+              "decode_buckets": [8], **r["lines"],
+              "gate": gate,
+              "identical": "every stream, to the id, in the eager loop and with graphs, "
+                           "with overlap off and on, and with mixed steps off",
+              "run_s": time.perf_counter() - t_mode})
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arm = draft_arm(dev, params, eos)
+    emit({"phase": "draft_arm", "card": card, "argv": DRAFT_ARM_ARGV, **arm,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({"phase": "draft_times", "card": card, "rows": draft_dispatch_times(dev, params, eos),
+          "seconds": time.perf_counter() - t0})
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({"phase": "draft_serve", "card": card, **serve_draft(card),
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "draft_done", "seconds": time.perf_counter() - t_phase})
+    return result
 
 
 # -- phase 5: serve ---------------------------------------------------------------
@@ -2787,6 +3221,7 @@ def main() -> int:
     phase_sampling(dev, card)
     kstep = phase_kstep(dev, card)
     spec = phase_spec(dev, card)
+    draft = phase_draft(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     # flash_prefill_attention counts from the bf16 server, int8_matmul from
@@ -2820,6 +3255,11 @@ def main() -> int:
                 # launches, and those made by replays of its verify graphs
                 "spec_launches": spec["launches"].get(variant, 0),
                 "verify_launches": spec["verify_launches"].get(variant, 0),
+                # the CLI's engine with --spec-draft llama3-1b, overlap on, no
+                # cooldown (phase "draft", bf16 pool): all its launches, and
+                # those made by replays of its spec_fused graphs
+                "draft_launches": draft["launches"].get(variant, 0),
+                "spec_fused_launches": draft["spec_fused_launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

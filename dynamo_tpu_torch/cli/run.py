@@ -16,8 +16,13 @@ CLI. While prompts prefill beside running decodes, each step carries both
 Prefix caching is on, as in the JAX CLI, which has no flag for it
 either. `--spec-ngram S` verifies S prompt-lookup drafts a greedy decode
 step in one forward, as the JAX CLI's flag does (it turns the overlapped
-loop, mixed steps and K-step windows off). It runs on the GPU unless
-`--device cpu` is given.
+loop, mixed steps and K-step windows off). `--spec-draft NAME` drafts
+`--spec-draft-tokens` tokens (4) a decode step with a small model of the
+target's vocabulary (`llama3-draft` for the llama3 presets; the target's
+own name shares its weights) and verifies and accepts them on the device,
+beside the overlapped loop and mixed steps, as the JAX CLI's flags do;
+`--spec-draft-checkpoint` is refused, since no loader is ported yet. It
+runs on the GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.
@@ -82,6 +87,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="speculative decoding: draft tokens per step proposed by prompt lookup and "
              "verified in one forward pass (0 = off)",
     )
+    runp.add_argument(
+        "--spec-draft", default=None, dest="spec_draft",
+        help="draft-model speculative decoding: a small model of the target's vocabulary "
+             "(llama3-draft for the llama3 presets) proposes greedy drafts that are verified "
+             "and accepted on the device each decode step; greedy output is unchanged and "
+             "sampled output keeps its distribution. Composes with the overlapped loop and "
+             "mixed steps (unlike --spec-ngram)",
+    )
+    runp.add_argument(
+        "--spec-draft-tokens", type=int, default=4, dest="spec_draft_tokens",
+        help="drafts proposed and verified per step with --spec-draft (default 4)",
+    )
+    runp.add_argument(
+        "--spec-draft-checkpoint", default=None, dest="spec_draft_checkpoint",
+        help="a checkpoint for the draft's weights (not ported yet: refused)",
+    )
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     runp.add_argument(
@@ -124,6 +145,9 @@ def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
         overlap_decode=args.overlap_decode,
         mixed_steps=args.mixed_steps,
         spec_ngram=args.spec_ngram,
+        spec_draft_model=args.spec_draft,
+        spec_draft_tokens=args.spec_draft_tokens,
+        spec_draft_checkpoint=args.spec_draft_checkpoint,
         dtype=args.dtype,
         quantize=args.quantize,
         kv_quantize=args.kv_quantize,

@@ -18,8 +18,8 @@ from typing import Optional
 #: values that leave their feature off (tuning knobs of an unported
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
-    "spec_draft_model": (None,),
-    "spec_draft_tokens": (4,),
+    # a draft's weights come from its seed or TorchEngine(draft_params=):
+    # no checkpoint loader is ported yet
     "spec_draft_checkpoint": (None,),
     "max_waiting": (None,),
     "attention_impl": ("auto", "pallas"),
@@ -107,6 +107,23 @@ class _PortedKnobs:
     #: backs off for spec_cooldown_steps decode dispatches (plain decode)
     spec_min_accept_rate: float = 0.2
     spec_cooldown_steps: int = 16
+    #: speculative decoding with a draft model: a small model of the
+    #: target's vocabulary (a preset name, e.g. "llama3-draft"; the target's
+    #: own name shares its weights) proposes spec_draft_tokens greedy
+    #: drafts a row, and one captured step function a dispatch runs the
+    #: draft's catch-up, its proposals, the target's verify and the
+    #: acceptance on the device: greedy rows accept exactly the plain
+    #: stream, sampled rows by rejection sampling, which keeps the
+    #: sampler's distribution. Penalties, logit_bias and min_tokens are
+    #: served; a batch with a logprob row runs the plain decode. The
+    #: overlapped loop chains the next dispatch off the pending one's
+    #: device outputs, and beside prefill work the dispatch is the decode
+    #: leg of a split mixed step; K-step windows are off under it. The
+    #: draft keeps a KV pool of its own (model dtype) addressed by the
+    #: target's page ids. Excludes spec_ngram. None (default) = off
+    spec_draft_model: Optional[str] = None
+    #: drafts proposed and verified per dispatch (the verify is S + 1 wide)
+    spec_draft_tokens: int = 4
     #: mixed prefill+decode steps: while prefill work and running decodes
     #: coexist, the scheduler emits one `mixed` step carrying a bounded
     #: prefill chunk plus the decode batch, and the engine dispatches both
@@ -167,6 +184,13 @@ class _PortedKnobs:
             raise ValueError(
                 f"kv_quantize must be None, 'int8' or 'fp8', got {self.kv_quantize!r}"
             )
+        if self.spec_draft_model is not None and self.spec_ngram > 0:
+            raise ValueError(
+                "spec_draft_model and spec_ngram are mutually exclusive speculation "
+                "modes; configure one of them"
+            )
+        if self.spec_draft_model is not None and self.spec_draft_tokens < 1:
+            raise ValueError(f"spec_draft_tokens must be >= 1, got {self.spec_draft_tokens}")
 
     @property
     def max_context(self) -> int:

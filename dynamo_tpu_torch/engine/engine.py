@@ -62,6 +62,22 @@ pool that cannot cover the window runs the plain decode dispatch. The
 overlapped loop, mixed steps and K-step windows are off under it, as in
 the JAX engine.
 
+Draft-model speculation (config.spec_draft_model, off by default as in
+the JAX engine): a second, small model of the target's vocabulary keeps
+a KV pool of its own, addressed by the same page ids (the allocator's
+accounting covers it), which every prefill piece brings up to the
+piece's end (`_spec_draft_cover`, key kind "spec_draft_prefill"). A
+decode dispatch, key kind "spec_fused", runs in one step function
+(`_spec_fused_body`): the draft's catch-up over the tokens accepted since
+its last dispatch, S greedy proposals, the target's verify over [last
+token, proposals], and the acceptance scan, exact for greedy rows and
+rejection sampling for sampled ones (sampling.spec_accept_step), with
+penalties and logit_bias threaded through each position. The host reads
+the ids, the drafts and each row's accepted count once a dispatch
+(`_spec_postprocess`). Under overlap the next dispatch chains off the
+pending one's device outputs (`_maybe_chain_spec`); beside prefill work
+it is the decode leg of a split mixed step; K-step windows are off.
+
 Prefix caching (config.enable_prefix_caching, on by default as in the
 JAX engine): the scheduler admits a prompt onto the longest cached chain
 of its full pages, so its first piece is a chunk with history that starts
@@ -113,6 +129,7 @@ from dynamo_tpu_torch.engine.sampling import (
     BIAS_SLOTS,
     DEFAULT_K_CAP,
     STOP_SLOTS,
+    accept_uniforms,
     apply_logit_bias,
     apply_penalties,
     build_output_counts,
@@ -120,6 +137,7 @@ from dynamo_tpu_torch.engine.sampling import (
     gumbel_noise,
     sample,
     sample_greedy,
+    spec_accept_step,
     stop_mask,
     token_logprobs,
 )
@@ -137,11 +155,15 @@ _SPEC_WINDOW_S = 60.0
 #: window with on-device stop masks)
 DECODE_KINDS = ("decode", "decode_multi", "decode_kstep")
 #: the step kinds whose body runs paged decode attention: decode
-#: dispatches and mixed steps, whose decode half is a K=1 decode step
-PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed")
+#: dispatches, mixed steps, whose decode half is a K=1 decode step, and
+#: the draft-model dispatch, whose proposals are T=1 draft steps
+PAGED_DECODE_KINDS = (*DECODE_KINDS, "mixed", "spec_fused")
 #: the step kinds a decode dispatch replays (metrics.decode_replays): the
-#: decode kinds and the prompt-lookup verify
-DECODE_DISPATCH_KINDS = (*DECODE_KINDS, "spec_verify")
+#: decode kinds, the prompt-lookup verify and the draft-model dispatch
+DECODE_DISPATCH_KINDS = (*DECODE_KINDS, "spec_verify", "spec_fused")
+#: the step kinds a prefill piece replays (metrics.prefill_replays): the
+#: target's chunk steps and the draft pool's
+PREFILL_KINDS = ("prefill", "prefill_nosample", "spec_draft_prefill")
 _DECODE_FIELDS = ("kind", "bucket", "steps", "greedy", "lp", "pen", "bias")
 #: the fields of each kind of step key, in order (TorchEngine._get_step_fn)
 KEY_FIELDS = {
@@ -153,6 +175,8 @@ KEY_FIELDS = {
     "mixed": ("kind", "bucket", "t", "pieces", "greedy", "first_chunk", "psamp",
               "lp", "pen", "bias"),
     "spec_verify": ("kind", "bucket", "t"),
+    "spec_fused": ("kind", "bucket", "t", "greedy", "pen", "bias"),
+    "spec_draft_prefill": ("kind", "bucket", "t", "first_chunk"),
 }
 
 
@@ -225,10 +249,10 @@ class EngineMetrics:
     #: wall ms of the windows dispatched outside a speculation: their host
     #: arrays, dispatch, the wait for their ids and the host's scan
     time_kstep_ms: float = 0.0
-    #: prompt-lookup speculation (config.spec_ngram), as the JAX engine
-    #: counts it: drafts proposed and accepted over the verify dispatches,
-    #: and decode dispatches that did not speculate because a row was
-    #: ineligible or the acceptance cooldown ran
+    #: speculation (config.spec_ngram or spec_draft_model), as the JAX
+    #: engine counts it: drafts proposed and accepted over the verify
+    #: dispatches, and decode dispatches that did not speculate because a
+    #: row was ineligible or the acceptance cooldown ran
     spec_drafted: int = 0
     spec_accepted: int = 0
     spec_skipped_ineligible: int = 0
@@ -237,9 +261,10 @@ class EngineMetrics:
     #: drafts in that window (its weight; 0 with speculation idle)
     spec_accept_rate: float = 0.0
     spec_window_drafted: int = 0
-    #: host ms of the verify dispatches' own work, on the critical path
-    #: with no overlap: the n-gram index and drafts, the input arrays, and
-    #: the accept scan after the ids arrive
+    #: host ms of the verify dispatches' own work: the n-gram index and
+    #: drafts (prompt lookup), the input arrays, and the accept scan after
+    #: the ids arrive (on the critical path but for a chained dispatch's
+    #: arrays)
     time_spec_host_ms: float = 0.0
     #: prompt tokens the prefix cache served over those it was asked for
     #: (PrefixCacheStats.hit_rate), refreshed every step
@@ -269,14 +294,41 @@ class _InflightDecode:
     kstep: bool = False
 
 
+@dataclass
+class _InflightSpec:
+    """One draft-model dispatch chained off the pending one's device
+    outputs (JaxEngine's _InflightSpec): its catch-up window is the
+    pending dispatch's accepted tokens, out_ids cut at n_acc, read on the
+    device. It becomes the real step iff the host's accept scan of the
+    pending dispatch agreed with n_acc on every row with no finish (the
+    device sees neither stops nor budgets), which fills the expected
+    state, and the next decode batch is the same requests so advanced."""
+
+    reqs: tuple
+    b_bucket: int
+    #: out_ids [B, S + 1], draft_ids [B, S] and n_acc [B], on their way
+    #: to the host since the dispatch
+    ids: Readback
+    greedy: bool
+    bias: bool
+    #: filled once the pending dispatch's accept scan agreed; None: never
+    #: consumed
+    expected_num_tokens: Optional[tuple] = None
+    expected_out_len: Optional[tuple] = None
+
+
 class TorchEngine:
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
                  device=None, *, cuda_graphs: bool = True,
-                 on_kv_event: Optional[Callable[[KvEvent], None]] = None):
+                 on_kv_event: Optional[Callable[[KvEvent], None]] = None,
+                 draft_params: Optional[dict] = None):
         """`cuda_graphs=False` runs every dispatch eagerly on the card, as
         the JAX engine runs under jax.disable_jit(); on the CPU dispatches
         are always eager. `on_kv_event` receives the prefix cache's
-        `stored` and `removed` events, in order, on the engine's thread."""
+        `stored` and `removed` events, in order, on the engine's thread.
+        `draft_params` are the speculation draft's weights
+        (config.spec_draft_model; default: the target's for a self-draft,
+        else random from the draft's own seeded generator)."""
         self.config = config
         self.device = resolve_device(device)
         self._graphs = cuda_graphs and self.device.type == "cuda"
@@ -297,12 +349,16 @@ class TorchEngine:
         self.metrics = EngineMetrics()
         # prompt-lookup speculation owns the decode batch and needs each
         # step's tokens on the host for its drafts: the overlapped loop,
-        # mixed steps and K-step windows are off under it (the JAX
-        # engine's policy)
+        # mixed steps and K-step windows are off under it; the draft-model
+        # mode keeps the first two and turns windows off (the JAX engine's
+        # policy: both modes already batch steps per dispatch)
         spec = config.spec_ngram > 0
+        self._spec_draft = config.spec_draft_model is not None
         self._overlap_enabled = config.overlap_decode and not spec
         self.scheduler.mixed_enabled = config.mixed_steps and not spec
-        self._kstep_enabled = config.decode_kstep > 1 and not spec
+        self._kstep_enabled = config.decode_kstep > 1 and not spec and not self._spec_draft
+        #: the draft-model dispatch chained in flight, or None
+        self._inflight_spec: Optional[_InflightSpec] = None
         if config.decode_kstep > 1 and not self._kstep_enabled:
             logger.info("decode_kstep=%d auto-disabled: speculative decoding already batches "
                         "steps per dispatch", config.decode_kstep)
@@ -335,6 +391,11 @@ class TorchEngine:
         self.metrics.kv_pool_bytes_dense_equiv = (
             (self.kv.k.numel() + self.kv.v.numel()) * self.adapter.config.dtype.itemsize
         )
+        self.draft_adapter = self.draft_params = self.draft_kv = None
+        if self._spec_draft:
+            self._init_draft_model(draft_params)
+        elif draft_params is not None:
+            raise ValueError("draft_params given without config.spec_draft_model")
 
     # -- public API --------------------------------------------------------
 
@@ -366,7 +427,9 @@ class TorchEngine:
         if batch is None or batch.kind not in ("decode", "mixed"):
             # a speculated decode step can only be the next decode step or
             # the decode half of a mixed step
-            self._discard_inflight("no batch" if batch is None else "prefill scheduled")
+            why = "no batch" if batch is None else "prefill scheduled"
+            self._discard_inflight(why)
+            self._discard_inflight_spec(why)
         if batch is not None:
             t0 = time.perf_counter()
             if batch.kind == "prefill":
@@ -385,13 +448,14 @@ class TorchEngine:
         if not self.scheduler.has_work:
             # the wave ended on a stop the speculation could not foresee
             self._discard_inflight("idle")
+            self._discard_inflight_spec("idle")
         # counted where the graphs replay, so a dispatch that did not replay shows
         graphs = [(k[0], g.replays) for k, g in self._step_fns.items() if isinstance(g, StepGraph)]
         self.metrics.decode_replays = sum(n for kind, n in graphs if kind in DECODE_DISPATCH_KINDS)
         self.metrics.mixed_replays = sum(n for kind, n in graphs if kind == "mixed")
-        self.metrics.prefill_replays = sum(n for kind, n in graphs if kind.startswith("prefill"))
+        self.metrics.prefill_replays = sum(n for kind, n in graphs if kind in PREFILL_KINDS)
         self.metrics.prefix_hit_rate = self.allocator.stats.hit_rate
-        if self.config.spec_ngram > 0:
+        if self.config.spec_ngram > 0 or self._spec_draft:
             self._refresh_spec_window()
         return outputs
 
@@ -407,6 +471,7 @@ class TorchEngine:
         """Discard any speculated decode dispatch in flight (the engine
         thread calls it when idle)."""
         self._discard_inflight("drained")
+        self._discard_inflight_spec("drained")
 
     def _drain_doomed(self) -> list[StepOutput]:
         """Finish requests the scheduler proved can never progress."""
@@ -664,7 +729,12 @@ class TorchEngine:
         logprobs); a group with none runs the forward alone (no logits, no
         sampler noise). Penalties apply at a prefill sample only once a
         row has generated history (a preempted request's recompute), as in
-        the JAX engine. Every group is dispatched before any ids are read."""
+        the JAX engine. Every group is dispatched before any ids are read.
+        Under draft-model speculation the draft pool is first brought up to
+        each piece's end, a prefix hit's cached tokens included (the cached
+        pages hold the target's KV only)."""
+        if self._spec_draft:
+            self._spec_draft_cover([(p.request, p.start + p.length) for p in batch.prefill])
         dispatched = []
         for t_bucket, pieces in sorted(self._group_pieces(batch.prefill).items()):
             b_bucket = self._bucket_b(len(pieces))
@@ -899,11 +969,16 @@ class TorchEngine:
         return {"positions": positions, "valid": valid, "page_tables": pt}
 
     def _run_decode(self, batch: ScheduledBatch) -> list[StepOutput]:
-        """A decode batch: a prompt-lookup verify when speculation is on
-        for it (_spec_active), else the plain decode dispatch."""
+        """A decode batch: a draft-model dispatch or a prompt-lookup
+        verify when speculation is on for it (_spec_active), else the
+        plain decode dispatch, where a chained draft-model dispatch cannot
+        land."""
         reqs = list(batch.decode)
         if self._spec_active(reqs):
+            if self._spec_draft:
+                return self._run_decode_spec_draft(reqs)
             return self._run_decode_spec(reqs)
+        self._discard_inflight_spec("speculation inactive")
         return self._run_decode_plain(reqs)
 
     def _run_decode_plain(self, reqs: list[Request]) -> list[StepOutput]:
@@ -1035,9 +1110,14 @@ class TorchEngine:
     # _spec_eligible .. _note_spec_step) ------------------------------------
 
     def _spec_eligible(self, reqs: list[Request]) -> bool:
-        """Whether the batch may speculate: the verify has no sampler, so
-        every row must be greedy with no logprobs, penalty, logit_bias or
-        min_tokens."""
+        """Whether the batch may speculate. The draft-model dispatch
+        threads sampling, penalties, logit_bias and min_tokens through its
+        accept scan, but reports no logprobs: a row that asks for them
+        makes the batch ineligible. The prompt-lookup verify has no
+        sampler, so every row must be greedy with no logprobs, penalty,
+        logit_bias or min_tokens."""
+        if self._spec_draft:
+            return not any(r.sampling.logprobs >= 0 for r in reqs)
         if self.config.spec_ngram <= 0:
             return False
         for r in reqs:
@@ -1051,8 +1131,9 @@ class TorchEngine:
     def _spec_active(self, reqs: list[Request]) -> bool:
         """Whether this decode batch runs a verify: eligible and out of
         the acceptance cooldown, which this call counts down; a skip is
-        counted by its reason. At most once a step."""
-        if self.config.spec_ngram <= 0:
+        counted by its reason. At most once a step (a mixed step asks
+        before it splits the draft-model dispatch out as its decode leg)."""
+        if not (self._spec_draft or self.config.spec_ngram > 0):
             return False
         if self._spec_eligible(reqs):
             if self._spec_cooldown <= 0:
@@ -1136,16 +1217,7 @@ class TorchEngine:
         outputs: list[StepOutput] = []
         drafted = accepted_drafts = 0
         for i, req in enumerate(reqs):
-            accepted: list[int] = []
-            finish: Optional[FinishReason] = None
-            for j in range(t):
-                tok = int(target[i, j])
-                accepted.append(tok)
-                finish = self._finish_reason_for(req, tok, len(accepted))
-                if finish is not None:
-                    break
-                if j < s and int(drafts[i, j]) != tok:
-                    break  # the draft diverged: the model's token lands
+            accepted, finish = self._scan_window(req, target[i], drafts[i])
             drafted += s
             accepted_drafts += len(accepted) - 1
             req.num_computed_tokens += len(accepted)
@@ -1158,6 +1230,20 @@ class TorchEngine:
             self._spec_cooldown = self.config.spec_cooldown_steps
         self.metrics.time_spec_host_ms += host_ms + (time.perf_counter() - t2) * 1e3
         return outputs
+
+    def _scan_window(self, req: Request, ids: np.ndarray, drafts: np.ndarray
+                     ) -> tuple[list[int], Optional[FinishReason]]:
+        """One row of a verify window: the model's tokens ids [S + 1] at
+        each position while they equal the drafts [S], and its token at
+        the first mismatch (1 to S + 1 tokens), cut at a finish."""
+        accepted: list[int] = []
+        finish: Optional[FinishReason] = None
+        for j, tok in enumerate(ids.tolist()):
+            accepted.append(tok)
+            finish = self._finish_reason_for(req, tok, len(accepted))
+            if finish is not None or (j < len(drafts) and int(drafts[j]) != tok):
+                break  # a finish, or the draft diverged: the model's token lands
+        return accepted, finish
 
     def _verify_body(self, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
         """The verify over device inputs (the keys of _run_decode_spec's
@@ -1196,6 +1282,375 @@ class TorchEngine:
                               if self._spec_win_drafted else 0.0)
         m.spec_window_drafted = self._spec_win_drafted
 
+    # -- draft-model speculation (config.spec_draft_model; JaxEngine:
+    # _init_draft_model, _spec_draft_cover .. _discard_inflight_spec) -------
+
+    def _init_draft_model(self, params: Optional[dict]) -> None:
+        """The draft's adapter, weights and KV pool. The pool has the
+        target's page count and size, in the model dtype whatever
+        kv_quantize says, and is addressed by the same page ids, so the
+        allocator's accounting covers it; its bytes join kv_pool_bytes. A
+        self-draft (the target's own name) shares the target's weights,
+        int8 ones included; another draft's random weights come from a
+        seeded generator of its own, unquantized under quantize too."""
+        cfg = self.config
+        self.draft_adapter = get_model(cfg.spec_draft_model, dtype=cfg.dtype)
+        if self.draft_adapter.vocab_size != self.adapter.vocab_size:
+            raise ValueError(
+                f"draft model {cfg.spec_draft_model!r} has vocab "
+                f"{self.draft_adapter.vocab_size} but target {cfg.model!r} has "
+                f"{self.adapter.vocab_size}: speculation needs a shared vocabulary")
+        if params is None and cfg.spec_draft_model == cfg.model:
+            params = self.params
+        elif params is None:
+            logger.info("initializing random draft params for %s (acceptance sits at chance)",
+                        cfg.spec_draft_model)
+            params = self.draft_adapter.init_params(
+                torch.Generator(device=self.device).manual_seed(0))
+        self.draft_params = params
+        self.draft_kv = self.draft_adapter.init_kv(cfg.num_pages, cfg.page_size, self.device)
+        self.metrics.kv_pool_bytes += sum(x.numel() * x.element_size() for x in self.draft_kv
+                                          if x is not None)
+
+    @staticmethod
+    def _tokens_from(req: Request, start: int) -> list[int]:
+        """The request's tokens from position `start` on."""
+        n = len(req.prompt_tokens)
+        if start >= n:
+            return req.output_tokens[start - n:]
+        return req.prompt_tokens[start:] + req.output_tokens
+
+    def _spec_draft_cover(self, spans) -> None:
+        """Bring the draft pool up to date over `spans`, (request, upto)
+        pairs: draft forwards that only write its KV, over positions
+        [spec_draft_pos, upto) in chunks of at most prefill_chunk tokens,
+        key ("spec_draft_prefill", B bucket, T bucket, first chunk). Chunk
+        r of every span runs before chunk r + 1 of any (a later chunk
+        reads the earlier one's KV); a round's chunks group by T bucket as
+        a prefill step's pieces do. A prefill piece's chunks start on
+        pages; one that brings a stale pool up in decode may start
+        mid-page and lands by token (_draft_prefill_body)."""
+        chunk = self.config.prefill_chunk
+        rounds: list[list[tuple]] = []
+        for req, upto in spans:
+            start, r = req.spec_draft_pos, 0
+            while start < upto:
+                take = min(chunk, upto - start)
+                if r == len(rounds):
+                    rounds.append([])
+                rounds[r].append((req, start, take))
+                start += take
+                r += 1
+            req.spec_draft_pos = max(req.spec_draft_pos, upto)
+        for items in rounds:
+            groups: dict[int, list] = {}
+            for item in items:
+                groups.setdefault(self._bucket_t(item[2]), []).append(item)
+            for t_bucket, group in sorted(groups.items()):
+                b_bucket = self._bucket_b(len(group))
+                tokens = np.zeros((b_bucket, t_bucket), np.int64)
+                positions = np.zeros((b_bucket, t_bucket), np.int32)
+                valid = np.zeros((b_bucket, t_bucket), bool)
+                pt = np.zeros((b_bucket, self.config.max_pages_per_seq), np.int32)
+                for i, (req, start, length) in enumerate(group):
+                    tokens[i, :length] = self._tokens_from(req, start)[:length]
+                    positions[i] = np.arange(t_bucket, dtype=np.int32) + start
+                    valid[i, :length] = True
+                    pt[i, : len(req.pages)] = req.pages
+                first_chunk = all(start == 0 for _, start, _ in group)
+                self._dispatch(("spec_draft_prefill", b_bucket, t_bucket, first_chunk),
+                               {"tokens": tokens, "positions": positions, "valid": valid,
+                                "page_tables": pt})
+
+    def _draft_prefill_body(self, first_chunk: bool, bufs: dict[str, torch.Tensor]) -> None:
+        """One chunk step of the draft over device inputs (the keys of
+        _spec_draft_cover's arrays), landing its KV in the draft pool: a
+        first chunk in runs, any other chunk token by token (write_run=1),
+        since its rows may start mid-page. Returns nothing."""
+        _, self.draft_kv = self.draft_adapter.forward_hidden(
+            self.draft_params, bufs["tokens"], bufs["positions"], bufs["valid"], self.draft_kv,
+            bufs["page_tables"], first_chunk=first_chunk,
+            write_run=None if first_chunk else 1,
+        )
+
+    def _run_decode_spec_draft(self, reqs: list[Request]) -> list[StepOutput]:
+        """One draft-model dispatch (_spec_fused_body): each row emits 1 to
+        S + 1 tokens, its accepted drafts and the target's token after
+        them. A row whose verify window would pass its context, or a pool
+        that cannot cover every window, runs the plain decode dispatch
+        instead. A row that reaches decode with a stale draft pool (its
+        pieces ran in fused mixed steps, or plain dispatches ran in a
+        cooldown) first has the pool brought up to its last token. A
+        chained dispatch that matches the batch is this step: the next one
+        chains off it before its outputs are read."""
+        s = self.config.spec_draft_tokens
+        w = s + 1
+        if any(r.num_tokens + s > self.config.max_context for r in reqs):
+            self._discard_inflight_spec("window over context cap")
+            return self._run_decode_plain(reqs)
+        if not self._grow_pages_for(reqs, s):
+            self._discard_inflight_spec("page pressure")
+            return self._run_decode_plain(reqs)
+        # a plain speculation, dispatched in a cooldown, cannot be a verify
+        self._discard_inflight("spec verify owns the decode batch")
+        spans = [(r, r.num_tokens - 1) for r in reqs if r.num_tokens - r.spec_draft_pos > w]
+        if spans:
+            if self._inflight_spec is not None:
+                self._inflight_spec.ids.keep()  # the cover replays come first
+            self._spec_draft_cover(spans)
+        b_bucket = self.config.decode_bucket_for(len(reqs))
+        inflight, self._inflight_spec = self._inflight_spec, None
+        if inflight is not None:
+            if self._spec_inflight_matches(inflight, reqs):
+                self.metrics.overlap_hits += 1
+                self._maybe_chain_spec(reqs, b_bucket, inflight.ids, inflight.greedy,
+                                       inflight.bias)
+                return self._spec_postprocess(reqs, inflight.ids)
+            self._inflight_spec = inflight  # handed back for the count
+            self._discard_inflight_spec("decode batch changed")
+        t0 = time.perf_counter()
+        greedy = all(r.sampling.temperature <= 0.0 for r in reqs)
+        pen, bias = self._batch_penalty_bucket(reqs), self._batch_bias(reqs)
+        arrays = self._spec_arrays(reqs, b_bucket, greedy, pen, bias)
+        self.metrics.time_spec_host_ms += (time.perf_counter() - t0) * 1e3
+        ids = self._dispatch(("spec_fused", b_bucket, w, greedy, pen, bias), arrays)
+        # keep the device busy past this dispatch before reading its outputs
+        self._maybe_chain_spec(reqs, b_bucket, ids, greedy, bias)
+        return self._spec_postprocess(reqs, ids)
+
+    def _spec_arrays(self, reqs: list[Request], b_bucket: int, greedy: bool, pen: int,
+                     bias: bool, prev: Optional[Readback] = None) -> dict:
+        """The inputs of a draft-model dispatch, padded to b_bucket: the
+        catch-up window's tokens [B, S + 1] and lengths win_len [B] (the
+        tokens since spec_draft_pos; for a dispatch chained off `prev`,
+        its out_ids and n_acc on the device), the window's first position
+        pos0 [B], the page tables and draw0 [B]. Position j of a row whose
+        window holds w tokens draws and gates min_tokens at counter draw0
+        + w - 1 + j, from row w - 1 + j of the noise table [2S + 1, B, K]
+        and the accept uniforms [2S + 1, B] (sampled keys): a host-fed
+        dispatch fills the S + 1 rows its windows read, a chained one all
+        2S + 1 that the pending dispatch's n_acc (1 to S + 1) may pick.
+        Then the penalty and bias arrays (the bias gate reads draw0, so
+        their output count is dropped)."""
+        s = self.config.spec_draft_tokens
+        pos0 = np.zeros(b_bucket, np.int32)
+        pt = np.zeros((b_bucket, self.config.max_pages_per_seq), np.int32)
+        draw0 = np.zeros(b_bucket, np.int64)
+        first = []
+        if prev is None:
+            tokens = np.zeros((b_bucket, s + 1), np.int64)
+            win_len = np.zeros(b_bucket, np.int64)
+        else:
+            tokens, _, win_len = prev.outputs
+        ahead = int(prev is not None)
+        for i, req in enumerate(reqs):
+            pt[i, : len(req.pages)] = req.pages
+            if prev is None:
+                window = self._tokens_from(req, req.spec_draft_pos)
+                tokens[i, : len(window)] = window
+                win_len[i] = len(window)
+                pos0[i] = req.spec_draft_pos
+                first.append(len(window) - 1)
+            else:
+                # the pending dispatch's tokens land from num_tokens on
+                pos0[i] = req.num_tokens
+                first.append(0)
+            draw0[i] = req.num_emitted + len(req.output_tokens) + ahead - first[i]
+        arrays = {"tokens": tokens, "win_len": win_len, "pos0": pos0, "page_tables": pt,
+                  "draw0": draw0}
+        if not greedy:
+            steps = s + 1 if prev is None else 2 * s + 1
+            rows = self._sampler_rows(reqs, b_bucket, steps, ahead)
+            uniforms = accept_uniforms(
+                [self._request_seed(r) for r in reqs],
+                [r.num_emitted + len(r.output_tokens) + ahead for r in reqs], steps).numpy()
+            noise = np.zeros((2 * s + 1, b_bucket, DEFAULT_K_CAP), np.float32)
+            unif = np.zeros((2 * s + 1, b_bucket), np.float32)
+            for i, f in enumerate(first):
+                noise[f: f + steps, i] = rows["noise"][:, i]
+                unif[f: f + steps, i] = uniforms[:, i]
+            arrays.update(rows, noise=noise, uniform=unif)
+        arrays.update(self._surface_arrays(reqs, b_bucket, pen, bias))
+        arrays.pop("bias_count", None)
+        return arrays
+
+    def _spec_fused_body(self, greedy: bool, bufs: dict[str, torch.Tensor]):
+        """One draft-model dispatch over device inputs (_spec_arrays):
+        (1) the draft's catch-up over each row's window [pos0, pos0 +
+        win_len), landed in its pool by token (a window starts mid-page),
+        whose last position proposes the first draft; (2) S - 1 more T=1
+        draft steps, each proposing the argmax of the last; (3) the
+        target's verify over [the window's last token, the S drafts] from
+        that token's position on, landed by token; (4) the acceptance scan
+        over the S + 1 positions, each penalized (the counts extended by
+        every token emitted before it), biased (min_tokens gated at its own
+        counter), then for a greedy key taken as the argmax and accepted
+        iff it is the draft, else through spec_accept_step with its
+        counter's noise and uniform; a row emits at j iff every earlier
+        draft was accepted. Padding rows (win_len 0) write nothing.
+        Returns out_ids [B, S + 1], draft_ids [B, S] and n_acc [B], the
+        tokens each row emits; the draft's logits stay inside. Nothing
+        here reads a device value on the host, so a dispatch captures as
+        one graph."""
+        s = self.config.spec_draft_tokens
+        tokens, win_len, pos0, pt = (bufs[n] for n in ("tokens", "win_len", "pos0",
+                                                        "page_tables"))
+        b = tokens.shape[0]
+        rows = torch.arange(b, device=tokens.device)
+        window = torch.arange(s + 1, dtype=torch.int32, device=tokens.device)[None]
+        live = win_len > 0
+        last = (win_len - 1).clamp(min=0)
+        pos_last = pos0 + last.to(torch.int32)  # num_tokens - 1 of each row
+        dm, dp = self.draft_adapter, self.draft_params
+        hidden, self.draft_kv = dm.forward_hidden(
+            dp, tokens, (pos0[:, None] + window).contiguous(),
+            (window < win_len[:, None]).contiguous(), self.draft_kv, pt, write_run=1,
+        )
+        draft = sample_greedy(dm.compute_logits(dp, hidden[rows, last]))
+        drafts = [draft]
+        for j in range(1, s):
+            pos = torch.where(live, pos_last + j, 0)[:, None]  # padding rows: no history
+            hidden, self.draft_kv = dm.forward_hidden(dp, draft[:, None], pos, live[:, None],
+                                                      self.draft_kv, pt)
+            draft = sample_greedy(dm.compute_logits(dp, hidden[:, -1]))
+            drafts.append(draft)
+        draft_ids = torch.stack(drafts, dim=1)
+        verify = torch.cat([tokens[rows, last][:, None], draft_ids], dim=1)
+        hidden, self.kv = self.adapter.forward_hidden(
+            self.params, verify, (pos_last[:, None] + window).contiguous(),
+            live[:, None].expand(b, s + 1).contiguous(), self.kv, pt, write_run=1,
+        )
+        logits = self.adapter.compute_logits(
+            self.params, hidden.reshape(b * (s + 1), -1)).reshape(b, s + 1, -1)
+        counts = self._counts(bufs)
+        alive = live
+        n_acc = torch.zeros_like(win_len)
+        outs = []
+        for j in range(s + 1):
+            eff = logits[:, j]
+            if counts is not None:
+                eff = apply_penalties(eff, counts, bufs["freq"], bufs["pres"], bufs["rep"])
+            idx = last + j  # the position's counter is draw0 + idx
+            if "bias_ids" in bufs:
+                eff = apply_logit_bias(eff, bufs["bias_ids"], bufs["bias_vals"],
+                                       bufs["bias_gated"], bufs["draw0"] + idx,
+                                       bufs["min_toks"])
+            draft = draft_ids[:, min(j, s - 1)]  # the bonus position has none
+            if greedy:
+                chosen = sample_greedy(eff)
+                acc = chosen == draft if j < s else torch.ones_like(alive)
+            else:
+                chosen, acc = spec_accept_step(
+                    eff, draft, j < s, bufs["temps"], bufs["top_ps"], bufs["top_ks"],
+                    bufs["noise"][idx, rows], bufs["uniform"][idx, rows])
+            outs.append(chosen)
+            n_acc = n_acc + alive.to(n_acc.dtype)
+            if counts is not None:
+                counts = count_tokens(counts, chosen, alive)
+            alive = alive & acc
+        return torch.stack(outs, dim=1), draft_ids, n_acc
+
+    def _spec_postprocess(self, reqs: list[Request], ids: Readback) -> list[StepOutput]:
+        """The host's half of a draft-model dispatch: wait for out_ids,
+        draft_ids and n_acc (copied since the dispatch), then accept each
+        row's drafts while they equal its tokens, and the token at the
+        first mismatch, up to a finish, as the prompt-lookup verify does
+        (out_ids already hold the accepted token at each position). The
+        draft pool is committed up to the old last token. A finish, or a
+        count other than n_acc, which the device could not foresee, rolls
+        the chained dispatch back; else it gets the state the next batch
+        must show. A dispatch under spec_min_accept_rate starts the
+        cooldown and rolls the chain back."""
+        t1 = time.perf_counter()
+        out = ids.numpy()
+        drafts, n_acc = ids.extras()
+        t2 = time.perf_counter()
+        self.metrics.time_decode_sync_ms += (t2 - t1) * 1e3
+        self.metrics.decode_steps_run += 1
+        s = self.config.spec_draft_tokens
+        chain = self._inflight_spec  # chained for the next step
+        chain_ok = chain is not None
+        outputs: list[StepOutput] = []
+        drafted = accepted_drafts = 0
+        for i, req in enumerate(reqs):
+            accepted, finish = self._scan_window(req, out[i], drafts[i])
+            drafted += s
+            accepted_drafts += len(accepted) - 1
+            # the catch-up committed the draft's KV through the old last
+            # token; the accepted tokens are the next window
+            req.spec_draft_pos = req.num_tokens
+            req.num_computed_tokens += len(accepted)
+            if finish is not None or len(accepted) != int(n_acc[i]):
+                chain_ok = False
+            outputs.extend(self._accept_tokens(req, accepted, finish))
+            self._register_pages(req)
+        self._note_spec_step(drafted, accepted_drafts)
+        if chain_ok:
+            chain.expected_num_tokens = tuple(r.num_tokens for r in reqs)
+            chain.expected_out_len = tuple(len(r.output_tokens) for r in reqs)
+        elif chain is not None:
+            self._discard_inflight_spec("acceptance diverged or finish")
+        if drafted and accepted_drafts / drafted < self.config.spec_min_accept_rate:
+            # the draft misses on this workload: decode plainly for a
+            # while, then try again
+            self._spec_cooldown = self.config.spec_cooldown_steps
+            self._discard_inflight_spec("acceptance cooldown")
+        self.metrics.time_spec_host_ms += (time.perf_counter() - t2) * 1e3
+        return outputs
+
+    def _maybe_chain_spec(self, reqs: list[Request], b_bucket: int, prev: Readback,
+                          greedy: bool, bias: bool) -> None:
+        """Dispatch the next draft-model step before the pending one's
+        outputs reach the host: its catch-up window is the pending
+        dispatch's accepted tokens, out_ids and n_acc read on the device,
+        and its counters advance by n_acc there (_spec_arrays). As the
+        plain speculation (_maybe_speculate): only with overlap on, the
+        decode rows kept by the scheduler (a mixed step's rows count), no
+        row with a penalty (its history is host state), none that may
+        finish inside the pending window or pass its context inside both
+        windows, and pages grown to cover both."""
+        if not self._overlap_enabled or self._batch_penalty_bucket(reqs):
+            return
+        if not self.scheduler.decode_batch_stable() and not (
+                self.scheduler.mixed_enabled and self.scheduler.decode_rows_stable(reqs)):
+            return
+        s = self.config.spec_draft_tokens
+        for req in reqs:
+            if len(req.output_tokens) + req.num_emitted + s + 1 >= req.sampling.max_tokens:
+                return  # the pending dispatch may finish it
+            if req.num_tokens + 2 * s + 1 > self.config.max_context:
+                return
+        if not self._grow_pages_for(reqs, 2 * s + 1):
+            return
+        arrays = self._spec_arrays(reqs, b_bucket, greedy, 0, bias, prev=prev)
+        ids = self._dispatch(("spec_fused", b_bucket, s + 1, greedy, 0, bias), arrays)
+        self.metrics.overlap_dispatches += 1
+        self._inflight_spec = _InflightSpec(tuple(reqs), b_bucket, ids, greedy, bias)
+
+    @staticmethod
+    def _spec_inflight_matches(inflight: _InflightSpec, reqs: list[Request]) -> bool:
+        """The chained dispatch is this step iff the pending one's accept
+        scan agreed with it (expected state filled) and the batch is the
+        same requests in the same rows, each advanced as that scan said."""
+        if inflight.expected_num_tokens is None or len(reqs) != len(inflight.reqs):
+            return False
+        return all(
+            r is spec and r.num_tokens == nt and len(r.output_tokens) == n_out
+            for r, spec, nt, n_out in zip(reqs, inflight.reqs, inflight.expected_num_tokens,
+                                          inflight.expected_out_len)
+        )
+
+    def _discard_inflight_spec(self, why: str) -> None:
+        """Roll back a chained draft-model dispatch, as _discard_inflight
+        does a plain one: its outputs are overshoot, and its writes to both
+        pools lie past every surviving request's accepted tokens (written
+        again before they are read) or in freed pages."""
+        if self._inflight_spec is None:
+            return
+        self._inflight_spec = None
+        self.metrics.overlap_rollbacks += 1
+        logger.debug("spec chain rollback: %s", why)
+
     # -- mixed prefill+decode steps (JaxEngine._run_mixed) -----------------
 
     def _run_mixed(self, batch: ScheduledBatch) -> list[StepOutput]:
@@ -1205,30 +1660,37 @@ class TorchEngine:
         own, so the halves read none of each other's writes, and greedy
         streams equal the XOR policy's.
 
-        Two cases split the step into two dispatches, as in the JAX
-        engine: a speculation in flight that matches the decode rows is
-        this step's decode half, and decode rows that may run as a K-step
-        window (_kstep_candidate: the mixed step function has no window)
-        run as the decode leg through _run_decode; either way the pieces
-        dispatch first, as a prefill step (the port has no multimodal
-        pieces, the JAX engine's third case). Otherwise the pieces are
+        Three cases split the step into two dispatches, as in the JAX
+        engine: decode rows that speculate with the draft model, a
+        dispatch in flight that matches the decode rows (it is this step's
+        decode half), and decode rows that may run as a K-step window
+        (_kstep_candidate: the mixed step function has no window). The
+        pieces then dispatch first, as a prefill step that also brings the
+        draft pool up to them, and the decode leg is the draft-model
+        dispatch (_run_decode_spec_draft) or the plain one
+        (_run_decode_plain); the port has no multimodal pieces, the JAX
+        engine's fourth case. Otherwise the pieces are
         grouped by T bucket, as a prefill step groups them, so each runs
         under the key the XOR policy would give it: the largest-T group is
         fused with the decode batch into one "mixed" step function, and
         the other groups dispatch beside it as a prefill step."""
         reqs_d = list(batch.decode)
-        inflight = self._inflight
-        use_inflight = inflight is not None and self._inflight_matches(inflight, reqs_d)
-        if use_inflight or self._kstep_candidate(reqs_d):
+        spec = self._spec_draft and self._spec_active(reqs_d)
+        if not spec:
+            self._discard_inflight_spec("speculation inactive")
+        inflight = self._inflight_spec if spec else self._inflight
+        use_inflight = inflight is not None and (spec or self._inflight_matches(inflight, reqs_d))
+        if spec or use_inflight or self._kstep_candidate(reqs_d):
             if use_inflight:
-                # the pieces' replays come before the next speculation
-                # reads this one's ids on the device, and may overwrite them
+                # the pieces' replays come before the next dispatch reads
+                # this one's outputs on the device, and may overwrite them
                 inflight.ids.keep()
             self.metrics.prefill_dispatches += 1
             outputs = self._run_prefill(ScheduledBatch(kind="prefill", prefill=batch.prefill))
-            # consumes the speculation (or rolls it back) and speculates
-            # again if the rows hold
-            return outputs + self._run_decode(ScheduledBatch(kind="decode", decode=batch.decode))
+            # the decode leg consumes the dispatch in flight (or rolls it
+            # back) and chains or speculates again if the rows hold
+            leg = self._run_decode_spec_draft if spec else self._run_decode_plain
+            return outputs + leg(reqs_d)
         self._discard_inflight("mixed composition changed")
         groups = self._group_pieces(batch.prefill)
         t_bucket = max(groups)
@@ -1423,11 +1885,16 @@ class TorchEngine:
 
     def _body(self, key: tuple):
         """The body of a step key: a K-step window, K fused decode steps,
-        a prompt-lookup verify, one mixed step, or one prefill chunk step
-        that samples or not, over the dispatch's device inputs."""
+        a prompt-lookup verify, a draft-model dispatch, a draft chunk step,
+        one mixed step, or one prefill chunk step that samples or not, over
+        the dispatch's device inputs."""
         field = functools.partial(key_field, key)
         if key[0] == "spec_verify":
             return self._verify_body
+        if key[0] == "spec_fused":
+            return functools.partial(self._spec_fused_body, field("greedy"))
+        if key[0] == "spec_draft_prefill":
+            return functools.partial(self._draft_prefill_body, field("first_chunk"))
         if key[0] in DECODE_KINDS:
             return functools.partial(self._decode_body, field("steps"), field("lp"))
         if key[0] == "mixed":
@@ -1441,7 +1908,10 @@ class TorchEngine:
         by the JAX engine's key fields (JaxEngine._get_step_fn): for decode
         (kind, batch bucket, steps, all-greedy, lp, pen, bias), where a
         K-step window's kind is "decode_kstep" and its lp -1, for a
-        prompt-lookup verify ("spec_verify", batch bucket, S + 1), for prefill
+        prompt-lookup verify ("spec_verify", batch bucket, S + 1), for a
+        draft-model dispatch ("spec_fused", batch bucket, S + 1, all-greedy,
+        pen, bias) and a draft chunk step ("spec_draft_prefill", B bucket,
+        T bucket, first chunk), for prefill
         ("prefill", B bucket, T bucket, all-greedy, first chunk, lp, pen,
         bias) and ("prefill_nosample", B bucket, T bucket, first chunk),
         for mixed steps ("mixed", decode bucket, T bucket, piece bucket,
@@ -1498,12 +1968,15 @@ class TorchEngine:
         chunk kinds and 2 non-sampling ones; per decode bucket, T bucket
         and piece bucket, 2 sampler kinds x 2 chunk kinds x prefill rows
         sampled or not, mixed ones; with prompt lookup, one verify key per
-        decode bucket; each sampling one again for each lp
+        decode bucket; with a draft model, per decode bucket 2 sampler
+        kinds of its dispatch, and per B and T bucket 2 chunk kinds of the
+        draft's chunk steps; each sampling one again for each lp
         (-1..20), pen bucket (0 or a power of two up to max_tokens) and
         bias a dispatch asks for, as in the JAX engine's key family; see
         StepGraph.capture) and the size of
-        paged decode's workspace for the largest bucket's split plan,
-        which each decode and mixed capture makes sure of on the capture
+        paged decode's workspace for the largest bucket's split plan (the
+        target's and the draft's), which each decode, mixed and draft-model
+        capture makes sure of on the capture
         stream, outside the capture (_cache_graph). Those graphs read one
         set of ticket counters and partials; replays run one at a time on
         the engine's stream, so no two of them use it at once."""
@@ -1513,13 +1986,16 @@ class TorchEngine:
             dev = torch.device("cuda", torch.cuda.current_device())
         self._graph_stream = torch.cuda.Stream(dev)
         self._graph_pool = torch.cuda.graph_pool_handle()
-        cfg = self.adapter.config
+        models = [(self.adapter.config, self.config.kv_quantize)]
+        if self._spec_draft:
+            models.append((self.draft_adapter.config, None))  # the draft's proposals
         counters = partials = 0
-        for b in self.config.decode_buckets:
-            _, _, groups, n = paged_attention.launch_plan(
-                dev, b, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                self.config.max_pages_per_seq, self.config.kv_quantize)
-            counters, partials = max(counters, b * groups), max(partials, n)
+        for cfg, mode in models:
+            for b in self.config.decode_buckets:
+                _, _, groups, n = paged_attention.launch_plan(
+                    dev, b, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    self.config.max_pages_per_seq, mode)
+                counters, partials = max(counters, b * groups), max(partials, n)
         self._workspace_size = (dev, counters, partials)
 
     # -- acceptance --------------------------------------------------------

@@ -3,8 +3,8 @@
 Counterpart of dynamo_tpu/engine/request.py, trimmed to what this package
 serves: tokens in, tokens out, with the sampling knobs it implements
 (logprobs, penalties, logit_bias and min_tokens among them), the prompt
-tokens the prefix cache served, and the n-gram index of prompt-lookup
-speculation.
+tokens the prefix cache served, the n-gram index of prompt-lookup
+speculation and the draft model's committed position.
 """
 
 from __future__ import annotations
@@ -81,6 +81,9 @@ class Request:
     spec_index: Optional[dict] = None
     spec_ctx: Optional[list] = None
     spec_indexed_upto: int = 0
+    #: draft-model speculation (engine-managed): the tokens whose draft KV
+    #: is committed, positions [0, spec_draft_pos) of the draft's pool
+    spec_draft_pos: int = 0
 
     @property
     def num_tokens(self) -> int:

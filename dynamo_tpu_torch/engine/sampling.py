@@ -1,9 +1,9 @@
 """Batched sampling: temperature / top-k / top-p / greedy, penalties,
 logit bias and logprobs.
 
-Counterpart of dynamo_tpu/engine/sampling.py: sample, sample_greedy,
-build_output_counts, apply_penalties, apply_logit_bias, token_logprobs and
-stop_mask, in plain PyTorch on tensors of any device (the reference
+Counterpart of dynamo_tpu/engine/sampling.py: sample, spec_accept_step,
+sample_greedy, build_output_counts, apply_penalties, apply_logit_bias,
+token_logprobs and stop_mask, in plain PyTorch on tensors of any device (the reference
 computes the penalties, the bias, the logprobs and the stop masks in XLA
 ops around its sampler, outside any Pallas kernel).
 One call handles a heterogeneous batch (per-row parameters): greedy rows
@@ -17,7 +17,9 @@ seeded from (request seed, draw counter), so a (prompt, seed) pair
 reproduces exactly whatever else shares the batch. The noise is made on
 the host before a dispatch (`gumbel_noise`, all fused steps at once) and
 copied to the device in one transfer; the streams differ from JAX's
-PRNG, so sampled output matches the reference in distribution only.
+PRNG, so sampled output matches the reference in distribution only. The
+draft-model verify's accept uniforms (`accept_uniforms`) come from a
+stream of their own for the same (seed, counter).
 """
 
 from __future__ import annotations
@@ -44,10 +46,17 @@ STOP_SLOTS = 8
 BIAS_SLOTS = 16
 
 
-def _draw_seed(seed: int, counter: int) -> int:
-    """One generator seed per (request seed, draw counter). The CPU
-    generator keeps 32 bits of a seed, so the pair is hashed into 32."""
+#: the stream tag of the accept uniforms (the Gumbel stream has none)
+ACCEPT_STREAM = 0x5BEC
+
+
+def _draw_seed(seed: int, counter: int, stream: int = 0) -> int:
+    """One generator seed per (request seed, draw counter), and per stream
+    past the Gumbel one (stream 0). The CPU generator keeps 32 bits of a
+    seed, so the key is hashed into 32."""
     key = struct.pack("<II", seed & 0xFFFFFFFF, counter & 0xFFFFFFFF)
+    if stream:
+        key += struct.pack("<I", stream)
     return int.from_bytes(hashlib.blake2b(key, digest_size=4).digest(), "little")
 
 
@@ -65,16 +74,26 @@ def gumbel_noise(seeds: Sequence[int], counters: Sequence[int], k_cap: int,
     return out
 
 
-def sample(
-    logits: torch.Tensor,  # [B, V] f32
-    temperature: torch.Tensor,  # [B] f32 (<=0 => greedy)
-    top_p: torch.Tensor,  # [B] f32 in (0, 1]
-    top_k: torch.Tensor,  # [B] i64 (0 => disabled)
-    gumbel: torch.Tensor,  # [B, k_cap] f32 noise (gumbel_noise)
-) -> torch.Tensor:  # [B] i64 sampled token ids
-    """Sample one token per row; k_cap is gumbel.shape[-1] (clamped to V)."""
-    b, v = logits.shape
-    k_cap = min(gumbel.shape[-1], v)
+def accept_uniforms(seeds: Sequence[int], counters: Sequence[int], steps: int = 1
+                    ) -> torch.Tensor:
+    """U(0, 1) [steps, B] (CPU, float32): the accept uniform of row b at
+    step s, from a generator seeded by (seeds[b], counters[b] + s) in the
+    ACCEPT_STREAM, so it is independent of the Gumbel noise that shares
+    the pair."""
+    out = torch.empty((steps, len(seeds)), dtype=torch.float32)
+    gen = torch.Generator()
+    for s in range(steps):
+        for b, (seed, counter) in enumerate(zip(seeds, counters)):
+            gen.manual_seed(_draw_seed(int(seed), int(counter) + s, ACCEPT_STREAM))
+            out[s, b] = torch.rand(1, generator=gen)[0]
+    return out
+
+
+def _kept_candidates(logits, temperature, top_p, top_k, k_cap: int):
+    """The distribution `sample` draws from: the top-k_cap candidates of
+    the temperature-scaled logits (ids [B, k_cap], descending), their
+    logits with those outside the top-p/top-k set at -1e30, and the kept
+    mask."""
     greedy = temperature <= 0.0
     safe_t = torch.where(greedy, torch.ones_like(temperature), temperature.clamp(min=1e-6))
     scaled = logits / safe_t[:, None]
@@ -91,9 +110,65 @@ def sample(
     eff_k = torch.where(top_k > 0, top_k.clamp(max=k_cap), torch.full_like(top_k, k_cap))
     keep = keep_p & (ranks < eff_k[:, None])
     masked = torch.where(keep, cand_logits, torch.full_like(cand_logits, _NEG_INF))
+    return cand_idx, masked, keep
+
+
+def sample(
+    logits: torch.Tensor,  # [B, V] f32
+    temperature: torch.Tensor,  # [B] f32 (<=0 => greedy)
+    top_p: torch.Tensor,  # [B] f32 in (0, 1]
+    top_k: torch.Tensor,  # [B] i64 (0 => disabled)
+    gumbel: torch.Tensor,  # [B, k_cap] f32 noise (gumbel_noise)
+) -> torch.Tensor:  # [B] i64 sampled token ids
+    """Sample one token per row; k_cap is gumbel.shape[-1] (clamped to V)."""
+    k_cap = min(gumbel.shape[-1], logits.shape[1])
+    cand_idx, masked, _ = _kept_candidates(logits, temperature, top_p, top_k, k_cap)
     sampled_rank = torch.argmax(masked + gumbel[:, :k_cap], dim=-1)
     sampled = torch.gather(cand_idx, 1, sampled_rank[:, None])[:, 0]
-    return torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
+    return torch.where(temperature <= 0.0, torch.argmax(logits, dim=-1), sampled)
+
+
+def spec_accept_step(
+    logits: torch.Tensor,  # [B, V] f32 (penalized and biased) target logits
+    draft: torch.Tensor,  # [B] i64 proposed token (ignored without a draft)
+    has_draft: bool,  # False at the bonus position: a plain draw
+    temperature: torch.Tensor,  # [B] f32 (<=0 => greedy row)
+    top_p: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,  # [B] i64
+    gumbel: torch.Tensor,  # [B, k_cap] f32 noise at this position's counter
+    uniform: torch.Tensor,  # [B] f32 accept uniform at that counter
+) -> tuple[torch.Tensor, torch.Tensor]:  # (chosen [B] i64, accept [B] bool)
+    """One position of speculative rejection sampling against a
+    deterministic draft (a point mass at the draft token): accept it with
+    probability p_eff(draft), else draw from p_eff with the draft taken
+    out, so the emitted token's marginal is p_eff, the distribution
+    `sample` draws from (temperature, the top-k_cap candidates, the
+    top-p/top-k mask). Greedy rows take the argmax and accept iff it is
+    the draft. At the bonus position (has_draft=False) the draw is
+    `sample`'s with the same noise, bit for bit."""
+    k_cap = min(gumbel.shape[-1], logits.shape[1])
+    greedy = temperature <= 0.0
+    cand_idx, masked, keep = _kept_candidates(logits, temperature, top_p, top_k, k_cap)
+    greedy_tok = torch.argmax(logits, dim=-1)
+    g = gumbel[:, :k_cap]
+    if not has_draft:
+        rank = torch.argmax(masked + g, dim=-1)
+        sampled = torch.gather(cand_idx, 1, rank[:, None])[:, 0]
+        chosen = torch.where(greedy, greedy_tok, sampled)
+        return chosen, torch.ones_like(greedy)
+    # p_eff(draft): the draft's mass under the kept candidates' softmax
+    kept_lse = torch.logsumexp(masked, dim=-1, keepdim=True)
+    is_draft = cand_idx == draft[:, None]
+    p_draft = torch.where(is_draft & keep, torch.exp(masked - kept_lse),
+                          torch.zeros_like(masked)).sum(dim=-1)
+    # the residual: a Gumbel argmax over the kept candidates but the draft
+    masked_excl = torch.where(is_draft, torch.full_like(masked, _NEG_INF), masked)
+    has_alt = (keep & ~is_draft).any(dim=-1)
+    rank = torch.argmax(masked_excl + g, dim=-1)
+    resampled = torch.gather(cand_idx, 1, rank[:, None])[:, 0]
+    accept_s = (uniform < p_draft) | ~has_alt
+    chosen = torch.where(greedy, greedy_tok, torch.where(accept_s, draft, resampled))
+    return chosen, torch.where(greedy, greedy_tok == draft, accept_s)
 
 
 def stop_mask(ids: torch.Tensor,  # [B] sampled ids

@@ -349,6 +349,9 @@ class Scheduler:
         victim.output_tokens = []
         victim.num_computed_tokens = 0
         victim.num_cached_prompt_tokens = 0
+        # the draft pool's KV of the request lay in the released pages:
+        # the recompute's prefill covers it again
+        victim.spec_draft_pos = 0
         self.running.remove(victim)
         self.waiting.insert(0, victim)
         # its registered pages stay cached: the recompute may hit them

@@ -85,6 +85,20 @@ class LlamaConfig:
         )
 
     @staticmethod
+    def llama3_draft() -> "LlamaConfig":
+        """A draft-sized llama on the Llama-3 vocabulary (128,256), the
+        speculation draft for the llama3 targets
+        (`EngineConfig.spec_draft_model="llama3-draft"`): 4 layers of
+        width 512, 8 query and 4 KV heads of 64, tied embeddings. Random
+        weights accept at chance, and the engine's acceptance cooldown
+        keeps such a draft off the decode path."""
+        return LlamaConfig(
+            hidden_size=512, intermediate_size=2048, num_layers=4,
+            num_heads=8, num_kv_heads=4, head_dim=64,
+            tie_word_embeddings=True, rope_scaling_factor=32.0,
+        )
+
+    @staticmethod
     def tiny(vocab_size: int = 256) -> "LlamaConfig":
         """For unit tests on the CPU."""
         return LlamaConfig(

@@ -18,6 +18,9 @@ from dynamo_tpu_torch.models.llama import LlamaConfig
 _LLAMA_PRESETS: dict[str, Callable[[], LlamaConfig]] = {
     "tiny": LlamaConfig.tiny,
     "llama3-1b": LlamaConfig.llama3_1b,
+    # the speculation draft of the llama3 presets (their vocabulary);
+    # served alone too, but meant for EngineConfig.spec_draft_model
+    "llama3-draft": LlamaConfig.llama3_draft,
     "llama3-8b": LlamaConfig.llama3_8b,
 }
 

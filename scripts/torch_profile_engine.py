@@ -7,6 +7,7 @@ the overlapped decode loop.
     python3 scripts/torch_profile_engine.py --quantize int8 [--kv-quantize int8|fp8]
     python3 scripts/torch_profile_engine.py --decode-kstep K [--kv-quantize int8|fp8]
     python3 scripts/torch_profile_engine.py --spec-ngram S [--kv-quantize int8|fp8]
+    python3 scripts/torch_profile_engine.py --spec-draft [--spec-draft-tokens S] [--kv-quantize int8|fp8]
 
 Drives dynamo_tpu_torch's engine directly (no HTTP) with llama3-1b in
 bf16, random-init weights from a fixed seed, over a bf16 KV pool or, with
@@ -121,6 +122,27 @@ of `defaults` and `always` at each B over the repeating set: device ms
 per dispatch and per forward (a verify is one forward of S + 1 tokens a
 row), the idle share, CUDA kernels per forward and the ten kernels with
 the most device time.
+
+With --spec-draft only the draft model's case runs: the defaults
+(`defaults`) against the CLI's --spec-draft llama3-draft (`draft`: random
+draft weights, so acceptance sits at chance and the cooldown engages) and
+--spec-draft llama3-1b (`self`: the target drafts for itself, so greedy
+drafts are accepted where the verify's bf16 argmax agrees), each with
+--spec-draft-tokens S (4) and the CLI's other defaults (overlap, mixed
+steps, the cooldown), on one set of target weights, over random prompts.
+For B in BATCHES, two untimed waves on each engine (the captures: a
+draft-model engine captures the plain keys only once a cooldown has run;
+they print in a `draft_captures` line: `compiles`, `compile_ms`, the
+spec_fused and draft chunk keys), then `draft` lines in the order
+defaults, draft, self, self, draft, defaults (as `wave`, with the drafts,
+the accepted ones, the acceptance rate, the tokens a row a draft-model
+dispatch emits, 1 + S x accepted / drafted, and the cooldown skips: a
+wave's last dispatch, whose rows finish inside their windows, accepts
+few drafts and may start a cooldown that the next wave pays); then
+`draft_dispatch` lines, torch.profiler over two steady decode dispatches
+of `defaults`, of `always` (`self` with spec_min_accept_rate 0, so that
+no cooldown makes them plain) and of `draft_always` (`draft` so) at each
+B (as `spec_dispatch`).
 
 Then the card's name and power limit. With no card it raises.
 """
@@ -379,6 +401,52 @@ def spec_case(dev, card: str, args) -> None:
                   "prompts": "repeat", **profile_dispatches(engines[name], b, gen, repeat=4)})
 
 
+def draft_case(dev, card: str, args) -> None:
+    """The defaults against draft-model speculation (the module's
+    --spec-draft)."""
+    cfg = EngineConfig(model=MODEL, num_pages=320, page_size=64, max_pages_per_seq=64,
+                       prefill_chunk=PREFILL_CHUNK, max_seqs=64, decode_steps=DECODE_STEPS,
+                       kv_quantize=args.kv_quantize, eos_token_ids=(0,))
+    defaults = TorchEngine(cfg, device=dev)
+    s = args.spec_draft_tokens
+    engines = {"defaults": defaults}
+    for name, draft in (("draft", "llama3-draft"), ("self", MODEL)):
+        engines[name] = TorchEngine(replace(cfg, spec_draft_model=draft, spec_draft_tokens=s),
+                                    params=defaults.params, device=dev)
+    # no-cooldown twins for the profiles: every decode dispatch speculates
+    twins = {label: TorchEngine(replace(engines[name].config, spec_min_accept_rate=0.0),
+                                params=defaults.params, device=dev)
+             for label, name in (("always", "self"), ("draft_always", "draft"))}
+    gen = torch.Generator().manual_seed(0)
+    head = {"card": card, "model": MODEL, "kv_quantize": args.kv_quantize, "prompt": PROMPT,
+            "max_tokens": MAX_TOKENS, "decode_steps": DECODE_STEPS, "spec_draft_tokens": s}
+    for b in BATCHES:
+        for name, eng in engines.items():
+            for w in range(2):
+                timed_wave(eng, f"warm{w}-{name}{b}-", b, gen)
+    emit({"phase": "draft_captures", **head,
+          **{name: {"compiles": e.metrics.compiles, "compile_ms": e.metrics.compile_ms,
+                    "kv_pool_bytes": e.metrics.kv_pool_bytes,
+                    "spec_fused_keys": sorted([list(k) for k in e.step_keys
+                                               if k[0] == "spec_fused"]),
+                    "draft_prefill_keys": sorted([list(k) for k in e.step_keys
+                                                  if k[0] == "spec_draft_prefill"])}
+             for name, e in engines.items()}})
+    for b in BATCHES:
+        order = ("defaults", "draft", "self", "self", "draft", "defaults")
+        for i, name in enumerate(order):
+            r = timed_wave(engines[name], f"{name}{b}-{i}-", b, gen)
+            drafted = r["spec_drafted"]
+            emit({"phase": "draft", **head, "batch": b, "engine": name, "order": i, **r,
+                  "accept_rate": r["spec_accepted"] / drafted if drafted else None,
+                  "tokens_a_row_a_dispatch": (1 + s * r["spec_accepted"] / drafted
+                                              if drafted else None)})
+    for b in BATCHES:
+        for name, eng in (("defaults", defaults), *twins.items()):
+            emit({"phase": "draft_dispatch", **head, "batch": b, "engine": name,
+                  **profile_dispatches(eng, b, gen)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kv-quantize", default=None, choices=("int8", "fp8"), dest="kv_quantize",
@@ -397,12 +465,17 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-ngram", type=int, default=0, dest="spec_ngram",
                     help="only prompt lookup's case: the defaults against --spec-ngram S (the "
                          "CLI's flag), and against it with the cooldown off")
+    ap.add_argument("--spec-draft", action="store_true", dest="spec_draft",
+                    help="only the draft model's case: the defaults against --spec-draft "
+                         "llama3-draft and against a self-draft (the CLI's flag)")
+    ap.add_argument("--spec-draft-tokens", type=int, default=4, dest="spec_draft_tokens",
+                    help="drafts a draft-model dispatch proposes (the CLI's flag)")
     args = ap.parse_args(argv)
     dev = platform.resolve_device("cuda")
     card = platform.card_info()
     case = (quantize_case if args.quantize else sampling_case if args.sampling
             else kstep_case if args.decode_kstep > 1 else spec_case if args.spec_ngram > 0
-            else None)
+            else draft_case if args.spec_draft else None)
     if case is not None:
         case(dev, card, args)
         print(card, flush=True)

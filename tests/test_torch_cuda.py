@@ -47,7 +47,11 @@ windows of 5 tokens that start mid-page bit-equal to its plain version
 and leaves every poisoned slot outside them; paged prefill at T=5 over
 unaligned histories holds its plain version, eager and replayed in a
 CUDA graph on new inputs; the engine's verify graphs give the eager
-loop's streams in each pool mode. Flash
+loop's streams in each pool mode. Draft-model speculation
+(spec_draft_model): the spec_fused and draft chunk graphs give the eager
+loop's streams in each pool mode, without and with overlapped decode,
+beside mixed steps, and a spec_fused key replays new prompts without a
+capture, with a self-draft and with llama3-draft. Flash
 prefill and paged prefill (bf16 output) hold each
 valid (token, head) row within 2^-6 of the row's largest |value|, 2-4 bf16
 ulps there; paged decode (f32 output) holds acc/l and m within 1e-4.
@@ -1619,3 +1623,122 @@ def test_verify_graphs_give_the_eager_streams(llama_params, mode):
                 if n}
     assert launched == {kv_quant.variant(n, mode)
                         for n in ("paged_write", "paged_prefill_attention")}
+
+
+#: the draft-model tests' greedy waves (buckets 8, 4 and 1)
+DRAFT_WAVES = [(5, 24), (3, 17), (1, 9)]
+#: their engines' knobs beside _engines' own: a self-draft with no
+#: cooldown, chunks of 128 (the late prompts prefill in chunks with
+#: history, which the draft's chunk steps follow) and mixed steps
+DRAFT_KNOBS = dict(spec_draft_model="llama3-1b", spec_min_accept_rate=0.0, prefill_chunk=128,
+                   mixed_steps=True)
+
+
+def _run_draft(eng, tag="", late=(300, 200)):
+    """DRAFT_WAVES, a seeded sampled wave of two rows (temperature 0.7,
+    top-p 0.9) and _run_late (prompts of `late` tokens join a decoding
+    row; split mixed steps): request id -> generated ids."""
+    out = _run_waves(eng, DRAFT_WAVES, tag=tag)
+    out.update(_run_waves(eng, [(2, 17)], tag=f"{tag}s",
+                          sampling=dict(temperature=0.7, top_p=0.9, seed=3)))
+    out.update(_run_late(eng, tag=f"{tag}late", arrivals=((3, late),)))
+    return out
+
+
+def _draft_launches(graphs, kind) -> set:
+    return {name for k in graphs.step_keys if k[0] == kind
+            for name, (n, _) in graphs._step_fns[k].launches.items() if n}
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_draft_graphs_give_the_eager_streams(llama_params, mode):
+    """--spec-draft with a self-draft of llama3-1b (its own weights), the
+    cooldown off (spec_min_accept_rate 0), mixed steps on: the spec_fused
+    and spec_draft_prefill graphs give the eager loop's streams, drafts
+    and acceptance bit for bit, without and with overlapped decode in both
+    engines (chained dispatches consumed); two graph engines with overlap
+    on and one decode bucket, mixed steps on and off, give each other's
+    streams (each prefill step runs apart from the draft-model dispatches
+    in the second); each key is captured once and replayed; a spec_fused
+    graph launches the pool's write and paged
+    prefill (the verify) and the draft pool's (bf16) write, paged prefill
+    and paged decode (catch-up and proposals); the draft's chunk graphs
+    launch the bf16 write with flash prefill or paged prefill; nothing
+    runs a plain version."""
+    for overlap in (False, True):
+        eager, graphs = _engines(llama_params, mode, overlap=(overlap, overlap), **DRAFT_KNOBS)
+        assert graphs.draft_params is graphs.params and graphs.draft_kv.k.dtype == torch.bfloat16
+        ops.reset_counts()
+        want = _run_draft(eager)
+        assert _run_draft(graphs) == want
+        assert all(c.plain_calls == 0 for c in ops.COUNTS.values())
+        m, e = graphs.metrics, eager.metrics
+        for c in ("spec_drafted", "spec_accepted", "overlap_hits", "overlap_rollbacks",
+                  "mixed_dispatches"):
+            assert getattr(m, c) == getattr(e, c), c
+        assert m.spec_drafted > 0 and m.spec_accepted > 0 and m.mixed_dispatches > 0
+        assert (m.overlap_hits > 0) == overlap
+        fused = [k for k in graphs.step_keys if k[0] == "spec_fused"]
+        drafts = [k for k in graphs.step_keys if k[0] == "spec_draft_prefill"]
+        assert fused and drafts and all(graphs._step_fns[k].replays for k in fused + drafts)
+        assert all(graphs._step_fns[k].keep for k in fused)
+        assert m.compiles == len(graphs.step_keys)
+        assert m.prefill_replays + m.decode_replays + m.mixed_replays == graphs.dispatches
+        assert m.decode_replays + m.mixed_replays == (m.decode_dispatches + m.mixed_dispatches
+                                                      + m.overlap_rollbacks)
+        assert _draft_launches(graphs, "spec_fused") == (
+            {kv_quant.variant(n, mode) for n in ("paged_write", "paged_prefill_attention")}
+            | {"paged_write", "paged_prefill_attention", "paged_decode_attention"})
+        assert _draft_launches(graphs, "spec_draft_prefill") == {
+            "paged_write", "flash_prefill_attention", "paged_prefill_attention"}
+        del eager, graphs
+        torch.cuda.empty_cache()
+    # the toggle changes which rows share a dispatch, and a row's logits
+    # depend in their last bits on its dispatch's bucket (up to 0.0625
+    # between buckets 1 and 4, where random weights tie), so the pair
+    # decodes in one bucket and one late prompt arrives (the two would
+    # prefill apart beside the decode bucket and together without it):
+    # every row then runs the same shapes either way
+    runs = []
+    for mixed in (True, False):
+        eng = _engines(llama_params, mode, overlap=(True, True),
+                       **{**DRAFT_KNOBS, "mixed_steps": mixed, "decode_buckets": (8,)})[1]
+        runs.append(_run_draft(eng, late=(300,)))
+        m = eng.metrics
+        assert (m.mixed_dispatches > 0) == mixed and m.overlap_hits > 0 and m.spec_accepted > 0
+        del eng
+        torch.cuda.empty_cache()
+    assert runs[0] == runs[1]
+
+
+def test_a_spec_fused_graph_replays_on_new_inputs(llama_params):
+    """spec_fused and spec_draft_prefill keys captured over one run replay
+    a second run of other prompts (the same lengths) to the eager loop's
+    streams: every key of the first run's first dispatches (bucket 8) and
+    chunk steps replays again, none is captured twice (rows finish at
+    other steps, so the second run may reach a bucket the first did not);
+    and a llama3-draft draft (Hq 8, Hkv 4, random weights: its acceptance
+    sits at chance, so the cooldown engages) gives the eager loop's
+    streams with graphs and overlap."""
+    eager, graphs = _engines(llama_params, None, **DRAFT_KNOBS)
+    for eng in (eager, graphs):
+        _run_waves(eng, DRAFT_WAVES, tag="a")
+    first = {k: g.replays for k, g in graphs._step_fns.items()
+             if k[0] == "spec_draft_prefill"
+             or (k[0] == "spec_fused" and key_field(k, "bucket") == 8)}
+    assert any(k[0] == "spec_fused" for k in first)
+    other = dict(tag="b", length=lambda i: 21 + 30 * i)  # other tokens, the same buckets
+    want = _run_waves(eager, DRAFT_WAVES, **other)
+    assert _run_waves(graphs, DRAFT_WAVES, **other) == want
+    assert all(graphs._step_fns[k].replays > n for k, n in first.items())
+    assert graphs.metrics.compiles == len(graphs.step_keys)
+    del eager, graphs
+    eager, graphs = _engines(llama_params, None, overlap=(True, True),
+                             **{**DRAFT_KNOBS, "spec_draft_model": "llama3-draft",
+                                "spec_min_accept_rate": 0.2})
+    assert graphs.draft_adapter.config.num_kv_heads == 4
+    want = _run_draft(eager)
+    assert _run_draft(graphs) == want
+    m = graphs.metrics
+    assert m.spec_drafted == eager.metrics.spec_drafted > 0
+    assert m.spec_skipped_cooldown > 0 and m.spec_accepted < m.spec_drafted * 0.2

@@ -19,7 +19,7 @@ from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
 from dynamo_tpu.engine.engine import JaxEngine
 from dynamo_tpu.engine.request import SamplingParams as JaxSampling
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.engine import TorchEngine, key_field
 from dynamo_tpu_torch.engine.request import SamplingParams
 from dynamo_tpu_torch.models.llama import LlamaConfig, params_from_jax
 
@@ -180,8 +180,9 @@ def test_prompt_longer_than_one_chunk_is_refused():
 )
 def test_unported_knob_is_refused_by_name(knob):
     """(overlap_decode=True, enable_prefix_caching=True, mixed_steps=True,
-    decode_kstep=4 and quantize="int8" keep their cases from when the port
-    refused them; each case now checks that the knob is served.)"""
+    decode_kstep=4, quantize="int8" and spec_draft_tokens=8 keep their
+    cases from when the port refused them; each case now checks that the
+    knob is served.)"""
     (name,) = knob
     if name in ("overlap_decode", "enable_prefix_caching", "mixed_steps"):
         assert getattr(EngineConfig.for_tests(**knob), name) is True
@@ -194,6 +195,15 @@ def test_unported_knob_is_refused_by_name(knob):
         eng.add_request("k", [5, 17, 42], SamplingParams(max_tokens=9, ignore_eos=True))
         assert len(eng.run_to_completion()["k"]) == 9
         assert eng.metrics.kstep_windows > 0
+        return
+    if name == "spec_draft_tokens":
+        assert EngineConfig.for_tests(**knob).spec_draft_tokens == 8
+        assert EngineConfig.for_tests().spec_draft_tokens == 4
+        eng = _torch_engine(spec_draft_model="tiny", **knob)
+        eng.add_request("d", [5, 17, 42], SamplingParams(max_tokens=9, ignore_eos=True))
+        assert len(eng.run_to_completion()["d"]) == 9
+        assert eng.metrics.spec_drafted > 0
+        assert any(k[0] == "spec_fused" and key_field(k, "t") == 9 for k in eng.step_keys)
         return
     if name == "quantize":
         assert EngineConfig.for_tests(**knob).quantize == "int8"

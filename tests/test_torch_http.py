@@ -298,9 +298,16 @@ def _entries(events):
 def test_chat_logprobs_are_served(server, stream):
     """logprobs + top_logprobs 3: one entry per generated token with its
     exact bytes and 3 alternatives, sorted, the greedy token the first of
-    them with the same logprob; unary and streamed give the same entries."""
+    them with the same logprob; unary and streamed give the same entries.
+
+    A warm request with the same body goes first, so both compared
+    requests hit the prefix cache over the same pages whichever tests ran
+    on the module's server before: a cold prefill and a hit's chunk with
+    history round the fp32 logprobs differently in the last bits."""
     body = {"model": "tiny", "messages": MESSAGES, "max_tokens": 6, "logprobs": True,
             "top_logprobs": 3, "ext": {"ignore_eos": True}}
+    with _post(server.url + CHAT, body) as r:
+        json.load(r)
     with _post(server.url + CHAT, body) as r:
         resp = json.load(r)
     entries = resp["choices"][0]["logprobs"]["content"]

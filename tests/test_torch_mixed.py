@@ -74,7 +74,9 @@ def _project(jax_eng) -> set:
     mixed (kind, b, t, b_pre, greedy, first_chunk, psamp, lp, pen, bias)
     from JAX fields 0, 1, 2, 9, 3, 5, 10, 6, 7, 8; prefill and decode as
     the port keys them (tests/test_torch_step_graph.py); a prompt-lookup
-    verify as (kind, b, t)."""
+    verify as (kind, b, t); a draft-model dispatch as (kind, b, t, greedy,
+    pen, bias) from JAX fields 0-3, 7, 8, and a draft chunk step as (kind,
+    b, t, first_chunk)."""
     out = set()
     for k in jax_eng._jit_cache:
         if k[0] == "mixed":
@@ -87,6 +89,10 @@ def _project(jax_eng) -> set:
             out.add((*k[:4], k[6], k[7], k[8]))
         elif k[0] == "spec_verify":
             out.add(k[:3])
+        elif k[0] == "spec_fused":
+            out.add((*k[:4], k[7], k[8]))
+        elif k[0] == "spec_draft_prefill":
+            out.add((*k[:3], k[5]))
     return out
 
 

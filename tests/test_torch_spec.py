@@ -75,7 +75,8 @@ def _assert_like_jax(port, jax_eng, got, want):
 def test_default_is_off_and_the_knobs_are_served():
     """spec_ngram defaults to 0 in the config and the CLI, and at 0 no
     verify key exists; --spec-ngram S reaches the config; the four
-    prompt-lookup knobs are ported, the draft-model ones still refused."""
+    prompt-lookup knobs are ported, and so are the draft-model ones (this
+    case kept its name from when the port refused them)."""
     assert EngineConfig.for_tests().spec_ngram == 0
     assert cli_run.engine_config(cli_run._parse(["run"]), ()).spec_ngram == 0
     assert cli_run.engine_config(cli_run._parse(["run", "--spec-ngram", "4"]), ()).spec_ngram == 4
@@ -85,8 +86,9 @@ def test_default_is_off_and_the_knobs_are_served():
             cfg.spec_cooldown_steps) == (3, 3, 0.5, 2)
     assert not {"spec_ngram", "spec_ngram_match", "spec_min_accept_rate",
                 "spec_cooldown_steps"} & UNPORTED.keys()
-    with pytest.raises(NotImplementedError, match="spec_draft_model"):
-        EngineConfig.for_tests(spec_draft_model="llama3-draft")
+    draft = EngineConfig.for_tests(spec_draft_model="llama3-draft", spec_draft_tokens=3)
+    assert (draft.spec_draft_model, draft.spec_draft_tokens) == ("llama3-draft", 3)
+    assert not {"spec_draft_model", "spec_draft_tokens"} & UNPORTED.keys()
     jax_eng, port = _engines()
     work = _greedy(PROMPTS)
     _assert_like_jax(port, jax_eng, _drive(port, SamplingParams, work),
