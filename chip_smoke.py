@@ -19,6 +19,9 @@ Phases, each fatal on failure:
      function (each by CUDA events around 20 back-to-back calls, so the
      host's work between launches is in it), and the card's least time for
      the work (bound, from bytes or operations over the H100's peaks); and
+     at a query group of 7 (GROUP7_HEADS: qwen2-7b's 28/4 heads at D 128,
+     qwen2-0.5b's 14/2 at D 64) flash prefill over the ragged chunk, paged
+     prefill over a bf16 and an int8 pool, and bf16 paged decode; and
      the int8 weight product (`--quantize int8`) against its plain version
      at llama3-1b's and llama3-8b's dense widths (INT8_CASES: a decode row,
      bucket 64 and a 2,048-token chunk), each row within 2^-6 of its
@@ -38,6 +41,25 @@ Phases, each fatal on failure:
      and 16 decode steps, over a bf16 pool and an int8 pool, with the same
      gate, and the int8-weight kernel path against the bf16-weight one
      reported without a gate;
+  4'. families (run right after the build, on an empty card, for phi4's
+     29 GB of weights and its 15 GB f32 temporary at init): the same gate
+     for qwen2-0.5b, qwen2-7b (a query group of
+     7, q/k/v biases), qwen3-8b (per-head q/k RMSNorm) and phi4 at full
+     width and depth, random bf16 weights with biases drawn N(0, 0.02) and
+     q/k norm weights 1 + N(0, 0.1), one model at a time, over a first
+     chunk of 512, a chunk of 256 with history and 16 decode steps, over a
+     bf16 pool (qwen2-7b also over an int8 pool): max |delta logit| <
+     0.25, argmax >= 90 %, and the pool's kernel variants launched; a line
+     that llama3-70b (about 141 GB of bf16 weights) is not served on one
+     card; then qwen2-7b through the CLI's server at its defaults: a short
+     chat, a chat of two chunks and a prefix hit one at a time, held
+     against an eager twin to the id and cached token (`same_streams`),
+     then three chats and a prompt of three chunks together (mixed steps);
+     every dispatch a replay, the bf16 pool's variants launched, no plain
+     version; then qwen2-0.5b, qwen3-8b, phi4 and
+     deepseek-r1-distill-llama-8b, each through the CLI's server at its
+     defaults, one chat of two chunks and 16 tokens; the phase prints its
+     seconds;
   4b. graphs: three llama3-1b engines on one set of random weights, over
      a bf16, an int8 and an fp8 pool: the eager loop (cuda_graphs=False,
      no overlap), step graphs without overlapped decode, and step graphs
@@ -258,6 +280,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import sys
@@ -613,11 +636,12 @@ def row_errors(got, ref, lens) -> tuple[float, float]:
 
 
 def check_flash_prefill(dev, peaks, gen, b: int, t: int, ragged: bool = True,
-                        d: int = D) -> dict:
+                        d: int = D, heads: tuple = (HQ, HKV)) -> dict:
+    hq, hkv = heads
     bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
-    k = torch.randn((b, t, HKV, d), generator=gen, **bf)
-    v = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    q = torch.randn((b, t, hq, d), generator=gen, **bf)
+    k = torch.randn((b, t, hkv, d), generator=gen, **bf)
+    v = torch.randn((b, t, hkv, d), generator=gen, **bf)
     lens = [t, t - 12, (3 * t) // 4 + 1, t // 2, t // 4 + 1, 64, 33, 1][:b] if ragged else []
     valid_len = torch.tensor(lens + [t] * (b - len(lens)), dtype=torch.int32, device=dev)
     got = flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=d)
@@ -633,9 +657,9 @@ def check_flash_prefill(dev, peaks, gen, b: int, t: int, ragged: bool = True,
         lambda: flash_prefill.flash_prefill_attention(q, k, v, valid_len, scale_dim=d),
         lambda: flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=d),
         lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, d, 2)
-    b_ms, by = bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, d), peaks)
-    return {"kernel": "flash_prefill_attention", "B": b, "T": t, "Hq": HQ, "Hkv": HKV, "D": d,
+    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), hq, hkv, d, 2)
+    b_ms, by = bound(nbytes, flash_prefill.flops(valid_len.cpu(), hq, d), peaks)
+    return {"kernel": "flash_prefill_attention", "B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
             "valid_len": valid_len.tolist(),
             "tolerance": f"bf16, each (token, head) row below valid_len: max |diff| <= "
                          f"{PREFILL_ROW_RTOL} x the row's largest |value| (2-4 bf16 ulps)",
@@ -874,12 +898,34 @@ def verify_hist(seed: int, b: int) -> list[int]:
     return hist.tolist()
 
 
+#: the query group of 7 (it divides neither prefill kernel's 128-row
+#: tile): (preset, (Hq, Hkv), D)
+GROUP7_HEADS = (("qwen2-7b", (28, 4), 128), ("qwen2-0.5b", (14, 2), 64))
+
+
 def phase_kernels(dev, peaks) -> dict:
     gen = torch.Generator(device=dev)
     cases = [
         check_int8_matmul(dev, peaks, gen.manual_seed(20 + i), *shape)
         for i, shape in enumerate(INT8_CASES)
-    ] + [
+    ]
+    # a query group of 7 at qwen2-7b's and qwen2-0.5b's heads, before the
+    # main path's cases so the kernels line reports those: flash prefill
+    # over the ragged first chunk, paged prefill over the main chunk beside
+    # histories in a bf16 and an int8 pool, paged decode at B=32; pools of
+    # four layers (a call reads one), as every case's inputs stay held
+    # until phase 6
+    for model, heads, d in GROUP7_HEADS:
+        g7 = dict(d=d, heads=heads)
+        cases += [{**c, "model": model} for c in (
+            check_flash_prefill(dev, peaks, gen.manual_seed(90), 8, 512, **g7),
+            *(check_paged_prefill(dev, peaks, gen.manual_seed(91),
+                                  *PAGED_PREFILL_CASES[-1][:3], mode, layers=4, **g7)
+              for mode in (None, "int8")),
+            check_paged_decode(dev, peaks, gen.manual_seed(92), 32, 2048, None, layers=4,
+                               **g7),
+        )]
+    cases += [
         # every row valid: SDPA computes no more than the kernel needs; at
         # the main path's widths, at llama3-8b's head dim and at a long T
         check_flash_prefill(dev, peaks, gen.manual_seed(6), 8, 512, ragged=False),
@@ -948,6 +994,61 @@ def logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int, int]:
     return d.max().item(), int((a.argmax(-1) == b.argmax(-1)).sum()), a.shape[0]
 
 
+def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str) -> dict:
+    """The model gate's teacher-forced run: every path of `paths` (name ->
+    (ops, params, pool mode)), each over a pool of its own, takes one
+    random prompt of sum(chunks) tokens chunk by chunk (the first a first
+    chunk, each later one over its history), then `steps` decode steps,
+    every path taking the plain path's greedy token. Returns, for each
+    other path, ("kernel", path) -> [max |delta logit|, positions whose
+    argmax agrees, positions]; raises once the kernel path is
+    GATE_MAX_DLOGIT or more from the plain path at a step."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = adapter.config
+    prompt_len = sum(chunks)
+    num_pages = 2 + (prompt_len + steps) // S
+    pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
+    pools = {name: adapter.init_kv(num_pages, S, dev, kv_quantize=m)
+             for name, (_, _, m) in paths.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
+    stats = {("kernel", name): [0.0, 0, 0] for name in paths if name != "kernel"}
+
+    def run_all(tok, pos, first_chunk):
+        out = {}
+        val = torch.ones(tok.shape, dtype=torch.bool, device=dev)
+        for name, (path_ops, path_params, _) in paths.items():
+            out[name], _ = llama.forward(path_params, cfg, tok, pos, val, pools[name],
+                                         pt, first_chunk=first_chunk, ops=path_ops)
+        return {k: v[0] for k, v in out.items()}  # [T, V] each
+
+    def gate(out, step):
+        for (a, b_), st in stats.items():
+            worst, agree, rows = logit_gap(out[a], out[b_])
+            st[0] = max(st[0], worst)
+            st[1] += agree
+            st[2] += rows
+            if b_ == "plain" and worst >= GATE_MAX_DLOGIT:
+                raise AssertionError(f"{label}: step {step} max |dlogit| {worst}")
+
+    with torch.no_grad():
+        start = 0
+        for i, n in enumerate(chunks):  # the prompt, chunk by chunk
+            pos = torch.arange(start, start + n, dtype=torch.int32, device=dev)[None]
+            out = run_all(tokens[:, start:start + n], pos, start == 0)
+            gate(out, f"chunk {i}")
+            start += n
+        nxt = out["plain"][-1].argmax()
+        for step in range(steps):
+            # teacher forcing: every path takes the plain path's greedy token
+            pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
+            out = run_all(nxt.view(1, 1), pos, False)
+            gate(out, step)
+            nxt = out["plain"][-1].argmax()
+    return stats
+
+
 def phase_model(dev) -> list[dict]:
     """The model gate over a prompt in one first chunk, and over a longer
     prompt in chunks whose later ones attend over their history, over a
@@ -959,7 +1060,6 @@ def phase_model(dev) -> list[dict]:
     from dynamo_tpu_torch.models.registry import get_model
 
     adapter = get_model("llama3-1b", dtype="bfloat16")
-    cfg = adapter.config
     weights = {None: adapter.init_params(torch.Generator(device=dev).manual_seed(0))}
     weights["int8"] = llama.quantize_params_int8(weights[None])
     # (weights, pool mode, chunks, decode steps)
@@ -977,50 +1077,10 @@ def phase_model(dev) -> list[dict]:
                 paths["bf16"] = (ops.KERNELS, params, None)
             if quantize is not None:
                 paths["bf16_weights"] = (ops.KERNELS, weights[None], mode)
-            prompt_len = sum(chunks)
-            num_pages = 2 + (prompt_len + steps) // S
-            pt = torch.arange(1, num_pages, dtype=torch.int32, device=dev)[None]
-            pools = {name: adapter.init_kv(num_pages, S, dev, kv_quantize=m)
-                     for name, (_, _, m) in paths.items()}
-            gen = torch.Generator(device=dev).manual_seed(1)
-            tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
-            stats = {pair: [0.0, 0, 0] for pair in (("kernel", "plain"), ("kernel", "bf16"),
-                                                    ("kernel", "bf16_weights"))}
             label = (f"model gate, {quantize or 'bf16'} weights, {mode or 'bf16'} pool, "
                      f"chunks {chunks}")
-
-            def run_all(tok, pos, first_chunk):
-                out = {}
-                val = torch.ones(tok.shape, dtype=torch.bool, device=dev)
-                for name, (path_ops, path_params, _) in paths.items():
-                    out[name], _ = llama.forward(path_params, cfg, tok, pos, val, pools[name],
-                                                 pt, first_chunk=first_chunk, ops=path_ops)
-                return {k: v[0] for k, v in out.items()}  # [T, V] each
-
-            def gate(out, step):
-                for (a, b_), st in stats.items():
-                    if b_ not in out:
-                        continue
-                    worst, agree, rows = logit_gap(out[a], out[b_])
-                    st[0] = max(st[0], worst)
-                    st[1] += agree
-                    st[2] += rows
-                    if b_ == "plain" and worst >= GATE_MAX_DLOGIT:
-                        raise AssertionError(f"{label}: step {step} max |dlogit| {worst}")
-
-            start = 0
-            for i, n in enumerate(chunks):  # the prompt, chunk by chunk
-                pos = torch.arange(start, start + n, dtype=torch.int32, device=dev)[None]
-                out = run_all(tokens[:, start:start + n], pos, start == 0)
-                gate(out, f"chunk {i}")
-                start += n
-            nxt = out["plain"][-1].argmax()
-            for step in range(steps):
-                # teacher forcing: every path takes the plain path's greedy token
-                pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
-                out = run_all(nxt.view(1, 1), pos, False)
-                gate(out, step)
-                nxt = out["plain"][-1].argmax()
+            stats = gate_paths(dev, adapter, paths, chunks, steps, label)
+            prompt_len = sum(chunks)
             worst, agree, rows = stats[("kernel", "plain")]
             rate = agree / rows
             result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16",
@@ -1046,10 +1106,265 @@ def phase_model(dev) -> list[dict]:
             if rate < GATE_ARGMAX:
                 raise AssertionError(f"{label}: argmax agreement {rate} < {GATE_ARGMAX}")
             results.append(result)
-            del pools
     del weights, params
     torch.cuda.empty_cache()
     return results
+
+
+# -- phase "families": Qwen2, Qwen3 and Phi-4 at full width --------------------
+
+#: the presets the phase gates, in the order it loads them (one at a time)
+FAMILY_PRESETS = ("qwen2-0.5b", "qwen2-7b", "qwen3-8b", "phi4")
+#: the gate's prompt: a first chunk of 512 and a chunk with history of 256,
+#: then 16 decode steps
+FAMILY_CHUNKS, FAMILY_STEPS = (512, 256), 16
+#: a preset the port registers but one card cannot hold
+FAMILY_TOO_LARGE = "llama3-70b"
+#: the CLI's server for the phase's HTTP requests: the defaults but the port
+FAMILY_SERVE_ARGV = ["run", "in=http", "out=torch", "--model", "qwen2-7b", "--port", "0"]
+#: the other presets one card holds, each served one request through the CLI
+FAMILY_CLI = ("qwen2-0.5b", "qwen3-8b", "phi4", "deepseek-r1-distill-llama-8b")
+
+
+def live_params(params: dict, dev, seed: int) -> dict:
+    """Random init's zero q/k/v biases and unit q/k norm weights drawn from
+    `seed` instead (biases N(0, 0.02), norms 1 + N(0, 0.1)), so both paths
+    of the gate run the family's ops on values that change the logits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers = dict(params["layers"])
+    for name, mean, std in (("bq", 0.0, 0.02), ("bk", 0.0, 0.02), ("bv", 0.0, 0.02),
+                            ("q_norm", 1.0, 0.1), ("k_norm", 1.0, 0.1)):
+        if name in layers:
+            x = layers[name]
+            draw = torch.randn(x.shape, generator=gen, device=dev)
+            layers[name] = (mean + std * draw).to(x.dtype)
+    return {**params, "layers": layers}
+
+
+def config_param_bytes(cfg) -> int:
+    """Bytes of a llama config's params in bf16, from its shapes."""
+    h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = 2 * h * qd + 2 * h * kvd + 3 * h * i + 2 * h
+    layer += (qd + 2 * kvd) * cfg.attention_bias + 2 * cfg.head_dim * cfg.qk_norm
+    return 2 * (L * layer + v * h * (1 if cfg.tie_word_embeddings else 2) + h)
+
+
+def serve_family(dev, card: str) -> dict:
+    """qwen2-7b through the CLI's server at its defaults (graphs, overlap,
+    mixed steps, prefix caching, chunk 512): one at a time, a short chat, a
+    chat whose prompt takes two chunks and one that shares its first pages
+    (a prefix hit), each held against an eager twin (the same config and
+    weights, cuda_graphs=False) serving the same prompts one at a time;
+    then three streaming chats and a prompt of three chunks together, which
+    must run mixed steps. Every request answers 200 with usage counting the
+    ids served; the served variants launch, no plain version runs, and
+    every dispatch replays a graph."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+
+    model = FAMILY_SERVE_ARGV[FAMILY_SERVE_ARGV.index("--model") + 1]
+    args = cli_run._parse(FAMILY_SERVE_ARGV)
+    if not (args.prefill_chunk == 512 and args.page_size == S and args.dtype == "bfloat16"
+            and args.overlap_decode and args.mixed_steps):
+        raise AssertionError(f"families serve: the CLI's defaults changed: {args}")
+    chat_url = "/v1/chat/completions"
+    ext = {"ignore_eos": True, "return_token_ids": True}
+    stream = {"stream": True, "stream_options": {"include_usage": True}}
+    lead = "Explain what a paged KV cache is, page by page. " * 13  # 637 bytes
+    held = {"short": ([{"role": "user", "content": "a short question"}], 24),
+            "two_chunks": ([{"role": "user", "content": lead + "First answer."}], 16),
+            "hit": ([{"role": "user", "content": lead + "Second answer, please."}], 16)}
+    tok = ByteTokenizer()
+    server = cli_run.start_server(FAMILY_SERVE_ARGV)
+    try:
+        ops.reset_counts()
+        served, cached = {}, {}
+        for rid, (messages, n) in held.items():
+            status, out, ids, _ = _post(server.url + chat_url, {
+                "model": model, "messages": messages, "max_tokens": n, "temperature": 0,
+                "ext": ext, **stream})
+            use = out[-1]["usage"]
+            prompt = tok.encode(tok.apply_chat_template(messages))
+            if not (status == 200 and len(ids) == n == use["completion_tokens"]
+                    and use["prompt_tokens"] == len(prompt)):
+                raise AssertionError(f"families serve: {rid}: {status}, usage {use}, "
+                                     f"{len(ids)} ids, {len(prompt)} prompt tokens")
+            served[rid] = ids
+            cached[rid] = (use.get("prompt_tokens_details") or {}).get("cached_tokens", 0)
+        long_prompt = [{"role": "user", "content": "a long prompt: " + "abcdefgh " * 135}]
+        wave = [{"model": model, "messages": [{"role": "user", "content": f"stream {i}"}],
+                 "max_tokens": 64, "ext": ext, **stream} for i in range(3)]
+        wave.append({"model": model, "messages": long_prompt, "max_tokens": 16, "ext": ext,
+                     **stream})
+        results = post_together([(server.url + chat_url, body) for body in wave])
+        torch.cuda.synchronize()
+        for body, (status, out, ids, _) in zip(wave, results):
+            if not (status == 200 and len(ids) == body["max_tokens"]
+                    == out[-1]["usage"]["completion_tokens"]):
+                raise AssertionError(f"families serve: the wave: {status}, {len(ids)} ids")
+        counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+        engine = server.runner.engine
+        m = engine.metrics
+        graphs = {k: getattr(m, k) for k in ("compiles", "compile_ms", "prefill_dispatches",
+                                             "decode_dispatches", "mixed_dispatches",
+                                             "overlap_hits", "overlap_rollbacks")}
+        if not (replays_match(m, engine.dispatches) and m.mixed_dispatches > 0
+                and m.decode_replays > 0):
+            raise AssertionError(f"families serve: dispatches did not all replay graphs, or "
+                                 f"no mixed step ran: {m.to_dict()}")
+        params, cfg = engine.params, engine.config
+        del engine
+    finally:
+        server.stop()
+        free_server(server)
+        del server
+    want = serve_variants(None)
+    for name, (launches, plain) in counts.items():
+        if plain != 0 or (launches == 0) == (name in want):
+            raise AssertionError(f"families serve: {name} launched {launches} times, plain "
+                                 f"ran {plain} (the bf16 pool's variants: {want})")
+    if not (cached["short"] == 0 and cached["two_chunks"] == 0 and cached["hit"] >= 576):
+        raise AssertionError(f"families serve: cached tokens {cached}")
+    # the eager twin: the same prompts one at a time, greedy, over the
+    # same weights and config
+    eager = TorchEngine(cfg, params=params, device=dev, cuda_graphs=False)
+    twin, twin_cached = {}, {}
+    for rid, (messages, n) in held.items():
+        prompt = tok.encode(tok.apply_chat_template(messages))
+        streams, first = serve_requests(eager, {rid: prompt}, n)
+        twin.update(streams)
+        twin_cached.update(first)
+    same_streams("families serve, qwen2-7b", twin, served, "the server's streams")
+    if twin_cached != cached:
+        raise AssertionError(f"families serve: cached tokens {cached}, eager twin "
+                             f"{twin_cached}")
+    del eager, params
+    free_memory()
+    return {"model": model, "argv": FAMILY_SERVE_ARGV, "card": card,
+            "eos_token_ids": list(ModelDeploymentCard(name=model).eos_token_ids),
+            "held_prompt_tokens": {rid: len(tok.encode(tok.apply_chat_template(m)))
+                                   for rid, (m, _) in held.items()},
+            "cached_tokens": cached, "wave_requests": len(wave), **graphs,
+            "launches": {k: v[0] for k, v in counts.items() if k in want},
+            "identical": "the three held requests' streams and cached tokens, to the id, "
+                         "in the server and in its eager twin"}
+
+
+def free_memory() -> None:
+    """Collect what earlier work left in reference cycles (an engine holds
+    itself through its step functions and a server's handlers hold its
+    runner, so an engine's weights, pools and graphs go at a collection,
+    not when its last name does) and hand the memory back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def free_server(server) -> None:
+    """Drop a stopped server's engine and free its memory (free_memory)."""
+    server.runner.engine = None
+    free_memory()
+
+
+def serve_once(model: str) -> dict:
+    """`model` through the CLI's server at its defaults: one streamed chat
+    whose prompt takes two chunks, 16 greedy tokens. It must answer 200
+    with usage counting the ids served, launch the bf16 pool's variants and
+    no plain version, and replay a graph for every dispatch."""
+    from dynamo_tpu_torch.cli.run import start_server
+
+    server = start_server(["run", "in=http", "out=torch", "--model", model, "--port", "0"])
+    try:
+        ops.reset_counts()
+        content = "Say what a prefill chunk is. " * 22  # 638 bytes: two chunks
+        status, out, ids, ttft = _post(server.url + "/v1/chat/completions", {
+            "model": model, "messages": [{"role": "user", "content": content}],
+            "max_tokens": 16, "temperature": 0, "stream": True,
+            "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True, "return_token_ids": True}})
+        torch.cuda.synchronize()
+        counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+        engine = server.runner.engine
+        m = engine.metrics
+        line = {"model": model, "status": status, "tokens": len(ids),
+                "prompt_tokens": out[-1]["usage"]["prompt_tokens"], "ttft_s": ttft,
+                "compiles": m.compiles, "compile_ms": m.compile_ms,
+                "prefill_dispatches": m.prefill_dispatches, "decode_replays": m.decode_replays}
+        ok = (status == 200 and len(ids) == 16 == out[-1]["usage"]["completion_tokens"]
+              and line["prompt_tokens"] > 512 and replays_match(m, engine.dispatches)
+              and m.prefill_dispatches == 2)
+        del engine
+    finally:
+        server.stop()
+        free_server(server)
+        del server
+    want = serve_variants(None)
+    if not ok or any(plain or (n == 0) == (name in want) for name, (n, plain) in counts.items()):
+        raise AssertionError(f"families serve, {model}: {line}, launches {counts}")
+    return line
+
+
+def phase_families(dev, card: str) -> dict:
+    """The model gate (gate_paths: kernel path against plain path) for each
+    of FAMILY_PRESETS at full width and depth, random bf16 weights with
+    live biases and q/k norms, over a first chunk of 512, a chunk of 256
+    with history and 16 decode steps, over a bf16 pool (and, for
+    qwen2-7b, an int8 pool); each model freed before the next. Prints that
+    llama3-70b is not served on one card, each gate's line, the serve's
+    (serve_family), each of FAMILY_CLI's one request through the CLI
+    (serve_once) and the phase's seconds. Returns the serve's line."""
+    from dynamo_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    too_large = get_model(FAMILY_TOO_LARGE).config
+    emit({"phase": "families", "model": FAMILY_TOO_LARGE, "served": False,
+          "param_bytes_bf16": config_param_bytes(too_large),
+          "reason": "its bf16 weights do not fit one card's memory (sized from its config)"})
+    for i, name in enumerate(FAMILY_PRESETS):
+        t0 = time.perf_counter()
+        adapter = get_model(name, dtype="bfloat16")
+        cfg = adapter.config
+        params = live_params(adapter.init_params(torch.Generator(device=dev).manual_seed(0)),
+                             dev, seed=100 + i)
+        held, bf16_bytes = param_bytes(params)
+        if bf16_bytes != config_param_bytes(cfg):
+            raise AssertionError(f"families: {name} holds {bf16_bytes} bf16 bytes of params, "
+                                 f"its config {config_param_bytes(cfg)}")
+        for mode in (None, "int8") if name == "qwen2-7b" else (None,):
+            label = f"families gate, {name}, {mode or 'bf16'} pool"
+            paths = {"kernel": (ops.KERNELS, params, mode), "plain": (ops.PLAIN, params, mode)}
+            ops.reset_counts()
+            stats = gate_paths(dev, adapter, paths, FAMILY_CHUNKS, FAMILY_STEPS, label)
+            worst, agree, rows = stats[("kernel", "plain")]
+            launched = {k: c.launches for k, c in ops.COUNTS.items() if c.launches}
+            want = serve_variants(mode)
+            if sorted(launched) != sorted(want):
+                raise AssertionError(f"{label}: launched {launched}, want {want}")
+            emit({"phase": "families", "model": name, "dtype": "bfloat16", "kv_quantize": mode,
+                  "group": cfg.q_per_kv, "head_dim": cfg.head_dim, "layers": cfg.num_layers,
+                  "attention_bias": cfg.attention_bias, "qk_norm": cfg.qk_norm,
+                  "param_bytes": held, "prompt": sum(FAMILY_CHUNKS),
+                  "chunks": list(FAMILY_CHUNKS), "decode_steps": FAMILY_STEPS,
+                  "max_abs_dlogit": worst, "argmax_agreement": agree / rows,
+                  "kernel_launches": launched,
+                  "gate": f"kernel path against plain path: max |dlogit| < "
+                          f"{GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}",
+                  "seconds": time.perf_counter() - t0})
+            if agree / rows < GATE_ARGMAX:
+                raise AssertionError(f"{label}: argmax agreement {agree / rows} < "
+                                     f"{GATE_ARGMAX}")
+        del params, adapter, paths
+        free_memory()
+    t0 = time.perf_counter()
+    serve = serve_family(dev, card)
+    emit({"phase": "families_serve", **serve, "seconds": time.perf_counter() - t0})
+    for model in FAMILY_CLI:
+        t0 = time.perf_counter()
+        emit({"phase": "families_cli", **serve_once(model), "card": card,
+              "seconds": time.perf_counter() - t0})
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
+    return serve
 
 
 def replays_match(m, dispatches: int) -> bool:
@@ -2860,6 +3175,29 @@ def _post(url, body, first_by_choice: dict | None = None
     return status, out, ids, ttft
 
 
+def post_together(jobs: list) -> list:
+    """_post(url, body) for every (url, body) of `jobs` at once, each on a
+    thread of its own: their results in order; a request that raised
+    raises here, on the caller's thread."""
+    results: list = [None] * len(jobs)
+
+    def run(i):
+        try:
+            results[i] = _post(*jobs[i])
+        except Exception as e:  # re-raised below, on the main thread
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for res in results:
+        if isinstance(res, Exception):
+            raise res
+    return results
+
+
 #: a system message of about 1,100 bytes (one token a byte) two chats share
 SYSTEM_MESSAGE = ("You are a careful assistant for a team that runs language models on "
                   "GPUs. Answer in plain words, name every number's source, and say so "
@@ -3067,14 +3405,7 @@ def phase_serve(card: str, mode, quantize=None) -> dict:
             first = len(jobs)
             jobs += [greedy, greedy]
             pairs = ((first, first + 1),)
-        results: list = [None] * len(jobs)
-
-        def run(i):
-            try:
-                results[i] = _post(*jobs[i])
-            except Exception as e:  # re-raised below, on the main thread
-                results[i] = e
-
+        results: list = []
         ops.reset_counts()
         t0 = time.perf_counter()
         # the first wave together; then the shared-system pair and each
@@ -3082,11 +3413,7 @@ def phase_serve(card: str, mode, quantize=None) -> dict:
         # shapes, so they must agree to the bit (other batch sizes round
         # bf16 GEMMs differently)
         for wave in [range(first_wave)] + [[i] for i in range(first_wave, len(jobs))]:
-            threads = [threading.Thread(target=run, args=(i,)) for i in wave]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
+            results += post_together([jobs[i] for i in wave])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
@@ -3124,10 +3451,7 @@ def phase_serve(card: str, mode, quantize=None) -> dict:
     out_tokens = 0
     ttft = []
     prompt_tokens = []
-    for (url, body), res in zip(jobs, results):
-        if isinstance(res, Exception):
-            raise res
-        status, out, ids, first_token = res
+    for (url, body), (status, out, ids, first_token) in zip(jobs, results):
         if status != 200:
             raise AssertionError(f"{label}: {url}: status {status}")
         use = out[-1]["usage"]
@@ -3212,21 +3536,31 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": report})
+    # first, on an empty card: phi4's 29 GB of weights and its 15 GB f32
+    # temporary at init beside nothing the later phases hold
+    families = phase_families(dev, card)
     cases = phase_kernels(dev, peaks)
-    phase_model(dev)
-    phase_graphs(dev)
-    phase_int8_graphs(dev)
-    phase_prefix(dev, card)
-    phase_mixed(dev, card)
-    phase_sampling(dev, card)
+    # each engine phase starts with only the kernel cases' inputs held
+    # (they stay for phase 6): free_memory() collects the engines an
+    # earlier phase left in reference cycles
+    for phase in (phase_model, phase_graphs, phase_int8_graphs):
+        free_memory()
+        phase(dev)
+    for phase in (phase_prefix, phase_mixed, phase_sampling):
+        free_memory()
+        phase(dev, card)
+    free_memory()
     kstep = phase_kstep(dev, card)
+    free_memory()
     spec = phase_spec(dev, card)
+    free_memory()
     draft = phase_draft(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     # flash_prefill_attention counts from the bf16 server, int8_matmul from
     # the int8-weight one
     for mode, quantize in [(m, None) for m in MODES] + [(None, "int8")]:
+        free_memory()
         for name, n in phase_serve(card, mode, quantize)["launches"].items():
             launches.setdefault(name, n)
     phase_device_times(cases)
@@ -3260,6 +3594,9 @@ def main() -> int:
                 # those made by replays of its spec_fused graphs
                 "draft_launches": draft["launches"].get(variant, 0),
                 "spec_fused_launches": draft["spec_fused_launches"].get(variant, 0),
+                # qwen2-7b (a query group of 7) through the CLI's server, bf16
+                # pool (phase "families")
+                "families_launches": families["launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

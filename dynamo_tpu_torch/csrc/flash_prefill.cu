@@ -16,8 +16,14 @@
 // - Tiles: 128 query rows per CTA, two consumer warpgroups of 64 rows (one
 //   wgmma M each). The g = Hq/Hkv heads of the kv group fold into the rows
 //   token-major (row r = token offset r / g, head r % g), so one K/V tile
-//   serves all g heads and a CTA covers 128 / g tokens: 32 for llama3-1b,
-//   so each sequence's K/V prefix is read by T/32 CTAs.
+//   serves all g heads and a CTA covers toks = floor(128 / g) tokens: 32
+//   for llama3-1b, so each sequence's K/V prefix is read by T/32 CTAs.
+//   Any g up to 128 is served: the rows past toks * g (128 % g of them, 2
+//   at g = 7, none where g divides 128) are dead. A dead row loads zeros,
+//   takes its CTA's last token for its masks (so its scores stay finite
+//   and apart from every live row's, as every row's are) and stores
+//   nothing; it never stands for the next CTA's first token, and the
+//   warpgroups' first and last tokens count live rows only.
 // - Products: S = Q K^T is wgmma m64n64k16 with Q and the K tile both
 //   K-major shared-memory operands; O += P V is wgmma m64nDk16 with P as
 //   the A operand in registers (the S accumulator rounded to bf16 in
@@ -125,7 +131,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
   const uint32_t qs = base;
 
   const int g = Hq / Hkv;
-  const int toks = ROWS / g;  // tokens per CTA
+  const int toks = ROWS / g;       // tokens per CTA
+  const int live_rows = toks * g;  // rows at or past it are dead
   const int tiles = (T + toks - 1) / toks;
   // longest first: the last query tile of every (sequence, kv head) first
   const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));
@@ -142,7 +149,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
     for (int i = tid; i < ROWS * CH; i += THREADS) {
       const int r = i / CH, c = i % CH;
       const int tok = q0 + r / g;
-      if (tok < T) {
+      if (r < live_rows && tok < T) {
         const size_t off = (((size_t)b * T + tok) * Hq + h * g + r % g) * D;
         *reinterpret_cast<uint4*>(out + off + c * VEC) = zero;
       }
@@ -156,9 +163,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
     const int i = tid + n * THREADS;
     const int r = i / CH, c = i % CH;
     const int tok = q0 + r / g;
-    const bool live = tok < T;
-    const size_t off = live ? (((size_t)b * T + tok) * Hq + h * g + r % g) * D + c * VEC : 0;
-    cp_async16(qs + (uint32_t)((c / 8) * ROWS * 128) + swizzled(r, c % 8), q + off, live);
+    const bool load = r < live_rows && tok < T;
+    const size_t off = load ? (((size_t)b * T + tok) * Hq + h * g + r % g) * D + c * VEC : 0;
+    cp_async16(qs + (uint32_t)((c / 8) * ROWS * 128) + swizzled(r, c % 8), q + off, load);
   }
   const __nv_bfloat16* kb = k + ((size_t)b * T * Hkv + h) * D;
   const __nv_bfloat16* vb = v + ((size_t)b * T * Hkv + h) * D;
@@ -178,10 +185,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int row_a = wg * WG_ROWS + warp * 16 + lane / 4;  // this thread's rows: a and a + 8
-  const int tok_a = q0 + row_a / g;
-  const int tok_b = q0 + (row_a + 8) / g;
-  const int wg_first = q0 + (wg * WG_ROWS) / g;  // the warpgroup's first and last tokens
-  const int wg_last = q0 + (wg * WG_ROWS + WG_ROWS - 1) / g;
+  // a dead row takes the CTA's last live row's token for its masks
+  const int tok_a = q0 + min(row_a, live_rows - 1) / g;
+  const int tok_b = q0 + min(row_a + 8, live_rows - 1) / g;
+  // the warpgroup's first and last tokens, of live rows (a warpgroup's
+  // first row is live: live_rows > 128 - g, and = g when g > 64)
+  const int wg_first = q0 + (wg * WG_ROWS) / g;
+  const int wg_last = q0 + min(wg * WG_ROWS + WG_ROWS - 1, live_rows - 1) / g;
   const bool wg_live = wg_first < vlen;
   const int col = (lane % 4) * 2;  // this thread's first column in each 8-column block
 
@@ -313,9 +323,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
   __nv_bfloat16* dst_b = out + (((size_t)b * T + tok_b) * Hq + head_b) * D + col;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    if (tok_a < T)
+    if (row_a < live_rows && tok_a < T)
       *reinterpret_cast<uint32_t*>(dst_a + 8 * i) = pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
-    if (tok_b < T)
+    if (row_a + 8 < live_rows && tok_b < T)
       *reinterpret_cast<uint32_t*>(dst_b + 8 * i) =
           pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
   }
@@ -344,7 +354,8 @@ int launch(const void* q, const void* k, const void* v, const void* valid_len, v
 extern "C" int dyn_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* valid_len, void* out, int B, int T, int Hq,
                                  int Hkv, int D, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || ROWS % (Hq / Hkv) != 0) {
+  // a query group of 1 .. ROWS heads: a CTA holds at least one token
+  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || Hq / Hkv > ROWS) {
     return (int)cudaErrorInvalidValue;
   }
   // D=64 fits two CTAs an SM in registers; D=128's accumulator takes one

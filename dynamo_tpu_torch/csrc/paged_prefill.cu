@@ -24,10 +24,15 @@
 // - CTA and tile: one CTA per (query tile, kv head, sequence), 256 threads
 //   in two consumer warpgroups of 64 query rows (one wgmma M each). The
 //   g = Hq/Hkv heads of the group fold into the rows token-major (row r is
-//   token r / g, head r % g), so a CTA covers 128 / g tokens (32 for
-//   llama3-1b) and every 64-key K/V tile in shared memory serves all g
-//   heads. g must divide ROWS (dyn_paged_prefill_rows); the wrapper reads
-//   ROWS from here and dyn_paged_prefill refuses any other group.
+//   token r / g, head r % g), so a CTA covers toks = floor(128 / g) tokens
+//   (32 for llama3-1b) and every 64-key K/V tile in shared memory serves
+//   all g heads. Any g up to ROWS (dyn_paged_prefill_rows, which the
+//   wrapper reads) is served, and dyn_paged_prefill refuses a larger one:
+//   the rows past toks * g (128 % g of them, 2 at g = 7, none where g
+//   divides 128) are dead, as in flash_prefill.cu. A dead row loads zeros,
+//   takes its CTA's last token for its masks (its scores stay finite) and
+//   stores nothing; it never stands for the next CTA's first token, and
+//   the warpgroups' first and last tokens count live rows only.
 // - Products: S = Q K^T is wgmma m64n64k16 over K-major shared Q and K;
 //   O += P V is wgmma m64nDk16 with P in registers (the S accumulator
 //   rounded to bf16 in place) and V read MN-major; every bf16 tile is in
@@ -167,7 +172,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
   const uint32_t qs = base;
 
   const int g = Hq / Hkv;
-  const int toks = ROWS / g;  // tokens per CTA
+  const int toks = ROWS / g;       // tokens per CTA
+  const int live_rows = toks * g;  // rows at or past it are dead
   const int tiles = (T + toks - 1) / toks;
   // longest first: the last query tile of every (sequence, kv head) first
   const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));
@@ -187,7 +193,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
     for (int i = tid; i < ROWS * CH; i += THREADS) {
       const int r = i / CH, c = i % CH;
       const int tok = q0 + r / g;
-      if (tok < T) {
+      if (r < live_rows && tok < T) {
         const size_t off = (((size_t)b * T + tok) * Hq + h * g + r % g) * D;
         *reinterpret_cast<uint4*>(out + off + c * VEC) = zero;
       }
@@ -201,9 +207,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
     const int i = tid + n * THREADS;
     const int r = i / CH, c = i % CH;
     const int tok = q0 + r / g;
-    const bool live = tok < T;
-    const size_t off = live ? (((size_t)b * T + tok) * Hq + h * g + r % g) * D + c * VEC : 0;
-    cp_async16(qs + (uint32_t)((c / 8) * ROWS * 128) + swizzled(r, c % 8), q + off, live);
+    const bool load = r < live_rows && tok < T;
+    const size_t off = load ? (((size_t)b * T + tok) * Hq + h * g + r % g) * D + c * VEC : 0;
+    cp_async16(qs + (uint32_t)((c / 8) * ROWS * 128) + swizzled(r, c % 8), q + off, load);
   }
 
   const int* pt = page_tables + (size_t)b * MP;
@@ -323,10 +329,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int row_a = wg * WG_ROWS + warp * 16 + lane / 4;  // this thread's rows: a and a + 8
-  const int tok_a = q0 + row_a / g;
-  const int tok_b = q0 + (row_a + 8) / g;
-  const int wg_first = q0 + (wg * WG_ROWS) / g;  // the warpgroup's first and last tokens
-  const int wg_last = q0 + (wg * WG_ROWS + WG_ROWS - 1) / g;
+  // a dead row takes the CTA's last live row's token for its masks
+  const int tok_a = q0 + min(row_a, live_rows - 1) / g;
+  const int tok_b = q0 + min(row_a + 8, live_rows - 1) / g;
+  // the warpgroup's first and last tokens, of live rows (a warpgroup's
+  // first row is live: live_rows > 128 - g, and = g when g > 64)
+  const int wg_first = q0 + (wg * WG_ROWS) / g;
+  const int wg_last = q0 + min(wg * WG_ROWS + WG_ROWS - 1, live_rows - 1) / g;
   const bool wg_live = wg_first < cur;
   const int col = (lane % 4) * 2;  // this thread's first column in each 8-column block
 
@@ -494,9 +503,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
   __nv_bfloat16* dst_b = out + (((size_t)b * T + tok_b) * Hq + head_b) * D + col;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
-    if (tok_a < T)
+    if (row_a < live_rows && tok_a < T)
       *reinterpret_cast<uint32_t*>(dst_a + 8 * i) = pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
-    if (tok_b < T)
+    if (row_a + 8 < live_rows && tok_b < T)
       *reinterpret_cast<uint32_t*>(dst_b + 8 * i) =
           pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
   }
@@ -547,7 +556,7 @@ int launch_d(const void* q, const void* k_cur, const void* v_cur, const void* k_
 
 }  // namespace
 
-// Query rows per CTA: the group size Hq / Hkv must divide it.
+// Query rows per CTA: the most query heads a kv group (Hq / Hkv) may have.
 extern "C" int dyn_paged_prefill_rows() { return ROWS; }
 
 // kind: 0 a bf16 pool, 1 int8, 2 fp8 (e4m3); the scale planes are null for 0.
@@ -557,7 +566,8 @@ extern "C" int dyn_paged_prefill(const void* q, const void* k_cur, const void* v
                                  const void* hist_lens, const void* cur_lens, void* out,
                                  int kind, int B, int T, int Hq, int Hkv, int D, int layer,
                                  int P, int S, int MP, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || ROWS % (Hq / Hkv) != 0 || S <= 0 || MP <= 0) {
+  // a query group of 1 .. ROWS heads: a CTA holds at least one token
+  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || Hq / Hkv > ROWS || S <= 0 || MP <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (kind != 0 && (k_scale == nullptr || v_scale == nullptr)) {

@@ -24,9 +24,15 @@ token and a chunk's own K/V enter attention exact.
 Weight-only int8 (`quantize_params_int8`, `init_params_int8`; the engine's
 `quantize="int8"`): the seven dense weights of every layer are int8
 [L, in, out] beside f32 scales [L, 1, out], one per output channel, the
-reference's layout; embed, lm_head and norms stay in the model dtype. Each
-dense product goes through `_mm`, which hands an int8 weight to
-`ops.int8_matmul`.
+reference's layout; embed, lm_head, norms and biases stay in the model
+dtype. Each dense product goes through `_mm`, which hands an int8 weight
+to `ops.int8_matmul`.
+
+Two family flags, as the reference's: `attention_bias` (Qwen2) adds the
+q/k/v projection biases `bq`, `bk`, `bv` [L, Hq*D | Hkv*D] before the
+heads are split; `qk_norm` (Qwen3) applies a head_dim-wide RMSNorm to q
+and k (`q_norm`, `k_norm` [L, D]) after the split and before rope. Both
+are plain torch ops between the kernels.
 """
 
 from __future__ import annotations
@@ -66,6 +72,11 @@ class LlamaConfig:
     rope_high_freq_factor: float = 4.0
     rope_original_max_position: int = 8192
     dtype: torch.dtype = torch.bfloat16
+    #: q/k/v projection bias: the Qwen2 family's one architectural delta
+    attention_bias: bool = False
+    #: Qwen3: per-head RMSNorm on q and k (head_dim-wide), applied after
+    #: the projections, before rope
+    qk_norm: bool = False
 
     @property
     def q_per_kv(self) -> int:
@@ -74,6 +85,15 @@ class LlamaConfig:
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def llama3_70b() -> "LlamaConfig":
+        """Llama-3-70B: 80 layers of width 8,192, 64 query and 8 KV heads
+        (bf16 weights about 141 GB: more than one 80 GB card holds)."""
+        return LlamaConfig(
+            hidden_size=8192, intermediate_size=28672, num_layers=80,
+            num_heads=64, num_kv_heads=8,
+        )
 
     @staticmethod
     def llama3_1b() -> "LlamaConfig":
@@ -96,6 +116,47 @@ class LlamaConfig:
             hidden_size=512, intermediate_size=2048, num_layers=4,
             num_heads=8, num_kv_heads=4, head_dim=64,
             tie_word_embeddings=True, rope_scaling_factor=32.0,
+        )
+
+    @staticmethod
+    def qwen2_7b() -> "LlamaConfig":
+        """Qwen2/2.5-7B: Llama architecture + qkv bias; 28 query heads over
+        4 KV heads, a query group of 7."""
+        return LlamaConfig(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
+            rope_theta=1000000.0, rms_norm_eps=1e-6, attention_bias=True,
+        )
+
+    @staticmethod
+    def qwen2_05b() -> "LlamaConfig":
+        """Qwen2.5-0.5B: 14 query heads over 2 KV heads of 64 (a query
+        group of 7), qkv bias, tied embeddings."""
+        return LlamaConfig(
+            vocab_size=151936, hidden_size=896, intermediate_size=4864,
+            num_layers=24, num_heads=14, num_kv_heads=2, head_dim=64,
+            rope_theta=1000000.0, rms_norm_eps=1e-6, attention_bias=True,
+            tie_word_embeddings=True,
+        )
+
+    @staticmethod
+    def qwen3_8b() -> "LlamaConfig":
+        """Qwen3-8B: Llama architecture + per-head q/k RMSNorm, no bias."""
+        return LlamaConfig(
+            vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+            num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
+            rope_theta=1000000.0, rms_norm_eps=1e-6, qk_norm=True,
+        )
+
+    @staticmethod
+    def phi4() -> "LlamaConfig":
+        """Phi-4 (14B): 40 layers, 40 query heads over 10 KV heads, a
+        250k rope base (its checkpoint's fused qkv/gate_up split at load
+        waits for the loaders)."""
+        return LlamaConfig(
+            vocab_size=100352, hidden_size=5120, intermediate_size=17920,
+            num_layers=40, num_heads=40, num_kv_heads=10, head_dim=128,
+            rope_theta=250000.0, rms_norm_eps=1e-5,
         )
 
     @staticmethod
@@ -199,7 +260,7 @@ def kv_pages_from_jax(k: np.ndarray, v: np.ndarray, cfg: LlamaConfig, device=Non
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig) -> dict:
     """Random-init params on the generator's device, layer-stacked like
-    the JAX package's: N(0, 1/fan_in) weights, unit norms."""
+    the JAX package's: N(0, 1/fan_in) weights, unit norms, zero biases."""
     return _random_params(generator, cfg, int8=False)
 
 
@@ -207,8 +268,8 @@ def init_params_int8(generator: torch.Generator, cfg: LlamaConfig) -> dict:
     """Random-init straight into the int8 weight-only layout (the same
     names, dtypes and shapes as quantize_params_int8's): each dense weight
     is drawn N(0, 1/fan_in) in f32 and quantized one layer at a time, so
-    llama3-8b never holds its 16 GB of model-dtype weights; embed, lm_head
-    and norms as init_params makes them."""
+    llama3-8b never holds its 16 GB of model-dtype weights; embed, lm_head,
+    norms and biases as init_params makes them."""
     return _random_params(generator, cfg, int8=True)
 
 
@@ -227,6 +288,12 @@ def _random_params(generator: torch.Generator, cfg: LlamaConfig, int8: bool) -> 
 
     embed = draw((v, h), h).to(cfg.dtype)
     layers = {"attn_norm": ones((L, h)), "mlp_norm": ones((L, h))}
+    if cfg.attention_bias:
+        for name, width in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            layers[name] = torch.zeros((L, width), dtype=cfg.dtype, device=dev)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones((L, cfg.head_dim))
+        layers["k_norm"] = ones((L, cfg.head_dim))
     for name, din, dout in (("wq", h, qd), ("wk", h, kvd), ("wv", h, kvd), ("wo", qd, h),
                             ("w_gate", h, i), ("w_up", h, i), ("w_down", i, h)):
         if int8:
@@ -244,6 +311,14 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up"
 
 #: the per-layer dense weights weight-only quantization covers
 QUANTIZED_DENSE_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _layer_keys(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The layer leaves of a model-dtype param tree of `cfg`: the norms and
+    dense weights, the q/k/v biases with attention_bias, the q/k norms
+    with qk_norm."""
+    return (_LAYER_KEYS + (("bq", "bk", "bv") if cfg.attention_bias else ())
+            + (("q_norm", "k_norm") if cfg.qk_norm else ()))
 
 
 def quantize_channelwise_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -297,20 +372,30 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     """The JAX package's param tree (leaves as numpy arrays) as the port's
     params: the same names, layouts and layer stacking, cast to cfg.dtype;
     int8 weights stay int8 and their `<name>_scale` leaves f32 (the
-    reference's int8 layout). On `cuda` unless the caller asks for `cpu`."""
+    reference's int8 layout). Raises ValueError on a layer leaf that cfg's
+    forward does not read, or on one it reads that is missing. On `cuda`
+    unless the caller asks for `cpu`."""
     device = resolve_device(device)
 
     def conv(x):
         return torch.tensor(np.asarray(x, np.float32), dtype=cfg.dtype, device=device)
 
+    keys = _layer_keys(cfg)
+    scales = {name + "_scale" for name in QUANTIZED_DENSE_NAMES}
+    unknown = sorted(set(np_params["layers"]) - set(keys) - scales)
+    missing = sorted(set(keys) - set(np_params["layers"]))
+    if unknown or missing:
+        raise ValueError(f"params_from_jax: layer leaves {unknown} are not read by this "
+                         f"config's forward and {missing} are missing (it reads {list(keys)} "
+                         f"and the int8 scales)")
     layers = {}
     for k, x in np_params["layers"].items():
         x = np.asarray(x)
-        if x.dtype == np.int8:
+        if x.dtype == np.int8 and k in QUANTIZED_DENSE_NAMES:
             layers[k] = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-        elif k.endswith("_scale"):
+        elif k in scales:
             layers[k] = torch.tensor(np.asarray(x, np.float32), device=device)
-        elif k in _LAYER_KEYS:
+        else:
             layers[k] = conv(x)
     params = {
         "embed": conv(np_params["embed"]),
@@ -447,9 +532,15 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
     v_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
     for li in range(cfg.num_layers):
         x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = _mm(x, lp, "wq", li, ops).reshape(b, t, cfg.num_heads, cfg.head_dim)
-        k = _mm(x, lp, "wk", li, ops).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = _mm(x, lp, "wv", li, ops).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = (_mm(x, lp, name, li, ops) for name in ("wq", "wk", "wv"))
+        if cfg.attention_bias:  # Qwen2: in the model dtype, before the split
+            q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
+        q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:  # Qwen3: head_dim-wide RMSNorm, before rope
+            q = rms_norm(q, lp["q_norm"][li], cfg.rms_norm_eps)
+            k = rms_norm(k, lp["k_norm"][li], cfg.rms_norm_eps)
         attn, (k_new, v_new) = attention_block(
             q, k, v, kv, li, page_tables, positions, valid, cfg, cos, sin,
             first_chunk, ops,

@@ -1,8 +1,10 @@
 """Model registry: a preset name -> the model's config and functions.
 
 Counterpart of dynamo_tpu/models/registry.py::get_model for the llama
-presets. Other families, HF checkpoint directories and GGUF files wait for
-later work and raise.
+presets the port's kernels serve (head_dim 64 or 128): the Llama-3 sizes,
+Qwen2 (q/k/v bias), Qwen3 (per-head q/k RMSNorm) and Phi-4. Other
+families, HF checkpoint directories and GGUF files wait for later work and
+raise.
 """
 
 from __future__ import annotations
@@ -22,6 +24,16 @@ _LLAMA_PRESETS: dict[str, Callable[[], LlamaConfig]] = {
     # served alone too, but meant for EngineConfig.spec_draft_model
     "llama3-draft": LlamaConfig.llama3_draft,
     "llama3-8b": LlamaConfig.llama3_8b,
+    "llama3-70b": LlamaConfig.llama3_70b,
+    # DeepSeek-R1-Distill-Llama-8B is architecturally Llama-3-8B
+    "deepseek-r1-distill-llama-8b": LlamaConfig.llama3_8b,
+    # Qwen2 family = Llama + qkv bias (a query group of 7)
+    "qwen2-7b": LlamaConfig.qwen2_7b,
+    "qwen2-0.5b": LlamaConfig.qwen2_05b,
+    # Qwen3 = Llama + per-head q/k RMSNorm (no attention bias)
+    "qwen3-8b": LlamaConfig.qwen3_8b,
+    # Phi-4 = Llama with fused qkv/gate_up in its checkpoint
+    "phi4": LlamaConfig.phi4,
 }
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}

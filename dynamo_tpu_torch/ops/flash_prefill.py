@@ -22,7 +22,9 @@ dequantized, and the chunk's own K/V (model dtype) as they are.
 In both, query head j reads kv head j // (Hq/Hkv) and queries scale by
 1/sqrt(scale_dim). On CUDA tensors the kernels in csrc/flash_prefill.cu
 and csrc/paged_prefill.cu run (bf16 q/k/v, bf16 or quantized pools, D of
-64 or 128); on CPU tensors the plain versions below do the same work.
+64 or 128, a query group of at most 128 heads: one kv group's heads fold
+into a 128-row tile); on CPU tensors the plain versions below do the same
+work.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ paged_counts = variants()
 
 _NAME = "flash_prefill_attention"
 _PAGED = "paged_prefill_attention"
-#: query rows per CTA in the kernel (two wgmma warpgroups of 64): tokens x
-#: the g heads of one kv group, so g must divide it
+#: query rows per CTA in the kernel (two wgmma warpgroups of 64): whole
+#: tokens x the g heads of one kv group, so g may be at most this
 TILE_ROWS = 128
 #: ctypes argument types of dyn_paged_prefill (csrc/paged_prefill.cu)
 PAGED_ARGTYPES = [_build.PTR] * 11 + [_build.INT] * 10 + [_build.FLOAT, _build.PTR]
@@ -93,8 +95,7 @@ def flash_prefill_attention(q, k, v, valid_len, *, scale_dim: Optional[int] = No
             _NAME, "the CUDA kernel takes bfloat16 q/k/v")
     require(valid_len.dtype == torch.int32, _NAME, "valid_len must be int32")
     require(d in (64, 128), _NAME, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
-    require(TILE_ROWS % (hq // hkv) == 0, _NAME,
-            f"the query group size {hq // hkv} must divide {TILE_ROWS}")
+    require(hq // hkv <= TILE_ROWS, _NAME, _group_message(hq // hkv, TILE_ROWS))
     require(all(x.is_contiguous() for x in (q, k, v, valid_len)),
             _NAME, "all tensors must be contiguous")
     out = torch.empty_like(q)
@@ -110,6 +111,11 @@ def flash_prefill_attention(q, k, v, valid_len, *, scale_dim: Optional[int] = No
     _build.check(err, _NAME)
     counts.launches += 1
     return out
+
+
+def _group_message(g: int, rows: int) -> str:
+    return (f"the CUDA kernel takes a query group of at most {rows} heads (its tile's "
+            f"rows), not {g}")
 
 
 def flops(valid_len, hq: int, d: int) -> int:
@@ -184,8 +190,8 @@ def paged_prefill_attention_plain(q, k_cur, v_cur, k_cache, v_cache, layer, page
 def paged_tile_rows() -> int:
     """Query rows per CTA of the paged prefill kernel, from
     csrc/paged_prefill.cu, which alone defines them (dyn_paged_prefill_rows):
-    tokens x the g heads of one kv group, so g must divide it. Builds the
-    kernel on first use."""
+    whole tokens x the g heads of one kv group, so g may be at most this.
+    Builds the kernel on first use."""
     return int(_build.function("paged_prefill", "dyn_paged_prefill_rows", [])())
 
 
@@ -214,8 +220,7 @@ def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_table
             _PAGED, "page_tables, hist_lens and cur_lens must be int32")
     require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
     rows = paged_tile_rows()
-    require(rows % (hq // hkv) == 0, _PAGED,
-            f"the query group size {hq // hkv} must divide {rows}")
+    require(hq // hkv <= rows, _PAGED, _group_message(hq // hkv, rows))
     require(all(x.is_contiguous() for x in tensors), _PAGED, "all tensors must be contiguous")
     out = torch.empty_like(q)
     fn = _build.function("paged_prefill", "dyn_paged_prefill", PAGED_ARGTYPES)

@@ -1,7 +1,7 @@
 """Time builds of the flash prefill kernel against each other and SDPA, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_flash_prefill_variants.py [--source NAME=PATH ...]
+    python3 scripts/torch_flash_prefill_variants.py [--source NAME=PATH ...] [--groups 2,4,7,8]
 
 Builds, one nvcc each and all started together, every source that exports
 `dyn_flash_prefill` with the C signature of
@@ -17,11 +17,18 @@ build against `flash_prefill_attention_plain` (each row's max |diff| at
 most 2^-6 of its largest |value|, finite everywhere), then timed in the
 order A B C, C B A: first every build's `ms` (CUDA events around 20 warmed
 calls, host work included), then its `device_ms` (the same calls under
-torch.profiler, kernel time per call), beside SDPA over the whole padded
-chunk (`library_ms`, `library_device_ms`). Each build is called through
-its C entry point directly, with the output allocated once, so the builds
-pay the same host work. Prints one JSON line per (case, build), then the
-card's name and power limit. With no card it raises.
+torch.profiler, kernel time per call) and its `cold_device_ms` (the same
+with a 256 MB read between calls, so that no input is left in the 50 MB
+L2), beside SDPA over the whole padded chunk (`library_ms`,
+`library_device_ms`). Each build is called through its C entry point
+directly, with the output allocated once, so the builds pay the same host
+work. With `--groups`, the cases are instead the ragged B=8 T=512 chunk at
+D=64 and a full B=4 T=1024 chunk at D=128 for each query group g listed,
+over Hkv 4 (Hq = 4 g: g=7 is qwen2-7b's 28/4, g=8 the same tokens with
+one head more a group); a build that refuses a case (an earlier design
+and a group that does not divide its tile) is reported `refused` and not
+timed. Prints one JSON line per (case, build), then the card's name and
+power limit. With no card it raises.
 """
 
 from __future__ import annotations
@@ -42,13 +49,19 @@ from dynamo_tpu_torch import platform  # noqa: E402
 from dynamo_tpu_torch.ops import _build, flash_prefill  # noqa: E402
 
 HQ, HKV = 32, 8
+RAGGED = [512, 500, 385, 256, 129, 64, 33, 1]
 #: (name, B, T, D, valid lengths or None for every token valid)
 CASES = (
-    ("ragged", 8, 512, 64, [512, 500, 385, 256, 129, 64, 33, 1]),
+    ("ragged", 8, 512, 64, RAGGED),
     ("full", 8, 512, 64, None),
     ("d128", 4, 1024, 128, None),
     ("long", 1, 4096, 64, None),
 )
+#: the KV heads of the `--groups` cases, and their (name, B, T, D, lengths)
+GROUP_HKV = 4
+GROUP_CASES = (("ragged", 8, 512, 64, RAGGED), ("d128", 4, 1024, 128, None))
+#: bytes read between calls for `cold_device_ms`: five times the H100's L2
+FLUSH_BYTES = 256 << 20
 ORDER_LINE = "const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));"
 FORWARD_LINE = "const int tile = (int)(blockIdx.x / (B * Hkv));"
 OUT_DIR = ROOT / "build" / "torch_kernels" / "variants"
@@ -74,27 +87,34 @@ def caller(fn, q, k, v, valid_len, out):
     return call
 
 
-def run_case(fns, peaks, name, b, t, d, lens, dev) -> list[dict]:
+def run_case(fns, peaks, flush, name, b, t, d, lens, dev, hq=HQ, hkv=HKV) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = dict(dtype=torch.bfloat16, device=dev)
-    q = torch.randn((b, t, HQ, d), generator=gen, **bf)
-    k = torch.randn((b, t, HKV, d), generator=gen, **bf)
-    v = torch.randn((b, t, HKV, d), generator=gen, **bf)
+    q = torch.randn((b, t, hq, d), generator=gen, **bf)
+    k = torch.randn((b, t, hkv, d), generator=gen, **bf)
+    v = torch.randn((b, t, hkv, d), generator=gen, **bf)
     valid_len = torch.tensor(lens or [t] * b, dtype=torch.int32, device=dev)
     ref = flash_prefill.flash_prefill_attention_plain(q, k, v, valid_len, scale_dim=d)
-    calls, rows = {}, {}
+    calls, rows, refused = {}, {}, []
     for vname, (fn, ptxas) in fns.items():
         out = torch.full_like(q, float("nan"))
-        calls[vname] = caller(fn, q, k, v, valid_len, out)
-        calls[vname]()
+        call = caller(fn, q, k, v, valid_len, out)
+        try:
+            call()
+        except RuntimeError:  # a build that does not serve this group
+            refused.append({"case": name, "build": vname, "Hq": hq, "Hkv": hkv, "D": d,
+                            "refused": True})
+            continue
+        calls[vname] = call
         torch.cuda.synchronize()
         err, rel = chip_smoke.row_errors(out, ref, valid_len)
         if not (rel <= chip_smoke.PREFILL_ROW_RTOL) or not torch.isfinite(out).all():
             raise AssertionError(f"{vname} {name}: a row's max |diff| is {rel} of its "
                                  f"largest value (limit {chip_smoke.PREFILL_ROW_RTOL})")
-        rows[vname] = {"case": name, "build": vname, "B": b, "T": t, "Hq": HQ, "Hkv": HKV,
+        rows[vname] = {"case": name, "build": vname, "B": b, "T": t, "Hq": hq, "Hkv": hkv,
                        "D": d, "valid_len": valid_len.tolist(), "max_abs_err": err,
-                       "max_row_rel_err": rel, "ptxas": ptxas, "ms": [], "device_ms": []}
+                       "max_row_rel_err": rel, "ptxas": ptxas, "ms": [], "device_ms": [],
+                       "cold_device_ms": []}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def sdpa():
@@ -107,17 +127,22 @@ def run_case(fns, peaks, name, b, t, d, lens, dev) -> list[dict]:
     library["library_ms"].append(chip_smoke.cuda_ms(sdpa))
     for vname in order:
         rows[vname]["device_ms"].append(chip_smoke.device_ms(calls[vname])[0])
+    for vname in order:
+        rows[vname]["cold_device_ms"].append(
+            chip_smoke.device_ms(calls[vname], between=flush)[0])
     dms, kernels = chip_smoke.device_ms(sdpa)
     library["library_device_ms"].append(dms)
-    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), HQ, HKV, d, 2)
-    b_ms, by = chip_smoke.bound(nbytes, flash_prefill.flops(valid_len.cpu(), HQ, d), peaks)
-    return [{**r, **library, "library_kernels": kernels, "bound_ms": b_ms, "bound_by": by}
-            for r in rows.values()]
+    nbytes = flash_prefill.bytes_moved(valid_len.cpu(), hq, hkv, d, 2)
+    b_ms, by = chip_smoke.bound(nbytes, flash_prefill.flops(valid_len.cpu(), hq, d), peaks)
+    return [{**r, **library, "library_kernels": kernels, "bytes": nbytes, "bound_ms": b_ms,
+             "bound_by": by} for r in rows.values()] + refused
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--groups", default=None, metavar="G,G,...",
+                    help="query groups to run GROUP_CASES at, over Hkv 4, instead of CASES")
     args = ap.parse_args()
     try:
         srcs = _build.variant_sources("flash_prefill", args.source)
@@ -135,8 +160,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     peaks = platform.device_peaks(torch.cuda.get_device_name(0))
     fns = build(srcs)
-    for case in CASES:
-        for row in run_case(fns, peaks, *case, dev):
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    flush = scratch.sum
+    if args.groups is None:
+        cases = [(case, {}) for case in CASES]
+    else:
+        cases = [((f"{name}_g{g}", *rest), {"hq": GROUP_HKV * g, "hkv": GROUP_HKV})
+                 for g in map(int, args.groups.split(",")) for name, *rest in GROUP_CASES]
+    for case, heads in cases:
+        for row in run_case(fns, peaks, flush, *case, dev, **heads):
             print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
     print(platform.card_info(), flush=True)

@@ -4,14 +4,18 @@ Marked `cuda`; each test decides inside itself whether a card is present
 and skips when there is none (never at import, so every worker collects
 the same tests). Run on the card with `python -m pytest -m cuda
 tests/test_torch_cuda.py`. Shapes are llama3-1b's attention widths (Hq=32,
-Hkv=8, D=64, page size 64) and a D=128 case; flash prefill also runs every
-group size its 128-row tile takes up to 8 at D 64 and 128, and T around
-its tile edges; paged decode runs groups of 1 to 32 heads at D 64 and 128,
+Hkv=8, D=64, page size 64) and a D=128 case; flash prefill also runs
+groups of 1, 2, 4 and 8 at D 64 and 128, T around its tile edges, and
+groups that do not divide its 128-row tile (7 at qwen2-7b's and
+qwen2-0.5b's heads, with T around its 18-token edge, and 96); paged decode
+runs groups of 1 to 32 heads (7 at both qwen2 shapes) at D 64 and 128,
 histories around its 64-key stages, batches cut into one split and into
 several, and calls on two streams at once; paged prefill runs page sizes
-16, 64 and 128, groups of 1 to 32 heads at D 64 and 128, histories that
-end inside a key tile, a call captured in a CUDA graph and replayed on
-new lengths, and two calls that must agree bit for bit. The write is
+16, 64 and 128, groups of 1 to 32 heads (7 and 96 too) at D 64 and 128,
+histories that end inside a key tile, a call captured in a CUDA graph and
+replayed on new lengths (also at a group of 7, with flash prefill, at D
+64 and 128), and two calls that must agree bit for bit. The wrappers
+refuse head_dim 96 and a group over 128 heads, and serve a group of 3. The write is
 bit-equal off the null page, also where its work units and grid can break
 (more units than resident blocks, every run padding, one long prompt's
 chunk, decode at B=64, D=128, 32 runs a sequence, Hkv 1 and 2), for rows
@@ -102,6 +106,10 @@ def _card():
     return torch.device("cuda", 0)
 
 
+def _bf(dev) -> dict:
+    return dict(dtype=torch.bfloat16, device=dev)
+
+
 @pytest.mark.parametrize("b,t", [(4, 1), (3, 128), (2, 64)])
 def test_paged_write_bit_equal(b, t):
     dev = _card()
@@ -145,6 +153,14 @@ FLASH_CASES = [
     # the tile edges: T around one and two CTAs of llama3-1b (32 tokens) and
     # around the key tile (64) and the ring (128)
     *[(32, 8, 64, t, _flash_lengths(t)) for t in (1, 31, 32, 33, 127, 128, 129, 512, 1000)],
+    # groups that do not divide the 128-row tile: qwen2-7b's (28/4, D=128)
+    # and qwen2-0.5b's (14/2, D=64), 18 tokens a CTA and 2 dead rows, with
+    # T around that tile edge and rows whose keys wrap the ring; and 96
+    # heads on one kv head (one token a CTA, 32 dead rows)
+    (28, 4, 128, 300, (300, 0, 1, 257, 129)),
+    (14, 2, 64, 300, (300, 0, 1, 257, 129)),
+    *[(14, 2, 64, t, (t, max(1, t - 1), 1)) for t in (17, 18, 19, 36, 37)],
+    (96, 1, 64, 70, (70, 3)),
 ]
 
 
@@ -197,6 +213,10 @@ PREFILL_MORE = [
     (32, 1, 128, 40, (100,), (40,)),                    # g=32 at D=128
     (32, 8, 64, 160, (100, 1000, 29), (160, 97, 33)),   # histories end mid-tile
     (32, 8, 128, 96, (100, 191), (96, 50), 16),         # the same at D=128
+    # a group of 7: 18 tokens a CTA, 2 dead rows (qwen2-7b, qwen2-0.5b)
+    (28, 4, 128, 200, (0, 37, 300, 1000), (200, 150, 1, 77), 16),
+    (14, 2, 64, 130, (129, 0, 400), (130, 36, 19)),
+    (96, 1, 64, 40, (100, 7), (40, 9)),                  # g=96: 32 dead rows
 ]
 
 
@@ -295,8 +315,9 @@ def test_paged_prefill_replays_in_a_cuda_graph(mode):
                        new_args[-1].tolist())
 
 
-#: (Hq, Hkv): groups of 1, 4, 7, 8 and 32 query heads per kv head
-DECODE_GROUPS = [(8, 8), (32, 8), (28, 4), (64, 8), (32, 1)]
+#: (Hq, Hkv): groups of 1, 4, 7, 8 and 32 query heads per kv head, and
+#: qwen2-0.5b's 14 over 2 (g=7 at D 64)
+DECODE_GROUPS = [(8, 8), (32, 8), (28, 4), (64, 8), (32, 1), (14, 2)]
 #: pages per sequence in the decode tests' page tables (page size 64)
 DECODE_MP = 12
 #: zero, one token, around one page, a history that ends inside the ring's
@@ -442,6 +463,9 @@ def test_paged_decode_refuses_a_small_workspace():
 
 
 def test_launches_are_counted_and_bad_inputs_raise():
+    """Launches counted, plain calls not; refused: a dtype, head_dim 32
+    (and 96), a query group over the tile's 128 rows. A group of 3, once
+    refused, is served."""
     dev = _card()
     ops.reset_counts()
     q = torch.zeros((1, 64, 32, 64), dtype=torch.bfloat16, device=dev)
@@ -454,12 +478,24 @@ def test_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.flash_prefill_attention(q.float(), kv.float(), kv.float(), vl)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill.flash_prefill_attention(q[..., :32], kv[..., :32], kv[..., :32], vl)
-    with pytest.raises(ValueError, match="must divide 128"):  # g = 3
-        flash_prefill.flash_prefill_attention(q[:, :, :12], kv[:, :, :4], kv[:, :, :4], vl)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill.flash_prefill_attention(
+            torch.zeros((1, 64, 32, 96), **_bf(dev)), *[torch.zeros((1, 64, 8, 96), **_bf(dev))] * 2,
+            vl)
+    with pytest.raises(ValueError, match="at most 128 heads"):  # g = 130
+        flash_prefill.flash_prefill_attention(
+            torch.zeros((1, 64, 130, 64), **_bf(dev)), kv[:, :, :1], kv[:, :, :1], vl)
     assert c.launches == 1
+    g3 = (q[:, :, :12].contiguous(), kv[:, :, :4].contiguous(), kv[:, :, :4].contiguous(), vl)
+    _assert_rows_close(flash_prefill.flash_prefill_attention(*g3),
+                       flash_prefill.flash_prefill_attention_plain(*g3), [64])
+    assert c.launches == 2
 
 
 def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
+    """Launches counted, plain calls not; refused: a dtype, page tables
+    not int32, a layer out of range, head_dim 32 (and 96), a query group
+    over the tile's 128 rows. A group of 3, once refused, is served."""
     dev = _card()
     ops.reset_counts()
     bf = dict(dtype=torch.bfloat16, device=dev)
@@ -481,12 +517,21 @@ def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.paged_prefill_attention(
             q[..., :32], kv[..., :32], kv[..., :32], pool[..., :32], pool[..., :32], 1, pt,
             lens, lens)
-    assert flash_prefill.paged_tile_rows() == 128  # the kernel's own row count
-    with pytest.raises(ValueError, match="must divide 128"):  # g = 3
-        flash_prefill.paged_prefill_attention(q[:, :, :12], kv[:, :, :4], kv[:, :, :4],
-                                              pool[..., :4, :], pool[..., :4, :], 1, pt,
+    d96 = [torch.zeros(x.shape[:-1] + (96,), **bf) for x in (q, kv, pool)]
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill.paged_prefill_attention(d96[0], d96[1], d96[1], d96[2], d96[2], 1, pt,
                                               lens, lens)
+    assert flash_prefill.paged_tile_rows() == 128  # the kernel's own row count
+    with pytest.raises(ValueError, match="at most 128 heads"):  # g = 130
+        flash_prefill.paged_prefill_attention(torch.zeros((1, 64, 130, 64), **bf),
+                                              kv[:, :, :1], kv[:, :, :1], pool[..., :1, :],
+                                              pool[..., :1, :], 1, pt, lens, lens)
     assert c.launches == 1
+    g3 = (q[:, :, :12].contiguous(), kv[:, :, :4].contiguous(), kv[:, :, :4].contiguous(),
+          pool[..., :4, :].contiguous(), pool[..., :4, :].contiguous(), 1, pt, lens, lens)
+    _assert_rows_close(flash_prefill.paged_prefill_attention(*g3),
+                       flash_prefill.paged_prefill_attention_plain(*g3), [64])
+    assert c.launches == 2
 
 
 # -- quantized pools (int8, fp8) ----------------------------------------------------
@@ -832,6 +877,51 @@ def test_flash_prefill_replays_in_a_cuda_graph():
     assert torch.equal(out, flash_prefill.flash_prefill_attention(*new))
     _assert_rows_close(out, flash_prefill.flash_prefill_attention_plain(*new),
                        new[-1].tolist())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_prefill_kernels_replay_in_a_cuda_graph_at_a_group_of_7(d):
+    """Flash prefill and paged prefill (bf16 and int8 pools) at 14 query
+    heads over 2 (18 tokens a CTA, 2 dead rows), each captured in a CUDA
+    graph and replayed after new inputs are copied into the captured
+    buffers: bit-equal to an eager call on them, and within the rows'
+    tolerance of the plain version."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(43 + d)
+    bf = _bf(dev)
+
+    def flash_inputs(lens):
+        q = torch.randn((3, 130, 14, d), generator=gen, **bf)
+        k, v = (torch.randn((3, 130, 2, d), generator=gen, **bf) for _ in range(2))
+        return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    args, new = flash_inputs((130, 1, 37)), flash_inputs((0, 130, 18))
+    graph, out = _capture(dev, lambda: flash_prefill.flash_prefill_attention(*args))
+    for dst, src in zip(args, new):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out, flash_prefill.flash_prefill_attention(*new))
+    _assert_rows_close(out, flash_prefill.flash_prefill_attention_plain(*new),
+                       new[-1].tolist())
+    for mode in (None, "int8"):
+        shape = (14, 2, d, 96)
+        args, planes = _prefill_inputs(dev, *shape, (0, 700, 65), (96, 19, 3), 64, mode,
+                                       seed=d + 1, mp=16)
+        new_args, new_planes = _prefill_inputs(dev, *shape, (1000, 5, 0), (40, 96, 18), 64,
+                                               mode, seed=d + 2, mp=16)
+        graph, out = _capture(
+            dev, lambda: flash_prefill.paged_prefill_attention(*args, **planes))
+        buffers = [x for x in args if torch.is_tensor(x)] + list(planes.values())
+        news = [x for x in new_args if torch.is_tensor(x)] + list(new_planes.values())
+        for dst, src in zip(buffers, news):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, flash_prefill.paged_prefill_attention(*new_args, **new_planes))
+        _assert_rows_close(
+            out, flash_prefill.paged_prefill_attention_plain(*new_args, **new_planes),
+            new_args[-1].tolist())
 
 
 @pytest.fixture(scope="module")
