@@ -29,7 +29,10 @@ Phases, each fatal on failure:
      and at llama3-draft's widths (4 layers, Hq 8, Hkv 4, D 64, a bf16
      pool) at buckets 8 and 64: paged decode at a proposal, paged prefill
      and the write at run 1 over catch-up windows of 1 to 5 tokens from
-     unaligned positions;
+     unaligned positions; and at the head dims the kernels took for
+     phi3-mini and gemma (NEW_D_HEADS): every kernel in every pool mode
+     at phi3-mini's heads (32/32, D=96) and gemma-2b's (8/1, D=256), and
+     paged decode in every pool mode at gemma-7b's (16/16, D=256);
   4. model: random-init llama3-1b in bf16, the kernel path against the
      plain path, teacher-forced over a 256-token prompt and 32 decode steps,
      and over a 1,280-token prompt prefilled in chunks of 512, 512 and 256
@@ -44,22 +47,25 @@ Phases, each fatal on failure:
   4'. families (run right after the build, on an empty card, for phi4's
      29 GB of weights and its 15 GB f32 temporary at init): the same gate
      for qwen2-0.5b, qwen2-7b (a query group of
-     7, q/k/v biases), qwen3-8b (per-head q/k RMSNorm) and phi4 at full
-     width and depth, random bf16 weights with biases drawn N(0, 0.02) and
-     q/k norm weights 1 + N(0, 0.1), one model at a time, over a first
-     chunk of 512, a chunk of 256 with history and 16 decode steps, over a
-     bf16 pool (qwen2-7b also over an int8 pool): max |delta logit| <
-     0.25, argmax >= 90 %, and the pool's kernel variants launched; a line
-     that llama3-70b (about 141 GB of bf16 weights) is not served on one
-     card; then qwen2-7b through the CLI's server at its defaults: a short
-     chat, a chat of two chunks and a prefix hit one at a time, held
-     against an eager twin to the id and cached token (`same_streams`),
-     then three chats and a prompt of three chunks together (mixed steps);
-     every dispatch a replay, the bf16 pool's variants launched, no plain
-     version; then qwen2-0.5b, qwen3-8b, phi4 and
-     deepseek-r1-distill-llama-8b, each through the CLI's server at its
-     defaults, one chat of two chunks and 16 tokens; the phase prints its
-     seconds;
+     7, q/k/v biases), qwen3-8b (per-head q/k RMSNorm), phi4, phi3-mini
+     (head_dim 96), gemma-2b and gemma-7b (head_dim 256, GeGLU, the
+     (1 + w) RMSNorm, scaled embeddings) at full width and depth, random
+     bf16 weights with biases drawn N(0, 0.02), q/k norm weights 1 + N(0,
+     0.1) and a Gemma norm's weights N(0, 0.1), one model at a time, over
+     a first chunk of 512, a chunk of 256 with history and 16 decode
+     steps, over a bf16 pool (qwen2-7b and gemma-2b also over an int8
+     pool): max |delta logit| < 0.25, argmax >= 90 %, and the pool's
+     kernel variants launched; a line that llama3-70b (about 141 GB of
+     bf16 weights) is not served on one card; then qwen2-7b and gemma-2b
+     through the CLI's server at its defaults: a short chat, a chat of two
+     chunks and a prefix hit one at a time, held against an eager twin to
+     the id and cached token (`same_streams`), then three chats and a
+     prompt of three chunks together (mixed steps); every dispatch a
+     replay, the bf16 pool's variants launched, no plain version; then
+     qwen2-0.5b, qwen3-8b, phi4, deepseek-r1-distill-llama-8b, phi3-mini
+     and gemma-7b, each through the CLI's server at its defaults (its pool
+     bytes printed), one chat of two chunks and 16 tokens; the phase
+     prints its seconds;
   4b. graphs: three llama3-1b engines on one set of random weights, over
      a bf16, an int8 and an fp8 pool: the eager loop (cuda_graphs=False,
      no overlap), step graphs without overlapped decode, and step graphs
@@ -577,6 +583,9 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
             if not torch.equal(as_bytes(g)[:, ~window], as_bytes(x)[:, ~window]):
                 raise AssertionError(f"paged_write {mode or 'bf16'} at run 1: a slot outside "
                                      f"the windows changed")
+    # both now hold the same bytes: the plain version is timed on the
+    # kernel's pools, so a case holds one copy of them
+    del plain, pp, before
     library_call, library = None, "none: no single PyTorch call quantizes and lands the rows"
     if mode is None:
         library_call = index_copy_write(kern, k_stage, v_stage, *args, run=run)
@@ -584,7 +593,7 @@ def check_paged_write(dev, peaks, gen, b: int, t: int, mode, d: int = D,
                    "precomputed flat slot indices (K and V, timed together)")
     times = timings(
         lambda: kv_update.paged_write(kern[0], kern[1], k_stage, v_stage, *args, **kp),
-        lambda: kv_update.paged_write_plain(plain[0], plain[1], k_stage, v_stage, *args, **pp),
+        lambda: kv_update.paged_write_plain(kern[0], kern[1], k_stage, v_stage, *args, **kp),
         library_call)
     nbytes = kv_update.bytes_moved(k_stage, valid.cpu(), S, mode, run=run)
     b_ms, by = bound(nbytes, 0.0, peaks)
@@ -901,6 +910,35 @@ def verify_hist(seed: int, b: int) -> list[int]:
 #: the query group of 7 (it divides neither prefill kernel's 128-row
 #: tile): (preset, (Hq, Hkv), D)
 GROUP7_HEADS = (("qwen2-7b", (28, 4), 128), ("qwen2-0.5b", (14, 2), 64))
+#: the head dims 96 and 256: (preset, (Hq, Hkv), D, every kernel or paged
+#: decode alone)
+NEW_D_HEADS = (("phi3-mini", (32, 32), 96, True), ("gemma-2b", (8, 1), 256, True),
+               ("gemma-7b", (16, 16), 256, False))
+
+
+def phase_preset_writes(dev, peaks) -> list[dict]:
+    """The write at head_dim 96 (phi3-mini) and 256 (gemma-2b) over the
+    preset's own layers and KV heads, as its served path lands them, in
+    every pool mode: a decode step at B=32 and a chunk at B=8 T=512, each
+    timed and profiled at once and freed before the next (phi3-mini's
+    32-layer pools and stage do not fit beside the cases phase 3 holds
+    until phase 6, so this runs after phase 6)."""
+    from dynamo_tpu_torch.models.registry import get_model
+
+    gen = torch.Generator(device=dev)
+    cases = []
+    for model, heads, d, every in NEW_D_HEADS:
+        if not every:
+            continue
+        layers = get_model(model).config.num_layers
+        for mode in MODES:
+            for seed, b, t in ((94, 32, 1), (95, 8, 512)):
+                c = check_paged_write(dev, peaks, gen.manual_seed(seed), b, t, mode, d=d,
+                                      layers=layers, hkv=heads[1])
+                phase_device_times([c])
+                cases.append({**c, "model": model})
+                free_memory()
+    return cases
 
 
 def phase_kernels(dev, peaks) -> dict:
@@ -925,6 +963,25 @@ def phase_kernels(dev, peaks) -> dict:
             check_paged_decode(dev, peaks, gen.manual_seed(92), 32, 2048, None, layers=4,
                                **g7),
         )]
+    # head_dim 96 (phi3-mini) and 256 (gemma-2b, gemma-7b), before the main
+    # path's cases so the kernels line reports those: flash prefill over
+    # the ragged first chunk; in every pool mode paged prefill over the
+    # main chunk beside histories and paged decode at B=8 over histories
+    # of up to 2,048, in pools of two or three layers (a call reads one),
+    # as every case's inputs stay held until phase 6 (the write, which
+    # lands every layer, comes in phase_preset_writes)
+    for model, heads, d, every in NEW_D_HEADS:
+        nd = dict(d=d, heads=heads)
+        picked = [check_flash_prefill(dev, peaks, gen.manual_seed(93), 8, 512, **nd)] if every else []
+        for mode in MODES:
+            if every:
+                picked.append(check_paged_prefill(dev, peaks, gen.manual_seed(96),
+                                                  *PAGED_PREFILL_CASES[-1][:3], mode, layers=2,
+                                                  **nd))
+            picked.append(check_paged_decode(dev, peaks, gen.manual_seed(97), 8, 2048, mode,
+                                             layers=3, **nd))
+        cases += [{**c, "model": model} for c in picked]
+        torch.cuda.empty_cache()
     cases += [
         # every row valid: SDPA computes no more than the kernel needs; at
         # the main path's widths, at llama3-8b's head dim and at a long T
@@ -994,15 +1051,50 @@ def logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int, int]:
     return d.max().item(), int((a.argmax(-1) == b.argmax(-1)).sum()), a.shape[0]
 
 
-def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str) -> dict:
+def other_argmax(a: torch.Tensor, b: torch.Tensor, fed: torch.Tensor) -> tuple[int, int]:
+    """Two paths' logits [T, V] and the token fed at each position [T]:
+    (positions whose argmax over every token but the fed one agrees,
+    positions whose argmax in `b` is the fed token). Tied embeddings
+    scaled by sqrt(H) (Gemma) under random weights leave the fed token's
+    own embedding in the last hidden state, large enough that its logit
+    is the largest whatever attention computed, so the plain argmax reads
+    the input back; with the fed token left out, the argmax rests on what
+    the layers added."""
+    rows = torch.arange(a.shape[0], device=a.device)
+    fed_top = int((b.argmax(-1) == fed).sum())
+    a, b = a.float().clone(), b.float().clone()
+    a[rows, fed] = b[rows, fed] = -torch.inf
+    return int((a.argmax(-1) == b.argmax(-1)).sum()), fed_top
+
+
+def rolled_heads(kernels):
+    """The gate's control: `kernels` with every attention kernel's output
+    heads rolled by one (query head h gets head h + 1's output, as a
+    kernel reading the wrong head would), the write untouched."""
+    def decode(*a, **k):  # acc [B, Hq, D], m and l [B, Hq]
+        return tuple(torch.roll(x, 1, 1) for x in kernels.paged_decode_attention(*a, **k))
+
+    return kernels._replace(  # out [B, T, Hq, D]
+        flash_prefill_attention=lambda *a, **k: torch.roll(
+            kernels.flash_prefill_attention(*a, **k), 1, 2),
+        paged_prefill_attention=lambda *a, **k: torch.roll(
+            kernels.paged_prefill_attention(*a, **k), 1, 2),
+        paged_decode_attention=decode)
+
+
+def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str,
+               controls: tuple = ()) -> dict:
     """The model gate's teacher-forced run: every path of `paths` (name ->
     (ops, params, pool mode)), each over a pool of its own, takes one
     random prompt of sum(chunks) tokens chunk by chunk (the first a first
     chunk, each later one over its history), then `steps` decode steps,
     every path taking the plain path's greedy token. Returns, for each
-    other path, ("kernel", path) -> [max |delta logit|, positions whose
-    argmax agrees, positions]; raises once the kernel path is
-    GATE_MAX_DLOGIT or more from the plain path at a step."""
+    other path but `controls`, ("kernel", path), and for each of
+    `controls`, (control, "plain") -> [max |delta logit|, positions whose
+    argmax agrees, positions, positions whose argmax but the fed token
+    agrees, positions whose argmax in the second path is the fed token]
+    (other_argmax); raises once the kernel path is GATE_MAX_DLOGIT or
+    more from the plain path at a step."""
     from dynamo_tpu_torch.models import llama
 
     cfg = adapter.config
@@ -1013,7 +1105,9 @@ def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str)
              for name, (_, _, m) in paths.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device=dev)
-    stats = {("kernel", name): [0.0, 0, 0] for name in paths if name != "kernel"}
+    stats = {("kernel", name): [0.0, 0, 0, 0, 0] for name in paths
+             if name != "kernel" and name not in controls}
+    stats.update({(name, "plain"): [0.0, 0, 0, 0, 0] for name in controls})
 
     def run_all(tok, pos, first_chunk):
         out = {}
@@ -1023,13 +1117,16 @@ def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str)
                                          pt, first_chunk=first_chunk, ops=path_ops)
         return {k: v[0] for k, v in out.items()}  # [T, V] each
 
-    def gate(out, step):
+    def gate(out, step, fed):
         for (a, b_), st in stats.items():
             worst, agree, rows = logit_gap(out[a], out[b_])
+            other, fed_top = other_argmax(out[a], out[b_], fed)
             st[0] = max(st[0], worst)
             st[1] += agree
             st[2] += rows
-            if b_ == "plain" and worst >= GATE_MAX_DLOGIT:
+            st[3] += other
+            st[4] += fed_top
+            if (a, b_) == ("kernel", "plain") and worst >= GATE_MAX_DLOGIT:
                 raise AssertionError(f"{label}: step {step} max |dlogit| {worst}")
 
     with torch.no_grad():
@@ -1037,14 +1134,14 @@ def gate_paths(dev, adapter, paths: dict, chunks: tuple, steps: int, label: str)
         for i, n in enumerate(chunks):  # the prompt, chunk by chunk
             pos = torch.arange(start, start + n, dtype=torch.int32, device=dev)[None]
             out = run_all(tokens[:, start:start + n], pos, start == 0)
-            gate(out, f"chunk {i}")
+            gate(out, f"chunk {i}", tokens[0, start:start + n])
             start += n
         nxt = out["plain"][-1].argmax()
         for step in range(steps):
             # teacher forcing: every path takes the plain path's greedy token
             pos = torch.tensor([[prompt_len + step]], dtype=torch.int32, device=dev)
             out = run_all(nxt.view(1, 1), pos, False)
-            gate(out, step)
+            gate(out, step, nxt.view(1))
             nxt = out["plain"][-1].argmax()
     return stats
 
@@ -1081,7 +1178,7 @@ def phase_model(dev) -> list[dict]:
                      f"chunks {chunks}")
             stats = gate_paths(dev, adapter, paths, chunks, steps, label)
             prompt_len = sum(chunks)
-            worst, agree, rows = stats[("kernel", "plain")]
+            worst, agree, rows = stats[("kernel", "plain")][:3]
             rate = agree / rows
             result = {"phase": "model", "model": "llama3-1b", "dtype": "bfloat16",
                       "quantize": quantize, "kv_quantize": mode, "prompt": prompt_len,
@@ -1090,13 +1187,13 @@ def phase_model(dev) -> list[dict]:
                       "gate": f"kernel path against plain path: max |dlogit| < "
                               f"{GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}"}
             if mode is not None:
-                qw, qa, qr = stats[("kernel", "bf16")]
+                qw, qa, qr = stats[("kernel", "bf16")][:3]
                 result.update({"vs_bf16_pool_max_abs_dlogit": qw,
                                "vs_bf16_pool_argmax_agreement": qa / qr,
                                "vs_bf16_pool": "the quantized kernel path against the bf16 "
                                                "kernel path, reported without a gate"})
             if quantize is not None:
-                qw, qa, qr = stats[("kernel", "bf16_weights")]
+                qw, qa, qr = stats[("kernel", "bf16_weights")][:3]
                 result.update({"vs_bf16_weights_max_abs_dlogit": qw,
                                "vs_bf16_weights_argmax_agreement": qa / qr,
                                "vs_bf16_weights": "the int8-weight kernel path against the "
@@ -1114,31 +1211,48 @@ def phase_model(dev) -> list[dict]:
 # -- phase "families": Qwen2, Qwen3 and Phi-4 at full width --------------------
 
 #: the presets the phase gates, in the order it loads them (one at a time)
-FAMILY_PRESETS = ("qwen2-0.5b", "qwen2-7b", "qwen3-8b", "phi4")
+FAMILY_PRESETS = ("qwen2-0.5b", "qwen2-7b", "qwen3-8b", "phi4", "phi3-mini", "gemma-2b",
+                  "gemma-7b")
+#: the presets the gate also runs over an int8 pool
+FAMILY_INT8_POOL = ("qwen2-7b", "gemma-2b")
+#: the presets whose bf16-pool gate also runs a kernel path that reads the
+#: wrong head (rolled_heads), which the gate must fail: the scaled, tied
+#: embeddings whose fed token tops the plain argmax (other_argmax)
+FAMILY_CONTROL = ("gemma-2b", "gemma-7b")
 #: the gate's prompt: a first chunk of 512 and a chunk with history of 256,
 #: then 16 decode steps
 FAMILY_CHUNKS, FAMILY_STEPS = (512, 256), 16
 #: a preset the port registers but one card cannot hold
 FAMILY_TOO_LARGE = "llama3-70b"
-#: the CLI's server for the phase's HTTP requests: the defaults but the port
+#: the CLI's servers for the phase's HTTP requests: the defaults but the
+#: model and the port
 FAMILY_SERVE_ARGV = ["run", "in=http", "out=torch", "--model", "qwen2-7b", "--port", "0"]
+GEMMA_SERVE_ARGV = ["run", "in=http", "out=torch", "--model", "gemma-2b", "--port", "0"]
 #: the other presets one card holds, each served one request through the CLI
-FAMILY_CLI = ("qwen2-0.5b", "qwen3-8b", "phi4", "deepseek-r1-distill-llama-8b")
+FAMILY_CLI = ("qwen2-0.5b", "qwen3-8b", "phi4", "deepseek-r1-distill-llama-8b", "phi3-mini",
+              "gemma-7b")
 
 
-def live_params(params: dict, dev, seed: int) -> dict:
+def live_params(params: dict, dev, seed: int, unit_offset: bool = False) -> dict:
     """Random init's zero q/k/v biases and unit q/k norm weights drawn from
-    `seed` instead (biases N(0, 0.02), norms 1 + N(0, 0.1)), so both paths
-    of the gate run the family's ops on values that change the logits."""
+    `seed` instead (biases N(0, 0.02), norms 1 + N(0, 0.1)), and with
+    `unit_offset` (a Gemma norm scales by 1 + w) the attn, mlp and final
+    norm weights N(0, 0.1), so both paths of the gate run the family's ops
+    on values that change the logits."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     layers = dict(params["layers"])
-    for name, mean, std in (("bq", 0.0, 0.02), ("bk", 0.0, 0.02), ("bv", 0.0, 0.02),
-                            ("q_norm", 1.0, 0.1), ("k_norm", 1.0, 0.1)):
-        if name in layers:
-            x = layers[name]
+    out = {**params, "layers": layers}
+    draws = [(layers, "bq", 0.0, 0.02), (layers, "bk", 0.0, 0.02), (layers, "bv", 0.0, 0.02),
+             (layers, "q_norm", 1.0, 0.1), (layers, "k_norm", 1.0, 0.1)]
+    if unit_offset:
+        draws += [(layers, "attn_norm", 0.0, 0.1), (layers, "mlp_norm", 0.0, 0.1),
+                  (out, "final_norm", 0.0, 0.1)]
+    for tree, name, mean, std in draws:
+        if name in tree:
+            x = tree[name]
             draw = torch.randn(x.shape, generator=gen, device=dev)
-            layers[name] = (mean + std * draw).to(x.dtype)
-    return {**params, "layers": layers}
+            tree[name] = (mean + std * draw).to(x.dtype)
+    return out
 
 
 def config_param_bytes(cfg) -> int:
@@ -1150,8 +1264,9 @@ def config_param_bytes(cfg) -> int:
     return 2 * (L * layer + v * h * (1 if cfg.tie_word_embeddings else 2) + h)
 
 
-def serve_family(dev, card: str) -> dict:
-    """qwen2-7b through the CLI's server at its defaults (graphs, overlap,
+def serve_family(dev, card: str, argv: list[str]) -> dict:
+    """argv's model (qwen2-7b, gemma-2b) through the CLI's server at its
+    defaults (graphs, overlap,
     mixed steps, prefix caching, chunk 512): one at a time, a short chat, a
     chat whose prompt takes two chunks and one that shares its first pages
     (a prefix hit), each held against an eager twin (the same config and
@@ -1164,8 +1279,8 @@ def serve_family(dev, card: str) -> dict:
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.model_card import ModelDeploymentCard
 
-    model = FAMILY_SERVE_ARGV[FAMILY_SERVE_ARGV.index("--model") + 1]
-    args = cli_run._parse(FAMILY_SERVE_ARGV)
+    model = argv[argv.index("--model") + 1]
+    args = cli_run._parse(argv)
     if not (args.prefill_chunk == 512 and args.page_size == S and args.dtype == "bfloat16"
             and args.overlap_decode and args.mixed_steps):
         raise AssertionError(f"families serve: the CLI's defaults changed: {args}")
@@ -1177,7 +1292,7 @@ def serve_family(dev, card: str) -> dict:
             "two_chunks": ([{"role": "user", "content": lead + "First answer."}], 16),
             "hit": ([{"role": "user", "content": lead + "Second answer, please."}], 16)}
     tok = ByteTokenizer()
-    server = cli_run.start_server(FAMILY_SERVE_ARGV)
+    server = cli_run.start_server(argv)
     try:
         ops.reset_counts()
         served, cached = {}, {}
@@ -1236,13 +1351,13 @@ def serve_family(dev, card: str) -> dict:
         streams, first = serve_requests(eager, {rid: prompt}, n)
         twin.update(streams)
         twin_cached.update(first)
-    same_streams("families serve, qwen2-7b", twin, served, "the server's streams")
+    same_streams(f"families serve, {model}", twin, served, "the server's streams")
     if twin_cached != cached:
         raise AssertionError(f"families serve: cached tokens {cached}, eager twin "
                              f"{twin_cached}")
     del eager, params
     free_memory()
-    return {"model": model, "argv": FAMILY_SERVE_ARGV, "card": card,
+    return {"model": model, "argv": argv, "card": card,
             "eos_token_ids": list(ModelDeploymentCard(name=model).eos_token_ids),
             "held_prompt_tokens": {rid: len(tok.encode(tok.apply_chat_template(m)))
                                    for rid, (m, _) in held.items()},
@@ -1276,6 +1391,7 @@ def serve_once(model: str) -> dict:
 
     server = start_server(["run", "in=http", "out=torch", "--model", model, "--port", "0"])
     try:
+        pool_bytes = server.runner.engine.metrics.kv_pool_bytes
         ops.reset_counts()
         content = "Say what a prefill chunk is. " * 22  # 638 bytes: two chunks
         status, out, ids, ttft = _post(server.url + "/v1/chat/completions", {
@@ -1287,7 +1403,8 @@ def serve_once(model: str) -> dict:
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
         engine = server.runner.engine
         m = engine.metrics
-        line = {"model": model, "status": status, "tokens": len(ids),
+        line = {"model": model, "kv_pool_bytes": pool_bytes, "status": status,
+                "tokens": len(ids),
                 "prompt_tokens": out[-1]["usage"]["prompt_tokens"], "ttft_s": ttft,
                 "compiles": m.compiles, "compile_ms": m.compile_ms,
                 "prefill_dispatches": m.prefill_dispatches, "decode_replays": m.decode_replays}
@@ -1308,12 +1425,16 @@ def serve_once(model: str) -> dict:
 def phase_families(dev, card: str) -> dict:
     """The model gate (gate_paths: kernel path against plain path) for each
     of FAMILY_PRESETS at full width and depth, random bf16 weights with
-    live biases and q/k norms, over a first chunk of 512, a chunk of 256
-    with history and 16 decode steps, over a bf16 pool (and, for
-    qwen2-7b, an int8 pool); each model freed before the next. Prints that
-    llama3-70b is not served on one card, each gate's line, the serve's
-    (serve_family), each of FAMILY_CLI's one request through the CLI
-    (serve_once) and the phase's seconds. Returns the serve's line."""
+    live biases, q/k norms and Gemma norms, over a first chunk of 512, a
+    chunk of 256 with history and 16 decode steps, over a bf16 pool (and,
+    for FAMILY_INT8_POOL, an int8 pool), gated on max |dlogit| and on the
+    argmax over every token and over every token but the fed one; for
+    FAMILY_CONTROL, a kernel path that reads the wrong head must fail the
+    gate on both limits; each model freed before the next.
+    Prints that llama3-70b is not served on one card, each gate's line,
+    the serves' (serve_family: qwen2-7b, gemma-2b), each of FAMILY_CLI's
+    one request through the CLI (serve_once) and the phase's seconds.
+    Returns the serves' lines by model."""
     from dynamo_tpu_torch.models.registry import get_model
 
     t_phase = time.perf_counter()
@@ -1326,17 +1447,21 @@ def phase_families(dev, card: str) -> dict:
         adapter = get_model(name, dtype="bfloat16")
         cfg = adapter.config
         params = live_params(adapter.init_params(torch.Generator(device=dev).manual_seed(0)),
-                             dev, seed=100 + i)
+                             dev, seed=100 + i, unit_offset=cfg.rms_norm_unit_offset)
         held, bf16_bytes = param_bytes(params)
         if bf16_bytes != config_param_bytes(cfg):
             raise AssertionError(f"families: {name} holds {bf16_bytes} bf16 bytes of params, "
                                  f"its config {config_param_bytes(cfg)}")
-        for mode in (None, "int8") if name == "qwen2-7b" else (None,):
+        for mode in (None, "int8") if name in FAMILY_INT8_POOL else (None,):
             label = f"families gate, {name}, {mode or 'bf16'} pool"
             paths = {"kernel": (ops.KERNELS, params, mode), "plain": (ops.PLAIN, params, mode)}
+            controls = ("rolled_heads",) if name in FAMILY_CONTROL and mode is None else ()
+            if controls:
+                paths["rolled_heads"] = (rolled_heads(ops.KERNELS), params, mode)
             ops.reset_counts()
-            stats = gate_paths(dev, adapter, paths, FAMILY_CHUNKS, FAMILY_STEPS, label)
-            worst, agree, rows = stats[("kernel", "plain")]
+            stats = gate_paths(dev, adapter, paths, FAMILY_CHUNKS, FAMILY_STEPS, label,
+                               controls)
+            worst, agree, rows, other, fed_top = stats[("kernel", "plain")]
             launched = {k: c.launches for k, c in ops.COUNTS.items() if c.launches}
             want = serve_variants(mode)
             if sorted(launched) != sorted(want):
@@ -1344,27 +1469,49 @@ def phase_families(dev, card: str) -> dict:
             emit({"phase": "families", "model": name, "dtype": "bfloat16", "kv_quantize": mode,
                   "group": cfg.q_per_kv, "head_dim": cfg.head_dim, "layers": cfg.num_layers,
                   "attention_bias": cfg.attention_bias, "qk_norm": cfg.qk_norm,
+                  "hidden_act": cfg.hidden_act, "rms_norm_unit_offset": cfg.rms_norm_unit_offset,
+                  "scale_embeddings": cfg.scale_embeddings,
                   "param_bytes": held, "prompt": sum(FAMILY_CHUNKS),
                   "chunks": list(FAMILY_CHUNKS), "decode_steps": FAMILY_STEPS,
                   "max_abs_dlogit": worst, "argmax_agreement": agree / rows,
+                  "argmax_agreement_but_fed": other / rows,
+                  "plain_argmax_is_fed_token": fed_top / rows,
                   "kernel_launches": launched,
                   "gate": f"kernel path against plain path: max |dlogit| < "
-                          f"{GATE_MAX_DLOGIT}, argmax agreement >= {GATE_ARGMAX}",
+                          f"{GATE_MAX_DLOGIT}, argmax agreement over every token and over "
+                          f"every token but the fed one >= {GATE_ARGMAX}",
                   "seconds": time.perf_counter() - t0})
-            if agree / rows < GATE_ARGMAX:
-                raise AssertionError(f"{label}: argmax agreement {agree / rows} < "
-                                     f"{GATE_ARGMAX}")
+            for what, n in (("argmax", agree), ("argmax but the fed token", other)):
+                if n / rows < GATE_ARGMAX:
+                    raise AssertionError(f"{label}: {what} agreement {n / rows} < "
+                                         f"{GATE_ARGMAX}")
+            for control in controls:
+                # the gate must fail a kernel path that reads the wrong head,
+                # on each limit
+                cw, ca, cr, co, _ = stats[(control, "plain")]
+                emit({"phase": "families_control", "model": name, "control": control,
+                      "max_abs_dlogit": cw, "argmax_agreement": ca / cr,
+                      "argmax_agreement_but_fed": co / cr,
+                      "expect": f"max |dlogit| >= {GATE_MAX_DLOGIT} and argmax agreement but "
+                                f"the fed token < {GATE_ARGMAX}: the gate fails it"})
+                if cw < GATE_MAX_DLOGIT or co / cr >= GATE_ARGMAX:
+                    raise AssertionError(f"{label}: the {control} control passes a limit of "
+                                         f"the gate (max |dlogit| {cw}, argmax but the fed "
+                                         f"token {co / cr})")
         del params, adapter, paths
         free_memory()
-    t0 = time.perf_counter()
-    serve = serve_family(dev, card)
-    emit({"phase": "families_serve", **serve, "seconds": time.perf_counter() - t0})
+    serves = {}
+    for argv in (FAMILY_SERVE_ARGV, GEMMA_SERVE_ARGV):
+        t0 = time.perf_counter()
+        serve = serve_family(dev, card, argv)
+        emit({"phase": "families_serve", **serve, "seconds": time.perf_counter() - t0})
+        serves[serve["model"]] = serve
     for model in FAMILY_CLI:
         t0 = time.perf_counter()
         emit({"phase": "families_cli", **serve_once(model), "card": card,
               "seconds": time.perf_counter() - t0})
     emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
-    return serve
+    return serves
 
 
 def replays_match(m, dispatches: int) -> bool:
@@ -3539,6 +3686,7 @@ def main() -> int:
     # first, on an empty card: phi4's 29 GB of weights and its 15 GB f32
     # temporary at init beside nothing the later phases hold
     families = phase_families(dev, card)
+    free_memory()  # the families' engines and servers, before the kernel cases
     cases = phase_kernels(dev, peaks)
     # each engine phase starts with only the kernel cases' inputs held
     # (they stay for phase 6): free_memory() collects the engines an
@@ -3564,6 +3712,9 @@ def main() -> int:
         for name, n in phase_serve(card, mode, quantize)["launches"].items():
             launches.setdefault(name, n)
     phase_device_times(cases)
+    free_memory()
+    # first, so the kernels line reports the main path's write
+    cases = phase_preset_writes(dev, peaks) + cases
     for c in cases:
         emit({"phase": "kernels", **c})
     # the kernels line reports each variant at its last shape above
@@ -3594,9 +3745,10 @@ def main() -> int:
                 # those made by replays of its spec_fused graphs
                 "draft_launches": draft["launches"].get(variant, 0),
                 "spec_fused_launches": draft["spec_fused_launches"].get(variant, 0),
-                # qwen2-7b (a query group of 7) through the CLI's server, bf16
-                # pool (phase "families")
-                "families_launches": families["launches"].get(variant, 0),
+                # qwen2-7b (a query group of 7) and gemma-2b (head_dim 256)
+                # through the CLI's server, bf16 pool (phase "families")
+                "families_launches": families["qwen2-7b"]["launches"].get(variant, 0),
+                "gemma_launches": families["gemma-2b"]["launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

@@ -55,13 +55,24 @@
 //   so they are finite too.
 // - Order: the 1-D grid walks query tiles last (longest) first, so the
 //   CTAs with the most key tiles start first and the causal tail is short.
-// - Shared memory per CTA: Q 128 x D bf16 plus STAGES x (K + V) 64 x D
+// - Head dims 64, 96, 128 and 256. Every shared tile is DP = tile_cols(D)
+//   columns wide, whole 64-column swizzle atoms: a D=96 row sits in a
+//   128-column tile (the reference's own lane padding, kv_head_dim, moved
+//   from the pool into the tile). Its copies fill columns 0-95; Q K^T runs
+//   over the first D/16 k-steps only, so the pad columns of Q and K are
+//   never read; V's are zeroed once, before the key loop, so P V (at
+//   N=128) adds zeros to O's pad columns, which are never stored. It costs
+//   a third more PV work than a 96-wide product. D=256 issues P V as two
+//   m64n128k16 halves over V's four atoms (wgmma_pv).
+// - Shared memory per CTA: Q 128 x DP bf16 plus STAGES x (K + V) 64 x DP
 //   bf16 and nothing else, with 1 KiB to align the swizzle atoms: D=64
-//   16 + 32 + 1 KiB (50,176 bytes), D=128 32 + 64 + 1 KiB (99,328 bytes).
-//   Registers (ptxas, CUDA 12.8, sm_90a): 120 a thread at D=64, 162 at
-//   D=128, no spills; so two CTAs (four warpgroups) share an SM at D=64
-//   and one at D=128. Per thread: the O accumulator (D/2 floats), S (32
-//   floats) and P (16 words).
+//   16 + 32 + 1 KiB (50,176 bytes), D=96 and D=128 32 + 64 + 1 KiB
+//   (99,328 bytes), D=256 64 + 128 + 1 KiB (197,632 bytes, under the
+//   232,448 a block may opt into). Registers (ptxas, CUDA 12.8, sm_90a):
+//   124 a thread at D=64, 158 at D=96, 161 at D=128, 241 at D=256, no
+//   spills; so two CTAs (four warpgroups) share an SM at D=64 and one at
+//   D=96, 128 and 256. Per thread: the O accumulator (DP/2 floats: 128 at
+//   D=256), S (32 floats) and P (16 words).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,8 +100,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Smem {
-  static constexpr int Q_BYTES = ROWS * D * 2;
-  static constexpr int TILE_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int DP = tile_cols(D);           // a tile's columns
+  static constexpr int Q_BYTES = ROWS * DP * 2;
+  static constexpr int TILE_BYTES = BK * DP * 2;    // one K or V tile
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int BYTES = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int ALLOC = BYTES + 1024;        // the base is aligned up to 1024
@@ -124,7 +136,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
     __nv_bfloat16* __restrict__ out,      // [B, T, Hq, D]
     int B, int T, int Hq, int Hkv, float scale_log2) {
   using S = Smem<D>;
-  constexpr int CH = D / VEC;
+  constexpr int DP = S::DP;
+  constexpr int CH = D / VEC;  // 16-byte chunks of a row in memory
+  static_assert(ROWS * CH % THREADS == 0 && BK * CH % THREADS == 0, "whole copy rounds");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base =
       ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
@@ -195,9 +209,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
   const bool wg_live = wg_first < vlen;
   const int col = (lane % 4) * 2;  // this thread's first column in each 8-column block
 
-  float o[D / 2];
+  // V's pad columns (D=96) in every stage, never copied
+  for (int s = 0; s < STAGES; ++s) zero_pad<D>(k_stage(s) + S::TILE_BYTES, BK, tid, THREADS);
+
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   for (int j = 0; j < nk; ++j) {
@@ -277,7 +294,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < D / 8; ++i) {  // the pad columns stay 0
       o[4 * i] *= alpha_a;
       o[4 * i + 1] *= alpha_a;
       o[4 * i + 2] *= alpha_b;
@@ -294,17 +311,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) flash_prefill_kernel(
       p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    for (int i = 0; i < DP / 2; ++i) pin(o[i]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       // 16 keys = 16 rows of 128 bytes; LBO is one 64-column block of V
-      wgmma_pv<D>(o, p[kk], smem_desc(vs + (uint32_t)(kk * 16 * 128), BK * 128, 1024));
+      wgmma_pv<DP>(o, p[kk], vs + (uint32_t)(kk * 16 * 128), BK * 128);
     }
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    for (int i = 0; i < DP / 2; ++i) pin(o[i]);
   }
   cp_async_wait<0>();
 
@@ -358,8 +375,12 @@ extern "C" int dyn_flash_prefill(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || Hq / Hkv > ROWS) {
     return (int)cudaErrorInvalidValue;
   }
-  // D=64 fits two CTAs an SM in registers; D=128's accumulator takes one
-  if (D == 64) return launch<64, 2>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
-  if (D == 128) return launch<128, 1>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, (cudaStream_t)stream);
+  // D=64 fits two CTAs an SM in registers; a 128- or 256-column
+  // accumulator takes one
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return launch<64, 2>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, st);
+  if (D == 96) return launch<96, 1>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, st);
+  if (D == 128) return launch<128, 1>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, st);
+  if (D == 256) return launch<256, 1>(q, k, v, valid_len, out, B, T, Hq, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,27 +21,34 @@
 //   units of a fixed size, so a B=1 chunk spreads over every SM and a
 //   decode row stays one unit: 512 16-byte vectors of K and as many of V
 //   (8 KB each) for a bf16 pool, 32 (token, kv head) rows of K and of V
-//   (4 KB each at D=64, 8 KB at D=128) for a quantized one. The launch is
+//   (4 KB each at D=64, 6 KB at D=96, 8 KB at D=128, 16 KB at D=256) for a
+//   quantized one. The launch is
 //   min(units, resident blocks x SMs) blocks of 128 threads
 //   (cudaOccupancyMaxActiveBlocksPerMultiprocessor, once per device),
 //   each walking the units with a stride of the grid. The grid comes from
 //   B, T, L, Hkv, D and the card, never from the data: no host sync, no
 //   workspace, and a call replays in a CUDA graph.
 // - Bytes in flight. Each thread issues all of its unit's 16-byte loads of
-//   K and of V before it needs any of them (4 + 4 for a bf16 pool, D/32 +
-//   D/32 for a quantized one), and 8 or 9 blocks fit a SM at D=64.
+//   K and of V before it needs any of them (4 + 4 for a bf16 pool, LPR/4 +
+//   LPR/4 for a quantized one), and 8 or 9 blocks fit a SM at D=64.
 // - A short index chain. A unit reads its run's `valid` and `positions`
 //   entries together, then, for a live run, its rows and the page-table
 //   entry (which depends on `positions`), so a unit waits on two round
 //   trips before its stores, not the four of valid, positions, page
 //   table, rows. A padding unit costs its two index loads.
-// - A quantized pool gives each (token, kv head) row D/8 lanes of 8 values
-//   each; the row's lanes reduce the amaxes of all of a lane's K and V
-//   rows in one pass of shuffles, so K and V cost one round trip, and a
-//   row past the run skips its divisions. The quantization is the
-//   reference's to the bit: scale = max(amax / qmax, 1e-8) and x / scale
-//   by IEEE division (no reciprocal, no fast math), rounded half to even
-//   for int8 and saturated round to nearest for e4m3.
+// - A quantized pool gives each (token, kv head) row LPR lanes, D/8
+//   rounded up to a power of two (8 at D=64, 16 at D=96 and 128, 32 at
+//   D=256), each holding 8 values; a D=96 row's last 4 lanes load zeros
+//   and store nothing, so every row's xor-shuffle tree stays within its
+//   own aligned group of lanes. The row's lanes reduce the amaxes of all
+//   of a lane's K and V rows in one pass of shuffles, so K and V cost one
+//   round trip, and a row past the run skips its divisions. The
+//   quantization is the reference's to the bit: scale = max(amax / qmax,
+//   1e-8) and x / scale by IEEE division (no reciprocal, no fast math),
+//   rounded half to even for int8 and saturated round to nearest for e4m3.
+// Registers (ptxas, CUDA 12.8, sm_90a): 56 for a bf16 pool; quantized 58
+// at D=64, 96 at D=96, 95 at D=128, 168 at D=256 (with 4 bytes of spill
+// stores and loads, the only instance that spills).
 // A run whose first token is padding belongs to no sequence: the Pallas
 // kernel sends it to the null page 0, whose contents are unspecified and
 // which no page table names, so this kernel skips it and moves no bytes
@@ -64,6 +71,15 @@ constexpr int VECS = 4;
 constexpr int UNIT_VECS = VECS * THREADS;
 // (token, kv head) rows of a unit (quantized pools): 4 KB of K at D=64
 constexpr int UNIT_ROWS = 32;
+
+// the lanes a quantized row of D values takes: D/8, rounded up to a power
+// of two so that the row's shuffle tree stays within its lanes
+__host__ __device__ constexpr int lanes_per_row(int d) {
+  int n = 1;
+  while (n < d / 8) n *= 2;
+  return n;
+}
+
 // devices whose resident-block count is cached
 constexpr int MAX_DEVICES = 64;
 
@@ -161,12 +177,14 @@ __device__ __forceinline__ void write_unit(const Args& a, const Unit& w, int pos
       }
     }
   } else {
-    constexpr int LPR = D / 8;            // lanes a row
+    constexpr int LPR = lanes_per_row(D);  // lanes a row
     constexpr int RPW = 32 / LPR;         // rows a warp covers at once
     constexpr int RPB = RPW * WARPS;      // rows the block covers at once
     constexpr int ROWS = UNIT_ROWS / RPB;  // rows of K, and of V, a lane holds
+    static_assert(D % 16 == 0 && LPR <= 32 && UNIT_ROWS % RPB == 0, "row map");
     const int lane = threadIdx.x % 32;
     const int sl = lane % LPR;
+    const bool holds = sl < D / 8;        // false for a D=96 row's last 4 lanes
     const int n = a.run * a.hkv;          // (token, kv head) rows of the run
     const int base = w.chunk * UNIT_ROWS + (threadIdx.x / 32) * RPW + lane / LPR;
     const long long src = (src_row * a.hkv + base) * D + sl * 8;  // this lane's first values
@@ -174,7 +192,7 @@ __device__ __forceinline__ void write_unit(const Args& a, const Unit& w, int pos
 #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
       kr[j] = vr[j] = make_uint4(0, 0, 0, 0);  // every lane joins the shuffles
-      if (base + j * RPB < n) {
+      if (holds && base + j * RPB < n) {
         kr[j] = __ldg(reinterpret_cast<const uint4*>(a.k_stage + src + j * RPB * D));
         vr[j] = __ldg(reinterpret_cast<const uint4*>(a.v_stage + src + j * RPB * D));
       }
@@ -204,7 +222,7 @@ __device__ __forceinline__ void write_unit(const Args& a, const Unit& w, int pos
     for (int j = 0; j < ROWS; ++j) {
       // a row past the run skips its divisions: at decode most rows of a
       // unit are (8 of its 32 are live at Hkv=8)
-      if (base + j * RPB < n) {
+      if (holds && base + j * RPB < n) {
         quantize_store<T>(kr[j], ka[j], kq + j * RPB * D, a.k_scale + dst + j * RPB, sl == 0);
         quantize_store<T>(vr[j], va[j], vq + j * RPB * D, a.v_scale + dst + j * RPB, sl == 0);
       }
@@ -247,11 +265,21 @@ int launch(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// a quantized pool's launch for its head dim
+template <typename T>
+int launch_d(int d, Args a, cudaStream_t stream) {
+  if (d == 64) return launch<T, 64>(a, stream);
+  if (d == 96) return launch<T, 96>(a, stream);
+  if (d == 128) return launch<T, 128>(a, stream);
+  if (d == 256) return launch<T, 256>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // kind: 0 a pool of the staged dtype (bf16 on the model path; its token
 // rows of row_bytes are copied), 1 int8, 2 fp8 (e4m3); the scale planes
-// are null for 0. A quantized pool takes D 64 or 128.
+// are null for 0. A quantized pool takes D 64, 96, 128 or 256.
 extern "C" int dyn_paged_write(const void* k_stage, const void* v_stage,
                                void* k_cache, void* v_cache, void* k_scale,
                                void* v_scale, const void* page_tables,
@@ -269,7 +297,8 @@ extern "C" int dyn_paged_write(const void* k_stage, const void* v_stage,
     if (row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
     a.chunks = (int)(((long long)run * a.row_vecs + UNIT_VECS - 1) / UNIT_VECS);
   } else {
-    if ((d != 64 && d != 128) || k_scale == nullptr || v_scale == nullptr) {
+    if ((d != 64 && d != 96 && d != 128 && d != 256) || k_scale == nullptr ||
+        v_scale == nullptr) {
       return (int)cudaErrorInvalidValue;
     }
     a.chunks = (int)(((long long)run * hkv + UNIT_ROWS - 1) / UNIT_ROWS);
@@ -279,9 +308,7 @@ extern "C" int dyn_paged_write(const void* k_stage, const void* v_stage,
   a.units = (int)units;
   cudaStream_t st = (cudaStream_t)stream;
   if (kind == 0) return launch<__nv_bfloat16, 0>(a, st);
-  if (kind == 1) return d == 64 ? launch<int8_t, 64>(a, st) : launch<int8_t, 128>(a, st);
-  if (kind == 2) {
-    return d == 64 ? launch<__nv_fp8_e4m3, 64>(a, st) : launch<__nv_fp8_e4m3, 128>(a, st);
-  }
+  if (kind == 1) return launch_d<int8_t>(d, a, st);
+  if (kind == 2) return launch_d<__nv_fp8_e4m3>(d, a, st);
   return (int)cudaErrorInvalidValue;
 }

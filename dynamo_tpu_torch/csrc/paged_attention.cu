@@ -69,16 +69,26 @@
 // dyn_paged_decode_occupancy) instead of a fixed 2 per SM; one launch per
 // call instead of two.
 //
+// Head dims 64, 96, 128 and 256: KS = D/16 k-steps and DT = D/8 n-tiles
+// are whole at each. At D <= 128 a thread holds Q's fragments (D/4
+// words) in registers for the whole split; at D=256 those 64 words beside
+// a 128-float O fragment would pass the 255-register limit, so Q sits in
+// shared memory after the ring ([16][2D + 16] bytes) and each k-step
+// loads its fragment by ldmatrix.
+//
 // Resources (ptxas -O3 for sm_90a, no spills; resident CTAs per SM from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor on an H100 80GB HBM3):
 //   bf16 D=64: 128 registers, 55,296 B of shared memory, 4 CTAs a SM;
 //   int8 / fp8 D=64: 96 registers, 32,256 B, 5 CTAs (registers bound);
 //   bf16 D=128: 166 registers, 104,448 B, 2 CTAs (shared memory bound);
 //   int8 / fp8 D=128: 168 / 174 registers, 56,832 B, 2 CTAs by the
-//   register file (computed, not queried).
-// Shared memory is STAGES stages (the merge buffers reuse them): a stage
-// is 64 K and 64 V rows of 2D + 16 bytes, or of D + 16 narrow bytes plus
-// 512 bytes of scales.
+//   register file (computed, not queried);
+//   bf16 D=96: 128 registers, 79,872 B; int8 / fp8 D=96: 128 / 134, 44,544 B;
+//   bf16 D=256: 254 registers, 211,200 B, one CTA a SM; int8 / fp8 D=256:
+//   255 (16 bytes of spill stores, 32 of loads) / 244, 114,432 B.
+// Shared memory is STAGES stages (the merge buffers reuse them), and Q at
+// D=256: a stage is 64 K and 64 V rows of 2D + 16 bytes, or of D + 16
+// narrow bytes plus 512 bytes of scales.
 // Bytes in flight per SM = 2 stages ahead x bytes per stage x resident
 // CTAs: bf16 D=64 2 x 16 KiB x 4 = 128 KiB; int8 / fp8 D=64 2 x 8.5 KiB
 // x 5 = 85 KiB; bf16 D=128 2 x 32 KiB x 2 = 128 KiB; against about 25 KB
@@ -116,6 +126,11 @@ struct Cfg {
   static constexpr int TILE = BK * ROW;
   static constexpr int STAGE = 2 * TILE + (QUANT ? 2 * BK * 4 : 0);
   static constexpr int RING = STAGES * STAGE;
+  // Q's fragments from shared memory (D=256), rows of 2D + 16 bytes after
+  // the ring, so the 8 rows of one ldmatrix fall in distinct banks
+  static constexpr bool Q_SMEM = D > 128;
+  static constexpr int QROW = 2 * D + 16;
+  static constexpr int LOOP = RING + (Q_SMEM ? ROWS * QROW : 0);
   // the warps' merge: each warp's O [ROWS][D + 8] f32, then m, l and the
   // merge factors [WARPS][ROWS], then the CTA's m and l [ROWS]
   static constexpr int OW = ROWS * (D + 8);
@@ -123,7 +138,7 @@ struct Cfg {
   // the last CTA's merge of the splits: m (then the factor) and l per
   // (split, row), then the merged m and l [ROWS]
   static constexpr int SPLIT_MERGE = (2 * MAX_SPLITS * ROWS + 2 * ROWS) * 4;
-  static constexpr int BYTES = RING > MERGE ? (RING > SPLIT_MERGE ? RING : SPLIT_MERGE)
+  static constexpr int BYTES = LOOP > MERGE ? (LOOP > SPLIT_MERGE ? LOOP : SPLIT_MERGE)
                                             : (MERGE > SPLIT_MERGE ? MERGE : SPLIT_MERGE);
 };
 
@@ -236,9 +251,20 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     cp_async_commit();
   }
 
-  // Q fragments, once: rows gr and gr + 8 of the tile, zero past nrows
-  uint32_t qa[KS][4];
-  {
+  // Q fragments, once: rows gr and gr + 8 of the tile, zero past nrows;
+  // at D=256 the tile's rows go to shared memory instead (read after the
+  // loop's first barrier)
+  constexpr bool Q_SMEM = C::Q_SMEM;
+  uint32_t qa[Q_SMEM ? 1 : KS][4];
+  if constexpr (Q_SMEM) {
+    for (int i = tid; i < ROWS * (D / 8); i += THREADS) {
+      const int r = i / (D / 8), c = i % (D / 8);
+      const uint4 x = r < nrows ? *reinterpret_cast<const uint4*>(
+                                      q + ((size_t)b * Hq + head0 + r) * D + c * 8)
+                                : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(smem + C::RING + r * C::QROW + c * 16) = x;
+    }
+  } else {
     const __nv_bfloat16* q0 = q + ((size_t)b * Hq + head0) * D + 2 * tq;
     const bool r0 = gr < nrows;
     const bool r1 = gr + 8 < nrows;
@@ -276,6 +302,12 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (Q_SMEM) {  // this k-step's A fragment: matrices (rows 0-7 | 8-15, cols 0-7 | 8-15)
+        const int mi = lane >> 3;
+        ldmatrix_x4(qa[0], smem_u32(smem + C::RING + ((lane & 7) + 8 * (mi & 1)) * C::QROW +
+                                    (kk * 16 + 8 * (mi >> 1)) * 2));
+      }
+      const uint32_t(&qf)[4] = qa[Q_SMEM ? 0 : kk];
       uint32_t kb[4];  // b0, b1 of n-tile 0, then of n-tile 1
       if constexpr (QUANT) {
         const uint16_t* r0 =
@@ -290,8 +322,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
         ldmatrix_x4(kb, smem_u32(kt + (kw + 8 * (mi >> 1) + (lane & 7)) * C::ROW +
                                  (kk * 16 + 8 * (mi & 1)) * 2));
       }
-      mma_bf16(s[0], qa[kk], kb[0], kb[1]);
-      mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+      mma_bf16(s[0], qf, kb[0], kb[1]);
+      mma_bf16(s[1], qf, kb[2], kb[3]);
     }
 
     // masks by selection, then the online softmax in the log2 domain;
@@ -524,10 +556,20 @@ int dispatch(int kind, int D, F&& f) {
     if (kind == 1) return f(Variant<64, int8_t>{});
     if (kind == 2) return f(Variant<64, __nv_fp8_e4m3>{});
   }
+  if (D == 96) {
+    if (kind == 0) return f(Variant<96, __nv_bfloat16>{});
+    if (kind == 1) return f(Variant<96, int8_t>{});
+    if (kind == 2) return f(Variant<96, __nv_fp8_e4m3>{});
+  }
   if (D == 128) {
     if (kind == 0) return f(Variant<128, __nv_bfloat16>{});
     if (kind == 1) return f(Variant<128, int8_t>{});
     if (kind == 2) return f(Variant<128, __nv_fp8_e4m3>{});
+  }
+  if (D == 256) {
+    if (kind == 0) return f(Variant<256, __nv_bfloat16>{});
+    if (kind == 1) return f(Variant<256, int8_t>{});
+    if (kind == 2) return f(Variant<256, __nv_fp8_e4m3>{});
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -38,7 +38,7 @@
 //   rounded to bf16 in place) and V read MN-major; every bf16 tile is in
 //   the 128-byte swizzle (wgmma.cuh). S, P and O never touch shared memory.
 // - Asynchronous ring: STAGES bf16 stages of a 64-key K and V tile (2; 3
-//   for a quantized pool), filled with cp.async at 16 bytes a thread, one
+//   for a quantized pool at D <= 128), filled with cp.async at 16 bytes a thread, one
 //   commit group a tile, so the next tile is in flight while one is
 //   multiplied, and one barrier a tile frees a stage. The CTA walks the history tiles, each row finding its
 //   page through page_tables[b, key / S] (any page size), then the chunk's
@@ -46,8 +46,8 @@
 //   ring. Keys at or past a part's length are never read: the copy's
 //   source size is 0, which zero-fills them.
 // - Quantized pools: a history tile's narrow rows land by cp.async in a
-//   staging ring (NARROW_STAGES, 2) and its f32 scales beside its bf16
-//   stage. While tile j is multiplied, each thread widens its share of
+//   staging ring (NARROW_STAGES: 2, 1 at D=256) and its f32 scales in a
+//   ring of their own (SCALE_STAGES). While tile j is multiplied, each thread widens its share of
 //   tile j+1's bytes exactly to bf16 (kvq::load8: a byte permute and an
 //   add for int8, a paired f16 conversion for e4m3) into its swizzled
 //   stage; fence.proxy.async and the next tile's barrier make the stores
@@ -75,15 +75,35 @@
 // - Order and launch: the 1-D grid walks query tiles last (longest) first.
 //   Grid and launch depend on B, T, Hq and Hkv alone: no length is read on
 //   the host, no workspace, no atomic counter, one launch a call.
-// - Shared memory per CTA: Q 128 x D bf16, STAGES x (K + V) 64 x D bf16,
-//   and for quantized pools STAGES x 2 x 64 f32 scales and NARROW_STAGES
-//   x (K + V) 64 x D bytes, with 1 KiB to align the swizzle atoms.
-//   That is 50,176 bytes (bf16, D=64), 84,480 (int8 or fp8, D=64), 99,328
-//   (bf16, D=128) and 166,400 (int8 or fp8, D=128). Registers (ptxas, CUDA
-//   12.8, sm_90a; no spills): bf16 D=64 122, int8 and fp8 D=64 126; bf16
-//   D=128 176, int8 and fp8 D=128 180. So two CTAs (four warpgroups) share
-//   an SM at D=64 (__launch_bounds__ caps 128 registers) and one at D=128.
-//   Per thread: the O accumulator (D/2 floats), S (32 floats), P (16 words).
+// - Head dims 64, 96, 128 and 256, on flash_prefill.cu's tiles: every bf16
+//   tile is DP = tile_cols(D) columns wide (128 at D=96: Q K^T reads the
+//   first D/16 k-steps, V's pad columns are zeroed once and O's are never
+//   stored), and D=256 issues P V as two m64n128k16 halves. A quantized
+//   pool's narrow rows stay D bytes in the staging ring (96 at D=96, 6
+//   chunks of 16) and widen into the padded tile's first D columns.
+// - Shared memory per CTA: Q 128 x DP bf16, STAGES x (K + V) 64 x DP bf16,
+//   and for quantized pools SCALE_STAGES (3) x 2 x 64 f32 scales and
+//   NARROW_STAGES x (K + V) 64 x D bytes, with 1 KiB to align the swizzle
+//   atoms: 50,176 bytes (bf16, D=64), 84,480 (int8 or fp8, D=64), 99,328
+//   (bf16, D=96 and 128), 158,208 (int8 or fp8, D=96), 166,400 (int8 or
+//   fp8, D=128), 197,632 (bf16, D=256) and 231,936 (int8 or fp8, D=256).
+//   A quantized pool at D=256 would need about 329,000 bytes with the
+//   3-stage ring and two staging stages, over the 232,448 a block may opt
+//   into, so it keeps 2 bf16 stages and 1 staging stage: a history tile's
+//   narrow rows are copied two tiles ahead, widened one tile ahead, and a
+//   second barrier after the widening frees the one staging stage before
+//   the next tile's copy; a chunk tile is copied one tile ahead, as with a
+//   bf16 pool. At D=64 and 128 the 3-stage ring stays: forced there, the
+//   one-staging-stage schedule took 1.04-1.05x (D=64) and 1.01-1.03x
+//   (D=128) the 3-stage ring's device time over int8 and fp8 pools
+//   (scripts/torch_paged_prefill_variants.py --head-dims 64,128, its B=4
+//   chunk beside histories, inputs cold in L2; H100 80GB HBM3, 700 W).
+//   Registers (ptxas, CUDA 12.8, sm_90a; no spills): bf16 D=64
+//   123, int8 and fp8 D=64 126; bf16 D=96 171, int8 and fp8 D=96 176; bf16
+//   D=128 174, int8 and fp8 D=128 180; bf16 D=256 249, int8 and fp8 D=256
+//   254. So two CTAs (four warpgroups) share an SM at D=64
+//   (__launch_bounds__ caps 128 registers) and one at D=96, 128 and 256. Per thread: the O
+//   accumulator (DP/2 floats: 128 at D=256), S (32 floats), P (16 words).
 //
 // What each fault of the earlier design (64-row CTAs of four warps,
 // mma.sync) became:
@@ -118,7 +138,6 @@ using namespace wgmma;
 constexpr int ROWS = 128;    // query rows per CTA: two consumer warpgroups
 constexpr int WG_ROWS = 64;  // rows per warpgroup, one wgmma M
 constexpr int BK = 64;       // keys per K/V tile
-constexpr int NARROW_STAGES = 2;  // depth of a quantized pool's staging ring
 constexpr int THREADS = 256;
 constexpr int VEC = 8;       // bf16 per 16-byte chunk
 constexpr float LOG2E = 1.4426950408889634f;
@@ -132,19 +151,26 @@ __device__ __forceinline__ float ex2(float x) {
 
 template <int D, bool QUANT>
 struct Smem {
+  static constexpr int DP = tile_cols(D);  // a bf16 tile's columns
+  // a quantized pool at D=256: 2 bf16 stages and 1 staging stage, to fit
+  static constexpr bool ONE_NARROW = QUANT && D > 128;
   // depth of the bf16 K/V ring: a quantized pool widens one tile ahead of
-  // the one being multiplied, so its ring holds one tile more
-  static constexpr int STAGES = QUANT ? 3 : 2;
-  static constexpr int Q_BYTES = ROWS * D * 2;
-  static constexpr int TILE_BYTES = BK * D * 2;      // one bf16 K or V tile
+  // the one being multiplied, so its ring holds one tile more, unless its
+  // narrow copies run two tiles ahead instead (ONE_NARROW)
+  static constexpr int STAGES = QUANT && !ONE_NARROW ? 3 : 2;
+  static constexpr int NARROW_STAGES = ONE_NARROW ? 1 : 2;  // the staging ring
+  static constexpr int SCALE_STAGES = 3;  // a tile's scales, copied two tiles ahead
+  static constexpr int Q_BYTES = ROWS * DP * 2;
+  static constexpr int TILE_BYTES = BK * DP * 2;     // one bf16 K or V tile
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K, then V
-  // a quantized pool's per-stage k- and v-scales, [STAGES][2][BK] f32
+  // a quantized pool's k- and v-scales, [SCALE_STAGES][2][BK] f32
   static constexpr int SCALES = Q_BYTES + STAGES * STAGE_BYTES;
   // then its staging ring: [NARROW_STAGES][K, V][BK][D] narrow rows
   static constexpr int NARROW_BYTES = BK * D;
-  static constexpr int STAGING = SCALES + (QUANT ? STAGES * 2 * BK * 4 : 0);
+  static constexpr int STAGING = SCALES + (QUANT ? SCALE_STAGES * 2 * BK * 4 : 0);
   static constexpr int BYTES = STAGING + (QUANT ? NARROW_STAGES * 2 * NARROW_BYTES : 0);
   static constexpr int ALLOC = BYTES + 1024;  // the base is aligned up to 1024
+  static_assert(ALLOC <= 232448, "over the shared memory a block may opt into");
 };
 
 template <int D, typename KV, int MIN_BLOCKS>
@@ -163,8 +189,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
     int B, int T, int Hq, int Hkv, int layer, int P, int S, int MP, float scale_log2) {
   constexpr bool QUANT = kvq::Kv<KV>::QUANT;
   using SM = Smem<D, QUANT>;
-  constexpr int CH = D / VEC;   // 16-byte chunks of a bf16 row
+  constexpr int DP = SM::DP;
+  constexpr bool ONE_NARROW = SM::ONE_NARROW;
+  constexpr int CH = D / VEC;   // 16-byte chunks of a bf16 row in memory
   constexpr int NCH = D / 16;   // 16-byte chunks of a narrow row
+  static_assert(ROWS * CH % THREADS == 0 && BK * CH % THREADS == 0, "whole copy rounds");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = warp_mma::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -219,8 +248,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
   const int nk = nh + (kend + BK - 1) / BK;
   constexpr int STAGES = SM::STAGES;
   auto stage = [&](int t) { return base + SM::Q_BYTES + (uint32_t)((t % STAGES) * SM::STAGE_BYTES); };
-  auto scales = [&](int t) { return SM::SCALES + (t % STAGES) * 2 * BK * 4; };  // from base
-  auto staging = [&](int t) { return SM::STAGING + (t % NARROW_STAGES) * 2 * SM::NARROW_BYTES; };
+  auto scales = [&](int t) { return SM::SCALES + (t % SM::SCALE_STAGES) * 2 * BK * 4; };  // from base
+  auto staging = [&](int t) {
+    return SM::STAGING + (t % SM::NARROW_STAGES) * 2 * SM::NARROW_BYTES;
+  };
   // the pool row (layer, page, slot, kv head) of live history key `key`
   auto pool_row = [&](int key) {
     return (((size_t)layer * P + pt[key / S]) * S + key % S) * Hkv + h;
@@ -251,8 +282,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
       if constexpr (QUANT) {
         const uint32_t ns = base + staging(t);
 #pragma unroll
-        for (int n = 0; n < BK * NCH / THREADS; ++n) {
+        for (int n = 0; n < (BK * NCH + THREADS - 1) / THREADS; ++n) {
           const int i = tid + n * THREADS;
+          if (BK * NCH % THREADS != 0 && i >= BK * NCH) break;  // D=96: 384 chunks
           const int r = i / NCH, c = i % NCH;
           const bool live = k0 + r < hist;
           const size_t off = live ? row_of(r) * D + c * 16 : 0;
@@ -312,10 +344,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
 
   // Tile t is issued while tile t - STAGES + 1 is multiplied; a quantized
   // pool's history tile t is widened while tile t - 1 is multiplied, so one
-  // barrier a tile covers a tile's copies and its widening.
+  // barrier a tile covers a tile's copies and its widening. With one
+  // staging stage (ONE_NARROW) a history tile's narrow rows are issued
+  // while tile t - 2 is multiplied, and widened, behind a second barrier,
+  // before the next narrow copy reuses the stage; a chunk tile is issued
+  // while tile t - 1 is multiplied.
   issue(0);  // with Q: one commit group
   cp_async_commit();
-  if constexpr (QUANT) {
+  if constexpr (QUANT && !ONE_NARROW) {
     if (1 < nk) issue(1);
     cp_async_commit();
     if (nh > 0) {  // block-uniform
@@ -323,6 +359,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
       __syncthreads();     // everyone's have
       widen(0);
     }
+  } else if constexpr (ONE_NARROW) {
+    if (nh > 0) {  // block-uniform
+      cp_async_wait<0>();  // this thread's copies of tile 0 have landed
+      __syncthreads();     // everyone's have
+      widen(0);
+      __syncthreads();     // the staging stage is free
+    }
+    if (1 < nh) issue(1);  // a history tile's narrow rows (a chunk tile 1 waits for j = 0)
+    cp_async_commit();
   }
 
   const int wg = tid / 128;  // consumer warpgroup
@@ -339,9 +384,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
   const bool wg_live = wg_first < cur;
   const int col = (lane % 4) * 2;  // this thread's first column in each 8-column block
 
-  float o[D / 2];
+  // V's pad columns (D=96) in every bf16 stage, never copied or widened
+  for (int s = 0; s < STAGES; ++s) zero_pad<D>(stage(s) + SM::TILE_BYTES, BK, tid, THREADS);
+
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   for (int j = 0; j < nk; ++j) {
@@ -350,10 +398,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
     cp_async_wait<0>();
     fence_proxy_async();  // this thread's widened stores, for wgmma
     __syncthreads();  // tile j is whole in its stage; every warpgroup is done with tile j - 1
-    if (j + STAGES - 1 < nk) issue(j + STAGES - 1);  // into the stage tile j - 1 used
-    cp_async_commit();
-    if constexpr (QUANT) {
-      if (j + 1 < nh) widen(j + 1);
+    if constexpr (!ONE_NARROW) {
+      if (j + STAGES - 1 < nk) issue(j + STAGES - 1);  // into the stage tile j - 1 used
+      cp_async_commit();
+      if constexpr (QUANT) {
+        if (j + 1 < nh) widen(j + 1);
+      }
+    } else {
+      if (j + 1 < nh) {  // block-uniform
+        widen(j + 1);     // into the stage tile j - 1 used
+        __syncthreads();  // every thread's share is read: the staging stage is free
+      } else if (j + 1 < nk) {
+        issue(j + 1);  // a chunk tile, into the stage tile j - 1 used
+      }
+      if (j + 2 < nh) issue(j + 2);  // a history tile's narrow rows and scales
+      cp_async_commit();
     }
     const bool in_hist = j < nh;  // block-uniform
     const int k0 = (in_hist ? j : j - nh) * BK;
@@ -451,7 +510,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < D / 8; ++i) {  // the pad columns stay 0
       o[4 * i] *= alpha_a;
       o[4 * i + 1] *= alpha_a;
       o[4 * i + 2] *= alpha_b;
@@ -474,17 +533,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) paged_prefill_kernel(
       p[kk][3] = pack_bf16(s[8 * kk + 6] * w1.x, s[8 * kk + 7] * w1.y);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    for (int i = 0; i < DP / 2; ++i) pin(o[i]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       // 16 keys = 16 rows of 128 bytes; LBO is one 64-column block of V
-      wgmma_pv<D>(o, p[kk], smem_desc(vs + (uint32_t)(kk * 16 * 128), BK * 128, 1024));
+      wgmma_pv<DP>(o, p[kk], vs + (uint32_t)(kk * 16 * 128), BK * 128);
     }
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    for (int i = 0; i < DP / 2; ++i) pin(o[i]);
   }
   cp_async_wait<0>();
 
@@ -540,14 +599,25 @@ int launch_d(const void* q, const void* k_cur, const void* v_cur, const void* k_
              const void* page_tables, const void* hist_lens, const void* cur_lens, void* out,
              int B, int T, int Hq, int Hkv, int D, int layer, int P, int S, int MP,
              float scale, cudaStream_t st) {
-  // D=64 fits two CTAs an SM in registers; D=128's accumulator takes one
+  // D=64 fits two CTAs an SM in registers; a 128- or 256-column
+  // accumulator takes one
   if (D == 64) {
     return launch<64, KV, 2>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
                              hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale,
                              st);
   }
+  if (D == 96) {
+    return launch<96, KV, 1>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
+                             hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale,
+                             st);
+  }
   if (D == 128) {
     return launch<128, KV, 1>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
+                              hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale,
+                              st);
+  }
+  if (D == 256) {
+    return launch<256, KV, 1>(q, k_cur, v_cur, k_pool, v_pool, k_scale, v_scale, page_tables,
                               hist_lens, cur_lens, out, B, T, Hq, Hkv, layer, P, S, MP, scale,
                               st);
   }

@@ -3,7 +3,9 @@
 // swizzled layout, the shared-memory matrix descriptor, the proxy fence
 // between generic-proxy stores (cp.async, st.shared) and wgmma's reads, and
 // the products the attention kernels use (S = Q K^T from two K-major shared
-// operands, O += P V with P in registers and V read MN-major). Used by
+// operands, O += P V with P in registers and V read MN-major, at 64, 128
+// or 256 columns), and the tile width of a head dim with its pad's zeros.
+// Used by
 // flash_prefill.cu and paged_prefill.cu.
 //
 // A tile of 64-column (128-byte) row blocks: row r's 16-byte chunk c (0..7)
@@ -48,6 +50,28 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Columns of a shared tile that holds rows of d values: d rounded up to
+// whole 64-column (128-byte) swizzle atoms, so a D=96 row sits in a
+// 128-column tile whose last 32 columns the kernel zero-fills (V, zero_pad)
+// or never reads (Q and K: Q K^T runs over the first D/16 k-steps only).
+__host__ __device__ constexpr int tile_cols(int d) { return (d + 63) / 64 * 64; }
+
+// Zeros in columns D .. tile_cols(D) - 1 of a swizzled tile of `rows` rows
+// at shared address `tile` (64-column blocks rows * 128 bytes apart), which
+// no copy fills, so that P V adds zeros there; by st.shared, so the
+// caller's fence_proxy_async and barrier order them before any wgmma.
+template <int D>
+__device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int tid, int threads) {
+  constexpr int CH = D / 8, PAD = (tile_cols(D) - D) / 8;  // 16-byte chunks
+  if constexpr (PAD > 0) {
+    for (int i = tid; i < rows * PAD; i += threads) {
+      const int r = i / PAD, c = CH + i % PAD;
+      const uint32_t a = tile + (uint32_t)((c / 8) * rows * 128) + swizzled(r, c % 8);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(a), "r"(0) : "memory");
+    }
+  }
 }
 
 // keep the compiler from moving accesses of an accumulator register
@@ -101,8 +125,12 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+// O (64 x 128) += P V as above, into d[OFF .. OFF + 63] of a wider
+// accumulator (two of them cover 256 columns)
+template <int OFF = 0, int N>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[N], const uint32_t (&a)[4],
                                                     uint64_t b_desc) {
+  static_assert(OFF >= 0 && OFF + 64 <= N, "accumulator slice");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -115,25 +143,32 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63 "
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
-// O (64 x D, f32) += P (64 x 16, bf16 A fragments) * V (16 x D, MN-major)
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t b_desc) {
-  if constexpr (D == 64) {
-    wgmma_rs_m64n64k16(o, a, b_desc);
+// O (64 x DP, f32) += P (64 x 16, bf16 A fragments) * V (16 x DP, MN-major
+// from shared address v, 64-column blocks `lbo` bytes apart): DP 64 and
+// 128 in one product, 256 in two m64n128k16 halves over V's blocks 0-1
+// and 2-3 (the accumulator's 8-column blocks 0-15 and 16-31)
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint32_t v,
+                                         uint32_t lbo) {
+  static_assert(DP == 64 || DP == 128 || DP == 256, "a tile of 64, 128 or 256 columns");
+  if constexpr (DP == 64) {
+    wgmma_rs_m64n64k16(o, a, smem_desc(v, lbo, 1024));
+  } else if constexpr (DP == 128) {
+    wgmma_rs_m64n128k16(o, a, smem_desc(v, lbo, 1024));
   } else {
-    wgmma_rs_m64n128k16(o, a, b_desc);
+    wgmma_rs_m64n128k16<0>(o, a, smem_desc(v, lbo, 1024));
+    wgmma_rs_m64n128k16<64>(o, a, smem_desc(v + 2 * lbo, lbo, 1024));
   }
 }
 

@@ -28,11 +28,15 @@ reference's layout; embed, lm_head, norms and biases stay in the model
 dtype. Each dense product goes through `_mm`, which hands an int8 weight
 to `ops.int8_matmul`.
 
-Two family flags, as the reference's: `attention_bias` (Qwen2) adds the
+Family flags, as the reference's: `attention_bias` (Qwen2) adds the
 q/k/v projection biases `bq`, `bk`, `bv` [L, Hq*D | Hkv*D] before the
 heads are split; `qk_norm` (Qwen3) applies a head_dim-wide RMSNorm to q
-and k (`q_norm`, `k_norm` [L, D]) after the split and before rope. Both
-are plain torch ops between the kernels.
+and k (`q_norm`, `k_norm` [L, D]) after the split and before rope. Gemma
+sets three: `hidden_act="gelu_tanh"` (the GeGLU MLP, gelu with the tanh
+approximation in f32), `rms_norm_unit_offset` (every RMSNorm scales by
+1 + w) and `scale_embeddings` (the embeddings times sqrt(H), the
+normalizer rounded to the model dtype first). All are plain torch ops
+between the kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +56,13 @@ from dynamo_tpu_torch.ops.kv_quant import (  # noqa: F401 (the model's API, as t
     quantize_kv_rows,
 )
 from dynamo_tpu_torch.platform import resolve_device
+
+
+#: the MLP's gate activations, by LlamaConfig.hidden_act: f32 in, f32 out
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
 
 
 @dataclass(frozen=True)
@@ -77,6 +88,17 @@ class LlamaConfig:
     #: Qwen3: per-head RMSNorm on q and k (head_dim-wide), applied after
     #: the projections, before rope
     qk_norm: bool = False
+    #: MLP activation: "silu" (Llama/Qwen GLU) or "gelu_tanh" (Gemma GeGLU)
+    hidden_act: str = "silu"
+    #: Gemma-style RMSNorm: scale by (1 + weight) instead of weight
+    rms_norm_unit_offset: bool = False
+    #: Gemma scales token embeddings by sqrt(hidden_size)
+    scale_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.hidden_act not in _ACTIVATIONS:
+            raise ValueError(f"unknown hidden_act {self.hidden_act!r}; use one of "
+                             f"{sorted(_ACTIVATIONS)}")
 
     @property
     def q_per_kv(self) -> int:
@@ -146,6 +168,41 @@ class LlamaConfig:
             vocab_size=151936, hidden_size=4096, intermediate_size=12288,
             num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
             rope_theta=1000000.0, rms_norm_eps=1e-6, qk_norm=True,
+        )
+
+    @staticmethod
+    def gemma_2b() -> "LlamaConfig":
+        """Gemma-2B: GeGLU MLP, (1 + w) RMSNorm, sqrt(H)-scaled embeddings,
+        tied lm_head, 8 query heads over one KV head of 256 (MQA)."""
+        return LlamaConfig(
+            vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+            num_layers=18, num_heads=8, num_kv_heads=1, head_dim=256,
+            rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=True,
+            hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+            scale_embeddings=True,
+        )
+
+    @staticmethod
+    def gemma_7b() -> "LlamaConfig":
+        """Gemma-7B: gemma_2b's flags at 28 layers of width 3,072, 16
+        query and 16 KV heads of 256."""
+        return LlamaConfig(
+            vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+            num_layers=28, num_heads=16, num_kv_heads=16, head_dim=256,
+            rope_theta=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=True,
+            hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+            scale_embeddings=True,
+        )
+
+    @staticmethod
+    def phi3_mini() -> "LlamaConfig":
+        """Phi-3-mini-4k: plain Llama with 32 query and 32 KV heads of 96
+        (its checkpoint's fused qkv/gate_up split at load waits for the
+        loaders)."""
+        return LlamaConfig(
+            vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+            num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
+            rope_theta=10000.0, rms_norm_eps=1e-5,
         )
 
     @staticmethod
@@ -420,10 +477,16 @@ def _mm(x: torch.Tensor, lp: dict, name: str, li: int, ops: Ops) -> torch.Tensor
     return x @ w
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    """RMSNorm in f32; `unit_offset` (Gemma) scales by 1 + weight, the
+    offset added in f32."""
     xf = x.float()
     out = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return (out * weight.float()).to(x.dtype)
+    w = weight.float()
+    if unit_offset:
+        w = w + 1.0
+    return (out * w).to(x.dtype)
 
 
 def _rope_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
@@ -525,13 +588,16 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
     b, t = tokens.shape
     lp = params["layers"]
     h = params["embed"][tokens].to(cfg.dtype)  # [B, T, H]
+    if cfg.scale_embeddings:  # Gemma: the normalizer rounds to the model dtype first
+        h = h * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    off, act = cfg.rms_norm_unit_offset, _ACTIVATIONS[cfg.hidden_act]
     cos, sin = rope_tables(positions, cfg)
     stage_shape = (cfg.num_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
     # the model dtype, also over a quantized pool: the write quantizes
     k_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
     v_stage = torch.empty(stage_shape, dtype=cfg.dtype, device=h.device)
     for li in range(cfg.num_layers):
-        x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps)
+        x = rms_norm(h, lp["attn_norm"][li], cfg.rms_norm_eps, off)
         q, k, v = (_mm(x, lp, name, li, ops) for name in ("wq", "wk", "wv"))
         if cfg.attention_bias:  # Qwen2: in the model dtype, before the split
             q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
@@ -539,8 +605,8 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
         k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
         if cfg.qk_norm:  # Qwen3: head_dim-wide RMSNorm, before rope
-            q = rms_norm(q, lp["q_norm"][li], cfg.rms_norm_eps)
-            k = rms_norm(k, lp["k_norm"][li], cfg.rms_norm_eps)
+            q = rms_norm(q, lp["q_norm"][li], cfg.rms_norm_eps, off)
+            k = rms_norm(k, lp["k_norm"][li], cfg.rms_norm_eps, off)
         attn, (k_new, v_new) = attention_block(
             q, k, v, kv, li, page_tables, positions, valid, cfg, cos, sin,
             first_chunk, ops,
@@ -548,13 +614,13 @@ def forward_hidden(params: dict, cfg: LlamaConfig, tokens, positions, valid, kv:
         k_stage[li] = k_new
         v_stage[li] = v_new
         h = h + _mm(attn, lp, "wo", li, ops)
-        x = rms_norm(h, lp["mlp_norm"][li], cfg.rms_norm_eps)
-        gate = F.silu(_mm(x, lp, "w_gate", li, ops).float())
+        x = rms_norm(h, lp["mlp_norm"][li], cfg.rms_norm_eps, off)
+        gate = act(_mm(x, lp, "w_gate", li, ops).float())
         up = _mm(x, lp, "w_up", li, ops).float()
         h = h + _mm((gate * up).to(cfg.dtype), lp, "w_down", li, ops)
     kv = land_staged_kv(kv, (k_stage, v_stage), page_tables, positions, valid, ops,
                         run=write_run)
-    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps, off), kv
 
 
 def land_staged_kv(kv: KVPages, staged, page_tables, positions, valid, ops: Ops = KERNELS,

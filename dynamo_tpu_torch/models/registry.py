@@ -1,10 +1,11 @@
 """Model registry: a preset name -> the model's config and functions.
 
 Counterpart of dynamo_tpu/models/registry.py::get_model for the llama
-presets the port's kernels serve (head_dim 64 or 128): the Llama-3 sizes,
-Qwen2 (q/k/v bias), Qwen3 (per-head q/k RMSNorm) and Phi-4. Other
-families, HF checkpoint directories and GGUF files wait for later work and
-raise.
+presets the port's kernels serve (head_dim 64, 96, 128 or 256): the
+Llama-3 sizes, Qwen2 (q/k/v bias), Qwen3 (per-head q/k RMSNorm), Phi-3-mini
+(head_dim 96), Phi-4 and Gemma-2B/7B (head_dim 256, GeGLU, the (1 + w)
+RMSNorm, scaled embeddings). Other families, HF checkpoint directories and
+GGUF files wait for later work and raise.
 """
 
 from __future__ import annotations
@@ -32,8 +33,12 @@ _LLAMA_PRESETS: dict[str, Callable[[], LlamaConfig]] = {
     "qwen2-0.5b": LlamaConfig.qwen2_05b,
     # Qwen3 = Llama + per-head q/k RMSNorm (no attention bias)
     "qwen3-8b": LlamaConfig.qwen3_8b,
-    # Phi-4 = Llama with fused qkv/gate_up in its checkpoint
+    # Phi-3 / Phi-4 = Llama with fused qkv/gate_up in their checkpoints
+    "phi3-mini": LlamaConfig.phi3_mini,
     "phi4": LlamaConfig.phi4,
+    # Gemma = Llama + GeGLU, (1 + w) RMSNorm, sqrt(H)-scaled embeddings
+    "gemma-2b": LlamaConfig.gemma_2b,
+    "gemma-7b": LlamaConfig.gemma_7b,
 }
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}

@@ -30,3 +30,11 @@ def on_cuda(kernel: str, *tensors) -> bool:
 def require(cond: bool, kernel: str, what: str) -> None:
     if not cond:
         raise ValueError(f"{kernel}: {what}")
+
+
+#: the head dims every attention kernel and the quantizing write serve
+HEAD_DIMS = (64, 96, 128, 256)
+
+
+def require_head_dim(d: int, kernel: str) -> None:
+    require(d in HEAD_DIMS, kernel, f"the CUDA kernel takes head_dim 64, 96, 128 or 256, not {d}")

@@ -22,9 +22,9 @@ dequantized, and the chunk's own K/V (model dtype) as they are.
 In both, query head j reads kv head j // (Hq/Hkv) and queries scale by
 1/sqrt(scale_dim). On CUDA tensors the kernels in csrc/flash_prefill.cu
 and csrc/paged_prefill.cu run (bf16 q/k/v, bf16 or quantized pools, D of
-64 or 128, a query group of at most 128 heads: one kv group's heads fold
-into a 128-row tile); on CPU tensors the plain versions below do the same
-work.
+64, 96, 128 or 256, a query group of at most 128 heads: one kv group's
+heads fold into a 128-row tile); on CPU tensors the plain versions below
+do the same work.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require
+from dynamo_tpu_torch.ops._counts import KernelCounts, on_cuda, require, require_head_dim
 from dynamo_tpu_torch.ops.kv_quant import gather_history, kind, pool_mode, variants
 
 #: counts of flash_prefill_attention
@@ -94,7 +94,7 @@ def flash_prefill_attention(q, k, v, valid_len, *, scale_dim: Optional[int] = No
     require(q.dtype == torch.bfloat16 and k.dtype == q.dtype and v.dtype == q.dtype,
             _NAME, "the CUDA kernel takes bfloat16 q/k/v")
     require(valid_len.dtype == torch.int32, _NAME, "valid_len must be int32")
-    require(d in (64, 128), _NAME, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    require_head_dim(d, _NAME)
     require(hq // hkv <= TILE_ROWS, _NAME, _group_message(hq // hkv, TILE_ROWS))
     require(all(x.is_contiguous() for x in (q, k, v, valid_len)),
             _NAME, "all tensors must be contiguous")
@@ -218,7 +218,7 @@ def paged_prefill_attention(q, k_cur, v_cur, k_cache, v_cache, layer, page_table
                     "fp8 pools")
     require(all(x.dtype == torch.int32 for x in (page_tables, hist_lens, cur_lens)),
             _PAGED, "page_tables, hist_lens and cur_lens must be int32")
-    require(d in (64, 128), _PAGED, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    require_head_dim(d, _PAGED)
     rows = paged_tile_rows()
     require(hq // hkv <= rows, _PAGED, _group_message(hq // hkv, rows))
     require(all(x.is_contiguous() for x in tensors), _PAGED, "all tensors must be contiguous")

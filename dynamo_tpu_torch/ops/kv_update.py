@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import on_cuda
+from dynamo_tpu_torch.ops._counts import on_cuda, require_head_dim
 from dynamo_tpu_torch.ops.kv_quant import kind, pool_mode, quantize_kv_rows, variants
 
 #: pool mode (None, "int8", "fp8") -> counts
@@ -138,8 +138,8 @@ def paged_write(k_cache, v_cache, k_stage, v_stage, page_tables, positions, vali
     if mode is None:
         if row_bytes % 16:
             _fail(f"a token row of {row_bytes} bytes is not a multiple of 16")
-    elif d != 64 and d != 128:
-        _fail(f"the quantizing CUDA kernel takes head_dim 64 or 128, not {d}")
+    else:
+        require_head_dim(d, _NAME)
     fn = _build.function("kv_update", "dyn_paged_write", ARGTYPES)
     err = fn(
         k_stage.data_ptr(), v_stage.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

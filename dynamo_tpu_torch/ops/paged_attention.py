@@ -11,8 +11,9 @@ m=-inf, l=0. A quantized pool (int8 or fp8 rows) comes with its
 dequantized.
 
 On CUDA tensors the split-KV kernel in csrc/paged_attention.cu runs, one
-launch per call (bf16 q, bf16 or quantized pools, D of 64 or 128, any
-group size); on CPU tensors the plain version below does the same work.
+launch per call (bf16 q, bf16 or quantized pools, D of 64, 96, 128 or
+256, any group size); on CPU tensors the plain version below does the
+same work.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional
 import torch
 
 from dynamo_tpu_torch.ops import _build
-from dynamo_tpu_torch.ops._counts import on_cuda, require
+from dynamo_tpu_torch.ops._counts import on_cuda, require, require_head_dim
 from dynamo_tpu_torch.ops.kv_quant import gather_history, kind, pool_mode, variants
 
 #: pool mode (None, "int8", "fp8") -> counts
@@ -197,7 +198,7 @@ def paged_decode_attention(q, k_cache, v_cache, layer, page_tables, history_lens
             _NAME, "the CUDA kernel takes bfloat16 q and bfloat16, int8 or fp8 pools")
     require(page_tables.dtype == torch.int32 and history_lens.dtype == torch.int32,
             _NAME, "page_tables and history_lens must be int32")
-    require(d in (64, 128), _NAME, f"the CUDA kernel takes head_dim 64 or 128, not {d}")
+    require_head_dim(d, _NAME)
     require(all(x.is_contiguous() for x in tensors), _NAME, "all tensors must be contiguous")
     dev = q.device
     if dev.index is None:

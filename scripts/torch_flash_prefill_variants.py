@@ -1,7 +1,8 @@
 """Time builds of the flash prefill kernel against each other and SDPA, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_flash_prefill_variants.py [--source NAME=PATH ...] [--groups 2,4,7,8]
+    python3 scripts/torch_flash_prefill_variants.py [--source NAME=PATH ...]
+        [--groups 2,4,7,8 | --head-dims 64,96,128,256]
 
 Builds, one nvcc each and all started together, every source that exports
 `dyn_flash_prefill` with the C signature of
@@ -27,8 +28,12 @@ D=64 and a full B=4 T=1024 chunk at D=128 for each query group g listed,
 over Hkv 4 (Hq = 4 g: g=7 is qwen2-7b's 28/4, g=8 the same tokens with
 one head more a group); a build that refuses a case (an earlier design
 and a group that does not divide its tile) is reported `refused` and not
-timed. Prints one JSON line per (case, build), then the card's name and
-power limit. With no card it raises.
+timed. With `--head-dims`, the cases are instead the ragged B=8 T=512
+chunk and a full B=4 T=1024 chunk at each head dim listed, over Hq 32 and
+Hkv 8 (the same tokens and heads at every D), and a build that refuses a
+head dim (an earlier design at 96 or 256) is reported `refused`. Prints
+one JSON line per (case, build), then the card's name and power limit.
+With no card it raises.
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ CASES = (
 #: the KV heads of the `--groups` cases, and their (name, B, T, D, lengths)
 GROUP_HKV = 4
 GROUP_CASES = (("ragged", 8, 512, 64, RAGGED), ("d128", 4, 1024, 128, None))
+#: the `--head-dims` cases at each head dim D: (name, B, T, lengths)
+HEAD_DIM_CASES = (("ragged", 8, 512, RAGGED), ("full", 4, 1024, None))
 #: bytes read between calls for `cold_device_ms`: five times the H100's L2
 FLUSH_BYTES = 256 << 20
 ORDER_LINE = "const int tile = tiles - 1 - (int)(blockIdx.x / (B * Hkv));"
@@ -101,7 +108,7 @@ def run_case(fns, peaks, flush, name, b, t, d, lens, dev, hq=HQ, hkv=HKV) -> lis
         call = caller(fn, q, k, v, valid_len, out)
         try:
             call()
-        except RuntimeError:  # a build that does not serve this group
+        except RuntimeError:  # a build that does not serve this group or head dim
             refused.append({"case": name, "build": vname, "Hq": hq, "Hkv": hkv, "D": d,
                             "refused": True})
             continue
@@ -143,7 +150,11 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     ap.add_argument("--groups", default=None, metavar="G,G,...",
                     help="query groups to run GROUP_CASES at, over Hkv 4, instead of CASES")
+    ap.add_argument("--head-dims", default=None, metavar="D,D,...",
+                    help="head dims to run HEAD_DIM_CASES at instead of CASES")
     args = ap.parse_args()
+    if args.groups and args.head_dims:
+        ap.error("--groups and --head-dims pick the cases each: give one")
     try:
         srcs = _build.variant_sources("flash_prefill", args.source)
     except ValueError as e:
@@ -162,7 +173,10 @@ def main() -> int:
     fns = build(srcs)
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     flush = scratch.sum
-    if args.groups is None:
+    if args.head_dims is not None:
+        cases = [((f"{name}_d{d}", b, t, d, lens), {})
+                 for d in map(int, args.head_dims.split(",")) for name, b, t, lens in HEAD_DIM_CASES]
+    elif args.groups is None:
         cases = [(case, {}) for case in CASES]
     else:
         cases = [((f"{name}_g{g}", *rest), {"hq": GROUP_HKV * g, "hkv": GROUP_HKV})

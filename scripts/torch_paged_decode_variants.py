@@ -1,7 +1,7 @@
 """Time builds of the paged decode kernel against each other and SDPA, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_paged_decode_variants.py [--source NAME=PATH ...]
+    python3 scripts/torch_paged_decode_variants.py [--source NAME=PATH ...] [--head-dims 64,96,128,256]
 
 Builds, one nvcc each and all started together, `committed`
 (dynamo_tpu_torch/csrc/paged_attention.cu as it is) and each `--source
@@ -26,7 +26,11 @@ timed in the order A B C, C B A by `device_ms` (torch.profiler, kernel
 time per call over 20 warmed calls), beside SDPA over a dense bf16 copy
 of the history (`library_device_ms`), the package's wrapper around the
 committed kernel (`wrapper_device_ms`: the served path, whose host work
-paces the launches) and the byte bound. Prints one JSON line per (case,
+paces the launches) and the byte bound. With `--head-dims`, the cases are
+instead B=32 over a bf16, an int8 and an fp8 pool at each head dim listed
+(Hq 32, Hkv 8: the same histories and heads at every D), and a build that
+refuses a head dim (an earlier design at 96 or 256) is reported
+`refused` and not timed. Prints one JSON line per (case,
 build), with ptxas's registers for each kernel instance, then the card's
 name and power limit. With no card it raises.
 """
@@ -59,6 +63,8 @@ CASES = (
     ("b32", 32, 2048, "fp8", 64, 4),
     ("b32_d128", 32, 2048, None, 128, 9),
 )
+#: the `--head-dims` cases' (name, B, longest history, seed), in every pool mode
+HEAD_DIM_CASE = ("b32", 32, 2048, 4)
 OUT_DIR = ROOT / "build" / "torch_kernels" / "decode_variants"
 PTR, INT, FLOAT = _build.PTR, _build.INT, _build.FLOAT
 INTP = ctypes.POINTER(ctypes.c_int)
@@ -121,13 +127,18 @@ def run_case(builds, peaks, name, b, max_hist, mode, d, seed, dev) -> list[dict]
     args, planes = chip_smoke.decode_inputs(dev, gen, b, max_hist, mode, d)
     hist = args[-1]
     ref = paged_attention.paged_decode_attention_plain(*args, scale_dim=d, **planes)
-    calls, rows = {}, {}
+    calls, rows, refused = {}, {}, []
     # the kernel instance's template arguments <D, pool type> in its mangled name
     tag = f"ILi{d}E" + {None: "13__nv_bfloat16E", "int8": "aE", "fp8": "13__nv_fp8_e4m3E"}[mode]
     for bname, (lib, regs) in builds.items():
-        call, out, plan = caller(lib, args, planes, mode, d, dev)
+        try:
+            call, out, plan = caller(lib, args, planes, mode, d, dev)
+            call()
+        except RuntimeError:  # a build that does not serve this head dim
+            refused.append({"case": name, "build": bname, "mode": mode or "bf16", "D": d,
+                            "refused": True})
+            continue
         calls[bname] = call
-        call()
         torch.cuda.synchronize()
         err, m_err, empty_ok = chip_smoke.decode_errors(out, ref, hist)
         if not (err <= chip_smoke.DECODE_ATOL and m_err <= chip_smoke.DECODE_ATOL) or not empty_ok:
@@ -150,12 +161,14 @@ def run_case(builds, peaks, name, b, max_hist, mode, d, seed, dev) -> list[dict]
     b_ms, by = chip_smoke.bound(nbytes, flop, peaks)
     return [{**r, "wrapper_device_ms": wrapper_ms, "library_device_ms": lib_ms,
              "library_kernels": kernels, "bytes": nbytes, "bound_ms": b_ms, "bound_by": by}
-            for r in rows.values()]
+            for r in rows.values()] + refused
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--head-dims", default=None, metavar="D,D,...",
+                    help="head dims to run B=32 at, in every pool mode, instead of CASES")
     args = ap.parse_args()
     try:
         srcs = _build.variant_sources("paged_attention", args.source)
@@ -168,7 +181,12 @@ def main() -> int:
     peaks = platform.device_peaks(torch.cuda.get_device_name(0))
     builds = {name: (lib, _build.ptxas_registers(log))
               for name, (lib, log) in _build.build_variants(srcs, OUT_DIR).items()}
-    for case in CASES:
+    cases = CASES
+    if args.head_dims is not None:
+        name, b, max_hist, seed = HEAD_DIM_CASE
+        cases = [(f"{name}_d{d}", b, max_hist, mode, d, seed)
+                 for d in map(int, args.head_dims.split(",")) for mode in kv_quant.POOL_MODES]
+    for case in cases:
         for row in run_case(builds, peaks, *case, dev):
             print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """Time builds of the paged prefill kernel against each other and SDPA, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_paged_prefill_variants.py [--source NAME=PATH ...] [--groups 2,4,7,8]
+    python3 scripts/torch_paged_prefill_variants.py [--source NAME=PATH ...]
+        [--groups 2,4,7,8 | --head-dims 64,96,128,256]
 
 Builds, one nvcc each and all started together, `committed`
 (dynamo_tpu_torch/csrc/paged_prefill.cu as it is) and each `--source
@@ -29,7 +30,11 @@ over a bf16 and an int8 pool at D=64 and over a bf16 pool at D=128, for
 each query group g listed, over Hkv 4 (Hq = 4 g: g=7 is qwen2-7b's 28/4,
 g=8 the same tokens with one head more a group); a build that refuses a
 case (an earlier design and a group that does not divide its tile) is
-reported `refused` and not timed. Prints one JSON line per (case, build),
+reported `refused` and not timed. With `--head-dims`, the cases are
+instead the B=4 case over a bf16, an int8 and an fp8 pool at each head
+dim listed (Hq 32, Hkv 8: the same tokens and heads at every D), and a
+build that refuses a head dim is reported `refused`. Prints one JSON line
+per (case, build),
 with ptxas's registers for the kernel instance, then the card's name and
 power limit. With no card it raises.
 """
@@ -60,6 +65,8 @@ CASES = tuple(
 #: the KV heads of the `--groups` cases, and their (name, pool mode, D, seed)
 GROUP_HKV = 4
 GROUP_CASES = (("b4", None, 64, 5), ("b4", "int8", 64, 5), ("b4_d128", None, 128, 11))
+#: the seed of the `--head-dims` cases (the B=4 case in every pool mode)
+HEAD_DIM_SEED = 5
 OUT_DIR = ROOT / "build" / "torch_kernels" / "prefill_variants"
 #: bytes read between calls for `cold_device_ms`: five times the H100's L2
 FLUSH_BYTES = 256 << 20
@@ -97,7 +104,7 @@ def run_case(builds, peaks, flush, name, hist, cur, t, mode, d, seed, dev,
         call, out = caller(lib, args, planes, mode, d)
         try:
             call()
-        except RuntimeError:  # a build that does not serve this group
+        except RuntimeError:  # a build that does not serve this group or head dim
             refused.append({"case": name, "build": bname, "mode": mode or "bf16", "Hq": hq,
                             "Hkv": hkv, "D": d, "refused": True})
             continue
@@ -137,7 +144,11 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
     ap.add_argument("--groups", default=None, metavar="G,G,...",
                     help="query groups to run GROUP_CASES at, over Hkv 4, instead of CASES")
+    ap.add_argument("--head-dims", default=None, metavar="D,D,...",
+                    help="head dims to run the B=4 case at, in every pool mode, instead of CASES")
     args = ap.parse_args()
+    if args.groups and args.head_dims:
+        ap.error("--groups and --head-dims pick the cases each: give one")
     try:
         srcs = _build.variant_sources("paged_prefill", args.source)
     except ValueError as e:
@@ -151,10 +162,13 @@ def main() -> int:
               for name, (lib, log) in _build.build_variants(srcs, OUT_DIR).items()}
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     flush = scratch.sum
-    if args.groups is None:
+    main = chip_smoke.PAGED_PREFILL_CASES[-1][:3]  # the B=4 chunk beside histories
+    if args.head_dims is not None:
+        cases = [((f"b4_d{d}", *main, mode, d, HEAD_DIM_SEED), {})
+                 for d in map(int, args.head_dims.split(",")) for mode in kv_quant.POOL_MODES]
+    elif args.groups is None:
         cases = [(case, {}) for case in CASES]
     else:
-        main = chip_smoke.PAGED_PREFILL_CASES[-1][:3]  # the B=4 chunk beside histories
         cases = [((f"{name}_g{g}", *main, mode, d, seed), {"heads": (GROUP_HKV * g, GROUP_HKV)})
                  for g in map(int, args.groups.split(",")) for name, mode, d, seed in GROUP_CASES]
     for case, heads in cases:

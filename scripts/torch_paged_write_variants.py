@@ -1,7 +1,7 @@
 """Time builds of the paged KV write against each other and index_copy_, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_paged_write_variants.py [--source NAME=PATH ...]
+    python3 scripts/torch_paged_write_variants.py [--source NAME=PATH ...] [--head-dims 64,96,128,256]
 
 Builds, one nvcc each and all started together, `committed`
 (dynamo_tpu_torch/csrc/kv_update.cu as it is), `bulk`
@@ -33,7 +33,11 @@ each pool over precomputed slot indices for a bf16 pool
 an empty kernel of one block through the same path (the part of a small
 write's time that no design of the kernel can remove), and
 `floor_runs_ms`, the same empty kernel launched as one block per (layer,
-run), the grid of the earlier design. Prints one JSON line per
+run), the grid of the earlier design. With `--head-dims`, the cases are
+instead decode B=32 and prefill B=8 T=512 at each head dim listed, over
+each pool mode, and a build that refuses a case (a quantized pool at a
+head dim it does not take) is reported `refused` and not timed. Prints
+one JSON line per
 (case, build), with ptxas's registers for the kernel instance, then the
 card's name and power limit. With no card it raises.
 """
@@ -58,6 +62,8 @@ from dynamo_tpu_torch.ops import _build, kv_quant, kv_update  # noqa: E402
 #: (name, B, T, D, every token valid, seed): chip_smoke.py's write cases
 SHAPES = (("decode_b32", 32, 1, 64, False, 1), ("prefill_b8", 8, 512, 64, False, 2),
           ("prefill_b1_full", 1, 512, 64, True, 12), ("prefill_b8_d128", 8, 512, 128, False, 13))
+#: the `--head-dims` cases at each head dim D: (name, B, T, every token valid, seed)
+HEAD_DIM_SHAPES = (("decode_b32", 32, 1, False, 1), ("prefill_b8", 8, 512, False, 13))
 OUT_DIR = ROOT / "build" / "torch_kernels" / "write_variants"
 #: the bulk-copy design, always built beside the committed kernel
 BULK = ROOT / "scripts" / "write_variants" / "kv_update_bulk.cu"
@@ -121,11 +127,17 @@ def run_case(builds, floors, peaks, flush, name, b, t, d, full, seed, mode,
     want = [x.clone() for x in before]
     kv_update.paged_write_plain(want[0], want[1], k_stage, v_stage, *args,
                                 **dict(zip(planes, want[2:])))
-    calls, rows = {}, {}
+    calls, rows, refused = {}, {}, []
     for bname, (lib, regs) in builds.items():
         pools = [x.clone() for x in before]
-        calls[bname] = caller(lib, pools, k_stage, v_stage, args, mode)
-        calls[bname]()
+        call = caller(lib, pools, k_stage, v_stage, args, mode)
+        try:
+            call()
+        except RuntimeError:  # a build that does not serve this head dim
+            refused.append({"case": name, "build": bname, "mode": mode or "bf16", "D": d,
+                            "refused": True})
+            continue
+        calls[bname] = call
         torch.cuda.synchronize()
         for g, w in zip(pools, want):  # page 0 is the null page
             if not torch.equal(chip_smoke.as_bytes(g)[:, 1:], chip_smoke.as_bytes(w)[:, 1:]):
@@ -158,12 +170,14 @@ def run_case(builds, floors, peaks, flush, name, b, t, d, full, seed, mode,
     return [{**r, "wrapper_device_ms": wrapper_ms, "floor_ms": floor_ms["empty"],
              "floor_runs_ms": floor_ms["empty_runs"],
              "library_device_ms": lib_ms, "library_kernels": kernels, "bytes": nbytes,
-             "bound_ms": b_ms, "bound_by": by} for r in rows.values()]
+             "bound_ms": b_ms, "bound_by": by} for r in rows.values()] + refused
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--head-dims", default=None, metavar="D,D,...",
+                    help="head dims to run HEAD_DIM_SHAPES at instead of SHAPES")
     args = ap.parse_args()
     try:
         srcs = _build.variant_sources("kv_update", args.source)
@@ -180,8 +194,12 @@ def main() -> int:
     builds = {name: (lib, _build.ptxas_registers(log)) for name, (lib, log) in built.items()}
     l2 = torch.zeros(FLUSH_BYTES // 4, device=dev)
     flush = l2.sum  # reads every line, so nothing dirty is left to write back
+    shapes = SHAPES
+    if args.head_dims is not None:
+        shapes = [(f"{name}_d{d}", b, t, d, full, seed) for d in map(int, args.head_dims.split(","))
+                  for name, b, t, full, seed in HEAD_DIM_SHAPES]
     for mode in kv_quant.POOL_MODES:
-        for case in SHAPES:
+        for case in shapes:
             for row in run_case(builds, floors, peaks, flush, *case, mode, dev):
                 print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()

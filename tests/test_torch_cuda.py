@@ -15,7 +15,11 @@ several, and calls on two streams at once; paged prefill runs page sizes
 histories that end inside a key tile, a call captured in a CUDA graph and
 replayed on new lengths (also at a group of 7, with flash prefill, at D
 64 and 128), and two calls that must agree bit for bit. The wrappers
-refuse head_dim 96 and a group over 128 heads, and serve a group of 3. The write is
+refuse head_dim 32 and 80 and a group over 128 heads, and serve a group of 3 and
+head_dim 96. At head_dim 96 (phi3-mini) and 256 (gemma) every kernel
+holds its plain version in every pool mode at groups of 1 and 8, with
+lengths ragged across its tiles, and replays in a CUDA graph on new
+inputs bit-equal to eager calls. The write is
 bit-equal off the null page, also where its work units and grid can break
 (more units than resident blocks, every run padding, one long prompt's
 chunk, decode at B=64, D=128, 32 runs a sequence, Hkv 1 and 2), for rows
@@ -464,8 +468,9 @@ def test_paged_decode_refuses_a_small_workspace():
 
 def test_launches_are_counted_and_bad_inputs_raise():
     """Launches counted, plain calls not; refused: a dtype, head_dim 32
-    (and 96), a query group over the tile's 128 rows. A group of 3, once
-    refused, is served."""
+    and 80 (a D outside 64, 96, 128 and 256), a query group over the
+    tile's 128 rows. A group of 3 and head_dim 96, once refused, are
+    served."""
     dev = _card()
     ops.reset_counts()
     q = torch.zeros((1, 64, 32, 64), dtype=torch.bfloat16, device=dev)
@@ -480,7 +485,7 @@ def test_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.flash_prefill_attention(q[..., :32], kv[..., :32], kv[..., :32], vl)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill.flash_prefill_attention(
-            torch.zeros((1, 64, 32, 96), **_bf(dev)), *[torch.zeros((1, 64, 8, 96), **_bf(dev))] * 2,
+            torch.zeros((1, 64, 32, 80), **_bf(dev)), *[torch.zeros((1, 64, 8, 80), **_bf(dev))] * 2,
             vl)
     with pytest.raises(ValueError, match="at most 128 heads"):  # g = 130
         flash_prefill.flash_prefill_attention(
@@ -490,12 +495,19 @@ def test_launches_are_counted_and_bad_inputs_raise():
     _assert_rows_close(flash_prefill.flash_prefill_attention(*g3),
                        flash_prefill.flash_prefill_attention_plain(*g3), [64])
     assert c.launches == 2
+    gen = torch.Generator(device=dev).manual_seed(96)
+    d96 = (torch.randn((1, 64, 32, 96), generator=gen, **_bf(dev)),
+           *[torch.randn((1, 64, 8, 96), generator=gen, **_bf(dev)) for _ in range(2)], vl)
+    _assert_rows_close(flash_prefill.flash_prefill_attention(*d96),
+                       flash_prefill.flash_prefill_attention_plain(*d96), [64])
+    assert c.launches == 3
 
 
 def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
     """Launches counted, plain calls not; refused: a dtype, page tables
-    not int32, a layer out of range, head_dim 32 (and 96), a query group
-    over the tile's 128 rows. A group of 3, once refused, is served."""
+    not int32, a layer out of range, head_dim 32 and 80 (a D outside 64,
+    96, 128 and 256), a query group over the tile's 128 rows. A group of 3
+    and head_dim 96, once refused, are served."""
     dev = _card()
     ops.reset_counts()
     bf = dict(dtype=torch.bfloat16, device=dev)
@@ -517,9 +529,9 @@ def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
         flash_prefill.paged_prefill_attention(
             q[..., :32], kv[..., :32], kv[..., :32], pool[..., :32], pool[..., :32], 1, pt,
             lens, lens)
-    d96 = [torch.zeros(x.shape[:-1] + (96,), **bf) for x in (q, kv, pool)]
+    d80 = [torch.zeros(x.shape[:-1] + (80,), **bf) for x in (q, kv, pool)]
     with pytest.raises(ValueError, match="head_dim"):
-        flash_prefill.paged_prefill_attention(d96[0], d96[1], d96[1], d96[2], d96[2], 1, pt,
+        flash_prefill.paged_prefill_attention(d80[0], d80[1], d80[1], d80[2], d80[2], 1, pt,
                                               lens, lens)
     assert flash_prefill.paged_tile_rows() == 128  # the kernel's own row count
     with pytest.raises(ValueError, match="at most 128 heads"):  # g = 130
@@ -532,6 +544,13 @@ def test_paged_prefill_launches_are_counted_and_bad_inputs_raise():
     _assert_rows_close(flash_prefill.paged_prefill_attention(*g3),
                        flash_prefill.paged_prefill_attention_plain(*g3), [64])
     assert c.launches == 2
+    gen = torch.Generator(device=dev).manual_seed(96)
+    d96 = [torch.randn(x.shape[:-1] + (96,), generator=gen, **bf) for x in (q, kv, kv, pool,
+                                                                            pool)]
+    d96 = (*d96, 1, pt, lens, lens)
+    _assert_rows_close(flash_prefill.paged_prefill_attention(*d96),
+                       flash_prefill.paged_prefill_attention_plain(*d96), [64])
+    assert c.launches == 3
 
 
 # -- quantized pools (int8, fp8) ----------------------------------------------------
@@ -922,6 +941,136 @@ def test_prefill_kernels_replay_in_a_cuda_graph_at_a_group_of_7(d):
         _assert_rows_close(
             out, flash_prefill.paged_prefill_attention_plain(*new_args, **new_planes),
             new_args[-1].tolist())
+
+
+# -- head_dim 96 (phi3-mini) and 256 (gemma) ----------------------------------------
+
+#: (Hq, Hkv) at the new head dims: a group of 1 (phi3-mini's, gemma-7b's)
+#: and of 8 (gemma-2b's MQA)
+NEW_D_GROUPS = [(8, 8), (8, 1)]
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("hq,hkv", NEW_D_GROUPS)
+@pytest.mark.parametrize("d", [96, 256])
+def test_new_head_dims_match_plain(d, hq, hkv, mode):
+    """Every kernel at head_dim 96 and 256 against its plain version in
+    this pool mode: the write (a chunk and a decode step) bit-equal off the
+    null page; flash prefill (with a bf16 pool's case) and paged prefill
+    with each valid row within 2^-6 of its largest |value|, lengths ragged
+    across the 64-key tiles and the 128-row tile's token edge; paged
+    decode's acc/l and m within 1e-4, cut into one split and several."""
+    dev = _card()
+    seed = d + hq * hkv + len(mode or "")
+    for t, lens in ((128, (128, 70, 1)), (1, (1, 0, 1))):
+        pools, k_stage, v_stage, args, planes = _write_inputs(dev, mode, 2, 3, t, 64, hkv, d,
+                                                              lens, seed=seed + t)
+        _assert_write_bit_equal(pools, k_stage, v_stage, args, planes)
+    if mode is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        lens = (130, 65, 64, 1, 129, 0)
+        q = torch.randn((len(lens), 130, hq, d), generator=gen, **_bf(dev))
+        k, v = (torch.randn((len(lens), 130, hkv, d), generator=gen, **_bf(dev))
+                for _ in range(2))
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        _assert_rows_close(flash_prefill.flash_prefill_attention(q, k, v, vl),
+                           flash_prefill.flash_prefill_attention_plain(q, k, v, vl), lens)
+    cur = (100, 64, 33, 1)
+    args, planes = _prefill_inputs(dev, hq, hkv, d, 100, (0, 65, 191, 700), cur, 64, mode,
+                                   seed=seed)
+    _assert_rows_close(flash_prefill.paged_prefill_attention(*args, **planes),
+                       flash_prefill.paged_prefill_attention_plain(*args, **planes), cur)
+    for splits in ("several", "one"):
+        args, planes = _decode_inputs(dev, hq, hkv, d, mode, splits, seed=seed)
+        _assert_decode_close(paged_attention.paged_decode_attention(*args, **planes),
+                             paged_attention.paged_decode_attention_plain(*args, **planes),
+                             args[-1])
+
+
+def _replays_like_eager(dev, call, buffers, news, eager):
+    """call() captured, replayed after `news` are copied into `buffers`:
+    returns the replay's output and an eager call's on the new inputs."""
+    graph, out = _capture(dev, call)
+    for dst, src in zip(buffers, news):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    return out, eager()
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_new_head_dims_replay_in_a_cuda_graph(d, mode):
+    """At head_dim 96 and 256 (8 query heads over 1), each kernel captured
+    in a CUDA graph and replayed on new inputs copied into its buffers
+    gives what an eager call on them gives, bit for bit: the write (its
+    pools), flash prefill (with a bf16 pool's case), paged prefill and
+    paged decode (cut into several splits, so the ticket merge replays)."""
+    dev = _card()
+    hq, hkv = 8, 1
+    shape = (2, 3, 128, 64, hkv, d)
+    pools, k_stage, v_stage, args, planes = _write_inputs(dev, mode, *shape, (128, 70, 1),
+                                                          seed=d + 1)
+    _, k_new, v_new, new, _ = _write_inputs(dev, mode, *shape, (0, 128, 65), seed=d + 2)
+    new[1].add_(128)  # the second chunk of each sequence
+    # the warm-up writes into a scratch copy, the capture into `captured`
+    scratch, captured = [x.clone() for x in pools], [x.clone() for x in pools]
+    into = iter((scratch, captured))
+
+    def write():
+        dst = next(into)
+        kv_update.paged_write(dst[0], dst[1], k_stage, v_stage, *args,
+                              **dict(zip(planes, dst[2:])))
+
+    graph, _ = _capture(dev, write)
+    for dst, src in zip((k_stage, v_stage, *args), (k_new, v_new, *new)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    eager = _assert_write_bit_equal(pools, k_new, v_new, new, planes)
+    for g, e in zip(captured, eager):
+        assert torch.equal(chip_smoke.as_bytes(g), chip_smoke.as_bytes(e))
+    if mode is None:
+        gen = torch.Generator(device=dev).manual_seed(d)
+
+        def flash_inputs(lens):
+            q = torch.randn((3, 130, hq, d), generator=gen, **_bf(dev))
+            k, v = (torch.randn((3, 130, hkv, d), generator=gen, **_bf(dev)) for _ in range(2))
+            return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        fargs, fnew = flash_inputs((130, 1, 37)), flash_inputs((0, 130, 64))
+        out, eager = _replays_like_eager(
+            dev, lambda: flash_prefill.flash_prefill_attention(*fargs), fargs, fnew,
+            lambda: flash_prefill.flash_prefill_attention(*fnew))
+        assert torch.equal(out, eager)
+        _assert_rows_close(out, flash_prefill.flash_prefill_attention_plain(*fnew),
+                           fnew[-1].tolist())
+    pargs, pplanes = _prefill_inputs(dev, hq, hkv, d, 96, (0, 700, 65), (96, 19, 3), 64, mode,
+                                     seed=d + 3, mp=16)
+    pnew, pnew_planes = _prefill_inputs(dev, hq, hkv, d, 96, (1000, 5, 0), (40, 96, 18), 64,
+                                        mode, seed=d + 4, mp=16)
+    out, eager = _replays_like_eager(
+        dev, lambda: flash_prefill.paged_prefill_attention(*pargs, **pplanes),
+        [x for x in pargs if torch.is_tensor(x)] + list(pplanes.values()),
+        [x for x in pnew if torch.is_tensor(x)] + list(pnew_planes.values()),
+        lambda: flash_prefill.paged_prefill_attention(*pnew, **pnew_planes))
+    assert torch.equal(out, eager)
+    _assert_rows_close(out, flash_prefill.paged_prefill_attention_plain(*pnew, **pnew_planes),
+                       pnew[-1].tolist())
+    dargs, dplanes = _decode_inputs(dev, hq, hkv, d, mode, "several", seed=d + 5)
+    assert paged_attention.launch_plan(dev, dargs[0].shape[0], hq, hkv, d, DECODE_MP,
+                                       mode)[0] > 1
+    dnew, dnew_planes = _decode_inputs(dev, hq, hkv, d, mode, None, seed=d + 6,
+                                       lens=DECODE_HISTORIES[::-1])
+    out, eager = _replays_like_eager(
+        dev, lambda: paged_attention.paged_decode_attention(*dargs, **dplanes),
+        [x for x in [*dargs, *dplanes.values()] if torch.is_tensor(x)],
+        [x for x in [*dnew, *dnew_planes.values()] if torch.is_tensor(x)],
+        lambda: paged_attention.paged_decode_attention(*dnew, **dnew_planes))
+    for x, y in zip(out, eager):
+        assert torch.equal(x, y)
+    _assert_decode_close(out, paged_attention.paged_decode_attention_plain(
+        *dnew, **dnew_planes), dnew[-1])
 
 
 @pytest.fixture(scope="module")
