@@ -233,6 +233,25 @@ Phases, each fatal on failure:
      `draft_launches` and `spec_fused_launches` are the bf16 overlap
      engine's launches (counts set to 0 just before its run) and those
      made by its spec_fused replays;
+  4i. checkpoint: files at llama3-1b's full width, written by the phase
+     into a temporary directory and removed after their part
+     (phase_checkpoint): an HF directory (Llama-3.2-1B's published
+     config.json, bf16 safetensors of seeded random weights, a synthetic
+     byte-level BPE tokenizer.json of Llama-3's 128,256 entries, no chat
+     template), a llama3-draft-shaped directory, and an F16 `llama`-arch
+     GGUF of the same weights (q/k rows permuted, a gpt2-style
+     vocabulary). Each loaded tree must equal what was written bit for bit
+     (after f16 rounding for the GGUF), both tokenizers must decode their
+     encode of a 3,000-character prompt back to it, the CLI's server on
+     each file must answer a streamed completion of that prompt with the
+     ids of an eager in-process engine on the written tensors, the
+     directory under --quantize int8 must pass the model gate, and
+     --spec-draft llama3-draft --spec-draft-checkpoint <draft dir> must
+     serve with the draft's written weights. The kernels line's
+     `checkpoint_launches` are the directory's server's launches over its
+     request (counts set to 0 just before). Printed beside the card: load
+     and write seconds, the tokenizer's encode ms of the prompt (first and
+     warm) and each server's TTFT;
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -288,8 +307,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import statistics
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -3280,6 +3302,558 @@ def phase_draft(dev, card: str) -> dict:
     return result
 
 
+# -- phase "checkpoint": checkpoint directories and GGUF files at llama3-1b width ----------
+
+#: Llama-3.2-1B's published config.json (meta-llama/Llama-3.2-1B), the
+#: fields from_hf_config reads and those naming the family
+LLAMA32_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "vocab_size": 128256, "tie_word_embeddings": True, "attention_bias": False,
+    "mlp_bias": False, "bos_token_id": 128000, "eos_token_id": 128001,
+    "torch_dtype": "bfloat16",
+}
+#: llama3-draft's shape (LlamaConfig.llama3_draft) in the same fields
+DRAFT_CONFIG = {**LLAMA32_1B_CONFIG, "hidden_size": 512, "intermediate_size": 2048,
+                "num_hidden_layers": 4, "num_attention_heads": 8, "num_key_value_heads": 4}
+#: Llama-3's pre-tokenizer split (its tokenizer.json)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+#: the words of the phase's prompts (each also becomes a token with and
+#: without its leading space, as common words are in Llama-3's vocabulary)
+CKPT_WORDS = (
+    "the of and to in is that for it as was with be by on not he this are or his from at "
+    "which but have an they you were her she there been one all we their has would when if "
+    "so no will more can said who out up them some could time into only do new two may "
+    "then these first any my now such like our over man me even most made after also did "
+    "many before must through back years where much your way well down should because each "
+    "just those people how too little state good very make world still own see men work "
+    "long get here between both life being under never day same another know while last "
+    "might us great old year off come since against go came right used take three kernel "
+    "cache page prefill decode token model serve request batch graph stream chunk").split()
+CKPT_PROMPT_CHARS = 3000
+#: letters of the out-of-vocabulary words (lowercase ASCII, accented Latin)
+CKPT_OOV_LATIN = "abcdefghijklmnopqrstuvwxyz", "àáâãäåæçèéêëìíîïñòóôõöøùúûüýÿœß"
+#: the CLI's server on each file: the defaults, the model and port
+CKPT_SERVE_TOKENS = 16
+
+
+def ckpt_prompt(seed: int, chars: int = CKPT_PROMPT_CHARS) -> str:
+    """Seeded sentences of CKPT_WORDS, some with digits and punctuation,
+    `chars` characters long."""
+    gen = torch.Generator().manual_seed(seed)
+    out, n = [], 0
+    while n < chars:
+        k = int(torch.randint(6, 16, (1,), generator=gen))
+        idx = torch.randint(0, len(CKPT_WORDS), (k,), generator=gen).tolist()
+        words = [CKPT_WORDS[i] for i in idx]
+        if idx[0] % 5 == 0:
+            words.append(str(int(torch.randint(0, 100000, (1,), generator=gen))))
+        s = " ".join(words).capitalize() + (", " if idx[1] % 3 == 0 else ". ")
+        out.append(s)
+        n += len(s)
+    return "".join(out)[:chars]
+
+
+def ckpt_oov_prompt(seed: int, chars: int = CKPT_PROMPT_CHARS) -> str:
+    """Seeded words that are not whole tokens of synthetic_llama3_vocab, so
+    that BPE runs its merges: random lowercase strings, accented Latin and
+    CJK ideographs, spaced and sometimes punctuated, `chars` characters."""
+    gen = torch.Generator().manual_seed(seed)
+    ascii_, accented = CKPT_OOV_LATIN
+    out, n = [], 0
+    while n < chars:
+        kind, ln = torch.randint(0, 3, (1,), generator=gen).item(), \
+            torch.randint(3, 11, (1,), generator=gen).item()
+        if kind == 2:  # CJK: 1-4 ideographs of U+4E00-U+9FFF
+            word = "".join(chr(0x4E00 + int(c)) for c in
+                           torch.randint(0, 0x5200, (1 + ln % 4,), generator=gen))
+        else:
+            letters = ascii_ + (accented if kind == 1 else "")
+            word = "".join(letters[int(c)] for c in
+                           torch.randint(0, len(letters), (ln,), generator=gen))
+        s = word + (". " if ln == 10 else ", " if ln == 9 else " ")
+        out.append(s)
+        n += len(s)
+    return "".join(out)[:chars]
+
+
+def synthetic_llama3_vocab(seed: int) -> tuple[list[str], list[str]]:
+    """A byte-level BPE vocabulary of Llama-3's size: the 256 byte symbols,
+    127,744 merges (first those that build CKPT_WORDS with and without a
+    leading space, then seeded pairs of earlier tokens), then Llama-3's
+    256 special tokens at 128000-128255. Returns (the 128,256 token
+    strings, the merges as "a b")."""
+    from dynamo_tpu_torch.preprocessor.tokenizer_json import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    index = {t: i for i, t in enumerate(tokens)}
+    merges = []
+
+    def add(a: str, b: str) -> None:
+        if a + b not in index and len(tokens) < 128000:
+            merges.append(f"{a} {b}")
+            index[a + b] = len(tokens)
+            tokens.append(a + b)
+
+    for w in CKPT_WORDS:
+        for form in (w, " " + w, w.capitalize(), " " + w.capitalize()):
+            mapped = "".join(b2u[b] for b in form.encode())
+            for i in range(1, len(mapped)):
+                add(mapped[:i], mapped[i])
+    gen = torch.Generator().manual_seed(seed)
+    short = [t for t in tokens if len(t) <= 3]
+    while len(tokens) < 128000:
+        a, b = torch.randint(0, len(short), (2,), generator=gen).tolist()
+        before = len(tokens)
+        add(short[a], short[b])
+        if len(tokens) > before and len(tokens[-1]) <= 3:
+            short.append(tokens[-1])
+    specials = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{i}|>" for i in range(4)] + [
+        "<|start_header_id|>", "<|end_header_id|>", "<|reserved_special_token_4|>",
+        "<|eot_id|>"] + [f"<|reserved_special_token_{i}|>" for i in range(5, 251)]
+    return tokens + specials, merges
+
+
+def write_hf_tokenizer(d: str, tokens: list[str], merges: list[str]) -> None:
+    """tokenizer.json (Llama-3's pipeline: the Split pattern, ByteLevel
+    without its regex, BPE with ignore_merges, the ByteLevel decoder; the
+    specials as added tokens) and a tokenizer_config.json with no chat
+    template."""
+    added = [{"id": 128000 + i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(tokens[128000:])]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": {t: i for i, t in enumerate(tokens[:128000])},
+                  "merges": merges},
+    }
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
+                   "clean_up_tokenization_spaces": True,
+                   "model_max_length": 131072,
+                   "tokenizer_class": "PreTrainedTokenizerFast"}, f)
+
+
+def hf_tensors(params: dict, cfg) -> dict:
+    """The params as an HF Llama state dict: [in, out] stacks back to
+    per-layer [out, in] tensors (on the device)."""
+    lp = params["layers"]
+    names = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    out = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    for li in range(cfg.num_layers):
+        for leaf, name in names.items():
+            w = lp[leaf][li]
+            out[f"model.layers.{li}.{name}.weight"] = (w.T if w.dim() == 2 else w).contiguous()
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"].T.contiguous()
+    return out
+
+
+def gguf_permute(w: torch.Tensor, n_head: int) -> torch.Tensor:
+    """llama.cpp's convert_hf_to_gguf permute of q/k rows [out, in]."""
+    out, inn = w.shape
+    return w.reshape(n_head, 2, out // n_head // 2, inn).transpose(1, 2).reshape(out, inn)
+
+
+def write_llama_gguf(path: str, params: dict, cfg, tokens: list[str], merges: list[str]):
+    """An F16 `llama`-arch GGUF of the params (norms F32; q/k rows in
+    llama.cpp's permuted order; tied: no output tensor) with a gpt2-style
+    vocabulary. Returns the params as the file holds them, rounded through
+    f16, in the model dtype."""
+    from dynamo_tpu_torch import gguf
+
+    lp = params["layers"]
+    names = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_output",
+             "w_gate": "ffn_gate", "w_up": "ffn_up", "w_down": "ffn_down"}
+    f16 = lambda w: w.to(torch.float16).cpu().numpy()  # noqa: E731
+    f32 = lambda w: w.float().cpu().numpy()  # noqa: E731
+    t = {"token_embd.weight": f16(params["embed"]), "output_norm.weight": f32(params["final_norm"])}
+    for li in range(cfg.num_layers):
+        t[f"blk.{li}.attn_norm.weight"] = f32(lp["attn_norm"][li])
+        t[f"blk.{li}.ffn_norm.weight"] = f32(lp["mlp_norm"][li])
+        for leaf, name in names.items():
+            w = lp[leaf][li].T
+            if leaf in ("wq", "wk"):
+                w = gguf_permute(w, cfg.num_heads if leaf == "wq" else cfg.num_kv_heads)
+            t[f"blk.{li}.{name}.weight"] = f16(w)
+    md = {"general.architecture": "llama", "general.name": "llama3-1b-synthetic",
+          "llama.block_count": cfg.num_layers, "llama.context_length": 131072,
+          "llama.embedding_length": cfg.hidden_size,
+          "llama.feed_forward_length": cfg.intermediate_size,
+          "llama.attention.head_count": cfg.num_heads,
+          "llama.attention.head_count_kv": cfg.num_kv_heads,
+          "llama.attention.key_length": cfg.head_dim,
+          "llama.attention.layer_norm_rms_epsilon": cfg.rms_norm_eps,
+          "llama.rope.freq_base": cfg.rope_theta,
+          "llama.rope.scaling.factor": cfg.rope_scaling_factor,
+          "llama.vocab_size": cfg.vocab_size,
+          "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": tokens,
+          "tokenizer.ggml.token_type": [1] * 128000 + [3] * 256,
+          "tokenizer.ggml.merges": merges,
+          "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128001}
+    gguf.write_gguf(path, md, t)
+    rounded = lambda w: w.to(torch.float16).to(cfg.dtype)  # noqa: E731
+    return {"embed": rounded(params["embed"]), "final_norm": params["final_norm"],
+            "layers": {k: (v if k.endswith("norm") else rounded(v)) for k, v in lp.items()}}
+
+
+def same_tree(label: str, got: dict, want: dict) -> None:
+    """Raise unless two param trees hold the same leaves bit for bit."""
+    flat = lambda p: {**{k: v for k, v in p.items() if k != "layers"},  # noqa: E731
+                      **{f"layers.{k}": v for k, v in p["layers"].items()}}
+    g, w = flat(got), flat(want)
+    bad = sorted(k for k in w if k not in g or g[k].dtype != w[k].dtype
+                 or not torch.equal(g[k], w[k]))
+    if bad or g.keys() != w.keys():
+        raise AssertionError(f"{label}: leaves {bad} differ (keys {sorted(g)} vs {sorted(w)})")
+
+
+def live_norms(params: dict, dev, seed: int) -> dict:
+    """Random init's unit norm weights drawn 1 + N(0, 0.1) from `seed`, so
+    a loader that swapped or dropped a norm shows in the tree check."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers = dict(params["layers"])
+    for name in ("attn_norm", "mlp_norm"):
+        x = layers[name]
+        layers[name] = (1 + 0.1 * torch.randn(x.shape, generator=gen, device=dev)).to(x.dtype)
+    fn = params["final_norm"]
+    fin = (1 + 0.1 * torch.randn(fn.shape, generator=gen, device=dev)).to(fn.dtype)
+    return {**params, "layers": layers, "final_norm": fin}
+
+
+def eager_stream(dev, params: dict, prompt: list[int], tokens: int, argv: tuple = (),
+                 draft_params: dict | None = None) -> list[int]:
+    """Greedy ids of one request through an eager in-process engine built
+    as the CLI builds it for llama3-1b and `argv` (cuda_graphs=False), on
+    `params` (and a speculation draft's `draft_params`)."""
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.request import SamplingParams
+
+    cfg = cli_run.engine_config(cli_run._parse(["run", "--model", "llama3-1b", *argv]),
+                                (128001,))
+    eng = TorchEngine(cfg, params=params, device=dev, cuda_graphs=False,
+                      draft_params=draft_params)
+    eng.add_request("r", prompt, SamplingParams(temperature=0.0, max_tokens=tokens,
+                                                 ignore_eos=True))
+    out = []
+    while eng.has_work:
+        for o in eng.step():
+            out.extend(o.new_token_ids)
+    del eng
+    free_memory()
+    return out
+
+
+def greedy_gaps(dev, cfg, params: dict, prompt: list[int], served: list[int]) -> dict:
+    """Teacher-forced check of a greedy stream: prompt + served[:-1] as one
+    first chunk through the plain path; at each served token, the target's
+    top logit less the served token's. Speculation must serve the target's
+    greedy token at every position, so each gap must stay under
+    GATE_LOGPROB: twice the model gate's bound, since the served logits
+    came through the kernels and each of the two logits may part from the
+    plain path's by GATE_MAX_DLOGIT. `control_gap`, the least gap at any
+    position between the top logit and the median token's, shows that a
+    token the target would not pick fails the bound."""
+    from dynamo_tpu_torch.models import llama
+
+    n = len(prompt) + len(served) - 1
+    pages = -(-n // S)  # the chunk padded to whole pages, the pad not valid
+    seq = torch.zeros((1, pages * S), dtype=torch.int32, device=dev)
+    seq[0, :n] = torch.tensor(prompt + served[:-1], dtype=torch.int32)
+    pos = torch.arange(pages * S, dtype=torch.int32, device=dev)[None]
+    pt = torch.arange(1, 1 + pages, dtype=torch.int32, device=dev)[None]
+    with torch.no_grad():
+        kv = llama.init_kv_pages(cfg, 1 + pages, S, dev)
+        logits, _ = llama.forward(params, cfg, seq, pos, pos < n, kv, pt, first_chunk=True,
+                                  ops=ops.PLAIN)
+        rows = logits[0, len(prompt) - 1:n].float()
+        want = torch.tensor(served, device=dev)
+        top = rows.max(-1).values
+        gaps = top - rows.gather(1, want[:, None])[:, 0]
+        control = top - rows.median(-1).values
+    del kv, logits
+    return {"max_gap": float(gaps.max()), "argmax_served": int((gaps == 0).sum()),
+            "tokens": len(served), "control_gap": float(control.min())}
+
+
+def serve_file(argv: list[str], prompt: str, want: list[int], label: str,
+               count: bool = False) -> dict:
+    """argv through the CLI's server: one streamed greedy completion of
+    `prompt`, CKPT_SERVE_TOKENS tokens, whose ids must be `want`; with
+    `count`, the launches of the request (counts set to 0 just before),
+    which must be the bf16 pool's variants and no plain version."""
+    from dynamo_tpu_torch.cli.run import start_server
+
+    t0 = time.perf_counter()
+    server = start_server(argv)
+    start_s = time.perf_counter() - t0
+    try:
+        ops.reset_counts()
+        status, out, ids, ttft = _post(server.url + "/v1/completions", {
+            "model": argv[argv.index("--model") + 1], "prompt": prompt,
+            "max_tokens": CKPT_SERVE_TOKENS, "temperature": 0, "stream": True,
+            "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True, "return_token_ids": True}})
+        torch.cuda.synchronize()
+        counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
+        engine = server.runner.engine
+        usage = out[-1].get("usage") or {}
+        line = {"status": status, "start_s": start_s, "ttft_s": ttft, "tokens": len(ids),
+                "usage": usage, "same_as_eager": ids == want,
+                "replays_match": replays_match(engine.metrics, engine.dispatches)}
+        del engine
+    finally:
+        server.stop()
+        free_server(server)
+        del server
+    if not (status == 200 and ids == want and usage.get("completion_tokens") == len(want)
+            and line["replays_match"]):
+        raise AssertionError(f"{label}: {line}, ids {ids} against eager {want}")
+    if count:
+        want_v = serve_variants(None)
+        if any(plain or (n == 0) == (name in want_v) for name, (n, plain) in counts.items()):
+            raise AssertionError(f"{label}: launches {counts}")
+        line["launches"] = {k: n for k, (n, _) in counts.items()}
+    return line
+
+
+def phase_checkpoint(dev, card: str) -> dict:
+    """Checkpoint files at llama3-1b's full width, each written by the phase
+    into a temporary directory and removed after its part:
+    - an HF directory: Llama-3.2-1B's published config.json, bf16
+      safetensors of random weights (norms 1 + N(0, 0.1)) from a seed, a
+      synthetic byte-level BPE tokenizer.json of Llama-3's 128,256 entries
+      and a tokenizer_config.json with no template; a llama3-draft-shaped
+      directory of bf16 weights beside it;
+    - an F16 `llama`-arch GGUF of the same weights (q/k rows permuted, a
+      gpt2-style vocabulary of the same tokens and merges).
+    Checks: each loaded tree is bit-equal to what was written (after f16
+    rounding for the GGUF; the draft through the engine's draft_params);
+    tokenizer round trips (HfTokenizer and GgufTokenizer decode their own
+    encode of the prompt); the CLI's server on each file answers a
+    streamed completion of a 3,000-character prompt with the ids of an
+    eager in-process engine on the written tensors (the directory's
+    server's launches are the kernels line's `checkpoint_launches`); the
+    directory under --quantize int8 passes the model gate (gate_paths);
+    --spec-draft llama3-draft --spec-draft-checkpoint <draft dir> serves
+    the ids of an eager engine of the same knobs on the written tensors,
+    each a token the target picks (greedy_gaps). Prints load seconds,
+    encode ms (of the prompt's words, which the vocabulary holds whole,
+    and `encode_ms_merges` of words it lacks, so that the merges run) and
+    TTFT beside the card."""
+    from dynamo_tpu_torch import gguf
+    from dynamo_tpu_torch.cli import run as cli_run
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models import checkpoint
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.models.registry import get_model
+    from dynamo_tpu_torch.preprocessor.tokenizer import GgufTokenizer, HfTokenizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dyn_ckpt_")
+    line = {"phase": "checkpoint", "model": "llama3-1b", "card": card}
+    try:
+        adapter = get_model("llama3-1b")
+        cfg = adapter.config
+        if LlamaConfig.from_hf_config(LLAMA32_1B_CONFIG) != cfg:
+            raise AssertionError("checkpoint: Llama-3.2-1B's config does not map onto llama3-1b")
+        params = live_norms(adapter.init_params(torch.Generator(device=dev).manual_seed(28)),
+                            dev, 28)
+        t0 = time.perf_counter()
+        tokens, merges = synthetic_llama3_vocab(28)
+        d, draft_dir = os.path.join(root, "llama3-1b"), os.path.join(root, "llama3-draft")
+        os.makedirs(d)
+        os.makedirs(draft_dir)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(LLAMA32_1B_CONFIG, f)
+        checkpoint.save_safetensors(os.path.join(d, "model.safetensors"),
+                                    hf_tensors(params, cfg))
+        write_hf_tokenizer(d, tokens, merges)
+        draft_adapter = get_model("llama3-draft")
+        draft = live_norms(draft_adapter.init_params(
+            torch.Generator(device=dev).manual_seed(29)), dev, 29)
+        with open(os.path.join(draft_dir, "config.json"), "w") as f:
+            json.dump(DRAFT_CONFIG, f)
+        checkpoint.save_safetensors(os.path.join(draft_dir, "model.safetensors"),
+                                    hf_tensors(draft, draft_adapter.config))
+        line["write_dir_s"] = time.perf_counter() - t0
+        line["dir_bytes"] = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        # the directory's tree, bit for bit
+        dir_adapter = get_model(d)
+        if dir_adapter.config != cfg or dir_adapter.default_checkpoint != d:
+            raise AssertionError(f"checkpoint: get_model(dir) gave {dir_adapter}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = dir_adapter.load_params(d, dev)
+        torch.cuda.synchronize()
+        line["load_dir_s"] = time.perf_counter() - t0
+        same_tree("checkpoint dir", loaded, params)
+        del loaded
+        # the tokenizer: encode ms of the 3,000-character prompt, round trips
+        prompt = ckpt_prompt(28)
+        t0 = time.perf_counter()
+        tok = HfTokenizer(d)
+        line["tokenizer_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids = tok.encode(prompt)
+        line["encode_ms_first"] = 1e3 * (time.perf_counter() - t0)
+        times = []
+        for i in range(5):  # each a prompt of other words' order: the word cache warm
+            other = ckpt_prompt(100 + i)
+            t0 = time.perf_counter()
+            tok.encode(other)
+            times.append(1e3 * (time.perf_counter() - t0))
+        line["encode_ms"] = statistics.median(times)
+        line["prompt_chars"], line["prompt_tokens"] = len(prompt), len(ids)
+        # words the vocabulary lacks, so the merges run: each a new prompt
+        times, oov_tokens = [], []
+        for i in range(5):
+            oov = ckpt_oov_prompt(200 + i)
+            t0 = time.perf_counter()
+            oov_ids = tok.encode(oov)
+            times.append(1e3 * (time.perf_counter() - t0))
+            oov_tokens.append(len(oov_ids))
+            if tok.decode(oov_ids) != oov:
+                raise AssertionError(f"checkpoint: HfTokenizer round trip of prompt {200 + i} "
+                                     "of words out of the vocabulary failed")
+        line["encode_ms_merges"] = statistics.median(times)
+        line["encode_ms_merges_each"] = times
+        line["merges_prompt_tokens"] = oov_tokens
+        specials = tok.encode("<|begin_of_text|>hi<|eot_id|>")
+        if not (tok.vocab_size == 128256 and tok.eos_token_ids == (128001,)
+                and tok.decode(ids) == prompt and 128000 > max(ids)
+                and (specials[0], specials[-1]) == (128000, 128009)):
+            raise AssertionError(f"checkpoint: HfTokenizer round trip failed: {line}")
+        # the CLI's server on the directory against the eager engine
+        want = eager_stream(dev, params, ids, CKPT_SERVE_TOKENS)
+        serve = serve_file(["run", "in=http", "out=torch", "--model", d, "--port", "0"],
+                           prompt, want, "checkpoint dir serve", count=True)
+        launches = serve.pop("launches")
+        line["serve_dir"] = serve
+        # --quantize int8 on the directory: the CLI's engine, then the model gate
+        t0 = time.perf_counter()
+        argv = ["run", "--model", d, "--quantize", "int8"]
+        eng = TorchEngine(cli_run.engine_config(cli_run._parse(argv), (128001,)), device=dev)
+        qparams = eng.params
+        del eng
+        free_memory()
+        if qparams["layers"]["wq"].dtype != torch.int8:
+            raise AssertionError("checkpoint: --quantize int8 left the weights unquantized")
+        stats = gate_paths(dev, dir_adapter, {"kernel": (ops.KERNELS, qparams, None),
+                                              "plain": (ops.PLAIN, qparams, None)},
+                           (512, 256), 16, "checkpoint dir, --quantize int8")
+        worst, agree, rows = stats[("kernel", "plain")][:3]
+        line["int8_gate"] = {"max_abs_dlogit": worst, "argmax_agreement": agree / rows,
+                             "seconds": time.perf_counter() - t0}
+        if agree / rows < GATE_ARGMAX:
+            raise AssertionError(f"checkpoint int8 gate: {line['int8_gate']}")
+        del qparams
+        free_memory()
+        # --spec-draft llama3-draft --spec-draft-checkpoint <draft dir>
+        t0 = time.perf_counter()
+        spec_argv = ["run", "in=http", "out=torch", "--model", d, "--port", "0",
+                     "--spec-draft", "llama3-draft", "--spec-draft-checkpoint", draft_dir]
+        from dynamo_tpu_torch.cli.run import start_server
+
+        server = start_server(spec_argv)
+        try:
+            same_tree("checkpoint draft", server.runner.engine.draft_params, draft)
+            status, out, sids, ttft = _post(server.url + "/v1/completions", {
+                "model": d, "prompt": prompt[:600], "max_tokens": 32, "temperature": 0,
+                "stream": True, "ext": {"ignore_eos": True, "return_token_ids": True}})
+            m = server.runner.engine.metrics
+            line["serve_spec"] = {"status": status, "tokens": len(sids), "ttft_s": ttft,
+                                  "spec_drafted": m.spec_drafted,
+                                  "spec_accepted": m.spec_accepted,
+                                  "seconds": time.perf_counter() - t0}
+        finally:
+            server.stop()
+            free_server(server)
+            del server
+        # the served stream against the eager engine of the same knobs on
+        # the written tensors, each token against the target's greedy
+        # choice, and (reported) the target's own decode without a draft
+        spec_ids = tok.encode(prompt[:600])
+        spec_want = eager_stream(dev, params, spec_ids, 32, ("--spec-draft", "llama3-draft"),
+                                 draft)
+        plain = eager_stream(dev, params, spec_ids, 32)
+        gaps = greedy_gaps(dev, cfg, params, spec_ids, sids)
+        line["serve_spec"].update(
+            same_as_eager_spec=sids == spec_want, greedy_gaps=gaps,
+            leading_equal_to_decode=next((i for i, (a, b) in enumerate(zip(sids, plain))
+                                          if a != b), len(plain)))
+        if not (status == 200 and len(sids) == 32 and line["serve_spec"]["spec_drafted"] > 0
+                and sids == spec_want and gaps["max_gap"] < GATE_LOGPROB
+                and gaps["control_gap"] > GATE_LOGPROB):
+            raise AssertionError(f"checkpoint spec serve: {line['serve_spec']}, ids {sids} "
+                                 f"against eager {spec_want}")
+        shutil.rmtree(d)
+        shutil.rmtree(draft_dir)
+        del draft
+        # the GGUF of the same weights
+        path = os.path.join(root, "llama3-1b-f16.gguf")
+        t0 = time.perf_counter()
+        rounded = write_llama_gguf(path, params, cfg, tokens, merges)
+        line["write_gguf_s"] = time.perf_counter() - t0
+        line["gguf_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        g_adapter = get_model(path)
+        line["gguf_parse_s"] = time.perf_counter() - t0
+        # GGUF metadata has no tie flag (the reference's mapping leaves it
+        # False): the file's missing output tensor ties the embedding
+        if g_adapter.config != dataclasses.replace(cfg, tie_word_embeddings=False):
+            raise AssertionError(f"checkpoint: get_model(gguf) gave {g_adapter.config}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = g_adapter.load_params(path, dev)
+        torch.cuda.synchronize()
+        line["load_gguf_s"] = time.perf_counter() - t0
+        same_tree("checkpoint gguf", loaded, rounded)
+        del loaded
+        gtok = GgufTokenizer(path)
+        gids = gtok.encode(prompt)
+        if not (gtok.decode(gids) == prompt and gtok.eos_token_ids == (128001,)
+                and gtok.vocab_size == 128256):
+            raise AssertionError("checkpoint: GgufTokenizer round trip failed")
+        line["gguf_prompt_tokens"] = len(gids)
+        want = eager_stream(dev, rounded, gids, CKPT_SERVE_TOKENS)
+        gguf._PARSE_CACHE.clear()  # the server's start parses the file once, as a fresh one
+        line["serve_gguf"] = serve_file(["run", "in=http", "out=torch", "--model", path,
+                                         "--port", "0"], prompt, want, "checkpoint gguf serve")
+        del rounded, params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_memory()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return {"launches": launches}
+
+
 # -- phase 5: serve ---------------------------------------------------------------
 
 
@@ -3703,6 +4277,8 @@ def main() -> int:
     spec = phase_spec(dev, card)
     free_memory()
     draft = phase_draft(dev, card)
+    free_memory()
+    checkpoint = phase_checkpoint(dev, card)
     # each server's run is the main path of its pool's kernel variants
     launches = {}
     # flash_prefill_attention counts from the bf16 server, int8_matmul from
@@ -3749,6 +4325,9 @@ def main() -> int:
                 # through the CLI's server, bf16 pool (phase "families")
                 "families_launches": families["qwen2-7b"]["launches"].get(variant, 0),
                 "gemma_launches": families["gemma-2b"]["launches"].get(variant, 0),
+                # the CLI's server on a llama3-1b checkpoint directory (phase
+                # "checkpoint", bf16 pool): one 3,000-character completion
+                "checkpoint_launches": checkpoint["launches"].get(variant, 0),
             })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": lines})

@@ -1,11 +1,18 @@
 """`run` — serve a model over the OpenAI HTTP API on one GPU.
 
     python -m dynamo_tpu_torch.cli.run run in=http out=torch --model llama3-1b --port 8080
+    python -m dynamo_tpu_torch.cli.run run in=http out=torch --model <hf dir | file.gguf>
 
 Counterpart of dynamo_tpu/cli/run.py for the `in=http out=<engine>` shape,
-with the TorchEngine as the engine. With no checkpoint the model is
-random-init from a fixed seed and serves the byte tokenizer, as the JAX
-CLI does. A prompt prefills in page-aligned chunks of `--prefill-chunk`
+with the TorchEngine as the engine. `--model` is a preset, a local HF
+checkpoint directory (config.json with safetensors, sharded or not, or
+pytorch_model.bin) or a .gguf file; a directory or file serves its own
+weights, a preset with `--checkpoint DIR` that directory's, and with
+neither the model is random-init from a fixed seed. The card is built as
+the JAX CLI's `_card` builds it: `--tokenizer DIR` serves that HF
+tokenizer; a .gguf file with a vocabulary serves it, with its EOS id, and
+caps the context at the file's; a directory with tokenizer_config.json
+serves its tokenizer; otherwise the byte tokenizer. A prompt prefills in page-aligned chunks of `--prefill-chunk`
 tokens (512 by default, as the JAX CLI's). `--quantize int8` stores the
 layers' dense weights as int8 with per-output-channel scales, and
 `--kv-quantize int8|fp8` the KV pages quantized, as the JAX CLI's flags
@@ -21,8 +28,8 @@ loop, mixed steps and K-step windows off). `--spec-draft NAME` drafts
 target's vocabulary (`llama3-draft` for the llama3 presets; the target's
 own name shares its weights) and verifies and accepts them on the device,
 beside the overlapped loop and mixed steps, as the JAX CLI's flags do;
-`--spec-draft-checkpoint` is refused, since no loader is ported yet. It
-runs on the GPU unless `--device cpu` is given.
+`--spec-draft-checkpoint` loads the draft's weights from an HF directory
+or a .gguf file. It runs on the GPU unless `--device cpu` is given.
 
 `start_server(argv)` builds and starts the same server in-process and
 returns it; `main` blocks serving until interrupted.
@@ -32,11 +39,13 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import threading
 from dataclasses import dataclass
 from typing import Optional
 
+from dynamo_tpu_torch import gguf
 from dynamo_tpu_torch.engine.async_engine import AsyncEngineRunner
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -52,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     runp = sub.add_parser("run", help="serve a model")
     runp.add_argument("io", nargs="*", help="in=http out=torch")
-    runp.add_argument("--model", default="tiny")
+    runp.add_argument("--model", default="tiny",
+                      help="a preset, a local HF checkpoint directory or a .gguf file")
+    runp.add_argument("--checkpoint", default=None, help="local HF checkpoint dir")
+    runp.add_argument("--tokenizer", default=None, help="local tokenizer dir")
     runp.add_argument("--host", default="127.0.0.1")
     runp.add_argument("--port", type=int, default=8080, help="0 picks a free port")
     runp.add_argument("--num-pages", type=int, default=512, dest="num_pages")
@@ -101,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     runp.add_argument(
         "--spec-draft-checkpoint", default=None, dest="spec_draft_checkpoint",
-        help="a checkpoint for the draft's weights (not ported yet: refused)",
+        help="the draft's weights: a local HF checkpoint directory or a .gguf file",
     )
     runp.add_argument("--max-seqs", type=int, default=32, dest="max_seqs")
     runp.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
@@ -130,6 +142,32 @@ def _parse(argv) -> argparse.Namespace:
             "--prefill-chunk must be a multiple of --page-size and at most --max-context"
         )
     return args
+
+
+def model_card(args) -> ModelDeploymentCard:
+    """The card the JAX CLI's `_card` builds: the tokenizer, the context
+    length and the EOS ids from --tokenizer, a .gguf model's vocabulary and
+    limits, or a checkpoint directory's tokenizer."""
+    tokenizer = {"kind": "byte"}
+    context_length = args.max_context
+    eos: tuple[int, ...] = ()
+    if args.tokenizer:
+        tokenizer = {"kind": "hf", "path": args.tokenizer}
+    elif args.model.endswith(".gguf") and os.path.isfile(args.model):
+        g = gguf.read_gguf(args.model)
+        vocab = g.tokenizer_vocab()
+        if vocab is not None:
+            tokenizer = {"kind": "gguf", "path": args.model}
+            if vocab.get("eos_token_id") is not None:
+                eos = (int(vocab["eos_token_id"]),)
+        context_length = min(context_length, g.context_length())
+    elif os.path.isdir(args.model) and os.path.exists(
+            os.path.join(args.model, "tokenizer_config.json")):
+        tokenizer = {"kind": "hf", "path": args.model}
+    return ModelDeploymentCard(
+        name=args.model, tokenizer=tokenizer, context_length=context_length,
+        kv_page_size=args.page_size, **({"eos_token_ids": eos} if eos else {}),
+    )
 
 
 def engine_config(args, eos_token_ids: tuple[int, ...]) -> EngineConfig:
@@ -175,10 +213,9 @@ def start_server(argv) -> Server:
     """Build the engine, its thread and the HTTP server from CLI args, and
     start them; returns once the server is listening."""
     args = _parse(argv)
-    card = ModelDeploymentCard(
-        name=args.model, context_length=args.max_context, kv_page_size=args.page_size
-    )
-    engine = TorchEngine(engine_config(args, card.eos_token_ids), device=args.device)
+    card = model_card(args)
+    engine = TorchEngine(engine_config(args, card.eos_token_ids), device=args.device,
+                         checkpoint_path=args.checkpoint)
     runner = AsyncEngineRunner(engine)
     runner.start()
     manager = ModelManager()

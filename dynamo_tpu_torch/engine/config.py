@@ -18,9 +18,6 @@ from typing import Optional
 #: values that leave their feature off (tuning knobs of an unported
 #: feature: the JAX default). "pallas" is the attention this package runs.
 UNPORTED = {
-    # a draft's weights come from its seed or TorchEngine(draft_params=):
-    # no checkpoint loader is ported yet
-    "spec_draft_checkpoint": (None,),
     "max_waiting": (None,),
     "attention_impl": ("auto", "pallas"),
     "dp": (1,),
@@ -124,6 +121,11 @@ class _PortedKnobs:
     spec_draft_model: Optional[str] = None
     #: drafts proposed and verified per dispatch (the verify is S + 1 wide)
     spec_draft_tokens: int = 4
+    #: where the draft's weights live (an HF checkpoint directory or a
+    #: .gguf file) when its name is a preset; None: the draft name's own
+    #: checkpoint if it names one, else the target's tree for a self-draft,
+    #: else random weights
+    spec_draft_checkpoint: Optional[str] = None
     #: mixed prefill+decode steps: while prefill work and running decodes
     #: coexist, the scheduler emits one `mixed` step carrying a bounded
     #: prefill chunk plus the decode batch, and the engine dispatches both

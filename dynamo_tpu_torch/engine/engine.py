@@ -319,16 +319,20 @@ class _InflightSpec:
 
 class TorchEngine:
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
-                 device=None, *, cuda_graphs: bool = True,
+                 device=None, *, checkpoint_path: Optional[str] = None,
+                 cuda_graphs: bool = True,
                  on_kv_event: Optional[Callable[[KvEvent], None]] = None,
                  draft_params: Optional[dict] = None):
-        """`cuda_graphs=False` runs every dispatch eagerly on the card, as
-        the JAX engine runs under jax.disable_jit(); on the CPU dispatches
-        are always eager. `on_kv_event` receives the prefix cache's
-        `stored` and `removed` events, in order, on the engine's thread.
-        `draft_params` are the speculation draft's weights
-        (config.spec_draft_model; default: the target's for a self-draft,
-        else random from the draft's own seeded generator)."""
+        """With no `params` the weights load from `checkpoint_path`, else
+        from the model name's own checkpoint (an HF directory or a .gguf
+        file), else they are random from seed 0; `quantize="int8"` then
+        quantizes them, as the JAX engine does. `cuda_graphs=False` runs
+        every dispatch eagerly on the card, as the JAX engine runs under
+        jax.disable_jit(); on the CPU dispatches are always eager.
+        `on_kv_event` receives the prefix cache's `stored` and `removed`
+        events, in order, on the engine's thread. `draft_params` are the
+        speculation draft's weights (config.spec_draft_model; default:
+        _init_draft_model's choice)."""
         self.config = config
         self.device = resolve_device(device)
         self._graphs = cuda_graphs and self.device.type == "cuda"
@@ -371,7 +375,11 @@ class TorchEngine:
         # the reference's order: random params straight in the int8 layout,
         # or given params quantized (already-int8 params raise)
         pre_quantized = False
-        if params is None:
+        checkpoint_path = checkpoint_path or self.adapter.default_checkpoint
+        if params is None and checkpoint_path is not None:
+            logger.info("loading %s from %s", config.model, checkpoint_path)
+            params = self.adapter.load_params(checkpoint_path, self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             if config.quantize == "int8":
                 logger.info("initializing random int8 params for %s", config.model)
@@ -1289,10 +1297,13 @@ class TorchEngine:
         """The draft's adapter, weights and KV pool. The pool has the
         target's page count and size, in the model dtype whatever
         kv_quantize says, and is addressed by the same page ids, so the
-        allocator's accounting covers it; its bytes join kv_pool_bytes. A
-        self-draft (the target's own name) shares the target's weights,
-        int8 ones included; another draft's random weights come from a
-        seeded generator of its own, unquantized under quantize too."""
+        allocator's accounting covers it; its bytes join kv_pool_bytes.
+        The weights, as the JAX engine picks them: a self-draft (the
+        target's own name and no spec_draft_checkpoint) shares the
+        target's tree, int8 ones included, also when that name is a
+        checkpoint; else spec_draft_checkpoint or the draft name's own
+        checkpoint loads; with neither, random weights come from a seeded
+        generator of the draft's own. A draft of its own is never quantized."""
         cfg = self.config
         self.draft_adapter = get_model(cfg.spec_draft_model, dtype=cfg.dtype)
         if self.draft_adapter.vocab_size != self.adapter.vocab_size:
@@ -1300,8 +1311,13 @@ class TorchEngine:
                 f"draft model {cfg.spec_draft_model!r} has vocab "
                 f"{self.draft_adapter.vocab_size} but target {cfg.model!r} has "
                 f"{self.adapter.vocab_size}: speculation needs a shared vocabulary")
-        if params is None and cfg.spec_draft_model == cfg.model:
+        ckpt = cfg.spec_draft_checkpoint or self.draft_adapter.default_checkpoint
+        if params is None and cfg.spec_draft_model == cfg.model \
+                and cfg.spec_draft_checkpoint is None:
             params = self.params
+        elif params is None and ckpt is not None:
+            logger.info("loading draft %s from %s", cfg.spec_draft_model, ckpt)
+            params = self.draft_adapter.load_params(ckpt, self.device)
         elif params is None:
             logger.info("initializing random draft params for %s (acceptance sits at chance)",
                         cfg.spec_draft_model)

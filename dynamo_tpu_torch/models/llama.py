@@ -37,6 +37,13 @@ approximation in f32), `rms_norm_unit_offset` (every RMSNorm scales by
 1 + w) and `scale_embeddings` (the embeddings times sqrt(H), the
 normalizer rounded to the model dtype first). All are plain torch ops
 between the kernels.
+
+Checkpoints (`LlamaConfig.from_hf_config`, `params_from_torch_state_dict`,
+`params_from_gguf`): an HF config.json or a GGUF file's metadata maps onto
+the config as the reference maps it, and a config whose forward the port
+lacks is refused by name; the weights arrive one tensor at a time from a
+lazy state dict (models/checkpoint.py) or a GGUF file (gguf.py) and are
+cast and transposed on the device into preallocated layer stacks.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops import KERNELS, Ops
+from dynamo_tpu_torch.ops._counts import HEAD_DIMS
+from dynamo_tpu_torch.ops.flash_prefill import TILE_ROWS
 from dynamo_tpu_torch.ops.kv_quant import (  # noqa: F401 (the model's API, as the JAX package's)
     dequantize_kv_rows,
     kv_quant_spec,
@@ -197,8 +206,8 @@ class LlamaConfig:
     @staticmethod
     def phi3_mini() -> "LlamaConfig":
         """Phi-3-mini-4k: plain Llama with 32 query and 32 KV heads of 96
-        (its checkpoint's fused qkv/gate_up split at load waits for the
-        loaders)."""
+        (its checkpoint's fused qkv/gate_up are split at load,
+        params_from_torch_state_dict)."""
         return LlamaConfig(
             vocab_size=32064, hidden_size=3072, intermediate_size=8192,
             num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
@@ -208,12 +217,53 @@ class LlamaConfig:
     @staticmethod
     def phi4() -> "LlamaConfig":
         """Phi-4 (14B): 40 layers, 40 query heads over 10 KV heads, a
-        250k rope base (its checkpoint's fused qkv/gate_up split at load
-        waits for the loaders)."""
+        250k rope base (its checkpoint's fused qkv/gate_up are split at
+        load, params_from_torch_state_dict)."""
         return LlamaConfig(
             vocab_size=100352, hidden_size=5120, intermediate_size=17920,
             num_layers=40, num_heads=40, num_kv_heads=10, head_dim=128,
             rope_theta=250000.0, rms_norm_eps=1e-5,
+        )
+
+    @staticmethod
+    def from_hf_config(hf: dict) -> "LlamaConfig":
+        """A HuggingFace `config.json` dict as LlamaConfig, each field mapped
+        as the reference's from_hf_config maps it (Llama, Qwen2, Qwen3,
+        Phi-3/Phi-4, Gemma, and Mistral without a window). A config whose
+        forward the port lacks is refused by name (_refuse_hf_config)."""
+        arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+        model_type = hf.get("model_type")
+        _refuse_hf_config(hf, arch, model_type)
+        rope_scaling = hf.get("rope_scaling") or {}
+        factor = None
+        if rope_scaling.get("rope_type", rope_scaling.get("type")) == "llama3":
+            factor = float(rope_scaling["factor"])
+        gemma = model_type == "gemma" or arch == "GemmaForCausalLM"
+        qwen3 = model_type == "qwen3" or arch == "Qwen3ForCausalLM"
+        hidden_act = hf.get("hidden_activation") or hf.get("hidden_act", "silu")
+        if hidden_act in ("gelu_pytorch_tanh", "gelu_tanh", "gelu"):
+            hidden_act = "gelu_tanh"
+        return LlamaConfig(
+            attention_bias=bool(hf.get("attention_bias", arch == "Qwen2ForCausalLM")),
+            qk_norm=qwen3,
+            hidden_act=hidden_act,
+            rms_norm_unit_offset=gemma,
+            scale_embeddings=gemma,
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim") or hf["hidden_size"] // hf["num_attention_heads"],
+            rope_theta=float(hf.get("rope_theta", 10000.0)),
+            rms_norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+            tie_word_embeddings=bool(hf.get("tie_word_embeddings", gemma)),
+            rope_scaling_factor=factor,
+            rope_low_freq_factor=float(rope_scaling.get("low_freq_factor", 1.0)),
+            rope_high_freq_factor=float(rope_scaling.get("high_freq_factor", 4.0)),
+            rope_original_max_position=int(
+                rope_scaling.get("original_max_position_embeddings") or 8192),
         )
 
     @staticmethod
@@ -224,6 +274,77 @@ class LlamaConfig:
             num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
             rope_theta=10000.0, dtype=torch.float32,
         )
+
+
+#: HF architectures and model types whose forward the port lacks -> why
+_UNSERVED_HF = (
+    (("Gemma2ForCausalLM", "Gemma3ForCausalLM"), ("gemma2", "gemma3_text", "gemma3"),
+     "Gemma2/Gemma3 (sliding windows, logit softcaps, query_pre_attn_scalar, post-block "
+     "norms)"),
+    (("Llama4ForCausalLM",), ("llama4_text", "llama4"),
+     "Llama-4 (chunked attention, NoPE layers, MoE)"),
+    (("GptOssForCausalLM",), ("gpt_oss",), "GPT-OSS (sinks, windows, YaRN, MoE)"),
+    (("MixtralForCausalLM", "Qwen3MoeForCausalLM", "Qwen2MoeForCausalLM"),
+     ("mixtral", "qwen3_moe", "qwen2_moe"), "the MoE families"),
+    (("DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM"), ("deepseek_v2", "deepseek_v3"),
+     "the MLA families (DeepSeek-V2/V3)"),
+    (("Qwen2VLForConditionalGeneration", "Qwen2_5_VLForConditionalGeneration"),
+     ("qwen2_vl", "qwen2_5_vl"), "the Qwen2-VL families (m-RoPE, a vision tower)"),
+)
+
+
+def _refuse_hf_config(hf: dict, arch: str, model_type: Optional[str]) -> None:
+    """Raise ValueError, by name, for a config the port's forward does not
+    serve yet: the families above, Mistral's sliding window, a yarn, linear
+    or other non-llama3 rope scaling, a partial rotary factor, a quantized
+    checkpoint, and (as the reference) an unknown hidden_act."""
+    for archs, types, what in _UNSERVED_HF:
+        if arch in archs or model_type in types:
+            raise ValueError(f"{arch} ({model_type}): {what} is not served by "
+                             "dynamo_tpu_torch yet")
+    # the reference's llama-family test (dynamo_tpu/models/registry.py:396-407)
+    if not ("llama" in arch.lower() or "qwen2" in arch.lower()
+            or arch in ("GemmaForCausalLM", "MistralForCausalLM", "Qwen3ForCausalLM",
+                        "Phi3ForCausalLM")
+            or model_type in ("gemma", "mistral", "qwen3", "phi3")):
+        raise ValueError(f"unsupported architecture {arch} ({model_type})")
+    if (model_type == "mistral" or arch == "MistralForCausalLM") and hf.get("sliding_window"):
+        raise ValueError(f"Mistral's sliding_window={hf['sliding_window']} is not served by "
+                         "dynamo_tpu_torch yet (no window in its kernels)")
+    rope_scaling = hf.get("rope_scaling") or {}
+    rs_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
+    if rope_scaling and rs_type != "llama3":
+        raise ValueError(f"unsupported rope_scaling type {rs_type!r}: dynamo_tpu_torch serves "
+                         "llama3 NTK scaling only (yarn and linear are not ported yet)")
+    if float(hf.get("partial_rotary_factor") or 1.0) != 1.0:
+        raise ValueError(f"partial_rotary_factor={hf['partial_rotary_factor']} is not served "
+                         "by dynamo_tpu_torch (rope covers the whole head)")
+    if hf.get("quantization_config"):
+        method = hf["quantization_config"].get("quant_method", "?")
+        raise ValueError(f"quantization_config ({method}): quantized checkpoints are not "
+                         "served by dynamo_tpu_torch (F32, F16 and BF16 weights only)")
+    act = hf.get("hidden_activation") or hf.get("hidden_act", "silu")
+    if act not in ("gelu_pytorch_tanh", "gelu_tanh", "gelu", "silu"):
+        raise ValueError(f"unsupported hidden_act {act!r} in HF config")
+
+
+def refuse_unserved_kernel_shapes(cfg: LlamaConfig) -> None:
+    """Raise ValueError, naming the kernel limit, for a config the CUDA
+    kernels cannot run: a head_dim outside ops/_counts.HEAD_DIMS (every
+    attention kernel and the quantizing write), or a query group
+    num_heads / num_kv_heads over the prefill kernels' 128 tile rows
+    (ops/flash_prefill.TILE_ROWS). The plain versions take any shape, so
+    only a load onto the card is refused."""
+    if cfg.head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {cfg.head_dim} is not served on the card: the CUDA "
+                         f"attention kernels take head_dim {', '.join(map(str, HEAD_DIMS))}")
+    if cfg.num_heads % cfg.num_kv_heads:
+        raise ValueError(f"num_heads {cfg.num_heads} is not a multiple of num_kv_heads "
+                         f"{cfg.num_kv_heads}")
+    group = cfg.num_heads // cfg.num_kv_heads
+    if group > TILE_ROWS:
+        raise ValueError(f"a query group of {group} heads is not served on the card: the CUDA "
+                         f"prefill kernels take at most {TILE_ROWS} (their tile's rows)")
 
 
 class KVPages(NamedTuple):
@@ -462,6 +583,181 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
     if np_params.get("lm_head") is not None:
         params["lm_head"] = conv(np_params["lm_head"])
     return params
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+#: layer leaf -> (HF name under model.layers.{l}., transposed [out, in] -> [in, out])
+_HF_LAYER = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "w_gate": ("mlp.gate_proj.weight", True),
+    "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+    "q_norm": ("self_attn.q_norm.weight", False),
+    "k_norm": ("self_attn.k_norm.weight", False),
+}
+#: the same for a GGUF file's blk.{l}. tensors
+_GGUF_LAYER = {
+    "attn_norm": ("attn_norm.weight", False),
+    "wq": ("attn_q.weight", True),
+    "wk": ("attn_k.weight", True),
+    "wv": ("attn_v.weight", True),
+    "wo": ("attn_output.weight", True),
+    "mlp_norm": ("ffn_norm.weight", False),
+    "w_gate": ("ffn_gate.weight", True),
+    "w_up": ("ffn_up.weight", True),
+    "w_down": ("ffn_down.weight", True),
+    "bq": ("attn_q.bias", False),
+    "bk": ("attn_k.bias", False),
+    "bv": ("attn_v.bias", False),
+    "q_norm": ("attn_q_norm.weight", False),
+    "k_norm": ("attn_k_norm.weight", False),
+}
+
+
+def _check_names(kind: str, have, want: set, optional: set) -> None:
+    """Refuse a checkpoint with a tensor the forward would not read, or
+    without one it reads, naming them."""
+    unknown = sorted(set(have) - want - optional)
+    missing = sorted(want - set(have))
+    if unknown or missing:
+        raise ValueError(f"{kind}: tensors {unknown[:8]}{' ...' if len(unknown) > 8 else ''} "
+                         f"are not read by this config's forward and {missing[:8]}"
+                         f"{' ...' if len(missing) > 8 else ''} are missing")
+
+
+def _load_tree(cfg: LlamaConfig, device, layer, top: dict) -> dict:
+    """The layer-stacked param tree, one tensor at a time: layer(leaf, li)
+    gives (name, tensor, transposed) for a layer leaf, `top` maps "embed",
+    "final_norm" and, untied, "lm_head" to (name, tensor); each tensor in
+    the file's layout (numpy order, [out, in]) and dtype, on the CPU or the
+    device. Each stack is preallocated [L, ...] in cfg.dtype on the device
+    and filled by copy_, which casts and transposes there (the cast rounds
+    f32 or f16 to the model dtype once, as the reference's f32 -> dtype)."""
+
+    def put(dst: torch.Tensor, name: str, src: torch.Tensor, transpose: bool) -> None:
+        want = tuple(dst.shape[::-1]) if transpose else tuple(dst.shape)
+        if tuple(src.shape) != want:
+            raise ValueError(f"tensor {name!r} has shape {tuple(src.shape)}, the config "
+                             f"wants {want}")
+        x = src.to(device)
+        dst.copy_(x.T if transpose else x)
+
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"attn_norm": (h,), "mlp_norm": (h,), "wq": (h, qd), "wk": (h, kvd),
+              "wv": (h, kvd), "wo": (qd, h), "w_gate": (h, i), "w_up": (h, i),
+              "w_down": (i, h), "bq": (qd,), "bk": (kvd,), "bv": (kvd,),
+              "q_norm": (cfg.head_dim,), "k_norm": (cfg.head_dim,),
+              "embed": (v, h), "final_norm": (h,), "lm_head": (h, v)}
+
+    def empty(key, layers=()):
+        return torch.empty((*layers, *shapes[key]), dtype=cfg.dtype, device=device)
+
+    params = {"layers": {}}
+    for leaf in _layer_keys(cfg):
+        stack = params["layers"][leaf] = empty(leaf, (cfg.num_layers,))
+        for li in range(cfg.num_layers):
+            put(stack[li], *layer(leaf, li))
+    for key, (name, src) in top.items():
+        params[key] = empty(key)
+        put(params[key], name, src, key == "lm_head")
+    return params
+
+
+def params_from_torch_state_dict(state_dict, cfg: LlamaConfig, device=None) -> dict:
+    """An HF Llama-family state dict (name -> CPU tensor; a lazy
+    models/checkpoint.StateDict loads one tensor at a time) as the port's
+    params, as the reference's params_from_torch_state_dict maps it: HF's
+    [out, in] projections become [in, out], stacked along L; Phi-3/Phi-4's
+    fused qkv_proj and gate_up_proj are split (q/k/v, then gate/up, as HF
+    chunks them); q/k/v biases and q/k norms are carried for attention_bias
+    and qk_norm; the embedding is tied when lm_head.weight is absent or
+    the config ties it. Refuses a tensor the forward would not read and
+    names one it lacks (rotary inv_freq buffers aside). On `cuda` unless
+    the caller asks for `cpu`."""
+    device = resolve_device(device)
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    i = cfg.intermediate_size
+    #: fused leaf -> (HF name, its rows)
+    splits = {"wq": ("self_attn.qkv_proj.weight", slice(0, qd)),
+              "wk": ("self_attn.qkv_proj.weight", slice(qd, qd + kvd)),
+              "wv": ("self_attn.qkv_proj.weight", slice(qd + kvd, qd + 2 * kvd)),
+              "w_gate": ("mlp.gate_up_proj.weight", slice(0, i)),
+              "w_up": ("mlp.gate_up_proj.weight", slice(i, 2 * i))} \
+        if "model.layers.0.self_attn.qkv_proj.weight" in state_dict else {}
+
+    def hf_name(leaf, li):
+        return f"model.layers.{li}.{splits[leaf][0] if leaf in splits else _HF_LAYER[leaf][0]}"
+
+    def layer(leaf, li):
+        name = hf_name(leaf, li)
+        if leaf in splits:
+            return name, state_dict[name][splits[leaf][1]], True
+        return name, state_dict[name], _HF_LAYER[leaf][1]
+
+    want = {"model.embed_tokens.weight", "model.norm.weight"} | {
+        hf_name(leaf, li) for li in range(cfg.num_layers) for leaf in _layer_keys(cfg)}
+    optional = {"lm_head.weight"} | {k for k in state_dict if k.endswith("rotary_emb.inv_freq")}
+    _check_names("params_from_torch_state_dict", state_dict, want, optional)
+    top = {"embed": "model.embed_tokens.weight", "final_norm": "model.norm.weight"}
+    if "lm_head.weight" in state_dict and not cfg.tie_word_embeddings:
+        top["lm_head"] = "lm_head.weight"
+    return _load_tree(cfg, device, layer, {k: (n, state_dict[n]) for k, n in top.items()})
+
+
+def _unpermute_rows(w: torch.Tensor, n_head: int) -> torch.Tensor:
+    """The inverse of llama.cpp's convert_hf_to_gguf permute of q/k rows
+    (reshape(h, 2, d/2, in).swapaxes(1, 2)): back to HF's half-split rope
+    pairing, which apply_rope uses."""
+    out, inn = w.shape
+    d = out // n_head
+    return w.reshape(n_head, d // 2, 2, inn).transpose(1, 2).reshape(out, inn)
+
+
+def params_from_gguf(gguf_file, cfg: LlamaConfig, device=None) -> dict:
+    """A GGUF file's tensors (dynamo_tpu_torch/gguf.py's GgufFile) as the
+    port's params, as the reference's params_from_gguf maps them:
+    token_embd, blk.{l}.{attn_norm, attn_q, attn_k, attn_v, attn_output,
+    ffn_norm, ffn_gate, ffn_up, ffn_down} (and the q/k/v biases or q/k
+    norms of qwen2 and qwen3 files), output_norm, and output when the file
+    has one (else the embedding is tied). F32/F16 load as they are,
+    quantized types dequantized to f32; `llama`-arch q/k rows are
+    un-permuted from llama.cpp's interleaved rope order, on the device
+    (qwen2/qwen3 files are not permuted by the converter). Refuses a tensor
+    the forward would not read (rope_freqs, say) and names one it lacks.
+    On `cuda` unless the caller asks for `cpu`."""
+    device = resolve_device(device)
+    g = gguf_file
+    permute = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads} if g.architecture() == "llama" \
+        else {}
+
+    def tensor(name):
+        return torch.from_numpy(g.load_tensor(name))
+
+    def layer(leaf, li):
+        name = f"blk.{li}.{_GGUF_LAYER[leaf][0]}"
+        w = tensor(name)
+        if leaf in permute:
+            w = _unpermute_rows(w.to(device), permute[leaf])
+        return name, w, _GGUF_LAYER[leaf][1]
+
+    want = {"token_embd.weight", "output_norm.weight"} | {
+        f"blk.{li}.{_GGUF_LAYER[leaf][0]}" for li in range(cfg.num_layers)
+        for leaf in _layer_keys(cfg)}
+    _check_names("params_from_gguf", g.tensors, want, {"output.weight"})
+    top = {"embed": "token_embd.weight", "final_norm": "output_norm.weight"}
+    if "output.weight" in g.tensors:
+        top["lm_head"] = "output.weight"
+    return _load_tree(cfg, device, layer, {k: (n, tensor(n)) for k, n in top.items()})
 
 
 # -- blocks -----------------------------------------------------------------------

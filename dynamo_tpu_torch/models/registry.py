@@ -1,21 +1,28 @@
-"""Model registry: a preset name -> the model's config and functions.
+"""Model registry: a preset name, an HF checkpoint directory or a GGUF
+file -> the model's config and functions.
 
 Counterpart of dynamo_tpu/models/registry.py::get_model for the llama
-presets the port's kernels serve (head_dim 64, 96, 128 or 256): the
-Llama-3 sizes, Qwen2 (q/k/v bias), Qwen3 (per-head q/k RMSNorm), Phi-3-mini
-(head_dim 96), Phi-4 and Gemma-2B/7B (head_dim 256, GeGLU, the (1 + w)
-RMSNorm, scaled embeddings). Other families, HF checkpoint directories and
-GGUF files wait for later work and raise.
+family the port's kernels serve (head_dim 64, 96, 128 or 256): the
+presets (the Llama-3 sizes, Qwen2 (q/k/v bias), Qwen3 (per-head q/k
+RMSNorm), Phi-3-mini (head_dim 96), Phi-4 and Gemma-2B/7B (head_dim 256,
+GeGLU, the (1 + w) RMSNorm, scaled embeddings)); a local directory whose
+config.json LlamaConfig.from_hf_config accepts; and a `.gguf` file of an
+architecture the reference accepts whose config the port serves. A
+directory or file name is the adapter's `default_checkpoint`, which the
+engine loads through `load_params`. Other families raise by name.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import torch
 
-from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch import gguf
+from dynamo_tpu_torch.models import checkpoint, llama
 from dynamo_tpu_torch.models.llama import LlamaConfig
 
 _LLAMA_PRESETS: dict[str, Callable[[], LlamaConfig]] = {
@@ -48,6 +55,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class ModelAdapter:
     name: str
     config: LlamaConfig
+    #: where the weights live when the model name itself names them (an HF
+    #: checkpoint directory or a .gguf file); the engine loads from here
+    #: when it is given no checkpoint_path
+    default_checkpoint: Optional[str] = None
 
     @property
     def vocab_size(self) -> int:
@@ -55,6 +66,18 @@ class ModelAdapter:
 
     def init_params(self, generator: torch.Generator) -> dict:
         return llama.init_params(generator, self.config)
+
+    def load_params(self, path: str, device=None) -> dict:
+        """The weights of a checkpoint for this config: a `.gguf` file, or
+        an HF directory (safetensors, sharded or not, or pytorch_model.bin).
+        On `cuda` unless the caller asks for `cpu`; on the card a config its
+        kernels cannot run is refused before any weight is read."""
+        if torch.device(device or "cuda").type == "cuda":
+            llama.refuse_unserved_kernel_shapes(self.config)
+        if path.lower().endswith(".gguf"):
+            return llama.params_from_gguf(gguf.read_gguf(path), self.config, device)
+        return llama.params_from_torch_state_dict(checkpoint.load_state_dict(path),
+                                                  self.config, device)
 
     def quantize_params(self, params: dict) -> dict:
         """Weight-only int8 (`quantize="int8"`) of model-dtype params."""
@@ -79,17 +102,26 @@ class ModelAdapter:
 
 
 def get_model(name: str, dtype: Optional[str] = None) -> ModelAdapter:
-    """Resolve a llama preset name; `dtype` ("bfloat16" | "float32")
-    overrides the preset's."""
+    """Resolve a llama preset name, a `.gguf` file or an HF checkpoint
+    directory (config.json); `dtype` ("bfloat16" | "float32") overrides
+    the config's."""
     key = name.lower()
-    if key not in _LLAMA_PRESETS:
+    default_checkpoint = None
+    if key in _LLAMA_PRESETS:
+        cfg = _LLAMA_PRESETS[key]()
+    elif key.endswith(".gguf") and os.path.isfile(name):
+        cfg, key, default_checkpoint = gguf.read_gguf(name).to_llama_config(), name, name
+    elif os.path.isdir(name) and os.path.exists(os.path.join(name, "config.json")):
+        with open(os.path.join(name, "config.json")) as f:
+            cfg = LlamaConfig.from_hf_config(json.load(f))
+        key, default_checkpoint = name, name
+    else:
         raise ValueError(
             f"unknown model {name!r}; dynamo_tpu_torch serves the presets "
-            f"{sorted(_LLAMA_PRESETS)}"
+            f"{sorted(_LLAMA_PRESETS)}, a local HF checkpoint directory or a .gguf file"
         )
-    cfg = _LLAMA_PRESETS[key]()
     if dtype is not None:
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}; use one of {sorted(_DTYPES)}")
         cfg = replace(cfg, dtype=_DTYPES[dtype])
-    return ModelAdapter(name=key, config=cfg)
+    return ModelAdapter(name=key, config=cfg, default_checkpoint=default_checkpoint)

@@ -6,6 +6,8 @@ from dynamo_tpu_torch.preprocessor.preprocessor import (
 from dynamo_tpu_torch.preprocessor.stop import StopChecker
 from dynamo_tpu_torch.preprocessor.tokenizer import (
     ByteTokenizer,
+    GgufTokenizer,
+    HfTokenizer,
     Tokenizer,
     load_tokenizer,
 )
@@ -13,6 +15,8 @@ from dynamo_tpu_torch.preprocessor.tokenizer import (
 __all__ = [
     "ByteTokenizer",
     "DecodeStream",
+    "GgufTokenizer",
+    "HfTokenizer",
     "OpenAIPreprocessor",
     "PreprocessedRequest",
     "StopChecker",

@@ -18,8 +18,10 @@ import dynamo_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "dynamo_tpu_torch"
+#: jax and the JAX package, and packages the CPU test environment installs
+#: that the GPU serving machine lacks: the port may import none of them
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "xxhash", "msgpack",
-           "transformers", "triton")
+           "transformers", "triton", "safetensors", "tokenizers", "jinja2", "gguf")
 
 
 def _port_modules() -> list[str]:

@@ -6,8 +6,8 @@ dispatch, S greedy proposals, the target's verify and the acceptance scan
 in one step function; the draft keeps a KV pool of its own, brought up to
 each prefill piece's end by chunk steps ("spec_draft_prefill", B, T,
 first_chunk). The cases are the JAX package's (tests/test_spec_draft.py),
-plus the policy (K-step windows off, the CLI flags, the refusal of a
-draft checkpoint), windows that start mid-page in both pools, and a
+plus the policy (K-step windows off, the CLI flags, a draft checkpoint
+reaching the config), windows that start mid-page in both pools, and a
 prefix hit, whose cached pages the draft's cover writes again in the
 draft pool only. Both engines run the tiny config in float32 on the JAX
 engine's weights; a distinct draft is a second tiny tree drawn from
@@ -122,24 +122,28 @@ def _staggered():
 
 
 def test_knobs_reach_the_config_and_the_checkpoint_is_refused():
-    """spec_draft_model and spec_draft_tokens are ported (defaults None
-    and 4), the CLI's --spec-draft and --spec-draft-tokens reach them, and
-    spec_draft_checkpoint, which has no loader yet, is refused by name,
-    from the config and from --spec-draft-checkpoint."""
+    """spec_draft_model, spec_draft_tokens and spec_draft_checkpoint are
+    ported (defaults None, 4 and None), and the CLI's --spec-draft,
+    --spec-draft-tokens and --spec-draft-checkpoint reach them (the
+    checkpoint's loading is tests/test_torch_checkpoint.py's); no draft
+    knob is refused any more. The name is kept from when the draft
+    checkpoint had no loader and was refused: the test now checks that
+    it reaches the config."""
     cfg = EngineConfig.for_tests()
-    assert (cfg.spec_draft_model, cfg.spec_draft_tokens) == (None, 4)
-    assert not {"spec_draft_model", "spec_draft_tokens"} & UNPORTED.keys()
-    assert UNPORTED["spec_draft_checkpoint"] == (None,)
+    assert (cfg.spec_draft_model, cfg.spec_draft_tokens, cfg.spec_draft_checkpoint) == \
+        (None, 4, None)
+    assert not {"spec_draft_model", "spec_draft_tokens", "spec_draft_checkpoint"} \
+        & UNPORTED.keys()
     args = cli_run._parse(["run", "--spec-draft", "llama3-draft", "--spec-draft-tokens", "3"])
     cfg = cli_run.engine_config(args, ())
     assert (cfg.spec_draft_model, cfg.spec_draft_tokens) == ("llama3-draft", 3)
     default = cli_run.engine_config(cli_run._parse(["run"]), ())
     assert (default.spec_draft_model, default.spec_draft_tokens) == (None, 4)
-    with pytest.raises(NotImplementedError, match="spec_draft_checkpoint"):
-        EngineConfig.for_tests(spec_draft_model="tiny", spec_draft_checkpoint="/ckpt")
-    with pytest.raises(NotImplementedError, match="spec_draft_checkpoint"):
-        cli_run.engine_config(cli_run._parse(["run", "--spec-draft", "tiny",
-                                              "--spec-draft-checkpoint", "/ckpt"]), ())
+    assert EngineConfig.for_tests(spec_draft_model="tiny", spec_draft_checkpoint="/ckpt") \
+        .spec_draft_checkpoint == "/ckpt"
+    cfg = cli_run.engine_config(cli_run._parse(["run", "--spec-draft", "tiny",
+                                                "--spec-draft-checkpoint", "/ckpt"]), ())
+    assert cfg.spec_draft_checkpoint == "/ckpt"
 
 
 def test_spec_modes_mutually_exclusive():
