@@ -237,7 +237,8 @@ Phases, each fatal on failure:
      into a temporary directory and removed after their part
      (phase_checkpoint): an HF directory (Llama-3.2-1B's published
      config.json, bf16 safetensors of seeded random weights, a synthetic
-     byte-level BPE tokenizer.json of Llama-3's 128,256 entries, no chat
+     byte-level BPE tokenizer.json of Llama-3's 128,256 entries, a
+     tokenizer_config.json with the transcribed Llama-3.1-8B-Instruct chat
      template), a llama3-draft-shaped directory, and an F16 `llama`-arch
      GGUF of the same weights (q/k rows permuted, a gpt2-style
      vocabulary). Each loaded tree must equal what was written bit for bit
@@ -247,11 +248,20 @@ Phases, each fatal on failure:
      ids of an eager in-process engine on the written tensors, the
      directory under --quantize int8 must pass the model gate, and
      --spec-draft llama3-draft --spec-draft-checkpoint <draft dir> must
-     serve with the draft's written weights. The kernels line's
-     `checkpoint_launches` are the directory's server's launches over its
-     request (counts set to 0 just before). Printed beside the card: load
-     and write seconds, the tokenizer's encode ms of the prompt (first and
-     warm) and each server's TTFT;
+     serve with the draft's written weights. The chat template: the
+     render of a chat with a system message, three turns and two tools
+     must have the committed SHA-256 (CHAT_RENDER_SHA256, which a CPU test
+     recomputes through transformers) and hold Llama-3's header and turn
+     specials as their ids; the directory's server must answer that chat,
+     streamed, with usage counting the render's tokens and an eager
+     engine's ids on them, and a completion of the render must do the
+     same. The kernels line's `checkpoint_launches` are the directory's
+     server's launches over its completion (counts set to 0 just before).
+     Printed beside the card: load and write seconds, the tokenizer's
+     encode ms of the prompt (first and warm) and each server's TTFT, the
+     render ms of a 32-turn, four-tool conversation under each of
+     CHAT_TEMPLATES, the chat's encode ms, and its TTFT beside the
+     completion's of the same render (each on a cleared prefix cache);
   5. serve: the CLI's HTTP server in-process with llama3-1b in bf16 at the
      CLI's default chunk of 512 tokens, and ten requests (three streaming
      chats, a streaming chat whose prompt is over 1,200 tokens and so
@@ -306,6 +316,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -3341,6 +3352,452 @@ CKPT_OOV_LATIN = "abcdefghijklmnopqrstuvwxyz", "àáâãäåæçèéêëìíîï
 #: the CLI's server on each file: the defaults, the model and port
 CKPT_SERVE_TOKENS = 16
 
+#: the served families' chat templates (each repo's tokenizer_config.json
+#: `chat_template` on the Hugging Face Hub), transcribed; none is fetched.
+#: Every check holds the port's render against transformers' render of the
+#: same string (tests/test_torch_chat_template.py), so a transcription that
+#: differs from the Hub's file weakens no check
+_TPL_LLAMA31 = r"""{{- bos_token }}
+{%- if custom_tools is defined %}
+    {%- set tools = custom_tools %}
+{%- endif %}
+{%- if not tools_in_user_message is defined %}
+    {%- set tools_in_user_message = true %}
+{%- endif %}
+{%- if not date_string is defined %}
+    {%- set date_string = "26 Jul 2024" %}
+{%- endif %}
+{%- if not tools is defined %}
+    {%- set tools = none %}
+{%- endif %}
+
+{#- This block extracts the system message, so we can slot it into the right place. #}
+{%- if messages[0]['role'] == 'system' %}
+    {%- set system_message = messages[0]['content']|trim %}
+    {%- set messages = messages[1:] %}
+{%- else %}
+    {%- set system_message = "" %}
+{%- endif %}
+
+{#- System message + builtin tools #}
+{{- "<|start_header_id|>system<|end_header_id|>\n\n" }}
+{%- if builtin_tools is defined or tools is not none %}
+    {{- "Environment: ipython\n" }}
+{%- endif %}
+{%- if builtin_tools is defined %}
+    {{- "Tools: " + builtin_tools | reject('equalto', 'code_interpreter') | join(", ") + "\n\n"}}
+{%- endif %}
+{{- "Cutting Knowledge Date: December 2023\n" }}
+{{- "Today Date: " + date_string + "\n\n" }}
+{%- if tools is not none and not tools_in_user_message %}
+    {{- "You have access to the following functions. To call a function, please respond with JSON for a function call." }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\n\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\n\n" }}
+    {%- endfor %}
+{%- endif %}
+{{- system_message }}
+{{- "<|eot_id|>" }}
+
+{#- Custom tools are passed in a user message with some extra guidance #}
+{%- if tools_in_user_message and not tools is none %}
+    {#- Extract the first user message so we can plug it in here #}
+    {%- if messages | length != 0 %}
+        {%- set first_user_message = messages[0]['content']|trim %}
+        {%- set messages = messages[1:] %}
+    {%- else %}
+        {{- raise_exception("Cannot put tools in the first user message when there's no first user message!") }}
+{%- endif %}
+    {{- '<|start_header_id|>user<|end_header_id|>\n\n' -}}
+    {{- "Given the following functions, please respond with a JSON for a function call " }}
+    {{- "with its proper arguments that best answers the given prompt.\n\n" }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\n\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\n\n" }}
+    {%- endfor %}
+    {{- first_user_message + "<|eot_id|>"}}
+{%- endif %}
+
+{%- for message in messages %}
+    {%- if not (message.role == 'ipython' or message.role == 'tool' or 'tool_calls' in message) %}
+        {{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' }}
+    {%- elif 'tool_calls' in message %}
+        {%- if not message.tool_calls|length == 1 %}
+            {{- raise_exception("This model only supports single tool-calls at once!") }}
+        {%- endif %}
+        {%- set tool_call = message.tool_calls[0].function %}
+        {%- if builtin_tools is defined and tool_call.name in builtin_tools %}
+            {{- '<|start_header_id|>assistant<|end_header_id|>\n\n' -}}
+            {{- "<|python_tag|>" + tool_call.name + ".call(" }}
+            {%- for arg_name, arg_val in tool_call.arguments | items %}
+                {{- arg_name + '="' + arg_val + '"' }}
+                {%- if not loop.last %}
+                    {{- ", " }}
+                {%- endif %}
+                {%- endfor %}
+            {{- ")" }}
+        {%- else  %}
+            {{- '<|start_header_id|>assistant<|end_header_id|>\n\n' -}}
+            {{- '{"name": "' + tool_call.name + '", ' }}
+            {{- '"parameters": ' }}
+            {{- tool_call.arguments | tojson }}
+            {{- "}" }}
+        {%- endif %}
+        {%- if builtin_tools is defined %}
+            {#- This means we're in ipython mode #}
+            {{- "<|eom_id|>" }}
+        {%- else %}
+            {{- "<|eot_id|>" }}
+        {%- endif %}
+    {%- elif message.role == "tool" or message.role == "ipython" %}
+        {{- "<|start_header_id|>ipython<|end_header_id|>\n\n" }}
+        {%- if message.content is mapping or message.content is iterable %}
+            {{- message.content | tojson }}
+        {%- else %}
+            {{- message.content }}
+        {%- endif %}
+        {{- "<|eot_id|>" }}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- '<|start_header_id|>assistant<|end_header_id|>\n\n' }}
+{%- endif %}
+"""
+
+_TPL_LLAMA32 = r"""{{- bos_token }}
+{%- if custom_tools is defined %}
+    {%- set tools = custom_tools %}
+{%- endif %}
+{%- if not tools_in_user_message is defined %}
+    {%- set tools_in_user_message = true %}
+{%- endif %}
+{%- if not date_string is defined %}
+    {%- if strftime_now is defined %}
+        {%- set date_string = strftime_now("%d %b %Y") %}
+    {%- else %}
+        {%- set date_string = "26 Jul 2024" %}
+    {%- endif %}
+{%- endif %}
+{%- if not tools is defined %}
+    {%- set tools = none %}
+{%- endif %}
+
+{#- This block extracts the system message, so we can slot it into the right place. #}
+{%- if messages[0]['role'] == 'system' %}
+    {%- set system_message = messages[0]['content']|trim %}
+    {%- set messages = messages[1:] %}
+{%- else %}
+    {%- set system_message = "" %}
+{%- endif %}
+
+{#- System message #}
+{{- "<|start_header_id|>system<|end_header_id|>\n\n" }}
+{%- if tools is not none %}
+    {{- "Environment: ipython\n" }}
+{%- endif %}
+{{- "Cutting Knowledge Date: December 2023\n" }}
+{{- "Today Date: " + date_string + "\n\n" }}
+{%- if tools is not none and not tools_in_user_message %}
+    {{- "You have access to the following functions. To call a function, please respond with JSON for a function call." }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\n\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\n\n" }}
+    {%- endfor %}
+{%- endif %}
+{{- system_message }}
+{{- "<|eot_id|>" }}
+
+{#- Custom tools are passed in a user message with some extra guidance #}
+{%- if tools_in_user_message and not tools is none %}
+    {#- Extract the first user message so we can plug it in here #}
+    {%- if messages | length != 0 %}
+        {%- set first_user_message = messages[0]['content']|trim %}
+        {%- set messages = messages[1:] %}
+    {%- else %}
+        {{- raise_exception("Cannot put tools in the first user message when there's no first user message!") }}
+{%- endif %}
+    {{- '<|start_header_id|>user<|end_header_id|>\n\n' -}}
+    {{- "Given the following functions, please respond with a JSON for a function call " }}
+    {{- "with its proper arguments that best answers the given prompt.\n\n" }}
+    {{- 'Respond in the format {"name": function name, "parameters": dictionary of argument name and its value}.' }}
+    {{- "Do not use variables.\n\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\n\n" }}
+    {%- endfor %}
+    {{- first_user_message + "<|eot_id|>"}}
+{%- endif %}
+
+{%- for message in messages %}
+    {%- if not (message.role == 'ipython' or message.role == 'tool' or 'tool_calls' in message) %}
+        {{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' }}
+    {%- elif 'tool_calls' in message %}
+        {%- if not message.tool_calls|length == 1 %}
+            {{- raise_exception("This model only supports single tool-calls at once!") }}
+        {%- endif %}
+        {%- set tool_call = message.tool_calls[0].function %}
+        {{- '<|start_header_id|>assistant<|end_header_id|>\n\n' -}}
+        {{- '{"name": "' + tool_call.name + '", ' }}
+        {{- '"parameters": ' }}
+        {{- tool_call.arguments | tojson }}
+        {{- "}" }}
+        {{- "<|eot_id|>" }}
+    {%- elif message.role == "tool" or message.role == "ipython" %}
+        {{- "<|start_header_id|>ipython<|end_header_id|>\n\n" }}
+        {%- if message.content is mapping or message.content is iterable %}
+            {{- message.content | tojson }}
+        {%- else %}
+            {{- message.content }}
+        {%- endif %}
+        {{- "<|eot_id|>" }}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- '<|start_header_id|>assistant<|end_header_id|>\n\n' }}
+{%- endif %}
+"""
+
+_TPL_QWEN2 = r"""{% for message in messages %}{% if loop.first and messages[0]['role'] != 'system' %}{{ '<|im_start|>system
+You are a helpful assistant.<|im_end|>
+' }}{% endif %}{{'<|im_start|>' + message['role'] + '
+' + message['content'] + '<|im_end|>' + '
+'}}{% endfor %}{% if add_generation_prompt %}{{ '<|im_start|>assistant
+' }}{% endif %}"""
+
+_TPL_QWEN25 = r"""{%- if tools %}
+    {{- '<|im_start|>system\n' }}
+    {%- if messages[0]['role'] == 'system' %}
+        {{- messages[0]['content'] }}
+    {%- else %}
+        {{- 'You are Qwen, created by Alibaba Cloud. You are a helpful assistant.' }}
+    {%- endif %}
+    {{- "\n\n# Tools\n\nYou may call one or more functions to assist with the user query.\n\nYou are provided with function signatures within <tools></tools> XML tags:\n<tools>" }}
+    {%- for tool in tools %}
+        {{- "\n" }}
+        {{- tool | tojson }}
+    {%- endfor %}
+    {{- "\n</tools>\n\nFor each function call, return a json object with function name and arguments within <tool_call></tool_call> XML tags:\n<tool_call>\n{\"name\": <function-name>, \"arguments\": <args-json-object>}\n</tool_call><|im_end|>\n" }}
+{%- else %}
+    {%- if messages[0]['role'] == 'system' %}
+        {{- '<|im_start|>system\n' + messages[0]['content'] + '<|im_end|>\n' }}
+    {%- else %}
+        {{- '<|im_start|>system\nYou are Qwen, created by Alibaba Cloud. You are a helpful assistant.<|im_end|>\n' }}
+    {%- endif %}
+{%- endif %}
+{%- for message in messages %}
+    {%- if (message.role == "user") or (message.role == "system" and not loop.first) or (message.role == "assistant" and not message.tool_calls) %}
+        {{- '<|im_start|>' + message.role + '\n' + message.content + '<|im_end|>' + '\n' }}
+    {%- elif message.role == "assistant" %}
+        {{- '<|im_start|>' + message.role }}
+        {%- if message.content %}
+            {{- '\n' + message.content }}
+        {%- endif %}
+        {%- for tool_call in message.tool_calls %}
+            {%- if tool_call.function is defined %}
+                {%- set tool_call = tool_call.function %}
+            {%- endif %}
+            {{- '\n<tool_call>\n{"name": "' }}
+            {{- tool_call.name }}
+            {{- '", "arguments": ' }}
+            {{- tool_call.arguments | tojson }}
+            {{- '}\n</tool_call>' }}
+        {%- endfor %}
+        {{- '<|im_end|>\n' }}
+    {%- elif message.role == "tool" %}
+        {%- if (loop.index0 == 0) or (messages[loop.index0 - 1].role != "tool") %}
+            {{- '<|im_start|>user' }}
+        {%- endif %}
+        {{- '\n<tool_response>\n' }}
+        {{- message.content }}
+        {{- '\n</tool_response>' }}
+        {%- if loop.last or (messages[loop.index0 + 1].role != "tool") %}
+            {{- '<|im_end|>\n' }}
+        {%- endif %}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- '<|im_start|>assistant\n' }}
+{%- endif %}
+"""
+
+_TPL_QWEN3 = r"""{%- if tools %}
+    {{- '<|im_start|>system\n' }}
+    {%- if messages[0].role == 'system' %}
+        {{- messages[0].content + '\n\n' }}
+    {%- endif %}
+    {{- "# Tools\n\nYou may call one or more functions to assist with the user query.\n\nYou are provided with function signatures within <tools></tools> XML tags:\n<tools>" }}
+    {%- for tool in tools %}
+        {{- "\n" }}
+        {{- tool | tojson }}
+    {%- endfor %}
+    {{- "\n</tools>\n\nFor each function call, return a json object with function name and arguments within <tool_call></tool_call> XML tags:\n<tool_call>\n{\"name\": <function-name>, \"arguments\": <args-json-object>}\n</tool_call><|im_end|>\n" }}
+{%- else %}
+    {%- if messages[0].role == 'system' %}
+        {{- '<|im_start|>system\n' + messages[0].content + '<|im_end|>\n' }}
+    {%- endif %}
+{%- endif %}
+{%- set ns = namespace(multi_step_tool=true, last_query_index=messages|length - 1) %}
+{%- for message in messages[::-1] %}
+    {%- set index = (messages|length - 1) - loop.index0 %}
+    {%- if ns.multi_step_tool and message.role == "user" and message.content is string and not(message.content.startswith('<tool_response>') and message.content.endswith('</tool_response>')) %}
+        {%- set ns.multi_step_tool = false %}
+        {%- set ns.last_query_index = index %}
+    {%- endif %}
+{%- endfor %}
+{%- for message in messages %}
+    {%- if message.content is string %}
+        {%- set content = message.content %}
+    {%- else %}
+        {%- set content = '' %}
+    {%- endif %}
+    {%- if (message.role == "user") or (message.role == "system" and not loop.first) %}
+        {{- '<|im_start|>' + message.role + '\n' + content + '<|im_end|>' + '\n' }}
+    {%- elif message.role == "assistant" %}
+        {%- set reasoning_content = '' %}
+        {%- if message.reasoning_content is string %}
+            {%- set reasoning_content = message.reasoning_content %}
+        {%- else %}
+            {%- if '</think>' in content %}
+                {%- set reasoning_content = content.split('</think>')[0].rstrip('\n').split('<think>')[-1].lstrip('\n') %}
+                {%- set content = content.split('</think>')[-1].lstrip('\n') %}
+            {%- endif %}
+        {%- endif %}
+        {%- if loop.index0 > ns.last_query_index %}
+            {%- if loop.last or (not loop.last and reasoning_content) %}
+                {{- '<|im_start|>' + message.role + '\n<think>\n' + reasoning_content.strip('\n') + '\n</think>\n\n' + content.lstrip('\n') }}
+            {%- else %}
+                {{- '<|im_start|>' + message.role + '\n' + content }}
+            {%- endif %}
+        {%- else %}
+            {{- '<|im_start|>' + message.role + '\n' + content }}
+        {%- endif %}
+        {%- if message.tool_calls %}
+            {%- for tool_call in message.tool_calls %}
+                {%- if (loop.first and content) or (not loop.first) %}
+                    {{- '\n' }}
+                {%- endif %}
+                {%- if tool_call.function %}
+                    {%- set tool_call = tool_call.function %}
+                {%- endif %}
+                {{- '<tool_call>\n{"name": "' }}
+                {{- tool_call.name }}
+                {{- '", "arguments": ' }}
+                {%- if tool_call.arguments is string %}
+                    {{- tool_call.arguments }}
+                {%- else %}
+                    {{- tool_call.arguments | tojson }}
+                {%- endif %}
+                {{- '}\n</tool_call>' }}
+            {%- endfor %}
+        {%- endif %}
+        {{- '<|im_end|>\n' }}
+    {%- elif message.role == "tool" %}
+        {%- if loop.first or (messages[loop.index0 - 1].role != "tool") %}
+            {{- '<|im_start|>user' }}
+        {%- endif %}
+        {{- '\n<tool_response>\n' }}
+        {{- content }}
+        {{- '\n</tool_response>' }}
+        {%- if loop.last or (messages[loop.index0 + 1].role != "tool") %}
+            {{- '<|im_end|>\n' }}
+        {%- endif %}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- '<|im_start|>assistant\n' }}
+    {%- if enable_thinking is defined and enable_thinking is false %}
+        {{- '<think>\n\n</think>\n\n' }}
+    {%- endif %}
+{%- endif %}"""
+
+_TPL_PHI3 = r"""{% for message in messages %}{% if message['role'] == 'system' %}{{'<|system|>
+' + message['content'] + '<|end|>
+'}}{% elif message['role'] == 'user' %}{{'<|user|>
+' + message['content'] + '<|end|>
+'}}{% elif message['role'] == 'assistant' %}{{'<|assistant|>
+' + message['content'] + '<|end|>
+'}}{% endif %}{% endfor %}{% if add_generation_prompt %}{{ '<|assistant|>
+' }}{% else %}{{ eos_token }}{% endif %}"""
+
+_TPL_PHI4 = r"""{% for message in messages %}{% if (message['role'] == 'system') %}{{'<|im_start|>system<|im_sep|>' + message['content'] + '<|im_end|>'}}{% elif (message['role'] == 'user') %}{{'<|im_start|>user<|im_sep|>' + message['content'] + '<|im_end|>'}}{% elif (message['role'] == 'assistant') %}{{'<|im_start|>assistant<|im_sep|>' + message['content'] + '<|im_end|>'}}{% endif %}{% endfor %}{% if add_generation_prompt %}{{ '<|im_start|>assistant<|im_sep|>' }}{% endif %}"""
+
+_TPL_GEMMA = r"""{{ bos_token }}{% if messages[0]['role'] == 'system' %}{{ raise_exception('System role not supported') }}{% endif %}{% for message in messages %}{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}{{ raise_exception('Conversation roles must alternate user/assistant/user/assistant/...') }}{% endif %}{% if (message['role'] == 'assistant') %}{% set role = 'model' %}{% else %}{% set role = message['role'] %}{% endif %}{{ '<start_of_turn>' + role + '
+' + message['content'] | trim + '<end_of_turn>
+' }}{% endfor %}{% if add_generation_prompt %}{{'<start_of_turn>model
+'}}{% endif %}"""
+
+_TPL_DEEPSEEK = r"""{% if not add_generation_prompt is defined %}{% set add_generation_prompt = false %}{% endif %}{% set ns = namespace(is_first=false, is_tool=false, is_output_first=true, system_prompt='', is_first_sp=true) %}{%- for message in messages %}{%- if message['role'] == 'system' %}{%- if ns.is_first_sp %}{% set ns.system_prompt = ns.system_prompt + message['content'] %}{% set ns.is_first_sp = false %}{%- else %}{% set ns.system_prompt = ns.system_prompt + '\n\n' + message['content'] %}{%- endif %}{%- endif %}{%- endfor %}{{ bos_token }}{{ ns.system_prompt }}{%- for message in messages %}{%- if message['role'] == 'user' %}{%- set ns.is_tool = false -%}{{'<｜User｜>' + message['content']}}{%- endif %}{%- if message['role'] == 'assistant' and 'tool_calls' in message %}{%- set ns.is_tool = false -%}{%- for tool in message['tool_calls'] %}{%- if not ns.is_first %}{%- if message['content'] is none %}{{'<｜Assistant｜><｜tool▁calls▁begin｜><｜tool▁call▁begin｜>' + tool['type'] + '<｜tool▁sep｜>' + tool['function']['name'] + '\n' + '```json' + '\n' + tool['function']['arguments'] + '\n' + '```' + '<｜tool▁call▁end｜>'}}{%- else %}{{'<｜Assistant｜>' + message['content'] + '<｜tool▁calls▁begin｜><｜tool▁call▁begin｜>' + tool['type'] + '<｜tool▁sep｜>' + tool['function']['name'] + '\n' + '```json' + '\n' + tool['function']['arguments'] + '\n' + '```' + '<｜tool▁call▁end｜>'}}{%- endif %}{%- set ns.is_first = true -%}{%- else %}{{'\n' + '<｜tool▁call▁begin｜>' + tool['type'] + '<｜tool▁sep｜>' + tool['function']['name'] + '\n' + '```json' + '\n' + tool['function']['arguments'] + '\n' + '```' + '<｜tool▁call▁end｜>'}}{%- endif %}{%- endfor %}{{'<｜tool▁calls▁end｜><｜end▁of▁sentence｜>'}}{%- endif %}{%- if message['role'] == 'assistant' and 'tool_calls' not in message %}{%- if ns.is_tool %}{{'<｜tool▁outputs▁end｜>' + message['content'] + '<｜end▁of▁sentence｜>'}}{%- set ns.is_tool = false -%}{%- else %}{% set content = message['content'] %}{% if '</think>' in content %}{% set content = content.split('</think>')[-1] %}{% endif %}{{'<｜Assistant｜>' + content + '<｜end▁of▁sentence｜>'}}{%- endif %}{%- endif %}{%- if message['role'] == 'tool' %}{%- set ns.is_tool = true -%}{%- if ns.is_output_first %}{{'<｜tool▁outputs▁begin｜><｜tool▁output▁begin｜>' + message['content'] + '<｜tool▁output▁end｜>'}}{%- set ns.is_output_first = false %}{%- else %}{{'<｜tool▁output▁begin｜>' + message['content'] + '<｜tool▁output▁end｜>'}}{%- endif %}{%- endif %}{%- endfor -%}{% if ns.is_tool %}{{'<｜tool▁outputs▁end｜>'}}{% endif %}{% if add_generation_prompt and not ns.is_tool %}{{'<｜Assistant｜><think>\n'}}{% endif %}"""
+
+CHAT_TEMPLATES = {
+    "meta-llama/Llama-3.1-8B-Instruct": _TPL_LLAMA31,
+    "meta-llama/Llama-3.2-1B-Instruct": _TPL_LLAMA32,
+    "Qwen/Qwen2-7B-Instruct": _TPL_QWEN2,
+    "Qwen/Qwen2.5-7B-Instruct": _TPL_QWEN25,
+    "Qwen/Qwen3-8B": _TPL_QWEN3,
+    "microsoft/Phi-3-mini-4k-instruct": _TPL_PHI3,
+    "microsoft/phi-4": _TPL_PHI4,
+    "google/gemma-2b-it": _TPL_GEMMA,
+    "deepseek-ai/DeepSeek-R1-Distill-Llama-8B": _TPL_DEEPSEEK,
+    "google/gemma-7b-it": _TPL_GEMMA,  # the same template as gemma-2b-it's
+}
+#: the phase's templated chat on the llama3-1b directory: Llama-3.1-8B-Instruct's
+#: template (with its fixed date), a system message, three turns and two tools
+CHAT_TEMPLATE_REPO = "meta-llama/Llama-3.1-8B-Instruct"
+CHAT_TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_page_size", "description": "The KV cache's page size of a model",
+        "parameters": {"type": "object", "properties": {"model": {"type": "string"}},
+                       "required": ["model"]}}},
+    {"type": "function", "function": {
+        "name": "count_tokens", "description": "Tokens of a text under a model's tokenizer",
+        "parameters": {"type": "object", "properties": {
+            "model": {"type": "string"}, "text": {"type": "string"}},
+            "required": ["model", "text"]}}},
+]
+CHAT_MESSAGES = [
+    {"role": "system", "content": "You are a careful assistant for a team that serves "
+                                  "language models. Answer in one short paragraph."},
+    {"role": "user", "content": "Which kernel reads the cached pages during decode?"},
+    {"role": "assistant", "content": "The paged decode attention kernel reads them through "
+                                     "the page table."},
+    {"role": "user", "content": "How many tokens does one page hold for llama3-1b?"},
+]
+#: SHA-256 of the port's render of CHAT_MESSAGES and CHAT_TOOLS under
+#: CHAT_TEMPLATE_REPO's template with the directory's special tokens;
+#: tests/test_torch_chat_template.py recomputes it through transformers
+CHAT_RENDER_SHA256 = "077d802d1a2bc5fcc58082b04b6508e2d162c2a592fa18a533d38c5ab39bd12b"
+#: the render times' conversation: 32 turns and four tools
+CHAT_RENDER_TURNS = 32
+
+
+def chat_render_conversation() -> tuple[list[dict], list[dict]]:
+    """32 alternating user and assistant turns (no system message, which
+    Gemma's template refuses) of CKPT_WORDS, and four tools."""
+    gen = torch.Generator().manual_seed(29)
+    messages = []
+    for i in range(CHAT_RENDER_TURNS):
+        picks = torch.randint(0, len(CKPT_WORDS), (24,), generator=gen).tolist()
+        messages.append({"role": "user" if i % 2 == 0 else "assistant",
+                         "content": " ".join(CKPT_WORDS[j] for j in picks).capitalize() + "."})
+    more = [{"type": "function", "function": {**t["function"], "name": t["function"]["name"]
+                                              + "_v2"}} for t in CHAT_TOOLS]
+    return messages, CHAT_TOOLS + more
+
+
+def hf_tokenizer_config() -> dict:
+    """The llama3-1b directory's tokenizer_config.json: Llama-3's specials and
+    CHAT_TEMPLATE_REPO's chat template."""
+    return {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
+            "clean_up_tokenization_spaces": True, "model_max_length": 131072,
+            "tokenizer_class": "PreTrainedTokenizerFast",
+            "chat_template": CHAT_TEMPLATES[CHAT_TEMPLATE_REPO]}
+
 
 def ckpt_prompt(seed: int, chars: int = CKPT_PROMPT_CHARS) -> str:
     """Seeded sentences of CKPT_WORDS, some with digits and punctuation,
@@ -3385,9 +3842,10 @@ def ckpt_oov_prompt(seed: int, chars: int = CKPT_PROMPT_CHARS) -> str:
 def synthetic_llama3_vocab(seed: int) -> tuple[list[str], list[str]]:
     """A byte-level BPE vocabulary of Llama-3's size: the 256 byte symbols,
     127,744 merges (first those that build CKPT_WORDS with and without a
-    leading space, then seeded pairs of earlier tokens), then Llama-3's
-    256 special tokens at 128000-128255. Returns (the 128,256 token
-    strings, the merges as "a b")."""
+    leading space, then seeded pairs of earlier tokens), then Llama-3.1's
+    256 special tokens at 128000-128255 (<|eom_id|> at 128008 and
+    <|python_tag|> at 128010, the rest reserved by number). Returns (the
+    128,256 token strings, the merges as "a b")."""
     from dynamo_tpu_torch.preprocessor.tokenizer_json import bytes_to_unicode
 
     b2u = bytes_to_unicode()
@@ -3416,16 +3874,16 @@ def synthetic_llama3_vocab(seed: int) -> tuple[list[str], list[str]]:
             short.append(tokens[-1])
     specials = ["<|begin_of_text|>", "<|end_of_text|>"] + [
         f"<|reserved_special_token_{i}|>" for i in range(4)] + [
-        "<|start_header_id|>", "<|end_header_id|>", "<|reserved_special_token_4|>",
-        "<|eot_id|>"] + [f"<|reserved_special_token_{i}|>" for i in range(5, 251)]
+        "<|start_header_id|>", "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>",
+        "<|python_tag|>"] + [f"<|reserved_special_token_{i}|>" for i in range(5, 250)]
     return tokens + specials, merges
 
 
 def write_hf_tokenizer(d: str, tokens: list[str], merges: list[str]) -> None:
     """tokenizer.json (Llama-3's pipeline: the Split pattern, ByteLevel
     without its regex, BPE with ignore_merges, the ByteLevel decoder; the
-    specials as added tokens) and a tokenizer_config.json with no chat
-    template."""
+    specials as added tokens) and hf_tokenizer_config()'s
+    tokenizer_config.json, with CHAT_TEMPLATE_REPO's chat template."""
     added = [{"id": 128000 + i, "content": t, "single_word": False, "lstrip": False,
               "rstrip": False, "normalized": False, "special": True}
              for i, t in enumerate(tokens[128000:])]
@@ -3448,11 +3906,8 @@ def write_hf_tokenizer(d: str, tokens: list[str], merges: list[str]) -> None:
     }
     with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
         json.dump(spec, f, ensure_ascii=False)
-    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
-        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
-                   "clean_up_tokenization_spaces": True,
-                   "model_max_length": 131072,
-                   "tokenizer_class": "PreTrainedTokenizerFast"}, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(hf_tokenizer_config(), f, ensure_ascii=False)
 
 
 def hf_tensors(params: dict, cfg) -> dict:
@@ -3601,24 +4056,46 @@ def greedy_gaps(dev, cfg, params: dict, prompt: list[int], served: list[int]) ->
             "tokens": len(served), "control_gap": float(control.min())}
 
 
+def idle_clear(eng):
+    """Run on the engine's thread (AsyncEngineRunner.submit): None while a
+    request has work; else the speculation in flight drained, as the idle
+    runner drains it, the prefix cache cleared, and (the pages cleared,
+    the graphs captured so far)."""
+    if eng.has_work:
+        return None
+    eng.drain_overlap()
+    return eng.allocator.clear_cache(), eng.metrics.compiles
+
+
 def serve_file(argv: list[str], prompt: str, want: list[int], label: str,
-               count: bool = False) -> dict:
+               count: bool = False, chat: dict | None = None) -> dict:
     """argv through the CLI's server: one streamed greedy completion of
     `prompt`, CKPT_SERVE_TOKENS tokens, whose ids must be `want`; with
     `count`, the launches of the request (counts set to 0 just before),
-    which must be the bf16 pool's variants and no plain version."""
+    which must be the bf16 pool's variants and no plain version. With
+    `chat` (the body, its render, its prompt ids and the eager engine's
+    ids on them), then, each on a prefix cache cleared on the engine's
+    thread (idle_clear), a streamed chat of that body, a streamed
+    completion of the chat's render and the chat again: each must count
+    the prompt ids in its usage, none cached, and give the eager engine's
+    ids; their TTFTs and the graphs each captured (`compiles` before and
+    after it) print."""
     from dynamo_tpu_torch.cli.run import start_server
 
     t0 = time.perf_counter()
     server = start_server(argv)
     start_s = time.perf_counter() - t0
+    model = argv[argv.index("--model") + 1]
+
+    def complete(text: str) -> tuple:
+        return _post(server.url + "/v1/completions", {
+            "model": model, "prompt": text, "max_tokens": CKPT_SERVE_TOKENS,
+            "temperature": 0, "stream": True, "stream_options": {"include_usage": True},
+            "ext": {"ignore_eos": True, "return_token_ids": True}})
+
     try:
         ops.reset_counts()
-        status, out, ids, ttft = _post(server.url + "/v1/completions", {
-            "model": argv[argv.index("--model") + 1], "prompt": prompt,
-            "max_tokens": CKPT_SERVE_TOKENS, "temperature": 0, "stream": True,
-            "stream_options": {"include_usage": True},
-            "ext": {"ignore_eos": True, "return_token_ids": True}})
+        status, out, ids, ttft = complete(prompt)
         torch.cuda.synchronize()
         counts = {k: (c.launches, c.plain_calls) for k, c in ops.COUNTS.items()}
         engine = server.runner.engine
@@ -3626,6 +4103,32 @@ def serve_file(argv: list[str], prompt: str, want: list[int], label: str,
         line = {"status": status, "start_s": start_s, "ttft_s": ttft, "tokens": len(ids),
                 "usage": usage, "same_as_eager": ids == want,
                 "replays_match": replays_match(engine.metrics, engine.dispatches)}
+        if chat is not None:
+            def cold(post):  # each request on a cold prefix cache
+                while (idle := server.runner.submit(idle_clear)) is None:
+                    time.sleep(0.01)
+                status, out, ids, ttft = post()
+                compiles = server.runner.submit(lambda eng: eng.metrics.compiles)
+                return {"status": status, "ttft_s": ttft, "usage": out[-1].get("usage") or {},
+                        "same_as_eager": ids == chat["want"], "cleared_pages": idle[0],
+                        "captures": compiles - idle[1]}
+
+            def chat_post():
+                return _post(server.url + "/v1/chat/completions", {
+                    **chat["body"], "model": model, "max_tokens": CKPT_SERVE_TOKENS,
+                    "temperature": 0, "stream": True, "stream_options": {"include_usage": True},
+                    "ext": {"ignore_eos": True, "return_token_ids": True}})
+
+            # the first chat, the render as a completion, the chat again
+            runs = {"chat_first": cold(chat_post),
+                    "completion_of_render": cold(lambda: complete(chat["render"])),
+                    "chat": cold(chat_post)}
+            line["chat"] = runs
+            if not all(r["status"] == 200 and r["same_as_eager"]
+                       and r["usage"].get("prompt_tokens") == len(chat["prompt_ids"])
+                       and not (r["usage"].get("prompt_tokens_details") or {}).get(
+                           "cached_tokens") for r in runs.values()):
+                raise AssertionError(f"{label} chat: {runs} against eager {chat['want']}")
         del engine
     finally:
         server.stop()
@@ -3642,14 +4145,56 @@ def serve_file(argv: list[str], prompt: str, want: list[int], label: str,
     return line
 
 
+def chat_checks(tok) -> dict:
+    """The directory's chat template (CHAT_TEMPLATE_REPO's) on the card
+    machine: the render of CHAT_MESSAGES and CHAT_TOOLS must have the
+    committed digest and encode Llama-3's header and turn specials as
+    theirs; then the render ms of a 32-turn, four-tool conversation under
+    each of CHAT_TEMPLATES (the median of 10 renders, each parsed once, as
+    a tokenizer does at load) and the encode ms of the render and of the
+    32-turn render under the directory's template. Returns the numbers,
+    with the render and its ids for the server."""
+    from dynamo_tpu_torch.preprocessor.chat_template import ChatTemplate
+
+    t0 = time.perf_counter()
+    render = tok.apply_chat_template(CHAT_MESSAGES, tools=CHAT_TOOLS)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    digest = hashlib.sha256(render.encode()).hexdigest()
+    t0 = time.perf_counter()
+    prompt_ids = tok.encode(render)
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    if digest != CHAT_RENDER_SHA256 or not {128000, 128006, 128007, 128009} <= set(prompt_ids):
+        raise AssertionError(f"checkpoint chat: render digest {digest} against "
+                             f"{CHAT_RENDER_SHA256}, {len(prompt_ids)} ids")
+    messages, tools = chat_render_conversation()
+    render_ms, renders = {}, {}
+    for repo, source in CHAT_TEMPLATES.items():
+        template, times = ChatTemplate(source), []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            renders[repo] = template.render(**tok.special_tokens_map, messages=messages,
+                                            tools=tools, documents=None,
+                                            add_generation_prompt=True)
+            times.append(1e3 * (time.perf_counter() - t0))
+        render_ms[repo] = statistics.median(times)
+    t0 = time.perf_counter()
+    long_ids = tok.encode(renders[CHAT_TEMPLATE_REPO])
+    return {"render_sha256": digest, "render_chars": len(render), "render_ms_first": first_ms,
+            "prompt_tokens": len(prompt_ids), "encode_ms": encode_ms,
+            "render_ms_32_turns": render_ms,
+            "render_chars_32_turns": {k: len(v) for k, v in renders.items()},
+            "encode_ms_32_turns": 1e3 * (time.perf_counter() - t0),
+            "tokens_32_turns": len(long_ids), "render": render, "prompt_ids": prompt_ids}
+
+
 def phase_checkpoint(dev, card: str) -> dict:
     """Checkpoint files at llama3-1b's full width, each written by the phase
     into a temporary directory and removed after its part:
     - an HF directory: Llama-3.2-1B's published config.json, bf16
       safetensors of random weights (norms 1 + N(0, 0.1)) from a seed, a
       synthetic byte-level BPE tokenizer.json of Llama-3's 128,256 entries
-      and a tokenizer_config.json with no template; a llama3-draft-shaped
-      directory of bf16 weights beside it;
+      and a tokenizer_config.json with CHAT_TEMPLATE_REPO's chat template;
+      a llama3-draft-shaped directory of bf16 weights beside it;
     - an F16 `llama`-arch GGUF of the same weights (q/k rows permuted, a
       gpt2-style vocabulary of the same tokens and merges).
     Checks: each loaded tree is bit-equal to what was written (after f16
@@ -3658,7 +4203,9 @@ def phase_checkpoint(dev, card: str) -> dict:
     encode of the prompt); the CLI's server on each file answers a
     streamed completion of a 3,000-character prompt with the ids of an
     eager in-process engine on the written tensors (the directory's
-    server's launches are the kernels line's `checkpoint_launches`); the
+    server's launches are the kernels line's `checkpoint_launches`), and
+    the directory's server a streamed chat with tools (chat_checks,
+    serve_file's `chat`); the
     directory under --quantize int8 passes the model gate (gate_paths);
     --spec-draft llama3-draft --spec-draft-checkpoint <draft dir> serves
     the ids of an eager engine of the same knobs on the written tensors,
@@ -3744,15 +4291,20 @@ def phase_checkpoint(dev, card: str) -> dict:
         line["encode_ms_merges"] = statistics.median(times)
         line["encode_ms_merges_each"] = times
         line["merges_prompt_tokens"] = oov_tokens
-        specials = tok.encode("<|begin_of_text|>hi<|eot_id|>")
+        specials = tok.encode("<|begin_of_text|>hi<|eot_id|><|eom_id|><|python_tag|>")
         if not (tok.vocab_size == 128256 and tok.eos_token_ids == (128001,)
                 and tok.decode(ids) == prompt and 128000 > max(ids)
-                and (specials[0], specials[-1]) == (128000, 128009)):
+                and (specials[0], specials[-3:]) == (128000, [128009, 128008, 128010])):
             raise AssertionError(f"checkpoint: HfTokenizer round trip failed: {line}")
+        line["chat"] = chat = chat_checks(tok)
         # the CLI's server on the directory against the eager engine
         want = eager_stream(dev, params, ids, CKPT_SERVE_TOKENS)
+        chat_serve = {"body": {"messages": CHAT_MESSAGES, "tools": CHAT_TOOLS},
+                      "render": chat.pop("render"), "prompt_ids": chat.pop("prompt_ids")}
+        chat_serve["want"] = eager_stream(dev, params, chat_serve["prompt_ids"],
+                                          CKPT_SERVE_TOKENS)
         serve = serve_file(["run", "in=http", "out=torch", "--model", d, "--port", "0"],
-                           prompt, want, "checkpoint dir serve", count=True)
+                           prompt, want, "checkpoint dir serve", count=True, chat=chat_serve)
         launches = serve.pop("launches")
         line["serve_dir"] = serve
         # --quantize int8 on the directory: the CLI's engine, then the model gate

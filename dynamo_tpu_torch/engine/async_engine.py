@@ -5,7 +5,9 @@ engine's step loop runs on one dedicated thread, the only thread that
 touches the scheduler, allocator and KV pool. Callers on any other thread
 submit a PreprocessedRequest and iterate its stream items
 ({token_ids, finish_reason}, and logprobs and top_logprobs when asked
-for); an abandoned iteration aborts the request. A request the engine
+for); an abandoned iteration aborts the request. `submit(fn)` runs
+fn(engine) on the engine thread between two steps (a prefix-cache clear,
+say) and returns its result. A request the engine
 refuses at admission (a logit_bias over its slots or outside the
 vocabulary) gets the error on its own stream.
 There is no watchdog, fault injection or overload plane here.
@@ -17,10 +19,11 @@ client instead of wedging the loop.
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.request import SamplingParams, StepOutput
@@ -72,6 +75,7 @@ class AsyncEngineRunner:
         self._queues: dict[str, queue.Queue] = {}
         self._pending: list[PreprocessedRequest] = []
         self._aborts: list[str] = []
+        self._ops: list[tuple] = []
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
@@ -86,6 +90,10 @@ class AsyncEngineRunner:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        with self._lock:
+            ops, self._ops = self._ops, []
+        for _, fut in ops:
+            fut.set_exception(RuntimeError("the engine runner stopped"))
 
     # -- caller side -------------------------------------------------------
 
@@ -116,6 +124,18 @@ class AsyncEngineRunner:
                     self._aborts.append(rid)
             self._wake.set()
 
+    def submit(self, fn: Callable[[TorchEngine], object]):
+        """fn(engine) on the engine thread, the only one that may touch the
+        scheduler, allocator and KV, before its next step; its result, or
+        its error raised here. The reference's `submit`, blocking."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("the engine runner stopped")
+            self._ops.append((fn, fut))
+        self._wake.set()
+        return fut.result()
+
     @property
     def metrics(self):
         return self.engine.metrics
@@ -134,6 +154,12 @@ class AsyncEngineRunner:
             with self._lock:
                 pending, self._pending = self._pending, []
                 aborts, self._aborts = self._aborts, []
+                ops, self._ops = self._ops, []
+            for fn, fut in ops:
+                try:
+                    fut.set_result(fn(eng))
+                except Exception as e:
+                    fut.set_exception(e)
             for req in pending:
                 try:
                     eng.add_request(req.request_id, req.token_ids, sampling_from(req))

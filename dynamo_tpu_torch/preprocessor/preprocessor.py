@@ -1,9 +1,10 @@
 """OpenAI request <-> engine tokens: the preprocessor + stream postprocessor.
 
 Counterpart of dynamo_tpu/preprocessor/preprocessor.py, trimmed to the
-chat/completions path. Forward: template render -> tokenize -> sampling
-and stop defaults, the logprobs, penalty, logit_bias and ext/nvext knobs
-checked -> PreprocessedRequest. Backward: engine token stream ->
+chat/completions path. Forward: template render with the request's tools
+(or ext.use_raw_prompt's joined contents) -> tokenize -> sampling and stop
+defaults, the logprobs, penalty, logit_bias and ext/nvext knobs checked ->
+PreprocessedRequest. Backward: engine token stream ->
 incremental detokenize -> stop strings -> OpenAI chunks, each token's
 logprob entry (exact bytes, top alternatives) riding the chunk that emits
 its text. The backward half is a plain generator: the engine stream it
@@ -122,10 +123,26 @@ class OpenAIPreprocessor:
     # -- forward -----------------------------------------------------------
 
     def preprocess_chat(self, request: ChatCompletionRequest) -> PreprocessedRequest:
+        """The reference's order: ext.use_raw_prompt tokenizes the message
+        contents joined by newlines (a content list gives its text parts,
+        concatenated); otherwise the chat template renders the messages
+        and the request's tools."""
         messages = [
             {k: v for k, v in vars(m).items() if v is not None} for m in request.messages
         ]
-        ids = self.tokenizer.encode(self.tokenizer.apply_chat_template(messages))
+        if request.extension.use_raw_prompt:
+            texts = []
+            for m in messages:
+                c = m.get("content")
+                if isinstance(c, str):
+                    texts.append(c)
+                elif isinstance(c, list):
+                    texts.append("".join(p.get("text", "") for p in c
+                                         if isinstance(p, dict) and p.get("type") == "text"))
+            prompt = "\n".join(texts)
+        else:
+            prompt = self.tokenizer.apply_chat_template(messages, tools=request.tools)
+        ids = self.tokenizer.encode(prompt)
         return self._common(ids, request.effective_max_tokens, request, request.extension,
                             _chat_logprobs(request))
 

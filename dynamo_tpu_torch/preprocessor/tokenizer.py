@@ -4,11 +4,12 @@ vocabularies and GGUF vocabularies, and the structured chat format.
 Counterpart of dynamo_tpu/preprocessor/tokenizer.py with no
 `transformers`: `HfTokenizer` reads tokenizer.json and
 tokenizer_config.json itself (preprocessor/tokenizer_json.py) and gives
-what the reference's transformers wrapper gives; `GgufTokenizer` is the
-reference's, greedy longest-match encode included. Chat templates are not
-rendered yet: an HfTokenizer that carries one refuses a chat by name (the
-reference renders it through transformers' Jinja); one without falls back
-to the structured format, as the reference's does.
+what the reference's transformers wrapper gives, its chat template
+rendered by preprocessor/chat_template.py as transformers renders it;
+`GgufTokenizer` is the reference's, greedy longest-match encode included.
+A template that fails to render, or no template, gives the structured
+format, as the reference's `except Exception` does; a template that uses a
+construct of jinja2 the subset lacks refuses every chat by name (a 501).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 from typing import Optional, Protocol, Sequence
 
 from dynamo_tpu_torch import gguf
+from dynamo_tpu_torch.preprocessor.chat_template import ChatTemplate
 from dynamo_tpu_torch.preprocessor.tokenizer_json import TokenizerJson, bytes_to_unicode, \
     unicode_to_bytes
 
@@ -99,6 +101,36 @@ def _token_content(tok) -> Optional[str]:
     return tok
 
 
+def _read(path: str) -> str:
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+def _load_chat_templates(path: str, config: dict):
+    """The directory's chat template(s) in transformers' order: a
+    chat_template.jinja file (as "default") and each
+    additional_chat_templates/<name>.jinja take priority over
+    tokenizer_config.json's `chat_template`, which is a string or a list of
+    {"name", "template"} objects. Returns None, a string, or a dict of
+    name -> string."""
+    templates = {}
+    if os.path.exists(os.path.join(path, "chat_template.jinja")):
+        templates["default"] = _read(os.path.join(path, "chat_template.jinja"))
+    extra = os.path.join(path, "additional_chat_templates")
+    if os.path.isdir(extra):
+        for name in sorted(os.listdir(extra)):
+            if name.endswith(".jinja"):
+                templates[name[:-len(".jinja")]] = _read(os.path.join(extra, name))
+    if len(templates) == 1 and "default" in templates:
+        return templates["default"]
+    if templates:
+        return templates
+    template = config.get("chat_template")
+    if isinstance(template, (list, tuple)):
+        return {t["name"]: t["template"] for t in template}
+    return template
+
+
 class HfTokenizer:
     """An HF tokenizer directory (tokenizer.json, tokenizer_config.json),
     read with the standard library: `encode` is transformers'
@@ -116,6 +148,18 @@ class HfTokenizer:
         if os.path.exists(config_path):
             with open(config_path, encoding="utf-8") as f:
                 config = json.load(f)
+        map_path = os.path.join(path, "special_tokens_map.json")
+        if "added_tokens_decoder" not in config and os.path.exists(map_path):
+            # transformers' legacy load: special_tokens_map.json's tokens
+            # over the config's, its additional tokens appended
+            with open(map_path, encoding="utf-8") as f:
+                for key, value in json.load(f).items():
+                    if key == "additional_special_tokens" and isinstance(value, list):
+                        merged = list(config.get(key) or [])
+                        have = {_token_content(t) for t in merged}
+                        merged += [t for t in value if _token_content(t) not in have]
+                        value = merged
+                    config[key] = value
         # what transformers adds: added_tokens_decoder's tokens, then the
         # special-token fields, each unless the tokenizer has it
         extra = [{**t, "id": int(i)} for i, t in sorted(
@@ -132,11 +176,19 @@ class HfTokenizer:
         eos = _token_content(config.get("eos_token"))
         eos_id = self._tok.token_to_id(eos) if eos is not None else None
         self.eos_token_ids = (eos_id,) if eos_id is not None else ()
-        self.chat_template = config.get("chat_template")
-        jinja = os.path.join(path, "chat_template.jinja")
-        if self.chat_template is None and os.path.exists(jinja):
-            with open(jinja, encoding="utf-8") as f:
-                self.chat_template = f.read()
+        # the template context's special tokens: transformers'
+        # special_tokens_map, the fields the config sets, as strings
+        self.special_tokens_map = {k: _token_content(config[k]) for k in _SPECIAL_FIELDS
+                                   if _token_content(config.get(k))}
+        additional = [_token_content(t) for t in config.get("additional_special_tokens") or ()]
+        if additional:
+            self.special_tokens_map["additional_special_tokens"] = additional
+        # parsed once, rendered per request (transformers caches its compile)
+        templates = _load_chat_templates(path, config)
+        if isinstance(templates, dict):
+            self._templates = {k: ChatTemplate(v) for k, v in templates.items()}
+        else:
+            self._templates = None if templates is None else ChatTemplate(templates)
 
     def encode(self, text: str) -> list[int]:
         return self._tok.encode(text)
@@ -170,15 +222,39 @@ class HfTokenizer:
         except KeyError:
             return piece.encode()
 
+    def _template(self, tools) -> ChatTemplate:
+        """transformers' get_chat_template: of several templates, "tool_use"
+        when tools are given and it exists, else "default"."""
+        templates = self._templates
+        if isinstance(templates, dict):
+            if tools is not None and "tool_use" in templates:
+                return templates["tool_use"]
+            if "default" in templates:
+                return templates["default"]
+            raise ValueError(f"{self.name}: multiple chat templates and no default "
+                             f"({sorted(templates)})")
+        if templates is None:
+            raise ValueError(f"{self.name}: the tokenizer has no chat template")
+        return templates
+
     def apply_chat_template(
         self, messages: list[dict], tools: Optional[list[dict]] = None
     ) -> str:
-        if self.chat_template:
-            raise NotImplementedError(
-                f"{self.name}: chat templates are not rendered by dynamo_tpu_torch yet (a "
-                "Jinja subset is ROADMAP item 11d-ii); send /v1/completions with a prompt "
-                "rendered by the client")
-        return render_fallback_template(messages)
+        """transformers' apply_chat_template(messages, tokenize=False,
+        add_generation_prompt=True, tools=tools or None) as the reference
+        calls it; its errors give the structured format, a construct the
+        subset lacks raises NotImplementedError naming it."""
+        tools = tools or None
+        try:
+            template = self._template(tools)
+            if tools is not None and not all(isinstance(t, dict) for t in tools):
+                raise ValueError("tools must be JSON schemas (objects)")
+            return template.render(**self.special_tokens_map, messages=messages, tools=tools,
+                                   documents=None, add_generation_prompt=True)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{self.name}: {e}") from None
+        except Exception:
+            return render_fallback_template(messages)
 
 
 class GgufTokenizer:
@@ -275,7 +351,8 @@ class GgufTokenizer:
     def apply_chat_template(
         self, messages: list[dict], tools: Optional[list[dict]] = None
     ) -> str:
-        # the reference renders no GGUF template either: the structured format
+        # the reference renders no GGUF template either (tokenizer.chat_template
+        # is read and not used): the structured format
         return render_fallback_template(messages)
 
 

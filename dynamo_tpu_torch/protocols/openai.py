@@ -8,10 +8,13 @@ The sampling surface is served: logprobs and top_logprobs, the frequency,
 presence and repetition penalties, logit_bias, n > 1 and the ext/nvext
 min_tokens, repetition_penalty and greed_sampling; their ranges are
 checked by the preprocessor, and a logit_bias over the engine's slots or
-outside its vocabulary by the engine at admission (each a 400). Request
-fields this package does not serve (tools, which need chat templates, and
-echo) are refused, not ignored; unknown fields are ignored, as OpenAI
-clients send extra ones.
+outside its vocabulary by the engine at admission (each a 400). A chat's
+`tools` (a list of objects) go to the chat template as they are, and
+tool-call outputs are not parsed, as in the JAX package; ext/nvext
+`use_raw_prompt` skips the template. Request fields this package does not
+serve (`echo`, which the JAX package declares and never reads) are
+refused, not ignored; unknown fields are ignored, as OpenAI clients send
+extra ones.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ _ROLES = ("system", "user", "assistant", "tool")
 #: fields of the OpenAI API this package refuses until it serves them ->
 #: the values that ask for nothing
 _UNSERVED = {
-    "tools": (None, []),
     "echo": (None, False),
 }
 #: OpenAI's largest `n`
@@ -114,6 +116,7 @@ def _common(body: dict) -> dict:
             min_tokens=_get(ext, "min_tokens", int),
             repetition_penalty=_get(ext, "repetition_penalty", (int, float)),
             greed_sampling=_get(ext, "greed_sampling", bool),
+            use_raw_prompt=_get(ext, "use_raw_prompt", bool),
         ) if ext else None,
     )
 
@@ -134,6 +137,9 @@ class Ext:
     repetition_penalty: Optional[float] = None
     #: argmax decoding whatever the temperature
     greed_sampling: Optional[bool] = None
+    #: skip the chat template: the message contents joined by "\n" are the
+    #: prompt (the reference's nvext use_raw_prompt)
+    use_raw_prompt: Optional[bool] = None
 
 
 @dataclass
@@ -170,6 +176,8 @@ class ChatCompletionRequest:
     top_logprobs: Optional[int] = None
     #: token id (a JSON string or an int) -> bias in [-100, 100]
     logit_bias: Optional[dict[Union[int, str], float]] = None
+    #: OpenAI tool definitions, passed to the chat template as they are
+    tools: Optional[list[dict]] = None
     ext: Optional[Ext] = None
 
     @property
@@ -202,8 +210,11 @@ class ChatCompletionRequest:
         for v in (max_tokens, max_completion):
             if v is not None and v < 1:
                 raise ValueError("max_tokens must be >= 1")
+        tools = _get(body, "tools", list)
+        if tools is not None and not all(isinstance(t, dict) for t in tools):
+            raise ValueError("field 'tools' must be a list of objects")
         return ChatCompletionRequest(
-            messages=messages, max_tokens=max_tokens,
+            messages=messages, max_tokens=max_tokens, tools=tools,
             max_completion_tokens=max_completion,
             logprobs=_get(body, "logprobs", bool),
             top_logprobs=_get(body, "top_logprobs", int), **common,

@@ -328,6 +328,43 @@ def test_runner_serves_every_stream_through_a_long_preemption():
     assert eng.metrics.prefill_tokens == 14 + 6 + 17  # "long" recomputed 17 tokens
 
 
+def test_runner_submit_runs_on_the_engine_thread_and_clears_as_the_jax_engine():
+    """submit(fn) runs fn(engine) on the engine thread and returns its
+    result or raises its error: a prefix-cache clear after a served prompt
+    evicts as many pages as the JAX engine's clear after the same prompt,
+    and the prompt served again has no cached tokens; after stop() a
+    submit raises."""
+    import threading
+
+    from dynamo_tpu_torch.engine.async_engine import AsyncEngineRunner
+    from dynamo_tpu_torch.preprocessor.preprocessor import PreprocessedRequest
+
+    prompt = list(range(1, 15))
+    jax_eng = _jax_engine(enable_prefix_caching=True)
+    jax_eng.add_request("a", prompt, JaxSampling(max_tokens=4, ignore_eos=True))
+    jax_eng.run_to_completion()
+    want = jax_eng.allocator.clear_cache()
+    assert want > 0
+    runner = AsyncEngineRunner(_torch_engine(enable_prefix_caching=True))
+
+    def serve(rid):
+        return list(runner.generate(PreprocessedRequest(
+            request_id=rid, token_ids=prompt, max_tokens=4, ignore_eos=True)))
+
+    runner.start()
+    try:
+        assert runner.submit(lambda eng: threading.current_thread()) is runner._thread
+        with pytest.raises(ZeroDivisionError):
+            runner.submit(lambda eng: 1 // 0)
+        serve("a")
+        assert runner.submit(lambda eng: eng.allocator.clear_cache()) == want
+        assert not serve("b")[0].get("cached_tokens")
+    finally:
+        runner.stop()
+    with pytest.raises(RuntimeError, match="stopped"):
+        runner.submit(lambda eng: None)
+
+
 def test_no_card_without_asking_for_the_cpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchEngine(EngineConfig.for_tests())

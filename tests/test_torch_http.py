@@ -166,15 +166,36 @@ def test_token_ids_cover_the_usage(server):
     ("/v1/chat/completions", {"model": "tiny"}, 400),
     ("/v1/chat/completions", {"model": "nope", "messages": MESSAGES}, 404),
     ("/v1/chat/completions", {"model": "tiny", "messages": MESSAGES,
-                              "tools": [{"type": "function"}]}, 400),
+                              "tools": ["get_weather", {"type": "function"}]}, 400),
     ("/v1/chat/completions",
      {"model": "tiny", "messages": MESSAGES, "ext": {"return_token_ids": "yes"}}, 400),
+    ("/v1/completions", {"model": "tiny", "prompt": "The sky", "echo": True}, 400),
 ])
 def test_refusals_are_http_statuses(server, path, body, status):
+    """The `tools` case is an ill-typed list (a string among the objects),
+    which pydantic's Optional[list[dict]] refuses in the JAX package;
+    well-formed tools are served (test_tools_are_served). `echo`, which the
+    JAX package declares and never reads, is refused by name."""
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server.url + path, body)
     assert e.value.code == status
     assert "error" in json.load(e.value)
+
+
+@pytest.mark.parametrize("tools", [[{"type": "function", "function": {"name": "f"}}], [], None])
+def test_tools_are_served(server, tools):
+    """A chat with tools is served; the byte tokenizer has no template, so
+    they change no prompt token, as in the JAX package. A string is a
+    400."""
+    body = {"model": "tiny", "messages": MESSAGES, "max_tokens": 2, "tools": tools,
+            "ext": {"ignore_eos": True}}
+    with _post(server.url + "/v1/chat/completions", body) as r:
+        resp = json.load(r)
+    assert resp["usage"]["prompt_tokens"] == _prompt_tokens(MESSAGES)
+    assert resp["usage"]["completion_tokens"] == 2
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server.url + "/v1/chat/completions", {**body, "tools": "get_weather"})
+    assert e.value.code == 400
 
 
 @pytest.mark.parametrize("stream", [False, True])

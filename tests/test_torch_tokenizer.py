@@ -20,9 +20,10 @@ On a corpus of ASCII, contractions, digit runs, whitespace and newline
 runs, accented Latin (composed and decomposed), CJK, emoji, '½²Ⅻ', other
 marks and special tokens inside text: ids, decode, token_bytes over the
 whole vocabulary, vocab_size, eos_token_ids and the DecodeStream deltas
-equal the reference's. A tokenizer with a chat template refuses a chat by
-name, through the HTTP server as a status, and one without serves the
-structured fallback, as the reference does.
+equal the reference's. A tokenizer with a chat template renders it as the
+reference does, through the HTTP server too, and one without serves the
+structured fallback, as the reference does (the templates themselves:
+tests/test_torch_chat_template.py).
 """
 
 import json
@@ -180,18 +181,20 @@ def test_decode_stream_deltas_equal_the_reference(tokenizer_dirs, kind):
 
 
 def test_a_chat_template_is_refused_by_name_and_none_falls_back(tokenizer_dirs, tmp_path):
-    """With a template in tokenizer_config.json (or chat_template.jinja) a
-    chat raises NotImplementedError naming chat templates; the server
-    answers it 501. Without one the structured format is served, as the
-    reference's wrapper renders it, and /v1/completions is unaffected."""
+    """The name is kept from when a template was refused: now, with a
+    template in chat_template.jinja, a chat renders it as the reference's
+    HfTokenizer does, and the server's usage counts the render's tokens.
+    Without one the structured format is served, as the reference's
+    wrapper renders it, and /v1/completions is unaffected."""
     plain = tokenizer_dirs["wordlevel"]
     templated = str(tmp_path / "templated")
     shutil.copytree(plain, templated)
     with open(os.path.join(templated, "chat_template.jinja"), "w") as f:
-        f.write("{% for m in messages %}{{ m.content }}{% endfor %}")
+        f.write("{{ bos_token }}{% for m in messages %}{{ m.content }}{% endfor %}")
     messages = [{"role": "user", "content": "hello world"}]
-    with pytest.raises(NotImplementedError, match="chat templates"):
-        HfTokenizer(templated).apply_chat_template(messages)
+    rendered = JaxHfTokenizer(templated).apply_chat_template(messages)
+    assert rendered == "<s>hello world"
+    assert HfTokenizer(templated).apply_chat_template(messages) == rendered
     tok, ref = HfTokenizer(plain), JaxHfTokenizer(plain)
     assert tok.apply_chat_template(messages) == ref.apply_chat_template(messages) \
         == render_fallback_template(messages)
@@ -209,10 +212,9 @@ def test_a_chat_template_is_refused_by_name_and_none_falls_back(tokenizer_dirs, 
             "ext": {"ignore_eos": True}}
     server = start_server(base + ["--tokenizer", templated])
     try:
-        with pytest.raises(urllib.error.HTTPError) as e:
-            post(server.url + "/v1/chat/completions", chat)
-        assert e.value.code == 501
-        assert "chat templates" in json.dumps(json.load(e.value)["error"])
+        resp = post(server.url + "/v1/chat/completions", chat)
+        assert resp["usage"]["prompt_tokens"] == len(JaxHfTokenizer(templated).encode(rendered))
+        assert resp["usage"]["completion_tokens"] == 3
         done = post(server.url + "/v1/completions", {"model": "tiny", "prompt": "hello world",
                                                      "max_tokens": 2,
                                                      "ext": {"ignore_eos": True}})
